@@ -1,0 +1,57 @@
+"""One-way parameter bridge from the reference's parameter tree.
+
+The reference makes parameters with `jax.random` and stacks each group's
+layers on a leading n_groups axis; a test converts that tree to numpy
+(`jax.tree_util.tree_map(np.asarray, params)`) and hands it here, so both
+packages compute on the same numbers.  This module imports no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ArchConfig
+
+
+def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    # bfloat16 has no numpy dtype of its own: go through float32 (exact).
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
+                          device) -> dict:
+    """Reference params (nested dict of numpy arrays) -> port params.
+
+    Layer g * group_size + i of the flat list takes slice g of the stacked
+    `params_np["blocks"]["sub{i}"]` leaves."""
+    dt = cfg.torch_dtype
+
+    def unstack(tree, g):
+        if isinstance(tree, dict):
+            return {k: unstack(v, g) for k, v in tree.items()}
+        return _tensor(np.asarray(tree)[g], dt, device)
+
+    layers = [unstack(params_np["blocks"][f"sub{i}"], g)
+              for g in range(cfg.n_groups) for i in range(cfg.group_size)]
+    return {
+        "embed": _tensor(params_np["embed"], dt, device),
+        "final_norm": _tensor(params_np["final_norm"], dt, device),
+        "layers": layers,
+    }
+
+
+def param_count(params: dict, *, min_dim: int = 1) -> int:
+    """Elements of every tensor of at least `min_dim` dimensions in a port
+    parameter dict (min_dim=2 counts the matrices only, as
+    `ArchConfig.param_count` does: it leaves out the norm vectors)."""
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(count(v) for v in tree)
+        return tree.numel() if tree.dim() >= min_dim else 0
+    return count(params)

@@ -1,0 +1,33 @@
+"""Architecture registry (port of repro/configs/__init__.py).
+
+Each module defines `CONFIG` (the published widths) and `smoke_config()`
+(the reduced float32 config the tests use).  Only the archs the port
+serves are registered.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import ArchConfig
+
+_ARCH_MODULES = {
+    "gemma3-1b": "repro_torch.configs.gemma3_1b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_ARCH_MODULES)
+
+
+def get(name: str) -> ArchConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return importlib.import_module(_ARCH_MODULES[name]).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    if name not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return importlib.import_module(_ARCH_MODULES[name]).smoke_config()

@@ -1,0 +1,237 @@
+"""Paged flash-decode: CUDA kernel wrapper, its plain versions, dispatch.
+
+Port of repro/kernels/flash_decode.py.  `flash_decode_attention` launches
+`csrc/flash_decode.cu`, the hand-written replacement for the Pallas TPU
+kernel `_decode_kernel` plus its split merge `_combine_splits`: decode
+attention for Sq query positions per slot read straight from the paged KV
+pool through the block tables (GQA rows packed per kv head, causal /
+seq-cap / sliding-window masks in the kernel, split-K online-softmax
+partials merged in a second kernel).  It is bound by the pool bytes it
+reads; the note at the top of the .cu file says what the design does about
+that.
+
+Plain versions beside it: `ref_paged_decode`, the bounded online-softmax
+walk over table-column chunks (the reference's CPU default), and
+`gather_decode`, the `gather_kv` + `decode_attention` oracle.
+
+`paged_decode_attention` is the entry the model calls: CUDA tensors launch
+the kernel (or raise), CPU tensors run `ref_paged_decode`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.serving.kv_cache import NULL_BLOCK, PagedKVCache, gather_kv
+
+NEG_INF = -2.0e38
+
+# Launches of the CUDA kernel pair since the last reset (plain versions never
+# count): the proof that a run went through the kernel.
+launches = 0
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128, 256)   # instantiated in csrc/flash_decode.cu
+_KV_PER_BLOCK = 16 * 256      # block_size * head_dim the kernel stages (KV_PER * NT)
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashDecodeSpec:
+    """One decode-kernel design point.
+
+    num_splits     split-K factor over the block-table columns; each split
+                   emits partial (acc, m, l) merged by the combine kernel.
+    cols_per_iter  table columns the plain version gathers per iteration.
+    """
+
+    num_splits: int = 1
+    cols_per_iter: int = 8
+
+    def __post_init__(self):
+        if self.num_splits < 1:
+            raise ValueError(f"num_splits must be >= 1, got {self.num_splits}")
+        if self.cols_per_iter < 1:
+            raise ValueError(
+                f"cols_per_iter must be >= 1, got {self.cols_per_iter}")
+
+
+def _index_vector(index, B: int, device) -> torch.Tensor:
+    idx = torch.as_tensor(index, dtype=torch.int32, device=device)
+    return idx.expand(B) if idx.dim() == 0 else idx
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def ref_paged_decode(q: torch.Tensor, cache: PagedKVCache,
+                     block_tables: torch.Tensor, index, *,
+                     window: Optional[int] = None,
+                     cols_per_iter: int = 8) -> torch.Tensor:
+    """Online-softmax decode over block-table column chunks, stopping once
+    the chunk start passes max(index) + Sq (the reference's bounded
+    fallback, written as a host loop)."""
+    B, Sq, Hq, D = q.shape
+    nb, bs, Hkv, _ = cache.k.shape
+    groups = Hq // Hkv
+    max_blocks = block_tables.shape[1]
+    seq_cap = max_blocks * bs
+    dev = q.device
+    C = max(1, min(cols_per_iter, max_blocks))
+    n_cols = -(-max_blocks // C) * C
+    bt = block_tables.to(torch.int64)
+    if n_cols != max_blocks:
+        bt = torch.nn.functional.pad(bt, (0, n_cols - max_blocks), value=NULL_BLOCK)
+    idx = _index_vector(index, B, dev).to(torch.int64)
+    k_flat = cache.k.reshape(nb * bs, Hkv, D)
+    v_flat = cache.v.reshape(nb * bs, Hkv, D)
+
+    qf = (q.to(torch.float32) * (D ** -0.5)).reshape(B, Sq, Hkv, groups, D)
+    qf = qf.permute(0, 2, 3, 1, 4)                          # (B, H, G, Sq, D)
+    qpos = idx[:, None] + torch.arange(Sq, device=dev)[None, :]   # (B, Sq)
+    bound = int(idx.max()) + Sq
+    span = C * bs
+    offs = torch.arange(bs, device=dev)
+
+    m = torch.full((B, Hkv, groups, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, groups, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, groups, Sq, D), dtype=torch.float32, device=dev)
+    col = 0
+    while col * bs < bound and col < max_blocks:
+        blk = bt[:, col:col + C]
+        flat = (blk[:, :, None] * bs + offs[None, None, :]).reshape(-1)
+        k = k_flat[flat].reshape(B, span, Hkv, D).to(torch.float32)
+        v = v_flat[flat].reshape(B, span, Hkv, D).to(torch.float32)
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qf, k)
+        kpos = col * bs + torch.arange(span, device=dev)
+        mask = (kpos[None, None, :] <= qpos[:, :, None]) \
+            & (kpos < seq_cap)[None, None, :]
+        if window is not None:
+            mask &= (qpos[:, :, None] - kpos[None, None, :]) < window
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v)
+        m = m_new
+        col += C
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.to(q.dtype)
+
+
+def gather_decode(q: torch.Tensor, cache: PagedKVCache,
+                  block_tables: torch.Tensor, index, *,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """The oracle: materialize every slot's view with `gather_kv`, then
+    dense masked softmax over the whole table extent."""
+    from repro_torch.models.attention import decode_attention
+
+    k, v = gather_kv(cache, block_tables)
+    return decode_attention(q, k, v, index=index, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+def _lib():
+    fn = _build.load("flash_decode").flash_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
+                           block_tables: torch.Tensor, index, *,
+                           window: Optional[int] = None,
+                           spec: Optional[FlashDecodeSpec] = None) -> torch.Tensor:
+    """Decode attention over the paged pool through the CUDA kernel.
+
+    q (B, Sq, Hq, D) and the pools (num_blocks, block_size, Hkv, D) share a
+    float32/bfloat16 dtype; block_tables (B, max_blocks) int32; index the
+    first query position per slot ((B,) int32, or a scalar).  Returns
+    (B, Sq, Hq, D) in q's dtype."""
+    global launches
+    spec = spec or FlashDecodeSpec()
+    if q.dim() != 4 or cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
+        raise ValueError(f"flash decode shapes q {tuple(q.shape)}, "
+                         f"pool {tuple(cache.k.shape)}/{tuple(cache.v.shape)}")
+    B, Sq, Hq, D = q.shape
+    nb, bs, Hkv, Dk = cache.k.shape
+    if Dk != D or Hq % Hkv or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B:
+        raise ValueError(f"flash decode shapes q {tuple(q.shape)}, pool "
+                         f"{tuple(cache.k.shape)}, tables {tuple(block_tables.shape)}")
+    tensors = (q, cache.k, cache.v, block_tables)
+    if any(not t.is_cuda or t.device != q.device for t in tensors):
+        raise ValueError("flash decode kernel takes CUDA tensors on one device")
+    if q.dtype not in _CODES or cache.k.dtype != q.dtype or cache.v.dtype != q.dtype:
+        raise TypeError(f"flash decode kernel takes f32/bf16 q and pool of one "
+                        f"dtype, got {q.dtype}, {cache.k.dtype}, {cache.v.dtype}")
+    if D not in _HEAD_DIMS or not 1 <= bs * D <= _KV_PER_BLOCK:
+        raise ValueError(f"flash decode kernel: head_dim {D} not in {_HEAD_DIMS} "
+                         f"or block_size * head_dim {bs * D} > {_KV_PER_BLOCK}")
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f"block tables must be int32, got {block_tables.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash decode kernel takes contiguous tensors")
+    idx = _index_vector(index, B, q.device).contiguous()
+    if idx.shape != (B,) or idx.dtype != torch.int32:
+        raise ValueError(f"index must be (B,) int32, got {tuple(idx.shape)} {idx.dtype}")
+
+    groups, max_blocks = Hq // Hkv, block_tables.shape[1]
+    rows = groups * Sq
+    splits = max(1, min(spec.num_splits, max_blocks))
+    out = torch.empty_like(q)
+    ws = [None, None, None]
+    if splits > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        ws = [torch.empty((B, Hkv, splits, rows, D), **f32),
+              torch.empty((B, Hkv, splits, rows), **f32),
+              torch.empty((B, Hkv, splits, rows), **f32)]
+    err = _lib()(
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        *[None if w is None else w.data_ptr() for w in ws],
+        B, Sq, Hkv, groups, D, bs, max_blocks, splits,
+        0 if window is None else int(window), D ** -0.5, _CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash decode kernel launch failed: cudaError_t {err}")
+    launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
+                           block_tables: torch.Tensor, index, *,
+                           window: Optional[int] = None,
+                           spec: Optional[FlashDecodeSpec] = None) -> torch.Tensor:
+    """Decode attention over a paged KV cache, the entry the model layer
+    calls: the CUDA kernel for CUDA tensors, `ref_paged_decode` for CPU
+    tensors.  Equivalent to `gather_decode` either way."""
+    spec = spec or FlashDecodeSpec()
+    if q.device.type == "cpu":
+        return ref_paged_decode(q, cache, block_tables, index, window=window,
+                                cols_per_iter=spec.cols_per_iter)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged decode: no kernel for device {q.device}")
+    return flash_decode_attention(q, cache, block_tables, index, window=window,
+                                  spec=spec)

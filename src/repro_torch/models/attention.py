@@ -1,0 +1,85 @@
+"""Attention over the paged KV cache (port of repro/models/attention.py:
+`_project_qkv`, the `decode_attention` oracle and the paged branch of
+`attention`).
+
+GQA/MQA with split-half RoPE.  The paged branch writes this step's K/V
+through the block tables first and then attends over the pool, so a query
+attends to its own key.  The scale is D**-0.5 and the paged path applies no
+logit softcap, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.models import layers
+from repro_torch.serving import kv_cache as kvc
+
+NEG_INF = -2.0e38
+
+
+def init_attention(gen: torch.Generator, cfg, device) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    dt = cfg.torch_dtype
+    return {
+        "wq": layers._init_dense(gen, d, hq * hd, dt, device),
+        "wk": layers._init_dense(gen, d, hkv * hd, dt, device),
+        "wv": layers._init_dense(gen, d, hkv * hd, dt, device),
+        "wo": layers._init_dense(gen, hq * hd, d, dt, device),
+    }
+
+
+def _project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = layers.dense(x, p["wq"]).reshape(B, S, hq, hd)
+    k = layers.dense(x, p["wk"]).reshape(B, S, hkv, hd)
+    v = layers.dense(x, p["wv"]).reshape(B, S, hkv, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     index, window: Optional[int] = None) -> torch.Tensor:
+    """Query-over-whole-cache attention (the oracle): q (B, Sq, Hq, D) at
+    positions index + t, k/v (B, Skv, Hkv, D) at positions 0..Skv-1."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    groups = Hq // Hkv
+    scale = torch.tensor(D ** -0.5, dtype=q.dtype).item()
+    qf = (q * scale).reshape(B, Sq, Hkv, groups, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf.to(torch.float32),
+                     k.to(torch.float32))                   # (B, Hkv, G, Sq, Skv)
+    idx = torch.as_tensor(index, dtype=torch.int64, device=q.device)
+    if idx.dim() == 0:
+        idx = idx.expand(B)
+    qpos = idx[:, None] + torch.arange(Sq, device=q.device)[None, :]   # (B, Sq)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = kpos[None, None, :] <= qpos[..., None]
+    if window is not None:
+        mask &= (qpos[..., None] - kpos[None, None, :]) < window
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+              window: Optional[int], cache: kvc.PagedKVCache,
+              cache_index: torch.Tensor,
+              block_tables: torch.Tensor) -> torch.Tensor:
+    """Paged attention sublayer: x (B, S, d) at per-slot first positions
+    `cache_index` (B,); returns (B, S, d).  The pools update in place."""
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    kvc.write_kv(cache, block_tables, k, v, cache_index)
+    out = fd.paged_decode_attention(q, cache, block_tables, cache_index,
+                                    window=window)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    return layers.dense(out, p["wo"])

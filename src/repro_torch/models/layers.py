@@ -1,0 +1,103 @@
+"""Elementary layers: norms, embeddings, RoPE, the SwiGLU MLP (port of
+repro/models/layers.py).
+
+Every dense projection goes through `kernels.ops.linear`, so the GeMM
+kernel underlies the whole model.  Cast points follow the reference
+exactly: norms and RoPE compute in float32 and cast back, and the SwiGLU
+gate is `silu(gate.f32).to(x.dtype) * up`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def _init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
+                device) -> torch.Tensor:
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * d_in ** -0.5).to(dtype)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = ops.linear(x, w)
+    if b is not None:
+        y = y + b
+    return y
+
+
+# -- norms -------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32)).to(x.dtype)
+
+
+# -- embeddings ---------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
+                   device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32, device=device)
+    return (w * 0.02).to(dtype)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Logits = x @ table^T (tied; table is (vocab, d)).  The transpose is a
+    strided view the GeMM reads in place."""
+    return ops.linear(x, table.t().to(x.dtype))
+
+
+# -- rotary position embedding -------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """Inverse frequencies (head_dim // 2,) float32.  Computed on the CPU
+    and copied, so every device rotates by bit-identical frequencies."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half))
+    return freqs.to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x (B, S, H, D), positions (B, S) or (S,).  Rotates split halves
+    (not interleaved pairs) in float32, then casts back."""
+    freqs = rope_frequencies(x.shape[-1], float(theta), x.device)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs          # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- feed-forward ---------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, device) -> dict:
+    return {
+        "w_gate": _init_dense(gen, d, d_ff, dtype, device),
+        "w_up": _init_dense(gen, d, d_ff, dtype, device),
+        "w_down": _init_dense(gen, d_ff, d, dtype, device),
+    }
+
+
+def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SwiGLU: down(silu(gate.f32).to(x.dtype) * up)."""
+    gate = dense(x, p["w_gate"])
+    up = dense(x, p["w_up"])
+    h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+    return dense(h, p["w_down"])

@@ -1,0 +1,142 @@
+"""Model assembly for paged serving (port of repro/models/model.py:
+`init_model`, the paged decode state, `paged_decode_step`, `prefill_chunk`
+and `reset_slots`).
+
+Parameters are a plain dict: "embed" (vocab, d), "final_norm" (d,), and
+"layers", a flat list of per-layer dicts.  The reference stacks each
+group's parameters on a leading n_groups axis and scans the groups; here
+layer g * group_size + i simply has kind `cfg.layer_kinds()[i]`
+(`cfg.all_layer_kinds()`).
+
+The KV pools update in place where the reference donates the state to its
+jitted steps: the reference never keeps a pre-step pool (inactive slots and
+slot slices pass the pools through whole), so the result is the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import blocks, layers
+from repro_torch.models.config import ArchConfig
+from repro_torch.serving import kv_cache as kvc
+
+
+def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
+    """Random parameters from a seeded `torch.Generator` on `device`
+    (CUDA unless the caller names another)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    dt = cfg.torch_dtype
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: untied heads are not ported")
+    return {
+        "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "layers": [blocks.init_block(gen, cfg, kind, device)
+                   for kind in cfg.all_layer_kinds()],
+    }
+
+
+@dataclasses.dataclass
+class PagedDecodeState:
+    """Serving decode state: one KV block pool per layer plus per-slot
+    block tables and lengths (all on the model's device)."""
+
+    caches: List[kvc.PagedKVCache]
+    block_tables: torch.Tensor        # (slots, max_blocks) int32
+    lengths: torch.Tensor             # (slots,) int32 tokens held per slot
+
+
+def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
+                            block_size: int, max_blocks_per_slot: int,
+                            device) -> PagedDecodeState:
+    caches = [kvc.init_paged_kv(num_blocks, block_size, cfg.n_kv_heads,
+                                cfg.resolved_head_dim, cfg.torch_dtype, device)
+              for _ in range(cfg.n_layers)]
+    return PagedDecodeState(
+        caches=caches,
+        block_tables=torch.zeros((slots, max_blocks_per_slot),
+                                 dtype=torch.int32, device=device),
+        lengths=torch.zeros((slots,), dtype=torch.int32, device=device),
+    )
+
+
+def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = layers.embed(tokens, params["embed"])
+    # Tied embeddings scale by sqrt(d_model) in x's dtype: the scale is
+    # rounded to that dtype first, as the reference's jnp.asarray does.
+    scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
+    return x * scale
+
+
+def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
+    return layers.unembed(x, params["embed"])
+
+
+def _trunk_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, caches, cache_index: torch.Tensor,
+                block_tables: torch.Tensor) -> torch.Tensor:
+    for p, kind, cache in zip(params["layers"], cfg.all_layer_kinds(), caches):
+        x = blocks.apply_block(x, p, cfg, kind, positions=positions,
+                               cache=cache, cache_index=cache_index,
+                               block_tables=block_tables)
+    return x
+
+
+def paged_decode_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                      tokens: torch.Tensor, active: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """One token for every slot at its own position: tokens (B, 1) ->
+    logits (B, 1, vocab).  `active` (B,) bool holds the lengths of idle or
+    mid-prefill slots; their KV writes land at/above their length (hidden
+    until a real write replaces them) or in the null block."""
+    x = _embed_tokens(params, cfg, tokens)
+    positions = state.lengths[:, None]
+    x = _trunk_step(params, cfg, x, positions, state.caches, state.lengths,
+                    state.block_tables)
+    step = 1 if active is None else active.to(torch.int32)
+    new_lengths = state.lengths + step
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _unembed(x, params, cfg)
+    return logits, PagedDecodeState(caches=state.caches,
+                                    block_tables=state.block_tables,
+                                    lengths=new_lengths.to(torch.int32))
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                  tokens: torch.Tensor, slot: int
+                  ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """Advance one slot by a chunk of C prompt tokens: tokens (1, C) ->
+    (last-position logits (1, 1, vocab), updated state).  The chunk attends
+    causally over the slot's block-table view, which this step just wrote;
+    the LM head runs on the last position only."""
+    C = tokens.shape[1]
+    start = state.lengths[slot:slot + 1].clone()                # (1,)
+    tables = state.block_tables[slot:slot + 1]
+    x = _embed_tokens(params, cfg, tokens)
+    positions = start[:, None] + torch.arange(C, dtype=torch.int32,
+                                              device=tokens.device)[None, :]
+    x = _trunk_step(params, cfg, x, positions, state.caches, start, tables)
+    x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _unembed(x, params, cfg)
+    new_lengths = state.lengths.clone()
+    new_lengths[slot] += C
+    return logits, PagedDecodeState(caches=state.caches,
+                                    block_tables=state.block_tables,
+                                    lengths=new_lengths)
+
+
+def reset_slots(cfg: ArchConfig, state: PagedDecodeState,
+                mask: torch.Tensor) -> PagedDecodeState:
+    """Zero the length of every masked slot for a fresh request.  KV pages
+    need no reset: freed blocks are rewritten before the length mask
+    exposes them."""
+    lengths = torch.where(mask, torch.zeros_like(state.lengths), state.lengths)
+    return PagedDecodeState(caches=state.caches,
+                            block_tables=state.block_tables, lengths=lengths)

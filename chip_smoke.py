@@ -8,16 +8,22 @@ Phases, in order; any failure exits non-zero:
   1. card name and power limit; build the CUDA kernels from src/ (one nvcc
      per source, all at once) and print the build seconds.
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes greedy gemma3-1b serving gives it, with stated tolerances.
+     shapes greedy gemma3-1b serving gives it, with stated tolerances; the
+     int8 GeMM (dequant epilogue and int mode) and the row quantization
+     bit for bit.
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
      tokens, chunk 64, block 16).  Launch counters are zeroed just before
      the run and read just after: both kernels must have run, the GeMM
      183 times per prefill chunk and per decode step.
+  3b. the same run in the int8 deployment precision (w8a8 weights, int8 KV
+     pool): the dequant GeMM and the row quantization 183 times per step,
+     the int8 decode branch 26 times, the float GeMM never.
   4. the same weights at full width, depth cut to 6 layers (5 local + 1
      global), float32, served on the card (kernels) and on the CPU (plain
-     versions): greedy tokens must be identical.
+     versions): greedy tokens must be identical, in float and in w8a8 with
+     an int8 KV pool; w8a8 logits stay near the float logits.
   5. each kernel timed at its main-path shapes with CUDA events (L2 cold),
      beside its bound, its plain version and the library call.
 
@@ -39,9 +45,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (dense): HBM bytes/s and bf16 / f32 FLOP/s.
+# H100 SXM published peaks (dense): HBM bytes/s and bf16 / f32 FLOP/s, int8 OP/s.
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 GEMM_SHAPES = [  # (name, K, N, transposed B view) of one gemma3-1b layer + head
     ("q", 1152, 1024, False), ("k", 1152, 256, False), ("v", 1152, 256, False),
     ("o", 1024, 1152, False), ("gate", 1152, 6912, False),
@@ -79,6 +85,13 @@ GEMM_TOL = {"float32": (1e-4, 1e-4),      # f32 sums of <= 6912 terms, reordered
             "bfloat16": (2 ** -7, 1e-3)}  # one bf16 ulp of the rounded output
 DECODE_TOL = {"float32": (1e-4, 1e-4),    # online softmax over ~1100 keys, reordered
               "bfloat16": (2 ** -7, 2 ** -8)}
+# int8 kernels: exact int32 sums and a fixed epilogue order, so bit for bit.
+# The int8 decode branch dequantizes as code * scale in f32 exactly as its
+# plain versions do, so it takes the float branch's tolerances.
+INT8_QUANT_SHAPES = [(m, k) for m in (1, 8, 64, 300) for k in (1024, 1152, 6912)]
+# K of each activation row-quantized in one decode step: q, k, v, gate, up
+# and the head read d = 1152, o reads 1024, down reads 6912.
+QUANT_PER_STEP = {1152: 5 * 26 + 1, 1024: 26, 6912: 26}
 
 
 def phase_kernels(torch, gemm, fd, kvc):
@@ -154,16 +167,140 @@ def _lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq, lengths):
     return cache, tables.array(dev)
 
 
-def phase_engine(torch, np, configs, M, Engine, RequestSpec, gemm, fd):
+def _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq, lengths):
+    """The same lived-in pool, int8: every token quantized with its scale
+    as `write_kv` quantizes on write."""
+    cache, tables = _lived_in_pool(torch, kvc, dev, g, torch.float32, B, Hkv, D,
+                                   bs, max_seq, lengths)
+    kq, ks = kvc.quantize_kv_tokens(cache.k)
+    vq, vs = kvc.quantize_kv_tokens(cache.v)
+    return kvc.PagedKVCache(k=kq, v=vq, k_scale=ks, v_scale=vs), tables
+
+
+def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
+    """The int8 slice's kernels against their plain versions: the dequant
+    GeMM (bf16 and f32 out) and K1's int mode at every GEMM_SHAPES entry
+    for M = 8 and 64 with the weight in its serving layout (an (N, K)
+    store read through a .t() view), bit for bit; the row quantization
+    bit for bit; the int8 decode branch against both plain versions."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst = {"dequant_gemm": 0.0, "gemm_int": 0.0, "quantize_rows": 0.0,
+             "flash_decode_int8": 0.0}
+    i8 = dict(generator=g, device=dev, dtype=torch.int8)
+    for M in (8, 64):
+        for name, K, N, _ in GEMM_SHAPES:
+            a = torch.randint(-127, 128, (M, K), **i8)
+            b = torch.randint(-127, 128, (N, K), **i8).t()
+            sa = torch.rand((M, 1), generator=g, device=dev) * 0.1 + 1e-3
+            sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+            for out in (torch.bfloat16, torch.float32):
+                got = gemm8.dequant_gemm(a, b, sa, sb, out_dtype=out)
+                want = gemm8.dequant_gemm_plain(a, b, sa, sb, out)
+                err = float((got.float() - want.float()).abs().max())
+                worst["dequant_gemm"] = max(worst["dequant_gemm"], err)
+                ok = torch.equal(got, want)
+                print(f"  dequant_gemm {str(out)[6:]} M={M} {name} {K}x{N}: "
+                      f"max_abs={err:.3e} {'bitwise equal' if ok else 'FAIL'}")
+                check(ok, f"dequant_gemm {out} M={M} {name} bit for bit")
+            got, want = gemm8.gemm_int(a, b), gemm8.gemm_int_plain(a, b)
+            err = float((got - want).abs().max())
+            worst["gemm_int"] = max(worst["gemm_int"], err)
+            ok = got.dtype == torch.int32 and torch.equal(got, want)
+            print(f"  gemm int8->int32 M={M} {name}: max_abs={err:.0f} "
+                  f"{'bitwise equal' if ok else 'FAIL'}")
+            check(ok, f"gemm int mode M={M} {name} bit for bit")
+            del a, b, got, want
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        bad = []
+        for M, K in INT8_QUANT_SHAPES:
+            x = (torch.randn((M, K), generator=g, device=dev) * 3).to(dt)
+            if M > 1:
+                x[1] = 0                                   # the 1e-8 scale floor
+            q, s_ = kq.quantize_rows(x)
+            qp, sp = kq.quantize_rows_plain(x)
+            err = float((q.int() - qp.int()).abs().max())
+            worst["quantize_rows"] = max(worst["quantize_rows"], err)
+            if not (torch.equal(q, qp) and torch.equal(s_, sp)):
+                bad.append((M, K))
+        print(f"  quantize_rows {dname} at M x K in {{1,8,64,300}} x {{1024,1152,6912}}: "
+              f"{'codes and scales bitwise equal' if not bad else f'FAIL at {bad}'}")
+        check(not bad, f"quantize_rows {dname} bit for bit")
+    B, Hkv, G, D, bs, max_seq = 8, 1, 4, 256, 16, 1200
+    lengths = [1100, 1024, 950, 700, 513, 260, 128, 64]
+    cache, tables = _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq,
+                                        lengths)
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        rtol, atol = DECODE_TOL[dname]
+        for sq in (1, 64):
+            q = torch.randn((B, sq, Hkv * G, D), generator=g, device=dev).to(dt)
+            idx = torch.tensor([n - sq for n in lengths], dtype=torch.int32, device=dev)
+            for window in (None, 512):
+                wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx, window=window),
+                         "gather": fd.gather_decode(q, cache, tables, idx, window=window)}
+                for splits in (1, 4):
+                    got = fd.flash_decode_attention(
+                        q, cache, tables, idx, window=window,
+                        spec=fd.FlashDecodeSpec(num_splits=splits))
+                    for oracle, want in wants.items():
+                        abs_e, rel_e, ok = close(got, want, rtol, atol)
+                        worst["flash_decode_int8"] = max(worst["flash_decode_int8"], abs_e)
+                        print(f"  flash_decode int8 pool, q {dname} Sq={sq} window={window} "
+                              f"splits={splits} vs {oracle}: max_abs={abs_e:.3e} "
+                              f"max_rel={rel_e:.3e} tol=(rtol {rtol:g}, atol {atol:g}) "
+                              f"{'ok' if ok else 'FAIL'}")
+                        check(ok, f"flash_decode int8 {dname} Sq={sq} window={window} "
+                                  f"splits={splits} vs {oracle}")
+    del cache, tables
+    torch.cuda.synchronize()
+    return worst
+
+
+# Hand-kernel launch counters: name -> (module key, counter attribute).
+COUNTERS = {"gemm": ("gemm", "launches"), "flash_decode": ("fd", "launches"),
+            "gemm_int": ("gemm8", "int_launches"), "dequant_gemm": ("gemm8", "launches"),
+            "quantize_rows": ("kq", "launches"),
+            "flash_decode_int8": ("fd", "launches_int8")}
+# Launches per step (prefill chunk or decode step) of gemma3-1b, by precision:
+# 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs (each with
+# its row quantization in w8a8), one decode-attention launch per layer.
+PER_STEP = {("float", "float"): {"gemm": 183, "flash_decode": 26},
+            ("w8a8", "int8"): {"dequant_gemm": 183, "quantize_rows": 183,
+                               "flash_decode_int8": 26}}
+
+
+def reset_counts(mods) -> None:
+    for mod in {id(m): m for m in mods.values()}.values():
+        mod.reset_launches()
+
+
+def read_counts(mods):
+    return {name: getattr(mods[key], attr) for name, (key, attr) in COUNTERS.items()}
+
+
+def rel_l2(torch, got, want) -> float:
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant,
+                 precision="float", kv_precision="float"):
     cfg = configs.get("gemma3-1b")
     check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
+    plan = PER_STEP[(precision, kv_precision)]
     t0 = time.monotonic()
     params = M.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"  init_model: {time.monotonic() - t0:.1f}s, {cfg.param_count() / 1e9:.3f}B "
           f"matrix params ({cfg.param_count() * 2 / 1e9:.2f} GB bf16)")
+    rng = np.random.default_rng(0)
+    probe = rng.integers(0, cfg.vocab, size=300)
+    if precision != "float":   # the float model's logits, for the fidelity print
+        float_logits = _prompt_logits(torch, M, kvc, quant, cfg, params, probe, "cuda")
     eng = Engine(cfg, params, slots=8, max_seq=1200, block_size=16, max_chunk=64,
-                 device="cuda")
+                 precision=precision, kv_precision=kv_precision, device="cuda")
+    del params     # w8a8: the engine's warmup then drops the float weights
     t0 = time.monotonic()
     eng.warmup()
     print(f"  warmup: {time.monotonic() - t0:.2f}s ({eng.metrics.aot_steps} step shapes)")
@@ -175,13 +312,12 @@ def phase_engine(torch, np, configs, M, Engine, RequestSpec, gemm, fd):
         eng.submit(RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)),
                                max_new=int(m)))
     torch.cuda.reset_peak_memory_stats()
-    gemm.reset_launches()
-    fd.reset_launches()
+    reset_counts(mods)
     t0 = time.monotonic()
     results = eng.run()
     torch.cuda.synchronize()
     t_run = time.monotonic() - t0
-    launches = {"gemm": gemm.launches, "flash_decode": fd.launches}
+    launches = read_counts(mods)
     m = eng.metrics
     steps = m.prefill_chunks + m.decode_steps
     print(f"  served {len(results)} requests in {t_run:.2f}s: "
@@ -191,31 +327,39 @@ def phase_engine(torch, np, configs, M, Engine, RequestSpec, gemm, fd):
           f"decode step {m.decode_time_s / m.decode_steps * 1e3:.2f} ms/step, "
           f"decode {m.throughput_tok_s:.1f} tok/s, prefill "
           f"{m.prefill_tokens / m.prefill_time_s:.1f} tok/s")
-    print(f"  kv pool {m.kv_pool_bytes / 1e9:.3f} GB ({m.kv_pool_blocks} blocks), "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
-          f"cold_compiles={m.cold_compiles}")
-    print(f"  launches: gemm={launches['gemm']} flash_decode={launches['flash_decode']} "
-          f"(steps={steps}, 183 x steps = {183 * steps})")
+    wb = m.weight_bytes or quant.weight_bytes(eng.params)
+    print(f"  resident weights {wb / 1e9:.3f} GB"
+          + (f" (float {m.weight_bytes_float / 1e9:.3f} GB)" if m.weight_bytes_float else "")
+          + f", kv pool {m.kv_pool_bytes / 1e9:.3f} GB {kv_precision} "
+          f"({m.kv_pool_blocks} blocks), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, cold_compiles={m.cold_compiles}")
+    print("  launches: " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + f" (steps={steps}, 183 x steps = {183 * steps})")
     check(sorted(results) == list(range(12)), "every request finished")
     for rid, toks in results.items():
         check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
         check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
-    check(launches["gemm"] > 0 and launches["flash_decode"] > 0, "both kernels ran")
-    check(launches["gemm"] == 183 * steps, "183 GeMM launches per step")
-    check(launches["flash_decode"] == cfg.n_layers * steps, "one decode launch per layer per step")
+    want = {k: plan.get(k, 0) * steps for k in launches}
+    check(launches == want, f"launches per step: got {launches}, want {want}")
     check(m.cold_compiles == 0, "warmup covered every step shape")
-    ops = _count_decode_ops(torch, M, eng, gemm, fd)
+    ops = _count_decode_ops(torch, M, eng, mods, quant)
     print(f"  one decode step dispatches {ops['ops']} PyTorch ops ({ops['views']} views, "
           f"{ops['empty']} allocations) beside {ops['kernels']} hand-kernel launches")
     summary = {"decode_ms": m.decode_time_s / m.decode_steps * 1e3,
                "prefill_ms": m.prefill_time_s / m.prefill_chunks * 1e3,
-               "decode_tok_s": m.throughput_tok_s}
-    del eng, params
+               "decode_tok_s": m.throughput_tok_s, "launches": launches}
+    if precision != "float":
+        got = _prompt_logits(torch, M, kvc, quant, cfg, eng.params, probe, "cuda",
+                             precision=precision, kv_precision=kv_precision)
+        print(f"  26-layer bf16 fidelity (not checked): relative L2 of the first decode "
+              f"step's logits, {precision} + {kv_precision} KV vs float = "
+              f"{rel_l2(torch, got[1], float_logits[1]):.4f}")
+    del eng
     torch.cuda.empty_cache()
-    return launches, summary
+    return summary
 
 
-def _count_decode_ops(torch, M, eng, gemm, fd):
+def _count_decode_ops(torch, M, eng, mods, quant):
     """PyTorch ops one decode step of `eng` dispatches (all slots active),
     and the hand-kernel launches beside them: the host work per step."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -231,17 +375,17 @@ def _count_decode_ops(torch, M, eng, gemm, fd):
             self.empty += func.overloadpacket.__name__ == "empty"
             return func(*args, **(kwargs or {}))
 
-    k0 = gemm.launches + fd.launches
+    k0 = sum(read_counts(mods).values())
     tokens = torch.zeros((eng.slots, 1), dtype=torch.int64, device=eng.device)
     active = torch.ones((eng.slots,), dtype=torch.bool, device=eng.device)
-    with torch.no_grad(), Count() as c:
+    with torch.no_grad(), quant.precision(eng.precision), Count() as c:
         M.paged_decode_step(eng.params, eng.cfg, eng.state, tokens, active)
     torch.cuda.synchronize()
     return {"ops": c.ops, "views": c.views, "empty": c.empty,
-            "kernels": gemm.launches + fd.launches - k0}
+            "kernels": sum(read_counts(mods).values()) - k0}
 
 
-def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec):
+def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant):
     cfg = dataclasses.replace(configs.get("gemma3-1b"), n_layers=6, group_size=6,
                               dtype="float32")
     check(cfg.layer_kinds().count("attn_local") == 5, "6-layer cut: 5 local + 1 global")
@@ -252,50 +396,101 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec):
                               for k, v in layer.items()} for layer in params["layers"]]}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (600, 300)]
-    out = {}
-    for dev, p in (("cuda", params), ("cpu", cpu_params)):
-        t0 = time.monotonic()
-        eng = Engine(cfg, p, slots=2, max_seq=640, block_size=16, max_chunk=64,
-                     device=dev)
-        for pr in prompts:
-            eng.submit(RequestSpec(prompt=pr, max_new=8))
-        out[dev] = eng.run()
-        print(f"  {dev}: {time.monotonic() - t0:.1f}s, tokens "
-              f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
-    for rid in out["cpu"]:
-        check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
-              f"request {rid}: CUDA tokens equal the CPU plain-version tokens")
-    # Greedy tokens of random weights can be few and repetitive; the logits
-    # of the long prompt's last prefill chunk and first decode step must
-    # agree too (f32 on both sides, sums in another order).
-    got = _prompt_logits(torch, M, kvc, cfg, params, prompts[0], "cuda")
-    want = _prompt_logits(torch, M, kvc, cfg, cpu_params, prompts[0], "cpu")
-    for what, g_, w_ in zip(("last prefill chunk", "first decode step"), got, want):
-        scale = float(w_.abs().max())
-        err = float((g_ - w_).abs().max())
-        top_g, top_w = g_.topk(8).indices.tolist(), w_.topk(8).indices.tolist()
-        print(f"  logits after the {what}: max_abs_diff={err:.3e} "
-              f"(max |logit| {scale:.3e}), top-8 {'equal' if top_g == top_w else 'DIFFER'}")
-        check(err <= 1e-4 * scale and top_g == top_w, f"CUDA vs CPU logits, {what}")
+    first_step = {}
+    # f32 on both sides, sums in another order.  In float the logits agree
+    # within 1e-4 x max|logit| with the same top-8.  In w8a8 a reordered sum
+    # moves an activation across a rounding edge of its int8 code now and
+    # then, and 6 layers at full width amplify that: a relative perturbation
+    # of 1e-6 in the embedding table moves the logits by a few percent and
+    # can reorder the top-8.  So the w8a8 bar is that noise floor, measured
+    # here: CUDA vs CPU must differ by no more than twice the largest change
+    # that three such perturbations make on the card, in relative L2, with
+    # the same argmax.
+    for precision, kv_precision, tol in (("float", "float", 1e-4), ("w8a8", "int8", None)):
+        print(f"  precision={precision}, kv={kv_precision}:")
+        out = {}
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            t0 = time.monotonic()
+            eng = Engine(cfg, p, slots=2, max_seq=640, block_size=16, max_chunk=64,
+                         precision=precision, kv_precision=kv_precision, device=dev)
+            eng.warmup()
+            for pr in prompts:
+                eng.submit(RequestSpec(prompt=pr, max_new=8))
+            out[dev] = eng.run()
+            print(f"    {dev}: {time.monotonic() - t0:.1f}s, tokens "
+                  f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
+            del eng
+        for rid in out["cpu"]:
+            check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
+                  f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
+                  f"({precision}, {kv_precision} KV)")
+        # Greedy tokens of random weights can be few and repetitive; the
+        # logits of the long prompt's last prefill chunk and first decode
+        # step must agree too.
+        got = _prompt_logits(torch, M, kvc, quant, cfg, params, prompts[0], "cuda",
+                             precision=precision, kv_precision=kv_precision)
+        want = _prompt_logits(torch, M, kvc, quant, cfg, cpu_params, prompts[0], "cpu",
+                              precision=precision, kv_precision=kv_precision)
+        if tol is None:
+            floor = [0.0, 0.0]
+            for seed in range(3):
+                noisy = _prompt_logits(torch, M, kvc, quant, cfg, _perturbed(torch, params, seed),
+                                       prompts[0], "cuda", precision=precision,
+                                       kv_precision=kv_precision)
+                floor = [max(f, rel_l2(torch, n_, g_)) for f, n_, g_ in zip(floor, noisy, got)]
+        for i, (what, g_, w_) in enumerate(zip(("last prefill chunk", "first decode step"),
+                                               got, want)):
+            scale = float(w_.abs().max())
+            err = float((g_ - w_).abs().max())
+            top_g, top_w = g_.topk(8).indices.tolist(), w_.topk(8).indices.tolist()
+            line = (f"    logits after the {what}: max_abs_diff={err:.3e} "
+                    f"(max |logit| {scale:.3e}), relative L2 {rel_l2(torch, g_, w_):.3e}, "
+                    f"top-8 {'equal' if top_g == top_w else 'DIFFER'}, "
+                    f"argmax {'equal' if top_g[0] == top_w[0] else 'DIFFERS'}")
+            if tol is None:
+                ok = rel_l2(torch, g_, w_) <= 2 * floor[i] and top_g[0] == top_w[0]
+                line += f"; bar: relative L2 <= 2 x {floor[i]:.3e} (noise floor), argmax equal"
+            else:
+                ok = err <= tol * scale and top_g == top_w
+                line += f"; bar: max_abs_diff <= {tol:g} x max|logit|, top-8 equal"
+            print(line)
+            check(ok, f"CUDA vs CPU logits, {what} ({precision}, {kv_precision} KV)")
+        first_step[precision] = got[1]
+    err = rel_l2(torch, first_step["w8a8"], first_step["float"])
+    print(f"  w8a8 + int8 KV vs float on the card: relative L2 of the first decode "
+          f"step's logits {err:.4f} (bar 0.15)")
+    check(err < 0.15, "w8a8 logits within 0.15 relative L2 of the float logits")
     del params, cpu_params
     torch.cuda.empty_cache()
 
 
-def _prompt_logits(torch, M, kvc, cfg, params, prompt, dev):
+def _perturbed(torch, params, seed: int):
+    """`params` with the embedding table scaled by 1 + 1e-6 x N(0, 1) per
+    element: a change of the size f32 rounding makes."""
+    g = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    noise = torch.randn(params["embed"].shape, generator=g, device=params["embed"].device)
+    return dict(params, embed=params["embed"] * (1 + 1e-6 * noise))
+
+
+def _prompt_logits(torch, M, kvc, quant, cfg, params, prompt, dev, *,
+                   precision="float", kv_precision="float"):
     """Last-position logits of `prompt` prefilled in 64-token chunks, then
-    of one greedy decode step, through the model functions on `dev`."""
+    of one greedy decode step, through the model functions on `dev`; in
+    w8a8 the weights are made int8-resident first, as the engine does."""
     from repro_torch.serving.prefill import plan_chunks
 
+    if precision != "float":
+        params = quant.quantize_params(params, cfg=cfg)
     bs = 16
     max_blocks = kvc.blocks_for(len(prompt) + 1, bs)
     state = M.init_paged_decode_state(cfg, 1, num_blocks=1 + max_blocks,
                                       block_size=bs, max_blocks_per_slot=max_blocks,
-                                      device=dev)
+                                      device=dev, kv_precision=kv_precision)
     tables = kvc.BlockTables(1, max_blocks)
     tables.ensure(0, len(prompt) + 1, kvc.BlockAllocator(1 + max_blocks, bs))
     state.block_tables = tables.array(dev)
     pos = 0
-    with torch.no_grad():
+    with torch.no_grad(), quant.precision(precision):
         for c in plan_chunks(len(prompt), 64):
             chunk = torch.as_tensor(prompt[None, pos:pos + c], device=dev)
             logits, state = M.prefill_chunk(params, cfg, state, chunk, 0)
@@ -426,6 +621,140 @@ def phase_times(torch, gemm, fd, kvc):
     return rows
 
 
+def _bound(nbytes: float, ops: float, peak: float):
+    """(bound in ms, what bounds it) for `nbytes` moved and `ops` done."""
+    t_b, t_o = nbytes / HBM_BPS, ops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def phase_times_int8(torch, gemm8, kq, fd, kvc):
+    """The int8 slice's kernels at their main-path shapes: the dequant GeMM
+    (bf16 out, weights in the serving layout) at M = 8 and 64 beside
+    torch._int_mm, the row quantization at the decode shapes, the int8
+    decode branch beside SDPA over K/V gathered and dequantized beforehand."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    i8 = dict(generator=g, device=dev, dtype=torch.int8)
+    rows = {}
+    for M in (8, 64):
+        for name, K, N, _ in GEMM_SHAPES:
+            copies = max(1, min(128, math.ceil(2 * L2_BYTES / (K * N))))
+            a = torch.randint(-127, 128, (M, K), **i8)
+            sa = torch.rand((M, 1), generator=g, device=dev) * 0.1
+            ws = [(torch.randint(-127, 128, (N, K), **i8).t(),
+                   torch.rand((1, N), generator=g, device=dev) * 0.1)
+                  for _ in range(copies)]
+            iters = max(20, min(400, 4 * copies))
+            kcalls = [lambda b=b, sb=sb: gemm8.dequant_gemm(a, b, sa, sb,
+                                                             out_dtype=torch.bfloat16)
+                      for b, sb in ws]
+            t_k = _time_ms(torch, kcalls, iters)
+            t_e = _time_ms(torch, kcalls, iters, graph=False)
+            t_p = _time_ms(torch, [lambda b=b, sb=sb: gemm8.dequant_gemm_plain(
+                a, b, sa, sb, torch.bfloat16) for b, sb in ws[:4]],
+                max(4, iters // 10), graph=False)
+            # cuBLASLt's int8 -> int32 product takes M > 16: A padded to 32 rows
+            a_lib = torch.zeros((max(M, 32), K), device=dev, dtype=torch.int8)
+            a_lib[:M] = a
+            t_l = _time_ms(torch, [lambda b=b: torch._int_mm(a_lib, b) for b, _ in ws],
+                           iters)
+            bound, by = _bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
+                               PEAK_FLOPS["int8"])
+            rows[("dequant_gemm", M, name)] = (t_k, t_p, t_l, bound, by)
+            print(f"  dequant_gemm int8 -> bf16 M={M} {name} {K}x{N}: kernel "
+                  f"{t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
+                  f"{t_p * 1e3:.1f} us, torch._int_mm (M padded to {max(M, 32)}) "
+                  f"{t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+                  f"{bound / t_k:.1%} of bound")
+            del a, ws, a_lib
+    M = 8
+    for K in sorted(QUANT_PER_STEP):
+        xs = [torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(64)]
+        kcalls = [lambda x=x: kq.quantize_rows(x) for x in xs]
+        t_k = _time_ms(torch, kcalls, 256)
+        t_e = _time_ms(torch, kcalls, 256, graph=False)
+        t_p = _time_ms(torch, [lambda x=x: kq.quantize_rows_plain(x) for x in xs],
+                       64, graph=False)
+        bound, by = _bound(M * K * 2 + M * K + 4 * M, 3 * M * K, PEAK_FLOPS["float32"])
+        rows[("quantize_rows", K)] = (t_k, t_p, None, bound, by)
+        print(f"  quantize_rows bf16 M={M} K={K}: kernel {t_k * 1e3:.2f} us (eager call "
+              f"{t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, library: none, bound "
+              f"{bound * 1e3:.4f} us ({by}), {bound / t_k:.2%} of bound")
+
+    B, Hkv, G, D, bs, max_seq = 8, 1, 4, 256, 16, 1200
+    lengths = [1100, 1024, 950, 700, 513, 260, 128, 64]
+    pools = [_lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq, lengths)
+             for _ in range(24)]                   # ~120 MB of codes: the pool is L2-cold
+    dt = torch.bfloat16
+    for label, b_, sq in (("decode", B, 1), ("prefill", 1, 64)):
+        lens = lengths[:b_]
+        q = torch.randn((b_, sq, Hkv * G, D), generator=g, device=dev).to(dt)
+        idx = torch.tensor([n - sq for n in lens], dtype=torch.int32, device=dev)
+        for window in (None, 512):
+            sel = [(c, t[:b_].contiguous()) for c, t in pools]
+            kcalls = [lambda c=c, t=t: fd.flash_decode_attention(
+                q, c, t, idx, window=window) for c, t in sel]
+            t_k = _time_ms(torch, kcalls, 120)
+            t_e = _time_ms(torch, kcalls, 120, graph=False)
+            t_p = _time_ms(torch, [lambda c=c, t=t: fd.ref_paged_decode(
+                q, c, t, idx, window=window) for c, t in sel[:4]], 8, graph=False)
+            qpos = idx[:, None].long() + torch.arange(sq, device=dev)[None]
+            kpos = torch.arange(sel[0][1].shape[1] * bs, device=dev)
+            mask = kpos[None, None, :] <= qpos[..., None]
+            if window is not None:
+                mask &= (qpos[..., None] - kpos[None, None, :]) < window
+            lib_in = []
+            for c, t in sel[:4]:
+                k, v = kvc.gather_kv(c, t)            # dequantized, f32
+                lib_in.append((k.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1),
+                               v.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1)))
+            qs = q.permute(0, 2, 1, 3)
+            t_l = _time_ms(torch, [lambda k=k, v=v: F.scaled_dot_product_attention(
+                qs, k, v, attn_mask=mask[:, None]) for k, v in lib_in], 120)
+            keys, flops = 0, 0
+            for i0 in idx.tolist():
+                lo = 0 if window is None else max(0, i0 - window + 1)
+                keys += (i0 + sq) - lo
+                for t in range(sq):
+                    qp = i0 + t
+                    flops += 4 * G * D * (qp + 1 - (0 if window is None
+                                                     else max(0, qp - window + 1)))
+            nbytes = (2 * keys * Hkv * (D + 4) + 2 * 2 * q.numel() + 4 * idx.numel()
+                      + 4 * b_ * (max_seq // bs))
+            bound, by = _bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+            rows[("flash_decode_int8", label, window)] = (t_k, t_p, t_l, bound, by)
+            print(f"  flash_decode int8 pool, q bf16, {label} B={b_} Sq={sq} window={window}: "
+                  f"kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
+                  f"{t_p * 1e3:.1f} us, sdpa over dequantized K/V {t_l * 1e3:.1f} us, "
+                  f"bound {bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+    del pools
+    torch.cuda.empty_cache()
+    return rows
+
+
+def per_step_int8(rows, n_layers: int = 26, n_global: int = 4):
+    """Aggregate the int8 kernels' per-shape times into one w8a8 + int8 KV
+    decode step of gemma3-1b (M = 8): [kernel, plain, library, bound]."""
+    layer = ("q", "k", "v", "o", "gate", "up", "down")
+
+    def total(terms, i):
+        return None if any(r[i] is None for r, _ in terms) else sum(n * r[i] for r, n in terms)
+
+    terms = {
+        "dequant_gemm": [(rows[("dequant_gemm", 8, s)], n_layers) for s in layer]
+        + [(rows[("dequant_gemm", 8, "head")], 1)],
+        "quantize_rows": [(rows[("quantize_rows", k)], n) for k, n in QUANT_PER_STEP.items()],
+        "flash_decode_int8": [(rows[("flash_decode_int8", "decode", None)], n_global),
+                              (rows[("flash_decode_int8", "decode", 512)],
+                               n_layers - n_global)],
+    }
+    return {name: [total(t, i) for i in range(4)] + [t[0][0][4]]
+            for name, t in terms.items()}
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -447,13 +776,16 @@ def main() -> int:
         raise SystemExit("FAIL: no CUDA device")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("FAIL: src/repro_torch is not beside chip_smoke.py")
-    from repro_torch import configs
-    from repro_torch.kernels import _build, flash_decode as fd, gemm
+    from repro_torch import configs, quant
+    from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
+    from repro_torch.kernels import quant as kq
     from repro_torch.models import model as M
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import RequestSpec
 
+    mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq}
+    t_start = time.monotonic()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.monotonic()
@@ -466,37 +798,58 @@ def main() -> int:
 
     print("[2] kernels vs plain versions on the card")
     worst = phase_kernels(torch, gemm, fd, kvc)
+    worst.update(phase_kernels_int8(torch, gemm8, kq, fd, kvc))
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
-    launches, summary = phase_engine(torch, np, configs, M, Engine, RequestSpec, gemm, fd)
+    summary = phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant)
+    print("[3b] the same run in w8a8 with an int8 KV pool")
+    summary8 = phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant,
+                            precision="w8a8", kv_precision="int8")
     print("[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions")
-    phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec)
+    phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant)
     print("[5] kernel times at main-path shapes (bf16, CUDA events, L2 cold)")
     rows = phase_times(torch, gemm, fd, kvc)
     agg = per_step(rows)
-    print(f"[5] one decode step: gemm {agg['gemm'][0]:.3f} ms (bound {agg['gemm'][3]:.3f}), "
-          f"flash_decode {agg['flash_decode'][0]:.3f} ms (bound {agg['flash_decode'][3]:.3f}); "
-          f"engine decode step {summary['decode_ms']:.2f} ms")
-    kernels = [
-        {"name": "gemm", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/gemm.cu",
-         "replaces": "src/repro/kernels/gemm.py:33",
-         "per": "one gemma3-1b decode step: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, bf16",
-         "launches": launches["gemm"], "max_abs_err": worst["gemm"],
-         "ms": agg["gemm"][0], "plain_ms": agg["gemm"][1], "bound_ms": agg["gemm"][3],
-         "bound_by": "bytes", "library_ms": agg["gemm"][2]},
-        {"name": "flash_decode", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:107",
-         "per": "one gemma3-1b decode step: 4 global + 22 window-512 layers, B=8, Sq=1, bf16",
-         "launches": launches["flash_decode"], "max_abs_err": worst["flash_decode"],
-         "ms": agg["flash_decode"][0], "plain_ms": agg["flash_decode"][1],
-         "bound_ms": agg["flash_decode"][3], "bound_by": "bytes",
-         "library_ms": agg["flash_decode"][2]},
+    agg.update(per_step_int8(phase_times_int8(torch, gemm8, kq, fd, kvc)))
+    print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (bound "
+          f"{agg['gemm'][3]:.3f}), flash_decode {agg['flash_decode'][0]:.3f} ms (bound "
+          f"{agg['flash_decode'][3]:.3f}); engine decode step {summary['decode_ms']:.2f} ms")
+    print(f"[5] one w8a8 + int8 KV decode step: dequant_gemm {agg['dequant_gemm'][0]:.3f} ms "
+          f"(bound {agg['dequant_gemm'][3]:.3f}), quantize_rows "
+          f"{agg['quantize_rows'][0]:.3f} ms (bound {agg['quantize_rows'][3]:.4f}), "
+          f"flash_decode_int8 {agg['flash_decode_int8'][0]:.3f} ms (bound "
+          f"{agg['flash_decode_int8'][3]:.3f}); engine decode step "
+          f"{summary8['decode_ms']:.2f} ms")
+    step = "one gemma3-1b decode step"
+    entries = [  # name, source, TPU kernel replaced, what one entry's times cover, launches
+        ("gemm", "gemm.cu", "src/repro/kernels/gemm.py:33",
+         f"{step}: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, bf16", summary),
+        ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:107",
+         f"{step}: 4 global + 22 window-512 layers, B=8, Sq=1, bf16", summary),
+        ("dequant_gemm", "gemm_int8.cu", "src/repro/kernels/gemm.py:54",
+         f"{step} in w8a8: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, int8 -> bf16",
+         summary8),
+        ("quantize_rows", "quant.cu", "src/repro/kernels/quant.py:25",
+         f"{step} in w8a8: 183 bf16 rows (8, K), K = 1152 x 131, 1024 x 26, 6912 x 26",
+         summary8),
+        ("flash_decode_int8", "flash_decode.cu",
+         "src/repro/kernels/flash_decode.py:107 (quantized branch :113-132)",
+         f"{step} with an int8 pool: 4 global + 22 window-512 layers, B=8, Sq=1, q bf16",
+         summary8),
     ]
+    kernels = []
+    for name, src, replaces, per, run in entries:
+        t_k, t_p, t_l, bound = agg[name][:4]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": run["launches"][name],
+            "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": agg[name][4] if len(agg[name]) > 4 else "bytes",
+            "library_ms": t_l})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} max_abs_err={k['max_abs_err']:.3e} "
-        f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.3f} "
-        f"library_ms={k['library_ms']:.3f};" for k in kernels))
+        f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
+        f"library_ms={k['library_ms']};" for k in kernels))
+    print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

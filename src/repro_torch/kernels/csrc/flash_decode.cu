@@ -26,6 +26,13 @@
 // A later PR feeds the split kernel with cp.async/TMA multi-stage copies of
 // several blocks ahead and picks the split count from the live lengths.
 //
+// int8 pools (the reference's quantized branch, flash_decode.py:113-132):
+// the pools hold int8 codes and a float32 scale per (block, position, kv
+// head); each K/V element is dequantized as it is loaded, code * scale in
+// f32, before it reaches shared memory, so the math below is the float
+// branch's.  That halves the pool bytes a bf16 pool moves (8192 B of codes
+// plus 128 B of scales per block of 16 x 256 against 16384 B).
+//
 // Numerics follow the reference: the masked score is the finite sentinel
 // NEG_INF = -2e38 (never -inf: a masked score against m = NEG_INF gives
 // exp(0) = 1 and a later live key wipes it through alpha = exp(-2e38 - m)
@@ -33,6 +40,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -42,6 +52,7 @@ constexpr float NEG_INF = -2.0e38f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 
 template <typename O> __device__ __forceinline__ O from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -52,11 +63,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // Grid (B * Hkv, splits, row tiles of RT rows).  Packed row r = g * Sq + t
 // holds query head h * G + g at position index[b] + t.  Thread tid owns
 // output column d = tid % D of rows tid / D + RSTEP * i.  A decode step
-// (G * Sq = 4 rows) runs RT = 4, a prefill chunk RT = 16.
-template <typename T, int D, int RT>
+// (G * Sq = 4 rows) runs RT = 4, a prefill chunk RT = 16.  P is the pool's
+// element type: T, or int8_t with the scale pools k_scale / v_scale.
+template <typename T, typename P, int D, int RT>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ tables,
+    const T* __restrict__ q, const P* __restrict__ k_pool,
+    const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ index, T* __restrict__ out,
     float* __restrict__ acc_ws, float* __restrict__ m_ws,
     float* __restrict__ l_ws, int Sq, int Hkv, int G, int bs, int max_blocks,
@@ -125,9 +138,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       const int e = tid + i * NT;
       if (e < bs * D) {
         const int p = e / D, d = e % D;
-        const long long off = ((blk * bs + p) * Hkv + h) * D + d;
-        rk[i] = to_f(k_pool[off]);
-        rv[i] = to_f(v_pool[off]);
+        const long long row = (blk * bs + p) * Hkv + h;
+        rk[i] = to_f(k_pool[row * D + d]);
+        rv[i] = to_f(v_pool[row * D + d]);
+        if constexpr (std::is_same<P, int8_t>::value) {   // dequantize in registers
+          rk[i] *= k_scale[row];
+          rv[i] *= v_scale[row];
+        }
       }
     }
   };
@@ -243,17 +260,17 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc_ws,
       from_f<T>(a / fmaxf(l_g, 1e-30f));
 }
 
-template <typename T, int D, int RT>
+template <typename T, typename P, int D, int RT>
 int launch_rt(const void* q, const void* k_pool, const void* v_pool,
-                 const int* tables, const int* index, void* out, float* acc_ws,
-                 float* m_ws, float* l_ws, int B, int Sq, int Hkv, int G, int bs,
-                 int max_blocks, int splits, int window, float scale,
-                 cudaStream_t stream) {
+              const float* k_scale, const float* v_scale, const int* tables,
+              const int* index, void* out, float* acc_ws, float* m_ws, float* l_ws,
+              int B, int Sq, int Hkv, int G, int bs, int max_blocks, int splits,
+              int window, float scale, cudaStream_t stream) {
   const int rows = G * Sq;
   const int cols_per_split = (max_blocks + splits - 1) / splits;
   const size_t smem = sizeof(float) *
       ((size_t)RT * D + (size_t)bs * (D + 1) + (size_t)bs * D + (size_t)RT * bs + 3 * RT);
-  auto kern = decode_split_kernel<T, D, RT>;
+  auto kern = decode_split_kernel<T, P, D, RT>;
   // Raise the dynamic shared-memory cap once per instantiation (and again
   // only for a larger block size), never per launch: launches may be
   // captured into a CUDA graph.
@@ -266,8 +283,8 @@ int launch_rt(const void* q, const void* k_pool, const void* v_pool,
   }
   dim3 grid(B * Hkv, splits, (rows + RT - 1) / RT);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, index, static_cast<T*>(out),
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), k_scale, v_scale, tables, index, static_cast<T*>(out),
       acc_ws, m_ws, l_ws, Sq, Hkv, G, bs, max_blocks, cols_per_split, splits,
       window, scale);
   if (splits > 1) {
@@ -279,35 +296,40 @@ int launch_rt(const void* q, const void* k_pool, const void* v_pool,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 int launch_typed(const void* q, const void* k_pool, const void* v_pool,
-                 const int* tables, const int* index, void* out, float* acc_ws,
-                 float* m_ws, float* l_ws, int B, int Sq, int Hkv, int G, int bs,
-                 int max_blocks, int splits, int window, float scale,
-                 cudaStream_t stream) {
+                 const float* k_scale, const float* v_scale, const int* tables,
+                 const int* index, void* out, float* acc_ws, float* m_ws, float* l_ws,
+                 int B, int Sq, int Hkv, int G, int bs, int max_blocks, int splits,
+                 int window, float scale, cudaStream_t stream) {
   if (G * Sq <= 4)
-    return launch_rt<T, D, 4>(q, k_pool, v_pool, tables, index, out, acc_ws, m_ws, l_ws, B,
-                              Sq, Hkv, G, bs, max_blocks, splits, window, scale, stream);
-  return launch_rt<T, D, 16>(q, k_pool, v_pool, tables, index, out, acc_ws, m_ws, l_ws, B,
-                             Sq, Hkv, G, bs, max_blocks, splits, window, scale, stream);
+    return launch_rt<T, P, D, 4>(q, k_pool, v_pool, k_scale, v_scale, tables, index, out,
+                                 acc_ws, m_ws, l_ws, B, Sq, Hkv, G, bs, max_blocks, splits,
+                                 window, scale, stream);
+  return launch_rt<T, P, D, 16>(q, k_pool, v_pool, k_scale, v_scale, tables, index, out,
+                                acc_ws, m_ws, l_ws, B, Sq, Hkv, G, bs, max_blocks, splits,
+                                window, scale, stream);
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch_d(const void* q, const void* k_pool, const void* v_pool,
-             const int* tables, const int* index, void* out, float* acc_ws,
-             float* m_ws, float* l_ws, int B, int Sq, int Hkv, int G, int D,
-             int bs, int max_blocks, int splits, int window, float scale,
-             cudaStream_t st) {
+             const float* k_scale, const float* v_scale, const int* tables,
+             const int* index, void* out, float* acc_ws, float* m_ws, float* l_ws,
+             int B, int Sq, int Hkv, int G, int D, int bs, int max_blocks,
+             int splits, int window, float scale, cudaStream_t st) {
   switch (D) {
     case 64:
-      return launch_typed<T, 64>(q, k_pool, v_pool, tables, index, out, acc_ws, m_ws, l_ws,
-                                 B, Sq, Hkv, G, bs, max_blocks, splits, window, scale, st);
+      return launch_typed<T, P, 64>(q, k_pool, v_pool, k_scale, v_scale, tables, index, out,
+                                    acc_ws, m_ws, l_ws, B, Sq, Hkv, G, bs, max_blocks,
+                                    splits, window, scale, st);
     case 128:
-      return launch_typed<T, 128>(q, k_pool, v_pool, tables, index, out, acc_ws, m_ws, l_ws,
-                                  B, Sq, Hkv, G, bs, max_blocks, splits, window, scale, st);
+      return launch_typed<T, P, 128>(q, k_pool, v_pool, k_scale, v_scale, tables, index, out,
+                                     acc_ws, m_ws, l_ws, B, Sq, Hkv, G, bs, max_blocks,
+                                     splits, window, scale, st);
     case 256:
-      return launch_typed<T, 256>(q, k_pool, v_pool, tables, index, out, acc_ws, m_ws, l_ws,
-                                  B, Sq, Hkv, G, bs, max_blocks, splits, window, scale, st);
+      return launch_typed<T, P, 256>(q, k_pool, v_pool, k_scale, v_scale, tables, index, out,
+                                     acc_ws, m_ws, l_ws, B, Sq, Hkv, G, bs, max_blocks,
+                                     splits, window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -315,29 +337,41 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// q, out (B, Sq, Hkv * G, D); k_pool, v_pool (nb, bs, Hkv, D), all in one
-// dtype (0 = float32, 1 = bfloat16); tables (B, max_blocks) and index (B,)
-// int32.  acc_ws (B, Hkv, splits, G * Sq, D), m_ws and l_ws
-// (B, Hkv, splits, G * Sq) float32 are used only when splits > 1.
-// window <= 0 means no sliding window.  Returns the cudaError_t.
+// q, out (B, Sq, Hkv * G, D) in dtype_code's dtype (0 = float32, 1 =
+// bfloat16); k_pool, v_pool (nb, bs, Hkv, D) in q's dtype (pool_code 0) or
+// int8 (pool_code 1) with k_scale, v_scale (nb, bs, Hkv) float32; tables
+// (B, max_blocks) and index (B,) int32.  acc_ws (B, Hkv, splits, G * Sq, D),
+// m_ws and l_ws (B, Hkv, splits, G * Sq) float32 are used only when
+// splits > 1.  window <= 0 means no sliding window.  Returns the cudaError_t.
 extern "C" int flash_decode_launch(const void* q, const void* k_pool,
-                                   const void* v_pool, const void* tables,
+                                   const void* v_pool, const void* k_scale,
+                                   const void* v_scale, const void* tables,
                                    const void* index, void* out, void* acc_ws,
                                    void* m_ws, void* l_ws, int B, int Sq,
                                    int Hkv, int G, int D, int bs, int max_blocks,
                                    int splits, int window, float scale,
-                                   int dtype_code, void* stream) {
+                                   int dtype_code, int pool_code, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* t = static_cast<const int*>(tables);
   const int* ix = static_cast<const int*>(index);
   float* a = static_cast<float*>(acc_ws);
   float* m = static_cast<float*>(m_ws);
   float* l = static_cast<float*>(l_ws);
-  if (dtype_code == 0)
-    return launch_d<float>(q, k_pool, v_pool, t, ix, out, a, m, l, B, Sq, Hkv, G, D, bs,
-                           max_blocks, splits, window, scale, st);
-  if (dtype_code == 1)
-    return launch_d<__nv_bfloat16>(q, k_pool, v_pool, t, ix, out, a, m, l, B, Sq, Hkv, G, D,
-                                   bs, max_blocks, splits, window, scale, st);
+  if (dtype_code == 0 && pool_code == 0)
+    return launch_d<float, float>(q, k_pool, v_pool, ks, vs, t, ix, out, a, m, l, B, Sq, Hkv,
+                                  G, D, bs, max_blocks, splits, window, scale, st);
+  if (dtype_code == 1 && pool_code == 0)
+    return launch_d<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, ks, vs, t, ix, out, a, m,
+                                                  l, B, Sq, Hkv, G, D, bs, max_blocks, splits,
+                                                  window, scale, st);
+  if (dtype_code == 0 && pool_code == 1)
+    return launch_d<float, int8_t>(q, k_pool, v_pool, ks, vs, t, ix, out, a, m, l, B, Sq, Hkv,
+                                   G, D, bs, max_blocks, splits, window, scale, st);
+  if (dtype_code == 1 && pool_code == 1)
+    return launch_d<__nv_bfloat16, int8_t>(q, k_pool, v_pool, ks, vs, t, ix, out, a, m, l, B,
+                                           Sq, Hkv, G, D, bs, max_blocks, splits, window,
+                                           scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,9 +6,11 @@ kernel `_decode_kernel` plus its split merge `_combine_splits`: decode
 attention for Sq query positions per slot read straight from the paged KV
 pool through the block tables (GQA rows packed per kv head, causal /
 seq-cap / sliding-window masks in the kernel, split-K online-softmax
-partials merged in a second kernel).  It is bound by the pool bytes it
-reads; the note at the top of the .cu file says what the design does about
-that.
+partials merged in a second kernel).  An int8 pool (the reference's
+quantized branch) carries a float32 scale per (block, position, kv head)
+and the kernel dequantizes each K/V element as it loads it.  It is bound by
+the pool bytes it reads; the note at the top of the .cu file says what the
+design does about that.
 
 Plain versions beside it: `ref_paged_decode`, the bounded online-softmax
 walk over table-column chunks (the reference's CPU default), and
@@ -32,8 +34,10 @@ from repro_torch.serving.kv_cache import NULL_BLOCK, PagedKVCache, gather_kv
 NEG_INF = -2.0e38
 
 # Launches of the CUDA kernel pair since the last reset (plain versions never
-# count): the proof that a run went through the kernel.
+# count): the proof that a run went through the kernel.  `launches` counts
+# float pools, `launches_int8` int8 pools.
 launches = 0
+launches_int8 = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)   # instantiated in csrc/flash_decode.cu
@@ -41,8 +45,8 @@ _KV_PER_BLOCK = 16 * 256      # block_size * head_dim the kernel stages (KV_PER 
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_int8
+    launches = launches_int8 = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +84,8 @@ def ref_paged_decode(q: torch.Tensor, cache: PagedKVCache,
                      cols_per_iter: int = 8) -> torch.Tensor:
     """Online-softmax decode over block-table column chunks, stopping once
     the chunk start passes max(index) + Sq (the reference's bounded
-    fallback, written as a host loop)."""
+    fallback, written as a host loop).  An int8 pool is dequantized as each
+    chunk is gathered."""
     B, Sq, Hq, D = q.shape
     nb, bs, Hkv, _ = cache.k.shape
     groups = Hq // Hkv
@@ -95,6 +100,9 @@ def ref_paged_decode(q: torch.Tensor, cache: PagedKVCache,
     idx = _index_vector(index, B, dev).to(torch.int64)
     k_flat = cache.k.reshape(nb * bs, Hkv, D)
     v_flat = cache.v.reshape(nb * bs, Hkv, D)
+    if cache.quantized:
+        ks_flat = cache.k_scale.reshape(nb * bs, Hkv)
+        vs_flat = cache.v_scale.reshape(nb * bs, Hkv)
 
     qf = (q.to(torch.float32) * (D ** -0.5)).reshape(B, Sq, Hkv, groups, D)
     qf = qf.permute(0, 2, 3, 1, 4)                          # (B, H, G, Sq, D)
@@ -112,6 +120,9 @@ def ref_paged_decode(q: torch.Tensor, cache: PagedKVCache,
         flat = (blk[:, :, None] * bs + offs[None, None, :]).reshape(-1)
         k = k_flat[flat].reshape(B, span, Hkv, D).to(torch.float32)
         v = v_flat[flat].reshape(B, span, Hkv, D).to(torch.float32)
+        if cache.quantized:
+            k = k * ks_flat[flat].reshape(B, span, Hkv)[..., None]
+            v = v * vs_flat[flat].reshape(B, span, Hkv)[..., None]
         s = torch.einsum("bhgqd,bkhd->bhgqk", qf, k)
         kpos = col * bs + torch.arange(span, device=dev)
         mask = (kpos[None, None, :] <= qpos[:, :, None]) \
@@ -134,8 +145,9 @@ def ref_paged_decode(q: torch.Tensor, cache: PagedKVCache,
 def gather_decode(q: torch.Tensor, cache: PagedKVCache,
                   block_tables: torch.Tensor, index, *,
                   window: Optional[int] = None) -> torch.Tensor:
-    """The oracle: materialize every slot's view with `gather_kv`, then
-    dense masked softmax over the whole table extent."""
+    """The oracle: materialize every slot's view with `gather_kv` (which
+    dequantizes an int8 pool), then dense masked softmax over the whole
+    table extent."""
     from repro_torch.models.attention import decode_attention
 
     k, v = gather_kv(cache, block_tables)
@@ -149,8 +161,8 @@ def gather_decode(q: torch.Tensor, cache: PagedKVCache,
 def _lib():
     fn = _build.load("flash_decode").flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+                       + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -161,11 +173,12 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                            spec: Optional[FlashDecodeSpec] = None) -> torch.Tensor:
     """Decode attention over the paged pool through the CUDA kernel.
 
-    q (B, Sq, Hq, D) and the pools (num_blocks, block_size, Hkv, D) share a
-    float32/bfloat16 dtype; block_tables (B, max_blocks) int32; index the
-    first query position per slot ((B,) int32, or a scalar).  Returns
+    q (B, Sq, Hq, D) float32/bfloat16; the pools (num_blocks, block_size,
+    Hkv, D) in q's dtype, or int8 with float32 scales (num_blocks,
+    block_size, Hkv); block_tables (B, max_blocks) int32; index the first
+    query position per slot ((B,) int32, or a scalar).  Returns
     (B, Sq, Hq, D) in q's dtype."""
-    global launches
+    global launches, launches_int8
     spec = spec or FlashDecodeSpec()
     if q.dim() != 4 or cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
         raise ValueError(f"flash decode shapes q {tuple(q.shape)}, "
@@ -176,12 +189,25 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
             or block_tables.shape[0] != B:
         raise ValueError(f"flash decode shapes q {tuple(q.shape)}, pool "
                          f"{tuple(cache.k.shape)}, tables {tuple(block_tables.shape)}")
+    quantized = cache.k.dtype == torch.int8 or cache.v.dtype == torch.int8
     tensors = (q, cache.k, cache.v, block_tables)
+    if quantized:
+        if cache.k_scale is None or cache.v_scale is None:
+            raise ValueError("flash decode kernel: an int8 pool needs its scales")
+        if cache.k_scale.shape != cache.k.shape[:-1] \
+                or cache.v_scale.shape != cache.k.shape[:-1] \
+                or cache.k_scale.dtype != torch.float32 \
+                or cache.v_scale.dtype != torch.float32:
+            raise ValueError("flash decode kernel: int8 pool scales must be float32 "
+                             f"{tuple(cache.k.shape[:-1])}")
+        tensors += (cache.k_scale, cache.v_scale)
     if any(not t.is_cuda or t.device != q.device for t in tensors):
         raise ValueError("flash decode kernel takes CUDA tensors on one device")
-    if q.dtype not in _CODES or cache.k.dtype != q.dtype or cache.v.dtype != q.dtype:
-        raise TypeError(f"flash decode kernel takes f32/bf16 q and pool of one "
-                        f"dtype, got {q.dtype}, {cache.k.dtype}, {cache.v.dtype}")
+    pool_dtype = torch.int8 if quantized else q.dtype
+    if q.dtype not in _CODES or cache.k.dtype != pool_dtype \
+            or cache.v.dtype != pool_dtype:
+        raise TypeError(f"flash decode kernel takes f32/bf16 q and a pool of q's "
+                        f"dtype or int8, got {q.dtype}, {cache.k.dtype}, {cache.v.dtype}")
     if D not in _HEAD_DIMS or not 1 <= bs * D <= _KV_PER_BLOCK:
         raise ValueError(f"flash decode kernel: head_dim {D} not in {_HEAD_DIMS} "
                          f"or block_size * head_dim {bs * D} > {_KV_PER_BLOCK}")
@@ -203,16 +229,21 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
         ws = [torch.empty((B, Hkv, splits, rows, D), **f32),
               torch.empty((B, Hkv, splits, rows), **f32),
               torch.empty((B, Hkv, splits, rows), **f32)]
+    scales = (cache.k_scale.data_ptr(), cache.v_scale.data_ptr()) if quantized \
+        else (None, None)
     err = _lib()(
-        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(),
+        q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), *scales,
         block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
         *[None if w is None else w.data_ptr() for w in ws],
         B, Sq, Hkv, groups, D, bs, max_blocks, splits,
         0 if window is None else int(window), D ** -0.5, _CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(quantized), torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash decode kernel launch failed: cudaError_t {err}")
-    launches += 1
+    if quantized:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out
 
 

@@ -46,17 +46,20 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_k(M: int, N: int, K: int, sms: int) -> int:
+def split_k(M: int, N: int, K: int, sms: int, *,
+            tile=(BM_SMALL, BM_LARGE, BN, BK)) -> int:
     """K splits for one launch on a card with `sms` multiprocessors: 1 when
     the output tiles alone give every SM two blocks, else enough splits to
-    get there, keeping >= 4 K-steps per split (capped at 16)."""
-    bm = BM_SMALL if M <= BM_SMALL else BM_LARGE
-    tiles = -(-M // bm) * -(-N // BN)
-    k_steps = -(-K // BK)
+    get there, keeping >= 4 K-steps per split (capped at 16).  `tile` is
+    the kernel's (small-M rows, rows, columns, K depth)."""
+    bm_small, bm_large, bn, bk = tile
+    bm = bm_small if M <= bm_small else bm_large
+    tiles = -(-M // bm) * -(-N // bn)
+    k_steps = -(-K // bk)
     if tiles >= 2 * sms:
         return 1
     splits = max(1, min(-(-2 * sms // tiles), k_steps // 4, 16))
@@ -100,7 +103,7 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     if min(strides) < 0:
         raise ValueError("gemm kernel takes non-negative strides only")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    splits = split_k(M, N, K, _sm_count(a.device))
+    splits = split_k(M, N, K, sm_count(a.device))
     ws = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),

@@ -10,13 +10,50 @@ from __future__ import annotations
 import torch
 
 
+def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> exact int32 (the OpenGeMM P_A = P_B = 8, P_C = 32
+    rule).  `torch.matmul` of two int8 tensors would return int8 and wrap,
+    and CUDA has no integer matmul, so the product runs in float64 on every
+    device: each product and partial sum is an integer of magnitude at most
+    K * 127**2, exact in float64 for any K below 5.5e11, so every summation
+    order gives the exact int32 result (and BLAS runs it several times
+    faster than an int32 matmul on the CPU)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+
+
 def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B with the OpenGeMM accumulation rule for float operands:
-    accumulate in float32 (f32 out).  bf16 products are exact in f32, so
-    upcasting the operands first changes no product.  On a CUDA device TF32
-    is switched off so the f32 product stays exact-f32 FMA arithmetic."""
-    if not (a.is_floating_point() and b.is_floating_point()):
-        raise NotImplementedError("int8 slice")
-    if a.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
+    """C = A @ B with the OpenGeMM accumulation rule: int8 x int8
+    accumulates in int32; float operands accumulate in float32 (f32 out).
+    bf16 products are exact in f32, so upcasting the operands first changes
+    no product.  On a CUDA device the f32 product must be exact-f32 FMA
+    arithmetic, so TF32 must be off (PyTorch's default); this raises
+    rather than switch it off for the whole process."""
+    if a.dtype == torch.int8 and b.dtype == torch.int8:
+        return _int8_matmul(a, b)
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("gemm_ref needs exact f32 matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
     return torch.matmul(a.to(torch.float32), b.to(a.dtype).to(torch.float32))
+
+
+def gemm_dequant_ref(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
+                     scale_b: torch.Tensor) -> torch.Tensor:
+    """int8 GeMM with per-row / per-column dequantization: f32 out =
+    float(A @ B) * scale_a * scale_b, multiplied in that order.  scale_a a
+    scalar or (M, 1), scale_b a scalar or (1, N)."""
+    return _int8_matmul(a, b).to(torch.float32) * scale_a * scale_b
+
+
+def quantize_ref(x: torch.Tensor, axis: int = -1):
+    """Symmetric per-channel int8 quantization along `axis`: (q, scale) with
+    x ~= q * scale, scale = max(absmax, 1e-8) / 127 shaped like x with
+    `axis` reduced to 1, codes rounded half to even and clipped to +-127."""
+    xf = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
+    scale = torch.clamp_min(absmax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale

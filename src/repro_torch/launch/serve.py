@@ -2,6 +2,7 @@
 single-engine path of repro/launch/serve.py).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8 --kv-precision int8
 
 Runs on the CUDA device unless `--device cpu` is given.  The prompts are
 drawn exactly as the reference CLI draws them (np.random.default_rng(0)),
@@ -38,6 +39,13 @@ def main(argv=None, *, params=None):
                     help="KV cache block size in tokens")
     ap.add_argument("--kv-blocks", type=int, default=0,
                     help="KV pool blocks (default: worst-case for --slots)")
+    ap.add_argument("--precision", default="float", choices=["float", "w8a8"],
+                    help="execution precision: w8a8 quantizes the weights "
+                         "int8-resident at warmup and serves through the int8 "
+                         "GeMM (repro_torch.quant)")
+    ap.add_argument("--kv-precision", default="float", choices=["float", "int8"],
+                    help="KV pool residency: int8 keeps the paged pool int8 "
+                         "with per-(block, position, head) scales")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda runs the hand-written kernels)")
     args = ap.parse_args(argv)
@@ -47,7 +55,8 @@ def main(argv=None, *, params=None):
     max_seq = args.prompt_len + args.gen_len + 1
     eng = Engine(cfg, params, slots=slots, max_seq=max_seq,
                  block_size=args.block_size, num_blocks=args.kv_blocks or None,
-                 max_chunk=args.chunk, device=args.device, verbose=True)
+                 max_chunk=args.chunk, precision=args.precision,
+                 kv_precision=args.kv_precision, device=args.device, verbose=True)
     t0 = time.time()
     eng.warmup()
     t_warm = time.time() - t0
@@ -64,7 +73,8 @@ def main(argv=None, *, params=None):
     t_serve = time.time() - t0
 
     gen = np.stack([results[rid] for rid in sorted(results)])
-    print(f"arch={cfg.name} slots={slots} device={eng.device} "
+    print(f"arch={cfg.name} slots={slots} precision={args.precision} "
+          f"kv={args.kv_precision} device={eng.device} "
           f"warmup {t_warm * 1e3:.0f}ms serve {t_serve * 1e3:.0f}ms")
     print(f"engine: {eng.metrics.summary()}")
     print("sample continuations:", gen[:2, :8].tolist())

@@ -25,8 +25,8 @@ def _init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return (w * d_in ** -0.5).to(dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b) for a float weight or an int8-resident QuantTensor."""
     y = ops.linear(x, w)
     if b is not None:
         y = y + b

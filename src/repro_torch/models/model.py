@@ -8,6 +8,10 @@ group's parameters on a leading n_groups axis and scans the groups; here
 layer g * group_size + i simply has kind `cfg.layer_kinds()[i]`
 (`cfg.all_layer_kinds()`).
 
+Under the w8a8 precision the projection matrices are `QuantTensor`s
+(quant/params.py) and "head_q" holds the int8 copy of the tied head; the
+model code is the same, since `ops.linear` dispatches on the weight.
+
 The KV pools update in place where the reference donates the state to its
 jitted steps: the reference never keeps a pre-step pool (inactive slots and
 slot slices pass the pools through whole), so the result is the same.
@@ -55,9 +59,10 @@ class PagedDecodeState:
 
 def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
                             block_size: int, max_blocks_per_slot: int,
-                            device) -> PagedDecodeState:
+                            device, kv_precision: str = "float") -> PagedDecodeState:
     caches = [kvc.init_paged_kv(num_blocks, block_size, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, cfg.torch_dtype, device)
+                                cfg.resolved_head_dim, cfg.torch_dtype, device,
+                                kv_precision=kv_precision)
               for _ in range(cfg.n_layers)]
     return PagedDecodeState(
         caches=caches,
@@ -76,6 +81,10 @@ def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.
 
 
 def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
+    # "head_q" is the int8 copy of the tied table that quantize_params adds:
+    # without it a w8a8 step would re-quantize the (vocab x d) table.
+    if "head_q" in params:
+        return layers.dense(x, params["head_q"])
     return layers.unembed(x, params["embed"])
 
 

@@ -12,18 +12,27 @@ Continuous batching over the paged decode state:
   * the paged KV cache hands finished slots' blocks to the next request.
 
     eng = Engine(cfg, slots=4, max_seq=256)      # device="cuda" by default
-    eng.warmup()
+    eng.warmup()                                  # precision="w8a8" quantizes here
     for p in prompts:
         eng.submit(RequestSpec(prompt=p, max_new=16))
     results = eng.run()
     print(eng.metrics.summary())
 
+The int8 deployment precision is two orthogonal switches, as in the
+reference: `precision="w8a8"` makes the weights int8-resident at warmup
+(the float copy is dropped) and runs every projection through the int8
+GeMM with activations quantized per row; `kv_precision="int8"` keeps the
+paged pool int8 with per-(block, position, head) scales.  PyTorch reads the
+precision mode on every call (quant/modes.py), so the engine enters it
+around every step it runs.
+
 Not ported yet: speculative decoding, sampling, preemption, the prefix
-cache, int8 weights or KV, tracing and MFU gauges.
+cache, calibrated int8 ("w8a8-calibrated"), tracing and MFU gauges.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import quant
 from repro_torch.models import model as M
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.prefill import chunk_buckets
@@ -63,9 +73,13 @@ class EngineMetrics:
     decode_time_s: float = 0.0    # wall clock in decode ticks only (synced)
     aot_steps: int = 0            # step shapes run during warmup
     cold_compiles: int = 0        # steps whose shape warmup did not cover
+    precision: str = "float"      # execution precision (quant/modes.py)
+    weight_bytes: int = 0         # resident param bytes (post-quantization)
+    weight_bytes_float: int = 0   # param bytes before quantization
     peak_blocks_in_use: int = 0
     occupancy_sum: float = 0.0
     occupancy_samples: int = 0
+    kv_precision: str = "float"   # pool residency (serving/kv_cache.py)
     kv_pool_bytes: int = 0        # resident KV pool bytes across all layers
     kv_pool_blocks: int = 0       # pool blocks (incl. the null block)
     kv_bytes_per_block: int = 0   # pool bytes per block across all layers
@@ -84,7 +98,7 @@ class EngineMetrics:
     def summary(self) -> str:
         ttft = np.mean([r.ttft_s for r in self.requests]) if self.requests else 0.0
         lat = np.mean([r.latency_s for r in self.requests]) if self.requests else 0.0
-        return (
+        out = (
             f"requests={len(self.requests)} prefill_chunks={self.prefill_chunks} "
             f"prefill_tokens={self.prefill_tokens} "
             f"decode_steps={self.decode_steps} "
@@ -94,9 +108,16 @@ class EngineMetrics:
             f"peak_blocks={self.peak_blocks_in_use} "
             f"warmed={self.aot_steps} cold_compiles={self.cold_compiles} "
             f"kv_pool={self.kv_pool_bytes / 2**20:.1f}MiB "
-            f"({self.kv_pool_blocks} blk x {self.kv_bytes_per_block / 2**10:.1f}KiB) "
+            f"({self.kv_pool_blocks} blk x {self.kv_bytes_per_block / 2**10:.1f}KiB, "
+            f"{self.kv_precision}) "
             f"slots@max_seq={self.kv_slot_capacity}"
         )
+        if self.precision != "float":
+            saved = (1.0 - self.weight_bytes / self.weight_bytes_float
+                     if self.weight_bytes_float else 0.0)
+            out += (f" precision={self.precision} "
+                    f"weights={self.weight_bytes / 2**20:.1f}MiB ({saved:.0%} smaller)")
+        return out
 
 
 class Engine:
@@ -105,7 +126,19 @@ class Engine:
     def __init__(self, cfg, params=None, *, slots: int = 4, max_seq: int = 256,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_chunk: int = 64, max_queue: Optional[int] = None,
+                 precision: str = "float", kv_precision: str = "float",
                  seed: int = 0, device=None, verbose: bool = False):
+        if precision not in quant.MODES:
+            raise ValueError(f"unknown precision {precision!r}; known: {quant.MODES}")
+        if precision == "w8a8-calibrated":
+            raise NotImplementedError(
+                "precision 'w8a8-calibrated' needs activation calibration, which "
+                "replays the unpaged forward; it is not ported yet (ROADMAP.md "
+                "A.6, with the flash-attention kernel and `forward`)")
+        if kv_precision not in ("float", "int8"):
+            raise ValueError(
+                f"unknown kv_precision {kv_precision!r}; known: float, int8")
+        self.precision, self.kv_precision = precision, kv_precision
         self.device = resolve_device(device)
         self.cfg = cfg
         if params is None:
@@ -127,7 +160,7 @@ class Engine:
         self.alloc = kvc.BlockAllocator(self.num_blocks, block_size)
         self.tables = kvc.BlockTables(slots, self.max_blocks_per_slot)
         self.state = self._fresh_state()
-        self.metrics = EngineMetrics()
+        self.metrics = EngineMetrics(kv_precision=kv_precision)
         self._account_kv_pools()
         self._warmed: set = set()                # step shapes run so far
         self._slot_used = [False] * slots        # occupied at least once
@@ -142,7 +175,8 @@ class Engine:
         return M.init_paged_decode_state(
             self.cfg, self.slots, num_blocks=self.num_blocks,
             block_size=self.block_size,
-            max_blocks_per_slot=self.max_blocks_per_slot, device=self.device)
+            max_blocks_per_slot=self.max_blocks_per_slot, device=self.device,
+            kv_precision=self.kv_precision)
 
     def _account_kv_pools(self) -> None:
         m = self.metrics
@@ -156,10 +190,14 @@ class Engine:
     def warmup(self) -> None:
         """Run every step shape once before traffic — decode, each prefill
         chunk bucket, the slot reset — then start from a fresh state (the
-        chunk steps advanced slot 0's length and wrote the pools)."""
+        chunk steps advanced slot 0's length and wrote the pools).  With
+        precision != "float" the weights become int8-resident first, so the
+        steps run here are the int8 steps serving runs."""
+        if self.precision != "float":
+            self._quantize_weights()
         buckets = chunk_buckets(self.max_chunk)
         dev = self.device
-        with torch.no_grad():
+        with torch.no_grad(), self._precision_ctx():
             tokens = torch.zeros((self.slots, 1), dtype=torch.int64, device=dev)
             active = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
             _, state = M.paged_decode_step(self.params, self.cfg, self.state,
@@ -178,7 +216,30 @@ class Engine:
         self.metrics.aot_steps = len(self._warmed)
         if self.verbose:
             print(f"warmup: {len(self._warmed)} step shapes run "
-                  f"(decode + chunks {buckets} + reset) on {dev}")
+                  f"(decode + chunks {buckets} + reset) on {dev}"
+                  + (f" [{self.precision}]" if self.precision != "float" else ""))
+
+    def _precision_ctx(self):
+        """The precision mode every step runs under.  PyTorch reads the mode
+        on each `ops.linear` call, so it is entered around every step, and
+        the process-wide mode is "float" again between steps."""
+        if self.precision == "float":
+            return contextlib.nullcontext()
+        return quant.precision(self.precision)
+
+    def _quantize_weights(self) -> None:
+        """Swap the float params for the int8-resident ones; the float copy
+        is dropped, so the memory saving is real, not additive."""
+        self.metrics.weight_bytes_float = quant.weight_bytes(self.params)
+        self.params = quant.quantize_params(self.params, cfg=self.cfg)
+        self.metrics.weight_bytes = quant.weight_bytes(self.params)
+        self.metrics.precision = self.precision
+        if self.verbose:
+            mb = 2**20
+            print(f"quantized {quant.quantized_leaf_count(self.params)} "
+                  f"weights int8-resident: "
+                  f"{self.metrics.weight_bytes_float / mb:.1f}MiB -> "
+                  f"{self.metrics.weight_bytes / mb:.1f}MiB")
 
     def _note_shape(self, key: str) -> None:
         if key not in self._warmed:
@@ -272,6 +333,15 @@ class Engine:
         if action is None:
             return self.scheduler.has_work
         self._step += 1
+        with self._precision_ctx():
+            self._run_action(action)
+        self.metrics.peak_blocks_in_use = max(
+            self.metrics.peak_blocks_in_use, self.alloc.in_use)
+        self.metrics.occupancy_sum += self.alloc.occupancy()
+        self.metrics.occupancy_samples += 1
+        return True
+
+    def _run_action(self, action) -> None:
         if action[0] == "prefill":
             _, req, chunk = action
             self.tables.ensure(req.slot, req.prefilled + chunk, self.alloc)
@@ -315,11 +385,6 @@ class Engine:
                 self._record_token(r, int(next_tok[r.slot]))
             self.metrics.decode_steps += 1
             self.metrics.decode_tokens += len(reqs)
-        self.metrics.peak_blocks_in_use = max(
-            self.metrics.peak_blocks_in_use, self.alloc.in_use)
-        self.metrics.occupancy_sum += self.alloc.occupancy()
-        self.metrics.occupancy_samples += 1
-        return True
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Drive the loop until the queue and all slots drain."""

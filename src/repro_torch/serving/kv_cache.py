@@ -1,10 +1,17 @@
 """Paged KV cache: fixed-size blocks + per-request block tables (port of
-repro/serving/kv_cache.py, float pools).
+repro/serving/kv_cache.py).
 
 Per attention layer K and V live in a shared pool
 
-  k / v        : (num_blocks, block_size, H_kv, D)
-  block_tables : (slots, max_blocks_per_slot) int32, entries index blocks
+  k / v            : (num_blocks, block_size, H_kv, D)
+  k_scale / v_scale: (num_blocks, block_size, H_kv) float32, int8 pools only
+  block_tables     : (slots, max_blocks_per_slot) int32, entries index blocks
+
+An int8 pool (`kv_precision="int8"`) holds symmetric int8 codes with one
+scale per (block, position, kv head): a token is quantized once, when it
+is written, and readers dequantize (the decode kernel in registers,
+`gather_kv` into float32).  The quantize-on-write is plain PyTorch, as it
+is jnp in the reference.
 
 Block 0 is the reserved null block: unallocated table entries point at it,
 and writes from idle slots or positions past a table's capacity land there.
@@ -22,7 +29,7 @@ steps.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,17 +38,47 @@ NULL_BLOCK = 0
 
 
 class PagedKVCache(NamedTuple):
-    """Block-pooled decode cache for one attention layer."""
+    """Block-pooled decode cache for one attention layer: float pools, or
+    int8 pools with per-(block, position, kv-head) scales."""
 
     k: torch.Tensor  # (num_blocks, block_size, H_kv, D)
     v: torch.Tensor  # (num_blocks, block_size, H_kv, D)
+    k_scale: Optional[torch.Tensor] = None  # (num_blocks, block_size, H_kv) f32
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_paged_kv(num_blocks: int, block_size: int, n_kv_heads: int,
-                  head_dim: int, dtype: torch.dtype, device) -> PagedKVCache:
+                  head_dim: int, dtype: torch.dtype, device, *,
+                  kv_precision: str = "float") -> PagedKVCache:
     shape = (num_blocks, block_size, n_kv_heads, head_dim)
+    if kv_precision == "int8":
+        z8 = dict(dtype=torch.int8, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        return PagedKVCache(k=torch.zeros(shape, **z8), v=torch.zeros(shape, **z8),
+                            k_scale=torch.ones(shape[:-1], **f32),
+                            v_scale=torch.ones(shape[:-1], **f32))
+    if kv_precision != "float":
+        raise ValueError(
+            f"unknown kv_precision {kv_precision!r}; known: float, int8")
     return PagedKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                         v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def quantize_kv_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (token, kv head): (B, S, H, D) float -> ((B, S, H, D)
+    int8 codes, (B, S, H) f32 scales).  A zero row quantizes to zero codes
+    at scale 1, not at the 1e-8 floor of `quantize_ref`.  The scale is
+    amax * f32(1/127), as the reference's compiled write computes it (see
+    kernels/quant.py)."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _flat_positions(block_tables: torch.Tensor, start, S: int,
@@ -69,12 +106,19 @@ def _flat_positions(block_tables: torch.Tensor, start, S: int,
 def write_kv(cache: PagedKVCache, block_tables: torch.Tensor,
              k_new: torch.Tensor, v_new: torch.Tensor, start) -> PagedKVCache:
     """Scatter S new tokens per slot (k_new/v_new (B, S, H, D)) into the
-    pools at positions start..start+S-1, in place.  Distinct live slots own
-    distinct blocks, so real writes never collide; only idle-slot and
-    past-capacity writes share an index, all inside the null block."""
+    pools at positions start..start+S-1, in place; an int8 pool quantizes
+    them first and scatters the scales through the same indices.  Distinct
+    live slots own distinct blocks, so real writes never collide; only
+    idle-slot and past-capacity writes share an index, all inside the null
+    block."""
     nb, bs, H, D = cache.k.shape
     S = k_new.shape[1]
     flat = _flat_positions(block_tables, start, S, bs).reshape(-1)
+    if cache.quantized:
+        k_new, ks = quantize_kv_tokens(k_new)
+        v_new, vs = quantize_kv_tokens(v_new)
+        cache.k_scale.view(nb * bs, H).index_copy_(0, flat, ks.reshape(-1, H))
+        cache.v_scale.view(nb * bs, H).index_copy_(0, flat, vs.reshape(-1, H))
     cache.k.view(nb * bs, H, D).index_copy_(
         0, flat, k_new.reshape(-1, H, D).to(cache.k.dtype))
     cache.v.view(nb * bs, H, D).index_copy_(
@@ -85,7 +129,8 @@ def write_kv(cache: PagedKVCache, block_tables: torch.Tensor,
 def gather_kv(cache: PagedKVCache, block_tables: torch.Tensor):
     """Per-slot contiguous K/V views (B, max_blocks * block_size, H, D): a
     gather through the block table.  Entries past a slot's length read the
-    null block; callers mask by position."""
+    null block; callers mask by position.  int8 pools are dequantized here
+    (float32 out)."""
     nb, bs, H, D = cache.k.shape
     B = block_tables.shape[0]
     offs = torch.arange(bs, device=block_tables.device)
@@ -93,13 +138,15 @@ def gather_kv(cache: PagedKVCache, block_tables: torch.Tensor):
             + offs[None, None, :]).reshape(B, -1)
     k = cache.k.reshape(nb * bs, H, D)[flat]
     v = cache.v.reshape(nb * bs, H, D)[flat]
+    if cache.quantized:
+        k = k.to(torch.float32) * cache.k_scale.reshape(nb * bs, H)[flat][..., None]
+        v = v.to(torch.float32) * cache.v_scale.reshape(nb * bs, H)[flat][..., None]
     return k, v
 
 
 def pool_bytes(cache: PagedKVCache) -> int:
-    """Resident bytes of this pool."""
-    return (cache.k.numel() * cache.k.element_size()
-            + cache.v.numel() * cache.v.element_size())
+    """Resident bytes of this pool (codes and, for int8, scales)."""
+    return sum(t.numel() * t.element_size() for t in cache if t is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import gemm_int8 as tgemm8
+from repro_torch.kernels import quant as tquant
 from repro_torch.serving import kv_cache as tkvc
 
 GEMM_CASES = [  # (M, K, N, transposed B view)
@@ -18,6 +20,13 @@ GEMM_CASES = [  # (M, K, N, transposed B view)
     (1, 33, 129, True),       # the tied-head shape class: B = table.T
     (64, 40, 17, True),
     (8, 6912, 300, False),    # split-K with a ragged tail
+]
+
+INT8_CASES = GEMM_CASES + [   # K % 16 == 0 with a K-contiguous B: 16-byte loads
+    (8, 1152, 1024, True),
+    (13, 1152, 300, True),    # ragged M and N
+    (64, 6912, 1152, True),   # split-K, 64-row tile
+    (8, 1040, 200, True),     # K not a multiple of the 64-byte K tile
 ]
 
 
@@ -47,16 +56,62 @@ def test_gemm_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq,window,splits", [
-    (1, None, 1), (1, None, 4), (3, None, 2), (1, 6, 1), (3, 6, 4)])
-def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits):
-    """Ragged lengths (one at the table's capacity), GQA packing, windows,
-    Sq > 1 and split-K against the plain walk and the gather oracle."""
-    B, bs, max_blocks, hkv, groups, d = 3, 4, 6, 2, 2, 64
+@pytest.mark.parametrize("mode", ["dequant_f32", "dequant_bf16", "int"])
+def test_int8_gemm_kernel_matches_plain_bitwise(cuda_device, mode):
+    """K3 (dequant epilogue, f32 or bf16 out) and K1's int mode equal their
+    plain versions bit for bit: the int32 sums are exact and the epilogue's
+    order is fixed.  Covers ragged shapes, a transposed-view B on the
+    16-byte path, a (K, N) B on the byte path, and split-K with a ragged
+    tail."""
+    rng = np.random.default_rng(0)
+    tgemm8.reset_launches()
+    for M, K, N, transposed in INT8_CASES:
+        a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, size=(N, K) if transposed
+                                          else (K, N), dtype=np.int8))
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        b = b.t() if transposed else b
+        if mode == "int":
+            got, want = tgemm8.gemm_int(a, b), tgemm8.gemm_int_plain(a, b)
+        else:
+            out = torch.float32 if mode == "dequant_f32" else torch.bfloat16
+            sa = torch.from_numpy(rng.uniform(1e-3, 1e-1, size=(M, 1))
+                                  .astype(np.float32)).to(cuda_device)
+            sb = torch.from_numpy(rng.uniform(1e-3, 1e-1, size=(1, N))
+                                  .astype(np.float32)).to(cuda_device)
+            got = tgemm8.dequant_gemm(a, b, sa, sb, out_dtype=out)
+            want = tgemm8.dequant_gemm_plain(a, b, sa, sb, out)
+        assert got.dtype == want.dtype and torch.equal(got, want), (M, K, N, transposed)
+    n = len(INT8_CASES)
+    assert (tgemm8.int_launches, tgemm8.launches) == ((n, 0) if mode == "int" else (0, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_kernel_matches_plain_bitwise(cuda_device, dtype):
+    """K4's codes and scales equal `quantize_ref(x, -1)` bit for bit, for
+    ragged M, a zero row (the 1e-8 floor) and exact .5 ties (half to even)."""
+    rng = np.random.default_rng(2)
+    tquant.reset_launches()
+    for M, K in [(1, 1152), (7, 70), (300, 6912)]:
+        x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+        x[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5])  # ties at scale 1
+        if M > 1:
+            x[1] = 0.0
+        x = x.to(cuda_device, dtype)
+        q, s = tquant.quantize_rows(x)
+        qp, sp = tquant.quantize_rows_plain(x)
+        assert q.dtype == torch.int8 and s.shape == (M, 1)
+        assert torch.equal(q, qp) and torch.equal(s, sp), (M, K)
+    assert tquant.launches == 3
+
+
+def _lived_in_pool(cuda_device, kv_precision, rng):
+    B, bs, max_blocks, hkv, d = 3, 4, 6, 2, 64
     lengths = [5, 12, max_blocks * bs]
-    rng = np.random.default_rng(1)
     nb = 1 + B * max_blocks
-    cache = tkvc.init_paged_kv(nb, bs, hkv, d, torch.float32, cuda_device)
+    cache = tkvc.init_paged_kv(nb, bs, hkv, d, torch.float32, cuda_device,
+                               kv_precision=kv_precision)
     alloc, tables = tkvc.BlockAllocator(nb, bs), tkvc.BlockTables(B, max_blocks)
     for s, n in enumerate(lengths):
         tables.ensure(s, n, alloc)
@@ -64,6 +119,21 @@ def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits):
     kv = torch.from_numpy(rng.normal(size=(2, B, max(lengths), hkv, d))
                           .astype(np.float32)).to(cuda_device)
     tkvc.write_kv(cache, bt, kv[0], kv[1], 0)
+    return cache, bt, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_precision", ["float", "int8"])
+@pytest.mark.parametrize("sq,window,splits", [
+    (1, None, 1), (1, None, 4), (3, None, 2), (1, 6, 1), (3, 6, 4)])
+def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits,
+                                           kv_precision):
+    """Ragged lengths (one at the table's capacity), GQA packing, windows,
+    Sq > 1 and split-K against the plain walk and the gather oracle, for a
+    float pool and an int8 pool with its scales."""
+    rng = np.random.default_rng(1)
+    cache, bt, lengths = _lived_in_pool(cuda_device, kv_precision, rng)
+    B, hkv, d, groups = len(lengths), cache.k.shape[2], cache.k.shape[3], 2
     q = torch.from_numpy(rng.normal(size=(B, sq, hkv * groups, d))
                          .astype(np.float32)).to(cuda_device)
     idx = torch.tensor([n - sq for n in lengths], dtype=torch.int32,
@@ -71,7 +141,8 @@ def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits):
     tfd.reset_launches()
     got = tfd.flash_decode_attention(q, cache, bt, idx, window=window,
                                      spec=tfd.FlashDecodeSpec(num_splits=splits))
-    assert tfd.launches == 1
+    assert (tfd.launches, tfd.launches_int8) == \
+        ((0, 1) if kv_precision == "int8" else (1, 0))
     for want in (tfd.ref_paged_decode(q, cache, bt, idx, window=window),
                  tfd.gather_decode(q, cache, bt, idx, window=window)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -87,3 +158,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         tfd.flash_decode_attention(q, cache, bt, 0)       # head_dim 48
+    q = torch.zeros((1, 1, 2, 64), device=cuda_device)
+    cache8 = tkvc.init_paged_kv(2, 4, 1, 64, torch.float32, cuda_device,
+                                kv_precision="int8")
+    with pytest.raises(ValueError, match="scales"):      # int8 pool, no scales
+        tfd.flash_decode_attention(q, cache8._replace(k_scale=None, v_scale=None), bt, 0)
+    with pytest.raises(ValueError, match="device"):      # scales on the CPU
+        tfd.flash_decode_attention(q, cache8._replace(k_scale=cache8.k_scale.cpu()), bt, 0)
+    a8 = torch.zeros((4, 8), device=cuda_device, dtype=torch.int8)
+    with pytest.raises(ValueError, match="device"):      # scales on the CPU
+        tgemm8.dequant_gemm(a8, a8.t(), torch.ones((4, 1)),
+                            torch.ones((1, 4), device=cuda_device))
+    with pytest.raises(TypeError):                       # f32 operands
+        tgemm8.gemm_int(a8.float(), a8.t())
+    with pytest.raises(TypeError):                       # f16 activations
+        tquant.quantize_rows(a8.half())

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_engine_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch.serving.engine, repro_torch.launch.serve, "
-            "repro_torch.bridge; print('ok')")
+            "repro_torch.bridge, repro_torch.quant, repro_torch.kernels.quant, "
+            "repro_torch.kernels.gemm_int8; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

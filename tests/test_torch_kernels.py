@@ -1,7 +1,7 @@
 """Port kernels against the reference: the plain GeMM and plain paged
 decode against the Pallas kernels in interpret mode and the reference's
 oracles, on the same numpy-made inputs; CPU tensors never launch a CUDA
-kernel.  (The CUDA kernels themselves are held against these plain
+kernel.  (The int8 kernels' plain versions: tests/test_torch_quant.py.)  (The CUDA kernels themselves are held against these plain
 versions on the card: tests/test_torch_gpu.py and chip_smoke.py.)"""
 
 import jax.numpy as jnp
@@ -14,9 +14,12 @@ from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.models.attention import decode_attention as r_decode_attention
 from repro.serving import kv_cache as rkvc
+from repro_torch import quant
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import gemm as tgemm
+from repro_torch.kernels import gemm_int8 as tgemm8
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quant as tkquant
 from repro_torch.serving import kv_cache as tkvc
 
 
@@ -72,6 +75,9 @@ def test_gemm_plain_matches_reference_kernel(M, K, N, transposed, dtype):
 
 
 def test_linear_casts_to_input_dtype_and_rejects_int8():
+    """`linear` answers in the input's dtype; quant="int8" on a float weight
+    (activations per row, the weight per column, dequant epilogue) matches
+    the reference's `linear(..., quant="int8")` and no longer raises."""
     a, b = _operands(6, 16, 8, False)
     x = torch.from_numpy(a).to(torch.bfloat16).reshape(2, 3, 16)
     y = tops.linear(x, torch.from_numpy(b).to(torch.bfloat16))
@@ -79,8 +85,13 @@ def test_linear_casts_to_input_dtype_and_rejects_int8():
     want = (torch.from_numpy(a).to(torch.bfloat16).float()
             @ torch.from_numpy(b).to(torch.bfloat16).float()).to(torch.bfloat16)
     assert torch.equal(y.reshape(6, 8), want)
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        tops.linear(x, torch.from_numpy(b), quant="int8")
+    for dtype in ("float32", "bfloat16"):
+        tx = torch.from_numpy(a).to(getattr(torch, dtype)).reshape(2, 3, 16)
+        jx = jnp.asarray(a, getattr(jnp, dtype)).reshape(2, 3, 16)
+        got = tops.linear(tx, torch.from_numpy(b), quant="int8")
+        want = np.asarray(rops.linear(jx, jnp.asarray(b), quant="int8"), np.float32)
+        assert got.shape == (2, 3, 8) and got.dtype == tx.dtype
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-6, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +161,21 @@ def test_paged_decode_plain_matches_reference(sq, window, splits):
 
 def test_cpu_tensors_launch_no_kernel():
     """On CPU tensors the wrappers run the plain versions: no CUDA kernel
-    launches, so the launch counters stay 0."""
-    tgemm.reset_launches()
-    tfd.reset_launches()
+    launches, so the launch counters stay 0 (float and int8 GeMMs, row
+    quantization, and paged decode over a float and an int8 pool)."""
+    for mod in (tgemm, tgemm8, tkquant, tfd):
+        mod.reset_launches()
     a, b = _operands(4, 8, 8, False)
-    tops.linear(torch.from_numpy(a), torch.from_numpy(b))
+    x, w = torch.from_numpy(a), torch.from_numpy(b)
+    tops.linear(x, w)
+    tops.linear(x, w, quant="int8")
+    tops.linear(x, quant.quantize_leaf(w))
+    tops.gemm(tops.quantize(x)[0], quant.quantize_leaf(w).q)
     (_, _), (tcache, tbt) = _pools()
     q, idx = _query(1)
     tfd.paged_decode_attention(torch.from_numpy(q), tcache, tbt, torch.from_numpy(idx))
-    assert tgemm.launches == 0 and tfd.launches == 0
+    cache8 = tkvc.init_paged_kv(tcache.k.shape[0], BS, HKV, D, torch.float32, "cpu",
+                                kv_precision="int8")
+    tfd.paged_decode_attention(torch.from_numpy(q), cache8, tbt, torch.from_numpy(idx))
+    assert (tgemm.launches, tgemm8.launches, tgemm8.int_launches, tkquant.launches,
+            tfd.launches, tfd.launches_int8) == (0,) * 6

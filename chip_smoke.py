@@ -8,9 +8,12 @@ Phases, in order; any failure exits non-zero:
   1. card name and power limit; build the CUDA kernels from src/ (one nvcc
      per source, all at once) and print the build seconds.
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes greedy gemma3-1b serving gives it, with stated tolerances; the
-     int8 GeMM (dequant epilogue and int mode) and the row quantization
-     bit for bit.
+     shapes gemma3-1b gives it, with stated tolerances; the int8 GeMM
+     (dequant epilogue and int mode) and the row quantization bit for bit;
+     flash attention (K5) at the reference's test shapes and gemma3-1b's
+     (D 256, 4 q heads over 1 kv head, S 1024, global and window 512); the
+     pipelined GeMM (K6) at depths 2, 3 and 4 on every projection shape and
+     the tied head, f32 / bf16 / int8.
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
@@ -20,12 +23,25 @@ Phases, in order; any failure exits non-zero:
   3b. the same run in the int8 deployment precision (w8a8 weights, int8 KV
      pool): the dequant GeMM and the row quantization 183 times per step,
      the int8 decode branch 26 times, the float GeMM never.
+  3c. the same run in calibrated w8a8 (static activation scales) with an
+     int8 KV pool: warmup calibrates through the unpaged forward (flash
+     attention 26 x 2 batches, the float GeMM 7 x 26 x 2); serving runs the
+     dequant GeMM 183 times per step and the row quantization never.
+  3d. phase 3's float run under the pipelined GeMM backend (depth 3): K6
+     183 times per step, K1 never; its first decode step's logits near the
+     tiled backend's.
   4. the same weights at full width, depth cut to 6 layers (5 local + 1
-     global), float32, served on the card (kernels) and on the CPU (plain
-     versions): greedy tokens must be identical, in float and in w8a8 with
-     an int8 KV pool; w8a8 logits stay near the float logits.
+     global), float32, on the card (kernels) and on the CPU (plain
+     versions): greedy tokens identical in float, in w8a8 with an int8 KV
+     pool, in calibrated w8a8 and under the pipelined backend; w8a8 logits
+     near the float logits; `forward` logits and the calibration table
+     equal across devices.
+  6. quality: `quant.quality_delta` at full width, bf16, on 2 batches of
+     (2, 1024) tokens: float, w8a8 and calibrated w8a8 NLLs and the worst
+     layers of the weight-error table.
   5. each kernel timed at its main-path shapes with CUDA events (L2 cold),
-     beside its bound, its plain version and the library call.
+     beside its bound, its plain version and the library call; K6 at each
+     ring depth beside K1 (the paper's Fig. 5 depth sweep).
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -85,6 +101,13 @@ GEMM_TOL = {"float32": (1e-4, 1e-4),      # f32 sums of <= 6912 terms, reordered
             "bfloat16": (2 ** -7, 1e-3)}  # one bf16 ulp of the rounded output
 DECODE_TOL = {"float32": (1e-4, 1e-4),    # online softmax over ~1100 keys, reordered
               "bfloat16": (2 ** -7, 2 ** -8)}
+# flash attention: f32 sums reordered; in bf16 p and out round to bf16 in
+# both versions at other tiles, so one bf16 ulp of the rounded output.
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 2 ** -8)}
+# pipelined GeMM: f32 out of weights scaled K^-0.5 within 1e-5 (reordered
+# sums); bf16 out within one bf16 ulp, as K1; int8 -> int32 bit for bit.
+PIPE_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -7, 1e-3)}
+DEPTHS = (2, 3, 4)
 # int8 kernels: exact int32 sums and a fixed epilogue order, so bit for bit.
 # The int8 decode branch dequantizes as code * scale in f32 exactly as its
 # plain versions do, so it takes the float branch's tolerances.
@@ -258,17 +281,94 @@ def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
     return worst
 
 
+FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
+    (1, 128, 2, 2, 64, True, None), (2, 256, 4, 2, 64, True, None),
+    (1, 192, 4, 1, 128, True, None), (1, 128, 2, 2, 64, False, None),
+    (1, 256, 2, 1, 64, True, 64),                       # tests/test_flash_attention.py
+    (2, 1024, 4, 1, 256, True, None), (2, 1024, 4, 1, 256, True, 512),   # gemma3-1b
+    (2, 1000, 4, 1, 256, True, 512),                    # S not a multiple of the tile
+    (2, 32, 4, 1, 256, True, None), (2, 32, 4, 1, 256, True, 512),  # the calibration batches
+]
+
+
+def phase_kernels_slice3(torch, fa, gp):
+    """Slice 3's kernels against their plain versions: flash attention at
+    the reference's test shapes and gemma3-1b's, bf16 and f32; the
+    pipelined GeMM at every depth on GEMM_SHAPES for M = 8 and 64 (B as the
+    model holds it: (K, N), the head a .t() view) in f32 and bf16, and in
+    int8 with B in the serving layout, bit for bit."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"flash_attention": 0.0, "gemm_pipelined": 0.0}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        rtol, atol = FLASH_TOL[dname]
+        for B, S, Hq, Hkv, D, causal, window in FLASH_SHAPES:
+            q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                       for h in (Hq, Hkv, Hkv))
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+            abs_e, rel_e, ok = close(got, want, rtol, atol)
+            worst["flash_attention"] = max(worst["flash_attention"], abs_e)
+            print(f"  flash_attention {dname} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"causal={causal} window={window}: max_abs={abs_e:.3e} "
+                  f"max_rel={rel_e:.3e} tol=(rtol {rtol:g}, atol {atol:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {dname} {(B, S, Hq, Hkv, D, causal, window)}")
+    for dname in ("bfloat16", "float32", "int8"):
+        for M in (8, 64):
+            for name, K, N, transposed in GEMM_SHAPES:
+                shape_b = (N, K) if transposed or dname == "int8" else (K, N)
+                if dname == "int8":
+                    a = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                                      dtype=torch.int8)
+                    b = torch.randint(-127, 128, shape_b, generator=g, device=dev,
+                                      dtype=torch.int8).t()
+                    want = gp.gemm_plain(a, b)
+                else:
+                    dt = getattr(torch, dname)
+                    a = torch.randn((M, K), generator=g, device=dev).to(dt)
+                    b = (torch.randn(shape_b, generator=g, device=dev) * K ** -0.5).to(dt)
+                    b = b.t() if transposed else b
+                    want = gp.gemm_plain(a, b, dt)
+                errs = []
+                for depth in DEPTHS:
+                    if dname == "int8":
+                        got = gp.gemm(a, b, depth=depth)
+                        err = float((got - want).abs().max())
+                        ok = got.dtype == torch.int32 and torch.equal(got, want)
+                    else:
+                        got = gp.gemm(a, b, depth=depth, out_dtype=dt)
+                        err, _, ok = close(got, want, *PIPE_TOL[dname])
+                    worst["gemm_pipelined"] = max(worst["gemm_pipelined"], err)
+                    errs.append(f"{err:.3e}")
+                    check(ok, f"gemm_pipelined {dname} M={M} {name} depth={depth}")
+                tol = "bit for bit" if dname == "int8" else \
+                    "tol=(rtol {:g}, atol {:g})".format(*PIPE_TOL[dname])
+                print(f"  gemm_pipelined {dname} M={M} {name} {K}x{N} depths {DEPTHS}: "
+                      f"max_abs={'/'.join(errs)} {tol} ok")
+                del a, b, got, want
+    torch.cuda.synchronize()
+    return worst
+
+
 # Hand-kernel launch counters: name -> (module key, counter attribute).
 COUNTERS = {"gemm": ("gemm", "launches"), "flash_decode": ("fd", "launches"),
             "gemm_int": ("gemm8", "int_launches"), "dequant_gemm": ("gemm8", "launches"),
             "quantize_rows": ("kq", "launches"),
-            "flash_decode_int8": ("fd", "launches_int8")}
+            "flash_decode_int8": ("fd", "launches_int8"),
+            "flash_attention": ("fa", "launches"), "gemm_pipelined": ("gp", "launches")}
 # Launches per step (prefill chunk or decode step) of gemma3-1b, by precision:
 # 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs (each with
 # its row quantization in w8a8), one decode-attention launch per layer.
-PER_STEP = {("float", "float"): {"gemm": 183, "flash_decode": 26},
-            ("w8a8", "int8"): {"dequant_gemm": 183, "quantize_rows": 183,
-                               "flash_decode_int8": 26}}
+# Calibrated w8a8 quantizes activations with static scales in plain ops
+# (no row quantization); the pipelined backend swaps K1 for K6.
+PER_STEP = {("float", "float", "tiled"): {"gemm": 183, "flash_decode": 26},
+            ("w8a8", "int8", "tiled"): {"dequant_gemm": 183, "quantize_rows": 183,
+                                        "flash_decode_int8": 26},
+            ("w8a8-calibrated", "int8", "tiled"): {"dequant_gemm": 183,
+                                                   "flash_decode_int8": 26},
+            ("float", "float", "pipelined"): {"gemm_pipelined": 183, "flash_decode": 26}}
 
 
 def reset_counts(mods) -> None:
@@ -284,11 +384,11 @@ def rel_l2(torch, got, want) -> float:
     return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
 
 
-def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant,
-                 precision="float", kv_precision="float"):
+def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops,
+                 precision="float", kv_precision="float", backend="tiled"):
     cfg = configs.get("gemma3-1b")
     check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
-    plan = PER_STEP[(precision, kv_precision)]
+    plan = PER_STEP[(precision, kv_precision, backend)]
     t0 = time.monotonic()
     params = M.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -296,67 +396,156 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant,
           f"matrix params ({cfg.param_count() * 2 / 1e9:.2f} GB bf16)")
     rng = np.random.default_rng(0)
     probe = rng.integers(0, cfg.vocab, size=300)
-    if precision != "float":   # the float model's logits, for the fidelity print
+    if precision != "float" or backend != "tiled":   # the tiled float logits, for comparison
         float_logits = _prompt_logits(torch, M, kvc, quant, cfg, params, probe, "cuda")
     eng = Engine(cfg, params, slots=8, max_seq=1200, block_size=16, max_chunk=64,
                  precision=precision, kv_precision=kv_precision, device="cuda")
     del params     # w8a8: the engine's warmup then drops the float weights
-    t0 = time.monotonic()
-    eng.warmup()
-    print(f"  warmup: {time.monotonic() - t0:.2f}s ({eng.metrics.aot_steps} step shapes)")
-    rng = np.random.default_rng(0)
-    plens = rng.integers(200, 1101, size=12)
-    plens[:3] = (1100, 800, 513)                      # several past the 512 window
-    max_new = rng.integers(32, 65, size=12)
-    for n, m in zip(plens, max_new):
-        eng.submit(RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)),
-                               max_new=int(m)))
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(mods)
-    t0 = time.monotonic()
-    results = eng.run()
-    torch.cuda.synchronize()
-    t_run = time.monotonic() - t0
-    launches = read_counts(mods)
-    m = eng.metrics
-    steps = m.prefill_chunks + m.decode_steps
-    print(f"  served {len(results)} requests in {t_run:.2f}s: "
-          f"{m.prefill_chunks} prefill chunks ({m.prefill_tokens} tok), "
-          f"{m.decode_steps} decode steps ({m.decode_tokens} tok)")
-    print(f"  prefill step {m.prefill_time_s / m.prefill_chunks * 1e3:.2f} ms/chunk, "
-          f"decode step {m.decode_time_s / m.decode_steps * 1e3:.2f} ms/step, "
-          f"decode {m.throughput_tok_s:.1f} tok/s, prefill "
-          f"{m.prefill_tokens / m.prefill_time_s:.1f} tok/s")
-    wb = m.weight_bytes or quant.weight_bytes(eng.params)
-    print(f"  resident weights {wb / 1e9:.3f} GB"
-          + (f" (float {m.weight_bytes_float / 1e9:.3f} GB)" if m.weight_bytes_float else "")
-          + f", kv pool {m.kv_pool_bytes / 1e9:.3f} GB {kv_precision} "
-          f"({m.kv_pool_blocks} blocks), peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, cold_compiles={m.cold_compiles}")
-    print("  launches: " + " ".join(f"{k}={v}" for k, v in launches.items())
-          + f" (steps={steps}, 183 x steps = {183 * steps})")
-    check(sorted(results) == list(range(12)), "every request finished")
-    for rid, toks in results.items():
-        check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
-        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
-    want = {k: plan.get(k, 0) * steps for k in launches}
-    check(launches == want, f"launches per step: got {launches}, want {want}")
-    check(m.cold_compiles == 0, "warmup covered every step shape")
-    ops = _count_decode_ops(torch, M, eng, mods, quant)
-    print(f"  one decode step dispatches {ops['ops']} PyTorch ops ({ops['views']} views, "
-          f"{ops['empty']} allocations) beside {ops['kernels']} hand-kernel launches")
-    summary = {"decode_ms": m.decode_time_s / m.decode_steps * 1e3,
-               "prefill_ms": m.prefill_time_s / m.prefill_chunks * 1e3,
-               "decode_tok_s": m.throughput_tok_s, "launches": launches}
-    if precision != "float":
-        got = _prompt_logits(torch, M, kvc, quant, cfg, eng.params, probe, "cuda",
-                             precision=precision, kv_precision=kv_precision)
-        print(f"  26-layer bf16 fidelity (not checked): relative L2 of the first decode "
-              f"step's logits, {precision} + {kv_precision} KV vs float = "
-              f"{rel_l2(torch, got[1], float_logits[1]):.4f}")
+    ops.set_default_backend(backend)
+    try:
+        reset_counts(mods)
+        t0 = time.monotonic()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm = read_counts(mods)
+        print(f"  warmup: {time.monotonic() - t0:.2f}s ({eng.metrics.aot_steps} step shapes"
+              + (f", {eng.metrics.calib_sites} activation sites calibrated"
+                 if precision == "w8a8-calibrated" else "") + ")")
+        if precision == "w8a8-calibrated":
+            print("  warmup launches: " + " ".join(f"{k}={v}" for k, v in warm.items()))
+            n_calib = 2 * 26                           # 2 synthetic batches x 26 layers
+            check(eng.metrics.calib_sites == 7 * 26 + 1, "every projection and the head calibrated")
+            check(warm["flash_attention"] == n_calib,
+                  f"calibration ran flash attention 26 x 2 times: {warm['flash_attention']}")
+            check(warm["gemm"] == 7 * n_calib, f"calibration ran K1 7 x 26 x 2 times: {warm['gemm']}")
+            check(warm["quantize_rows"] == 0, "static scales: no row quantization in warmup")
+        rng = np.random.default_rng(0)
+        plens = rng.integers(200, 1101, size=12)
+        plens[:3] = (1100, 800, 513)                  # several past the 512 window
+        max_new = rng.integers(32, 65, size=12)
+        for n, m in zip(plens, max_new):
+            eng.submit(RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)),
+                                   max_new=int(m)))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mods)
+        t0 = time.monotonic()
+        results = eng.run()
+        torch.cuda.synchronize()
+        t_run = time.monotonic() - t0
+        launches = read_counts(mods)
+        m = eng.metrics
+        steps = m.prefill_chunks + m.decode_steps
+        print(f"  served {len(results)} requests in {t_run:.2f}s: "
+              f"{m.prefill_chunks} prefill chunks ({m.prefill_tokens} tok), "
+              f"{m.decode_steps} decode steps ({m.decode_tokens} tok)")
+        print(f"  prefill step {m.prefill_time_s / m.prefill_chunks * 1e3:.2f} ms/chunk, "
+              f"decode step {m.decode_time_s / m.decode_steps * 1e3:.2f} ms/step, "
+              f"decode {m.throughput_tok_s:.1f} tok/s, prefill "
+              f"{m.prefill_tokens / m.prefill_time_s:.1f} tok/s")
+        wb = m.weight_bytes or quant.weight_bytes(eng.params)
+        print(f"  resident weights {wb / 1e9:.3f} GB"
+              + (f" (float {m.weight_bytes_float / 1e9:.3f} GB)" if m.weight_bytes_float else "")
+              + f", kv pool {m.kv_pool_bytes / 1e9:.3f} GB {kv_precision} "
+              f"({m.kv_pool_blocks} blocks), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, cold_compiles={m.cold_compiles}")
+        print("  launches: " + " ".join(f"{k}={v}" for k, v in launches.items())
+              + f" (steps={steps}, 183 x steps = {183 * steps})")
+        check(sorted(results) == list(range(12)), "every request finished")
+        for rid, toks in results.items():
+            check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
+            check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
+        want = {k: plan.get(k, 0) * steps for k in launches}
+        check(launches == want, f"launches per step: got {launches}, want {want}")
+        check(m.cold_compiles == 0, "warmup covered every step shape")
+        ops_ = _count_decode_ops(torch, M, eng, mods, quant)
+        print(f"  one decode step dispatches {ops_['ops']} PyTorch ops ({ops_['views']} views, "
+              f"{ops_['empty']} allocations) beside {ops_['kernels']} hand-kernel launches")
+        summary = {"decode_ms": m.decode_time_s / m.decode_steps * 1e3,
+                   "prefill_ms": m.prefill_time_s / m.prefill_chunks * 1e3,
+                   "decode_tok_s": m.throughput_tok_s, "launches": launches}
+        if backend != "tiled":
+            summary["paired"] = _paired_backends(torch, M, eng, ops, quant, mods)
+        if precision != "float" or backend != "tiled":
+            # The decode step takes the float run's greedy token: over 262144
+            # near-flat logits a run's own argmax may differ, and the step's
+            # logits would then answer another token.
+            got = _prompt_logits(torch, M, kvc, quant, cfg, eng.params, probe, "cuda",
+                                 precision=precision, kv_precision=kv_precision,
+                                 next_token=int(float_logits[0].argmax()))
+            err = rel_l2(torch, got[1], float_logits[1])
+            if backend != "tiled":
+                print(f"  relative L2 of the first decode step's logits, {backend} vs tiled "
+                      f"backend: {err:.3e} (bar 1e-2)")
+                check(err < 1e-2, f"{backend} logits within 1e-2 relative L2 of tiled")
+            else:
+                print(f"  26-layer bf16 fidelity (not checked): relative L2 of the logits, "
+                      f"{precision} + {kv_precision} KV vs float: last prefill chunk "
+                      f"{rel_l2(torch, got[0], float_logits[0]):.4f}, first decode step "
+                      f"(on the float run's token) {err:.4f}")
+    finally:
+        ops.set_default_backend("tiled")
     del eng
     torch.cuda.empty_cache()
     return summary
+
+
+def _paired_backends(torch, M, eng, ops, quant, mods, reps: int = 20, calls: int = 1000):
+    """The float decode step of `eng` (all slots active, the state not
+    advanced) under each GeMM backend, in the order tiled, pipelined,
+    pipelined, tiled: wall ms of a synced step and host ms until the step
+    returns (its enqueue time), medians over `reps` steps after 2 untimed.
+    Then the host us per eager call at a small bf16 shape (8 x 256 @ 256 x
+    256: kernels of a few us, so the host sets the pace): `ops.linear` under
+    each backend, and the two wrappers called directly."""
+    gemm, gp = mods["gemm"], mods["gp"]
+    prev = ops.get_default_backend()
+    order = ("tiled", "pipelined", "pipelined", "tiled")
+    tokens = torch.zeros((eng.slots, 1), dtype=torch.int64, device=eng.device)
+    active = torch.ones((eng.slots,), dtype=torch.bool, device=eng.device)
+    wall = {b: [] for b in order}
+    host = {b: [] for b in order}
+    with torch.no_grad(), quant.precision(eng.precision):
+        for backend in order:
+            ops.set_default_backend(backend)
+            for i in range(reps + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                M.paged_decode_step(eng.params, eng.cfg, eng.state, tokens, active)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    wall[backend].append((time.perf_counter() - t0) * 1e3)
+                    host[backend].append((t1 - t0) * 1e3)
+        x = torch.randn((8, 256), device=eng.device).to(torch.bfloat16)
+        w = (torch.randn((256, 256), device=eng.device) / 16).to(torch.bfloat16)
+        fns = {"ops.linear tiled": ("tiled", lambda: ops.linear(x, w)),
+               "ops.linear pipelined": ("pipelined", lambda: ops.linear(x, w)),
+               "gemm.gemm": ("tiled", lambda: gemm.gemm(x, w, out_dtype=torch.bfloat16)),
+               "gemm_pipelined.gemm": ("tiled",
+                                       lambda: gp.gemm(x, w, out_dtype=torch.bfloat16))}
+        call_us = {k: [] for k in fns}
+        for _ in range(2):
+            for name, (backend, fn) in fns.items():
+                ops.set_default_backend(backend)
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                call_us[name].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+    ops.set_default_backend(prev)
+    med = lambda v: sorted(v)[len(v) // 2]
+    res = {"wall_ms": {b: med(v) for b, v in wall.items()},
+           "host_ms": {b: med(v) for b, v in host.items()},
+           "call_us": {k: min(v) for k, v in call_us.items()}}
+    print("  paired decode steps (tiled, pipelined, pipelined, tiled; median of "
+          f"{reps} x 2): " + ", ".join(
+              f"{b} wall {res['wall_ms'][b]:.2f} ms host {res['host_ms'][b]:.2f} ms"
+              for b in ("tiled", "pipelined")))
+    print(f"  host us per eager call, 8x256 @ 256x256 bf16 (best of 2 x {calls}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in res["call_us"].items()))
+    return res
 
 
 def _count_decode_ops(torch, M, eng, mods, quant):
@@ -385,7 +574,7 @@ def _count_decode_ops(torch, M, eng, mods, quant):
             "kernels": sum(read_counts(mods).values()) - k0}
 
 
-def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant):
+def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
     cfg = dataclasses.replace(configs.get("gemma3-1b"), n_layers=6, group_size=6,
                               dtype="float32")
     check(cfg.layer_kinds().count("attn_local") == 5, "6-layer cut: 5 local + 1 global")
@@ -396,6 +585,58 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant):
                               for k, v in layer.items()} for layer in params["layers"]]}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (600, 300)]
+
+    # The unpaged forward (K5 + K1 on the card) at the float bar, S = 520
+    # > the 512 window, every position's logits.
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, 520)))
+    with torch.no_grad():
+        got = M.forward(params, cfg, {"tokens": tokens.cuda()}).float().cpu()
+        want = M.forward(cpu_params, cfg, {"tokens": tokens})
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    top_eq = got[0, -1].topk(8).indices.tolist() == want[0, -1].topk(8).indices.tolist()
+    print(f"  forward logits (1 x 520 tokens), CUDA vs CPU: max_abs_diff={err:.3e} "
+          f"(max |logit| {scale:.3e}), last position top-8 "
+          f"{'equal' if top_eq else 'DIFFER'}; bar 1e-4 x max|logit|, top-8 equal")
+    check(err <= 1e-4 * scale and top_eq, "forward logits CUDA vs CPU")
+    del got, want
+    # The calibration table, replayed through forward on each device.
+    batches = quant.synthetic_batches(cfg, n=2, batch=2, seq=32, seed=0)
+    t_cuda = quant.collect_scales(params, cfg, batches)
+    t_cpu = quant.collect_scales(cpu_params, cfg, batches)
+    worst = max(abs(t_cuda.scales[k] / v - 1) for k, v in t_cpu.scales.items()) \
+        if sorted(t_cuda.scales) == sorted(t_cpu.scales) else float("inf")
+    print(f"  calibration table CUDA vs CPU: {len(t_cuda)} sites, same keys: "
+          f"{sorted(t_cuda.scales) == sorted(t_cpu.scales)}, max relative difference "
+          f"{worst:.3e} (bar 1e-4)")
+    check(worst <= 1e-4, "calibration table CUDA vs CPU")
+
+    def serve(dev, p, precision, kv_precision):
+        eng = Engine(cfg, p, slots=2, max_seq=640, block_size=16, max_chunk=64,
+                     precision=precision, kv_precision=kv_precision, device=dev)
+        eng.warmup()
+        for pr in prompts:
+            eng.submit(RequestSpec(prompt=pr, max_new=8))
+        return eng.run()
+
+    # Tokens only: calibrated w8a8, and the float engine under the pipelined
+    # backend (K6 on the card, the same plain GeMM on the CPU).
+    for precision, kv_precision, backend in (("w8a8-calibrated", "int8", "tiled"),
+                                             ("float", "float", "pipelined")):
+        out = {}
+        ops.set_default_backend(backend)
+        try:
+            for dev, p in (("cuda", params), ("cpu", cpu_params)):
+                t0 = time.monotonic()
+                out[dev] = serve(dev, p, precision, kv_precision)
+                print(f"  precision={precision}, kv={kv_precision}, backend={backend}, "
+                      f"{dev}: {time.monotonic() - t0:.1f}s, tokens "
+                      f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
+        finally:
+            ops.set_default_backend("tiled")
+        for rid in out["cpu"]:
+            check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
+                  f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
+                  f"({precision}, {kv_precision} KV, {backend})")
     first_step = {}
     # f32 on both sides, sums in another order.  In float the logits agree
     # within 1e-4 x max|logit| with the same top-8.  In w8a8 a reordered sum
@@ -411,15 +652,9 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant):
         out = {}
         for dev, p in (("cuda", params), ("cpu", cpu_params)):
             t0 = time.monotonic()
-            eng = Engine(cfg, p, slots=2, max_seq=640, block_size=16, max_chunk=64,
-                         precision=precision, kv_precision=kv_precision, device=dev)
-            eng.warmup()
-            for pr in prompts:
-                eng.submit(RequestSpec(prompt=pr, max_new=8))
-            out[dev] = eng.run()
+            out[dev] = serve(dev, p, precision, kv_precision)
             print(f"    {dev}: {time.monotonic() - t0:.1f}s, tokens "
                   f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
-            del eng
         for rid in out["cpu"]:
             check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
                   f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
@@ -464,6 +699,49 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant):
     torch.cuda.empty_cache()
 
 
+def phase_quality(torch, np, configs, M, quant, mods):
+    """`quant.quality_delta` at full width, bf16: float, w8a8 and calibrated
+    w8a8 NLLs of `forward` on 2 batches of (2, 1024) tokens.  Random weights
+    make the NLLs a consistency check only: finite, calibrated within 0.5
+    nats of float."""
+    cfg = configs.get("gemma3-1b")
+    params = M.init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(6)
+    toks = [rng.integers(0, cfg.vocab, size=(2, 1025)) for _ in range(2)]
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    reset_counts(mods)
+    t0 = time.monotonic()
+    table = quant.collect_scales(params, cfg, quant.synthetic_batches(cfg))
+    q_dyn = quant.quantize_params(params, cfg=cfg)
+    q_cal = quant.quantize_params(params, cfg=cfg, scales=table)
+    torch.cuda.synchronize()
+    calib = read_counts(mods)
+    reset_counts(mods)
+    d8 = quant.quality_delta(params, q_dyn, cfg, batches, mode="w8a8")
+    cal = quant.eval_nll(q_cal, cfg, batches, mode="w8a8-calibrated")
+    torch.cuda.synchronize()
+    launches = read_counts(mods)
+    print(f"  {time.monotonic() - t0:.1f}s: NLL float {d8['float_nll']:.4f}, w8a8 "
+          f"{d8['quant_nll']:.4f} (delta {d8['delta_nll']:+.4f}), w8a8-calibrated "
+          f"{cal:.4f} (delta {cal - d8['float_nll']:+.4f}); {len(table)} sites calibrated")
+    print("  calibration launches: " + " ".join(f"{k}={v}" for k, v in calib.items() if v))
+    print("  (2, 1024) forward launches: "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+    check(calib["flash_attention"] == 26 * 2,
+          f"calibration ran flash attention 26 x 2 times: {calib['flash_attention']}")
+    want_fa = 26 * 3 * len(batches)              # 3 modes x batches
+    check(launches["flash_attention"] == want_fa,
+          f"the forwards ran flash attention 26 x 3 x 2 times: {launches['flash_attention']}")
+    nlls = (d8["float_nll"], d8["quant_nll"], cal)
+    check(all(math.isfinite(x) for x in nlls), "finite NLLs")
+    check(abs(cal - d8["float_nll"]) < 0.5, "calibrated NLL within 0.5 nats of float")
+    rows = quant.layer_error_rows(params, q_cal)
+    print("  " + quant.format_error_table(rows, top=5).replace("\n", "\n  "))
+    del params, q_dyn, q_cal
+    torch.cuda.empty_cache()
+    return {"launches": launches, "nll": nlls}
+
+
 def _perturbed(torch, params, seed: int):
     """`params` with the embedding table scaled by 1 + 1e-6 x N(0, 1) per
     element: a change of the size f32 rounding makes."""
@@ -473,13 +751,14 @@ def _perturbed(torch, params, seed: int):
 
 
 def _prompt_logits(torch, M, kvc, quant, cfg, params, prompt, dev, *,
-                   precision="float", kv_precision="float"):
+                   precision="float", kv_precision="float", next_token=None):
     """Last-position logits of `prompt` prefilled in 64-token chunks, then
-    of one greedy decode step, through the model functions on `dev`; in
-    w8a8 the weights are made int8-resident first, as the engine does."""
+    of one decode step on `next_token` (default: this run's greedy token),
+    through the model functions on `dev`; in w8a8 the weights are made
+    int8-resident first, as the engine does."""
     from repro_torch.serving.prefill import plan_chunks
 
-    if precision != "float":
+    if precision != "float" and "head_q" not in params:
         params = quant.quantize_params(params, cfg=cfg)
     bs = 16
     max_blocks = kvc.blocks_for(len(prompt) + 1, bs)
@@ -495,7 +774,8 @@ def _prompt_logits(torch, M, kvc, quant, cfg, params, prompt, dev, *,
             chunk = torch.as_tensor(prompt[None, pos:pos + c], device=dev)
             logits, state = M.prefill_chunk(params, cfg, state, chunk, 0)
             pos += c
-        tok = logits[:, -1].argmax(-1)[:, None]
+        tok = logits[:, -1].argmax(-1)[:, None] if next_token is None else \
+            torch.tensor([[next_token]], device=dev)
         step_logits, _ = M.paged_decode_step(params, cfg, state, tok)
     return logits[0, -1].float().cpu(), step_logits[0, -1].float().cpu()
 
@@ -529,7 +809,7 @@ def _time_ms(torch, calls, iters: int, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_times(torch, gemm, fd, kvc):
+def phase_times(torch, gemm, gp, fd, kvc):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -563,6 +843,16 @@ def phase_times(torch, gemm, fd, kvc):
                   f"{t_p * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, bound "
                   f"{bound * 1e3:.2f} us ({'bytes' if nbytes / HBM_BPS >= flops / PEAK_FLOPS['bfloat16'] else 'operations'}), "
                   f"{bound / t_k:.1%} of bound")
+            # K6 on the same L2-cold copies at each ring depth (Fig. 5 sweep);
+            # its plain version is K1's (the same function).
+            t_d = {}
+            for d in DEPTHS:
+                t_d[d] = _time_ms(torch, [lambda b=b, d=d: gp.gemm(a, b, depth=d, out_dtype=dt)
+                                          for b in bs_], iters)
+                rows[("gemm_pipelined", M, name, d)] = (t_d[d], t_p, t_l, bound)
+            print(f"  gemm_pipelined bf16 M={M} {name} {K}x{N}: depth "
+                  + " / ".join(f"{d}: {t_d[d] * 1e3:.1f}" for d in DEPTHS)
+                  + f" us (K1 {t_k * 1e3:.1f} us, bound {bound * 1e3:.2f} us)")
             del a, bs_
 
     B, Hkv, G, D, bs, max_seq = 8, 1, 4, 256, 16, 1200
@@ -617,6 +907,54 @@ def phase_times(torch, gemm, fd, kvc):
                   f"{t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, "
                   f"bound {bound * 1e3:.2f} us (bytes), {bound / t_k:.1%} of bound")
     del pools
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_times_flash(torch, fa):
+    """K5 at (B 2, Hq 4, Hkv 1, D 256), S 1024 and 4096, causal global and
+    window 512, bf16, beside SDPA over the same q and K/V repeated to the
+    q heads beforehand (untimed), and the operations bound."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    dt, B, Hq, Hkv, D = torch.bfloat16, 2, 4, 1, 256
+    rows = {}
+    for S in (1024, 4096):
+        set_bytes = 2 * B * S * D * (2 * Hq + 2 * Hkv)
+        sets = [tuple(torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                      for h in (Hq, Hkv, Hkv))
+                for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+        pos = torch.arange(S, device=dev)
+        for window in (None, 512):
+            kcalls = [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, window=window)
+                      for q, k, v in sets]
+            t_k = _time_ms(torch, kcalls, 40)
+            t_e = _time_ms(torch, kcalls, 40, graph=False)
+            t_p = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention_plain(
+                q, k, v, window=window) for q, k, v in sets[:2]], 4, graph=False)
+            lib = [(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1),
+                    v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1)) for q, k, v in sets]
+            if window is None:
+                lcalls = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True) for q, k, v in lib]
+            else:
+                mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+                lcalls = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask) for q, k, v in lib]
+            t_l = _time_ms(torch, lcalls, 40)
+            pairs = S * (S + 1) // 2 if window is None else \
+                sum(min(i + 1, window) for i in range(S))
+            bound, by = _bound(2 * B * S * D * (2 * Hq + 2 * Hkv), 4 * B * Hq * D * pairs,
+                               PEAK_FLOPS["bfloat16"])
+            rows[("flash_attention", S, window)] = (t_k, t_p, t_l, bound, by)
+            print(f"  flash_attention bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
+                  f"window={window}: kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), "
+                  f"plain {t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, bound "
+                  f"{bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+            del lib, kcalls, lcalls
+        del sets
     torch.cuda.empty_cache()
     return rows
 
@@ -755,6 +1093,19 @@ def per_step_int8(rows, n_layers: int = 26, n_global: int = 4):
             for name, t in terms.items()}
 
 
+def per_step_slice3(rows, n_layers: int = 26, n_global: int = 4, depth: int = 3):
+    """K6 at `depth` over one decode step's GeMMs (M = 8), as K1's; K5 over
+    one forward of (2, 1024) tokens: 4 global + 22 window-512 layers."""
+    layer = ("q", "k", "v", "o", "gate", "up", "down")
+    pipe = [sum(n_layers * rows[("gemm_pipelined", 8, s, depth)][i] for s in layer)
+            + rows[("gemm_pipelined", 8, "head", depth)][i] for i in range(4)]
+    flash = [n_global * rows[("flash_attention", 1024, None)][i]
+             + (n_layers - n_global) * rows[("flash_attention", 1024, 512)][i]
+             for i in range(4)]
+    return {"gemm_pipelined": pipe + ["bytes"],
+            "flash_attention": flash + [rows[("flash_attention", 1024, None)][4]]}
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -778,13 +1129,14 @@ def main() -> int:
         raise SystemExit("FAIL: src/repro_torch is not beside chip_smoke.py")
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
+    from repro_torch.kernels import flash_attention as fa, gemm_pipelined as gp, ops
     from repro_torch.kernels import quant as kq
     from repro_torch.models import model as M
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import RequestSpec
 
-    mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq}
+    mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq, "fa": fa, "gp": gp}
     t_start = time.monotonic()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -799,16 +1151,24 @@ def main() -> int:
     print("[2] kernels vs plain versions on the card")
     worst = phase_kernels(torch, gemm, fd, kvc)
     worst.update(phase_kernels_int8(torch, gemm8, kq, fd, kvc))
+    worst.update(phase_kernels_slice3(torch, fa, gp))
+    engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
-    summary = phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant)
+    summary = phase_engine(*engine_args)
     print("[3b] the same run in w8a8 with an int8 KV pool")
-    summary8 = phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant,
-                            precision="w8a8", kv_precision="int8")
+    summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8")
+    print("[3c] the same run in calibrated w8a8 with an int8 KV pool")
+    summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8")
+    print("[3d] phase 3's float run under the pipelined GeMM backend (depth 3)")
+    summary_pipe = phase_engine(*engine_args, backend="pipelined")
     print("[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions")
-    phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant)
+    phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops)
+    print("[6] quality: forward NLL in float, w8a8 and calibrated w8a8 (26 layers, bf16)")
+    summary_q = phase_quality(torch, np, configs, M, quant, mods)
     print("[5] kernel times at main-path shapes (bf16, CUDA events, L2 cold)")
-    rows = phase_times(torch, gemm, fd, kvc)
+    rows = phase_times(torch, gemm, gp, fd, kvc)
     agg = per_step(rows)
+    agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
     agg.update(per_step_int8(phase_times_int8(torch, gemm8, kq, fd, kvc)))
     print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (bound "
           f"{agg['gemm'][3]:.3f}), flash_decode {agg['flash_decode'][0]:.3f} ms (bound "
@@ -819,29 +1179,46 @@ def main() -> int:
           f"flash_decode_int8 {agg['flash_decode_int8'][0]:.3f} ms (bound "
           f"{agg['flash_decode_int8'][3]:.3f}); engine decode step "
           f"{summary8['decode_ms']:.2f} ms")
+    print(f"[5] one decode step under the pipelined backend: gemm_pipelined (depth 3) "
+          f"{agg['gemm_pipelined'][0]:.3f} ms (bound {agg['gemm_pipelined'][3]:.3f}); "
+          f"engine decode step {summary_pipe['decode_ms']:.2f} ms; calibrated w8a8 "
+          f"engine decode step {summary_cal['decode_ms']:.2f} ms")
+    print(f"[5] one forward over (2, 1024) tokens: flash_attention "
+          f"{agg['flash_attention'][0]:.3f} ms (bound {agg['flash_attention'][3]:.3f}, "
+          f"sdpa {agg['flash_attention'][2]:.3f})")
     step = "one gemma3-1b decode step"
-    entries = [  # name, source, TPU kernel replaced, what one entry's times cover, launches
+    # name, source, TPU kernel replaced, what one entry's times cover, launches
+    # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
+    entries = [
         ("gemm", "gemm.cu", "src/repro/kernels/gemm.py:33",
-         f"{step}: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, bf16", summary),
+         f"{step}: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, bf16",
+         summary["launches"]),
         ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:107",
-         f"{step}: 4 global + 22 window-512 layers, B=8, Sq=1, bf16", summary),
+         f"{step}: 4 global + 22 window-512 layers, B=8, Sq=1, bf16", summary["launches"]),
         ("dequant_gemm", "gemm_int8.cu", "src/repro/kernels/gemm.py:54",
          f"{step} in w8a8: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, int8 -> bf16",
-         summary8),
+         summary8["launches"]),
         ("quantize_rows", "quant.cu", "src/repro/kernels/quant.py:25",
          f"{step} in w8a8: 183 bf16 rows (8, K), K = 1152 x 131, 1024 x 26, 6912 x 26",
-         summary8),
+         summary8["launches"]),
         ("flash_decode_int8", "flash_decode.cu",
          "src/repro/kernels/flash_decode.py:107 (quantized branch :113-132)",
          f"{step} with an int8 pool: 4 global + 22 window-512 layers, B=8, Sq=1, q bf16",
-         summary8),
+         summary8["launches"]),
+        ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:28",
+         "one gemma3-1b forward over (2, 1024) tokens: 4 global + 22 window-512 layers, "
+         "Hq=4, Hkv=1, D=256, bf16 (launches: phase 6's 6 such forwards)",
+         summary_q["launches"]),
+        ("gemm_pipelined", "gemm_pipelined.cu", "src/repro/kernels/gemm_pipelined.py:28",
+         f"{step} under the pipelined backend: 26 x (q,k,v,o,gate,up,down) + tied head, "
+         f"M=8, bf16, depth 3", summary_pipe["launches"]),
     ]
     kernels = []
-    for name, src, replaces, per, run in entries:
+    for name, src, replaces, per, launches in entries:
         t_k, t_p, t_l, bound = agg[name][:4]
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "per": per, "launches": run["launches"][name],
+            "replaces": replaces, "per": per, "launches": launches[name],
             "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": agg[name][4] if len(agg[name]) > 4 else "bytes",
             "library_ms": t_l})

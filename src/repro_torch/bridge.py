@@ -55,3 +55,10 @@ def param_count(params: dict, *, min_dim: int = 1) -> int:
             return sum(count(v) for v in tree)
         return tree.numel() if tree.dim() >= min_dim else 0
     return count(params)
+
+
+def scales_from_reference(table) -> Dict[str, float]:
+    """A reference `ScaleTable` (or its `scales` dict) as the plain dict of
+    per-tensor activation scales `quant.quantize_params(scales=...)` takes;
+    the keys ("blocks.{g}.sub{i}.mixer.wq", ..., "head") are shared."""
+    return {k: float(v) for k, v in getattr(table, "scales", table).items()}

@@ -19,7 +19,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gemm", "flash_decode", "gemm_int8", "quant")
+SOURCES = ("gemm", "flash_decode", "gemm_int8", "quant", "flash_attention",
+           "gemm_pipelined")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,14 +1,23 @@
 """Public GeMM ops (port of repro/kernels/ops.py).
 
 Every dense projection of the port routes through `linear`, so the GeMM
-kernels underlie the whole model.  There is no backend switch: a CUDA
-tensor always launches a hand-written kernel and a CPU tensor runs its
-plain version.
+kernels underlie the whole model.  The device decides whether a kernel
+runs: a CUDA tensor always launches a hand-written kernel (or raises) and a
+CPU tensor runs its plain version.  The backend only chooses which of two
+hand kernels runs the float GeMM (and `gemm`'s int8 x int8 -> int32):
 
-  float operands        kernels/gemm.py       (K1, f32 accumulation)
-  int8 x int8 -> int32  kernels/gemm_int8.py  (K1's int mode)
+  "tiled"      kernels/gemm.py            K1 (the default; the reference's "pallas")
+  "pipelined"  kernels/gemm_pipelined.py  K6, ring depth 3 (the case study's D_stream)
+
+set process-wide with `set_default_backend` or per call with `backend=`.
+The reference's "auto", "interpret" and "xla" have no counterpart (the
+device decides) and raise.  The other kernels take no backend:
+
   int8 + dequant        kernels/gemm_int8.py  (K3)
   row quantization      kernels/quant.py      (K4)
+
+As in the reference, int8-resident weights (`QuantTensor`) ignore the
+backend and always take K4 + K3, or the static-scale branch + K3.
 
 The kernels mask ragged edges themselves, so the reference's tile padding
 (`_pad2`) has no counterpart.
@@ -20,20 +29,51 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_int8 as _gemm_int8
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref
+from repro_torch.kernels.registry import make_kernel
 from repro_torch.quant import modes as _modes
 from repro_torch.quant.params import QuantTensor
 
+BACKENDS = ("tiled", "pipelined")
+_NO_COUNTERPART = ("auto", "interpret", "xla")
+_DEFAULT_BACKEND = "tiled"
+_DEFAULT_GEMM = make_kernel(_DEFAULT_BACKEND)   # resolved once, not per call
 
-def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+
+def _check_backend(backend: str) -> str:
+    if backend in _NO_COUNTERPART:
+        raise ValueError(
+            f"backend {backend!r} has no counterpart in the port: the tensor's "
+            f"device decides between a hand kernel (CUDA) and its plain version "
+            f"(CPU); choose one of {BACKENDS}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    return backend
+
+
+def set_default_backend(backend: str) -> None:
+    """Process-wide choice of the float GeMM kernel: "tiled" or "pipelined"."""
+    global _DEFAULT_BACKEND, _DEFAULT_GEMM
+    _DEFAULT_GEMM = make_kernel(_check_backend(backend))
+    _DEFAULT_BACKEND = backend
+
+
+def get_default_backend() -> str:
+    return _DEFAULT_BACKEND
+
+
+def _resolve(backend: Optional[str]):
+    """The float GeMM function of `backend` (None: the default)."""
+    return _DEFAULT_GEMM if backend is None else make_kernel(_check_backend(backend))
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, *,
+         backend: Optional[str] = None) -> torch.Tensor:
     """C = A @ B, a (M, K), b (K, N): int8 inputs accumulate to int32,
-    floats to f32."""
-    if a.dtype == torch.int8 and b.dtype == torch.int8:
-        return _gemm_int8.gemm_int(a, b)
-    return _gemm.gemm(a, b, out_dtype=torch.float32)
+    floats to f32, through the backend's kernel."""
+    return _resolve(backend)(a, b)
 
 
 def gemm_int8_dequant(a_q: torch.Tensor, b_q: torch.Tensor,
@@ -73,7 +113,8 @@ def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     return gemm_int8_dequant(xq, w_q, sx, w_scale, out_dtype=out_dtype)
 
 
-def linear(x: torch.Tensor, w, *, quant: Optional[str] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, *, quant: Optional[str] = None,
+           backend: Optional[str] = None) -> torch.Tensor:
     """y = x @ w for x (..., K) and w (K, N), y in x's dtype.
 
     `w` is a float matrix or an int8-resident `QuantTensor` (the serving
@@ -81,7 +122,7 @@ def linear(x: torch.Tensor, w, *, quant: Optional[str] = None) -> torch.Tensor:
     weight codes and scales used as they are).  quant="int8" runs the int8
     path on a float weight, quantizing the weight per call; quant=None
     defers to the active precision mode (quant/modes.py); quant="none"
-    forces float."""
+    forces float.  `backend` picks the float GeMM kernel (module docstring)."""
     if _modes.capturing():
         _modes.capture(x, w)
     lead = x.shape[:-1]
@@ -97,7 +138,7 @@ def linear(x: torch.Tensor, w, *, quant: Optional[str] = None) -> torch.Tensor:
         wq, sw = ref.quantize_ref(w, axis=0)
         out = gemm_int8_dequant(xq, wq, sx, sw.reshape(1, -1), out_dtype=x.dtype)
     elif quant in (None, "none"):
-        out = _gemm.gemm(x2, w.to(x2.dtype), out_dtype=x.dtype)
+        out = _resolve(backend)(x2, w.to(x2.dtype), out_dtype=x.dtype)
     else:
         raise ValueError(f"unknown quant mode {quant!r}")
     return out.reshape(*lead, w.shape[-1])

@@ -57,3 +57,63 @@ def quantize_ref(x: torch.Tensor, axis: int = -1):
 
 def dequantize_ref(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+NEG_INF = -2.0e38
+
+
+def blockwise_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool, window=None, q_offset=0,
+                            prefix_len: int = 0, softcap=None,
+                            block_kv: int = 512,
+                            scale_in_f32: bool = True) -> torch.Tensor:
+    """Online-softmax attention over kv blocks of `block_kv` keys: q (B, Sq,
+    Hq, D) at positions q_offset + t, k/v (B, Skv, Hkv, D) at 0..Skv-1, GQA
+    groups kept explicit.  Masks: causal (bidirectional over a prefix of
+    `prefix_len` keys), sliding window, kpos < Skv; the masked score is the
+    finite sentinel NEG_INF.  p is rounded to v's dtype before PV; the
+    statistics and the accumulator are f32; out in q's dtype.
+
+    `scale_in_f32` scales q by D^-0.5 after the cast to f32, as the flash
+    kernel does (kernels/flash_attention.py:41); without it q is scaled in
+    its own dtype first, as the reference's XLA blockwise path does
+    (models/attention.py:143)."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    if scale_in_f32:
+        qf = q.to(torch.float32) * D ** -0.5
+    else:
+        qf = (q * torch.tensor(D ** -0.5, dtype=q.dtype).item()).to(torch.float32)
+    qf = qf.reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)      # (B, H, G, Sq, D)
+    qpos = torch.arange(Sq, device=dev) + q_offset
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=torch.float32, device=dev)
+    for start in range(0, Skv, block_kv):
+        kb = k[:, start:start + block_kv].to(torch.float32)
+        vb = v[:, start:start + block_kv]
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qf, kb)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        kpos = torch.arange(start, start + kb.shape[1], device=dev)
+        mask = torch.ones((Sq, kb.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            cm = qpos[:, None] >= kpos[None, :]
+            if prefix_len:
+                cm = cm | (kpos[None, :] < prefix_len)
+            mask &= cm
+        if window is not None:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).to(torch.float32),
+                          vb.to(torch.float32))
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)

@@ -3,6 +3,7 @@ single-engine path of repro/launch/serve.py).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8 --kv-precision int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8-calibrated
 
 Runs on the CUDA device unless `--device cpu` is given.  The prompts are
 drawn exactly as the reference CLI draws them (np.random.default_rng(0)),
@@ -39,10 +40,12 @@ def main(argv=None, *, params=None):
                     help="KV cache block size in tokens")
     ap.add_argument("--kv-blocks", type=int, default=0,
                     help="KV pool blocks (default: worst-case for --slots)")
-    ap.add_argument("--precision", default="float", choices=["float", "w8a8"],
+    ap.add_argument("--precision", default="float",
+                    choices=["float", "w8a8", "w8a8-calibrated"],
                     help="execution precision: w8a8 quantizes the weights "
                          "int8-resident at warmup and serves through the int8 "
-                         "GeMM (repro_torch.quant)")
+                         "GeMM (repro_torch.quant); w8a8-calibrated first "
+                         "calibrates static activation scales")
     ap.add_argument("--kv-precision", default="float", choices=["float", "int8"],
                     help="KV pool residency: int8 keeps the paged pool int8 "
                          "with per-(block, position, head) scales")

@@ -1,11 +1,13 @@
-"""Attention over the paged KV cache (port of repro/models/attention.py:
-`_project_qkv`, the `decode_attention` oracle and the paged branch of
-`attention`).
+"""Attention (port of repro/models/attention.py: `_project_qkv`,
+`blockwise_attention`, the `decode_attention` oracle, and the unpaged and
+paged branches of `attention`).
 
-GQA/MQA with split-half RoPE.  The paged branch writes this step's K/V
-through the block tables first and then attends over the pool, so a query
-attends to its own key.  The scale is D**-0.5 and the paged path applies no
-logit softcap, as in the reference.
+GQA/MQA with split-half RoPE.  The unpaged branch (prefill, `forward`,
+calibration) attends over the sequence itself through
+`blockwise_attention`.  The paged branch writes this step's K/V through the
+block tables first and then attends over the pool, so a query attends to
+its own key.  The scale is D**-0.5; only the unpaged path applies a logit
+softcap, as in the reference.
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import ref
 from repro_torch.models import layers
 from repro_torch.serving import kv_cache as kvc
 
@@ -44,6 +48,27 @@ def _project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     return q, k, v
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, q_offset=0, window: Optional[int] = None,
+                        prefix_len: int = 0, block_kv: int = 1024,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D).
+
+    Where the reference hands the whole sequence to its flash kernel (no q
+    offset, no prefix, no softcap: models/attention.py:103-109) this calls
+    `kernels.flash_attention`: K5 on the card, its plain version on the
+    CPU.  Otherwise it is the reference's XLA blockwise online softmax over
+    kv blocks of `block_kv` keys, in plain PyTorch (the reference has no
+    Pallas kernel there either)."""
+    plain_offset = isinstance(q_offset, int) and q_offset == 0
+    if plain_offset and not prefix_len and softcap is None:
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.blockwise_attention_ref(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        prefix_len=prefix_len, softcap=softcap, block_kv=block_kv,
+        scale_in_f32=False)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      index, window: Optional[int] = None) -> torch.Tensor:
     """Query-over-whole-cache attention (the oracle): q (B, Sq, Hq, D) at
@@ -71,15 +96,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
-              window: Optional[int], cache: kvc.PagedKVCache,
-              cache_index: torch.Tensor,
-              block_tables: torch.Tensor) -> torch.Tensor:
-    """Paged attention sublayer: x (B, S, d) at per-slot first positions
-    `cache_index` (B,); returns (B, S, d).  The pools update in place."""
+              window: Optional[int], cache: Optional[kvc.PagedKVCache] = None,
+              cache_index: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal self-attention sublayer over x (B, S, d); returns (B, S, d).
+
+    cache None: attend over x itself (prefill / `forward`).  A paged pool:
+    x sits at per-slot first positions `cache_index` (B,) and the pools
+    update in place.  Cross-attention and the dense `KVCache` decode are
+    not ported."""
     q, k, v = _project_qkv(x, p, cfg, positions)
-    kvc.write_kv(cache, block_tables, k, v, cache_index)
-    out = fd.paged_decode_attention(q, cache, block_tables, cache_index,
-                                    window=window)
+    if cache is None:
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  softcap=cfg.logit_softcap)
+    elif isinstance(cache, kvc.PagedKVCache):
+        if block_tables is None:
+            raise ValueError("a paged cache needs block_tables")
+        kvc.write_kv(cache, block_tables, k, v, cache_index)
+        out = fd.paged_decode_attention(q, cache, block_tables, cache_index,
+                                        window=window)
+    else:
+        raise NotImplementedError(
+            f"attention over a {type(cache).__name__} (the dense decode cache) "
+            "is not ported; the port serves through the paged pool")
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return layers.dense(out, p["wo"])

@@ -1,11 +1,14 @@
 """Transformer blocks: attention (global or sliding-window) plus the SwiGLU
 FFN, with pre-norms and optional gemma-style post-norms (port of
-repro/models/blocks.py for the `attn` / `attn_local` kinds).
+repro/models/blocks.py for the `attn` / `attn_local` kinds: `apply_block`
+over the paged cache or over the sequence itself, and `apply_group`).
 
 Residual adds run in the model dtype, as in the reference.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import torch
 
@@ -30,9 +33,11 @@ def init_block(gen: torch.Generator, cfg, kind: str, device) -> dict:
 
 
 def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
-                positions: torch.Tensor, cache, cache_index: torch.Tensor,
-                block_tables: torch.Tensor) -> torch.Tensor:
-    """One block over the paged cache; the layer's pools update in place."""
+                positions: torch.Tensor, cache=None,
+                cache_index: Optional[torch.Tensor] = None,
+                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block, over the sequence itself (cache None) or over the paged
+    cache (the layer's pools update in place)."""
     h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.local_window if kind == "attn_local" else None
     h = attn_lib.attention(h, p["mixer"], cfg, positions=positions,
@@ -47,4 +52,18 @@ def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
         if cfg.post_block_norm:
             h = layers.rms_norm(h, p["post_norm2"], cfg.norm_eps)
         x = x + h
+    return x
+
+
+def apply_group(x: torch.Tensor, group_layers: Sequence[dict], cfg, *,
+                positions: torch.Tensor) -> torch.Tensor:
+    """One group of `cfg.group_size` blocks over the sequence itself:
+    `group_layers` is layers g * group_size .. + group_size - 1 of the flat
+    `params["layers"]` list (the reference's scanned group g), of kinds
+    `cfg.layer_kinds()`."""
+    kinds = cfg.layer_kinds()
+    if len(group_layers) != len(kinds):
+        raise ValueError(f"a group holds {len(kinds)} layers, got {len(group_layers)}")
+    for p, kind in zip(group_layers, kinds):
+        x = apply_block(x, p, cfg, kind, positions=positions)
     return x

@@ -31,6 +31,7 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     local_window: Optional[int] = None      # sliding-window size
     local_ratio: int = 0                    # gemma3: N local layers per global
+    logit_softcap: Optional[float] = None   # attention-score tanh cap (unpaged path)
 
     # ffn flavor
     mlp_variant: str = "swiglu"

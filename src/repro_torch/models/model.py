@@ -1,6 +1,6 @@
-"""Model assembly for paged serving (port of repro/models/model.py:
-`init_model`, the paged decode state, `paged_decode_step`, `prefill_chunk`
-and `reset_slots`).
+"""Model assembly (port of repro/models/model.py: `init_model`, the unpaged
+`forward`, the paged decode state, `paged_decode_step`, `prefill_chunk` and
+`reset_slots`).
 
 Parameters are a plain dict: "embed" (vocab, d), "final_norm" (d,), and
 "layers", a flat list of per-layer dicts.  The reference stacks each
@@ -20,7 +20,7 @@ slot slices pass the pools through whole), so the result is the same.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -78,6 +78,37 @@ def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.
     # rounded to that dtype first, as the reference's jnp.asarray does.
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     return x * scale
+
+
+def group_layers(params: dict, cfg: ArchConfig, g: int) -> list:
+    """Layers g * group_size .. + group_size - 1: the reference's group g."""
+    return params["layers"][g * cfg.group_size:(g + 1) * cfg.group_size]
+
+
+def _run_groups(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
+                positions: torch.Tensor) -> torch.Tensor:
+    for g in range(cfg.n_groups):
+        x = blocks.apply_group(x, group_layers(params, cfg, g), cfg,
+                               positions=positions)
+    return x
+
+
+def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            last_only: bool = False) -> torch.Tensor:
+    """Logits (B, S, vocab) for batch["tokens"] (B, S) at positions 0..S-1,
+    or only the last position's (B, 1, vocab) when `last_only`: causal
+    attention over the sequence itself, no cache (train / prefill /
+    calibration / evaluation).  Dense decoders only."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"forward for family {cfg.family!r} is not ported")
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    x = _run_groups(x, params, cfg, positions=positions)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    return _unembed(x, params, cfg)
 
 
 def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:

@@ -8,8 +8,7 @@ module makes that deployment precision a *mode* of the port:
   "w8a8"              int8 weights x int8 activations, activations quantized
                       per-row on the fly (dynamic quantization)
   "w8a8-calibrated"   as w8a8, with static per-tensor activation scales
-                      (the mode is known here; its calibration is not
-                      ported yet, and the engine refuses it)
+                      (quant/calibrate.py makes them)
 
 `kernels/ops.py::linear` reads the active mode.  The reference binds the
 mode when jax traces a step; PyTorch runs eagerly and reads it on every

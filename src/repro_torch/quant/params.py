@@ -16,8 +16,10 @@ axis -2, as the reference does.
 The port keeps its layers in a flat list (the reference stacks each
 group's layers on a leading axis), so `quantized_leaf_count` counts every
 layer's matrices: (reference count - 1) * n_groups + 1 for a tied model.
-Calibrated activation scales are carried by `QuantTensor.act_scale`, but
-the calibration that makes them is not ported yet.
+
+Calibrated activation scales (quant/calibrate.py, keys
+"blocks.{g}.sub{i}.mixer.wq", ..., "head") ride on `QuantTensor.act_scale`
+and are read only in "w8a8-calibrated" mode.
 """
 
 from __future__ import annotations
@@ -92,25 +94,48 @@ def _leaves(tree):
         yield tree
 
 
-def quantize_params(params: Dict[str, Any], *, cfg=None) -> Dict[str, Any]:
+def _act_scale(table: Dict[str, float], path: tuple, cfg) -> Optional[float]:
+    """The static activation scale of the leaf at `path`, or None.
+
+    Layer L of the flat list is sub{L % group_size} of group
+    L // group_size.  As the reference's stacked leaves are calibrated for
+    all groups or none (params.py:77-90), a layer leaf takes its scale only
+    if every group has an entry for its sub{i} path."""
+    if path[0] != "layers":
+        return table.get(".".join(map(str, path)))
+    gs = cfg.group_size
+    sub = f"sub{path[1] % gs}." + ".".join(map(str, path[2:]))
+    vals = [table.get(f"blocks.{g}.{sub}") for g in range(cfg.n_groups)]
+    return None if any(v is None for v in vals) else vals[path[1] // gs]
+
+
+def quantize_params(params: Dict[str, Any], *, cfg=None,
+                    scales=None) -> Dict[str, Any]:
     """A copy of `params` with every `QUANT_KEYS` weight int8-resident.
+
+    `scales` is an optional `calibrate.ScaleTable` (or a plain dict of
+    per-tensor activation scales, from either package); matching entries
+    are attached as static `act_scale`s for "w8a8-calibrated" mode.
 
     With `cfg.tie_embeddings`, an int8 copy of the
     transposed embedding table is added under "head_q", so the tied head is
     not re-quantized every step; the float table stays (the embedding
     lookup gathers from it)."""
+    table = getattr(scales, "scales", scales) or {}
+    if table and cfg is None:
+        raise ValueError("quantize_params needs cfg to place calibrated scales")
 
     def leaf(t, path):
         if isinstance(t, QuantTensor):           # already quantized: idempotent
             return t
         if (path and path[-1] in QUANT_KEYS and isinstance(t, torch.Tensor)
                 and t.dim() >= 2 and path[0] != "embed"):
-            return quantize_leaf(t)
+            return quantize_leaf(t, _act_scale(table, path, cfg) if table else None)
         return t
 
     out = _walk(params, leaf)
     if cfg is not None and getattr(cfg, "tie_embeddings", False):
-        out["head_q"] = quantize_leaf(params["embed"].t())
+        out["head_q"] = quantize_leaf(params["embed"].t(), table.get("head"))
     return out
 
 

@@ -21,13 +21,17 @@ Continuous batching over the paged decode state:
 The int8 deployment precision is two orthogonal switches, as in the
 reference: `precision="w8a8"` makes the weights int8-resident at warmup
 (the float copy is dropped) and runs every projection through the int8
-GeMM with activations quantized per row; `kv_precision="int8"` keeps the
-paged pool int8 with per-(block, position, head) scales.  PyTorch reads the
+GeMM with activations quantized per row; `precision="w8a8-calibrated"`
+first calibrates static per-tensor activation scales by replaying the
+unpaged `forward` over calibration batches (`calib_batches`, or two
+synthetic (2, min(32, max_seq)) batches from `seed`), so activations
+quantize with those scales instead; `kv_precision="int8"` keeps the paged
+pool int8 with per-(block, position, head) scales.  PyTorch reads the
 precision mode on every call (quant/modes.py), so the engine enters it
 around every step it runs.
 
 Not ported yet: speculative decoding, sampling, preemption, the prefix
-cache, calibrated int8 ("w8a8-calibrated"), tracing and MFU gauges.
+cache, tracing and MFU gauges.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ class EngineMetrics:
     aot_steps: int = 0            # step shapes run during warmup
     cold_compiles: int = 0        # steps whose shape warmup did not cover
     precision: str = "float"      # execution precision (quant/modes.py)
+    calib_sites: int = 0          # activation sites calibrated (w8a8-calibrated)
     weight_bytes: int = 0         # resident param bytes (post-quantization)
     weight_bytes_float: int = 0   # param bytes before quantization
     peak_blocks_in_use: int = 0
@@ -117,6 +122,8 @@ class EngineMetrics:
                      if self.weight_bytes_float else 0.0)
             out += (f" precision={self.precision} "
                     f"weights={self.weight_bytes / 2**20:.1f}MiB ({saved:.0%} smaller)")
+            if self.calib_sites:
+                out += f" calib_sites={self.calib_sites}"
         return out
 
 
@@ -127,18 +134,15 @@ class Engine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  max_chunk: int = 64, max_queue: Optional[int] = None,
                  precision: str = "float", kv_precision: str = "float",
-                 seed: int = 0, device=None, verbose: bool = False):
+                 calib_batches=None, seed: int = 0, device=None,
+                 verbose: bool = False):
         if precision not in quant.MODES:
             raise ValueError(f"unknown precision {precision!r}; known: {quant.MODES}")
-        if precision == "w8a8-calibrated":
-            raise NotImplementedError(
-                "precision 'w8a8-calibrated' needs activation calibration, which "
-                "replays the unpaged forward; it is not ported yet (ROADMAP.md "
-                "A.6, with the flash-attention kernel and `forward`)")
         if kv_precision not in ("float", "int8"):
             raise ValueError(
                 f"unknown kv_precision {kv_precision!r}; known: float, int8")
         self.precision, self.kv_precision = precision, kv_precision
+        self._calib_batches, self._seed = calib_batches, seed
         self.device = resolve_device(device)
         self.cfg = cfg
         if params is None:
@@ -228,10 +232,24 @@ class Engine:
         return quant.precision(self.precision)
 
     def _quantize_weights(self) -> None:
-        """Swap the float params for the int8-resident ones; the float copy
-        is dropped, so the memory saving is real, not additive."""
+        """Calibrate (for "w8a8-calibrated") and swap the float params for
+        the int8-resident ones; the float copy is dropped, so the memory
+        saving is real, not additive."""
+        scales = None
+        if self.precision == "w8a8-calibrated":
+            batches = self._calib_batches
+            if batches is None:
+                batches = quant.synthetic_batches(
+                    self.cfg, n=2, batch=2, seq=min(32, self.max_seq),
+                    seed=self._seed)
+            scales = quant.collect_scales(self.params, self.cfg, batches)
+            self.metrics.calib_sites = len(scales)
+            if self.verbose:
+                print(f"calibrated {len(scales)} activation sites "
+                      f"({scales.observer}, {scales.batches} batches)")
         self.metrics.weight_bytes_float = quant.weight_bytes(self.params)
-        self.params = quant.quantize_params(self.params, cfg=self.cfg)
+        self.params = quant.quantize_params(self.params, cfg=self.cfg,
+                                            scales=scales)
         self.metrics.weight_bytes = quant.weight_bytes(self.params)
         self.metrics.precision = self.precision
         if self.verbose:

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import gemm_int8 as tgemm8
+from repro_torch.kernels import gemm_pipelined as tgp
 from repro_torch.kernels import quant as tquant
 from repro_torch.serving import kv_cache as tkvc
 
@@ -148,6 +150,70 @@ def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits,
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+FLASH_CASES = [  # (B, S, Hq, Hkv, D, causal, window)
+    (1, 128, 2, 2, 64, True, None),      # MHA
+    (2, 256, 4, 2, 64, True, None),      # GQA
+    (1, 192, 4, 1, 128, True, None),     # MQA, S not a multiple of the 32-row tile
+    (1, 128, 2, 2, 64, False, None),     # non-causal
+    (1, 100, 2, 1, 64, True, 64),        # window, ragged S
+    (2, 300, 4, 1, 256, True, None),     # gemma3-1b heads, ragged S
+    (2, 300, 4, 1, 256, True, 64),       # gemma3-1b local layer (window < S)
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype):
+    """K5 against its plain version: f32 within 1e-5, bf16 within one bf16
+    ulp of the rounded output (p rounds to bf16 in both, in other tiles)."""
+    rng = np.random.default_rng(3)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -8)
+    tfa.reset_launches()
+    for B, S, Hq, Hkv, D, causal, window in FLASH_CASES:
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
+                   .to(cuda_device, dtype) for h in (Hq, Hkv, Hkv))
+        got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert tfa.launches == len(FLASH_CASES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_pipelined_gemm_kernel_matches_plain(cuda_device, dtype, depth):
+    """K6 at every ring depth against its plain version on the GEMM_CASES
+    and INT8_CASES shapes (ragged edges zero-filled by the copies, split-K,
+    the transposed-B view): int8 -> int32 bit for bit; f32 out within 1e-5
+    (B scaled by K^-0.5, as weights are); bf16 out within one bf16 ulp."""
+    rng = np.random.default_rng(depth)
+    tgp.reset_launches()
+    for M, K, N, transposed in INT8_CASES:
+        shape_b = (N, K) if transposed else (K, N)
+        if dtype == torch.int8:
+            a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8))
+            b = torch.from_numpy(rng.integers(-127, 128, size=shape_b, dtype=np.int8))
+        else:
+            a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+            b = torch.from_numpy((rng.normal(size=shape_b) * K ** -0.5).astype(np.float32))
+        a, b = a.to(cuda_device, dtype), b.to(cuda_device, dtype)
+        b = b.t() if transposed else b
+        got = tgp.gemm(a, b, depth=depth)
+        want = tgp.gemm_plain(a, b)
+        if dtype == torch.int8:
+            assert got.dtype == torch.int32 and torch.equal(got, want), (M, K, N, transposed)
+            continue
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        if dtype == torch.bfloat16:
+            got16 = tgp.gemm(a, b, depth=depth, out_dtype=torch.bfloat16)
+            torch.testing.assert_close(got16.float(), want.to(torch.bfloat16).float(),
+                                       rtol=2 ** -7, atol=1e-5)
+    n = len(INT8_CASES) * (2 if dtype == torch.bfloat16 else 1)
+    assert tgp.launches == n
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     a = torch.zeros((4, 8), device=cuda_device, dtype=torch.float16)
@@ -173,3 +239,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tgemm8.gemm_int(a8.float(), a8.t())
     with pytest.raises(TypeError):                       # f16 activations
         tquant.quantize_rows(a8.half())
+    q = torch.zeros((1, 4, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError):                       # f16 q
+        tfa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):                       # k, v in another dtype
+        tfa.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):                      # head_dim 48
+        tfa.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError):                      # 2 q heads over 3 kv heads
+        tfa.flash_attention(q, torch.zeros((1, 4, 3, 64), device=cuda_device),
+                            torch.zeros((1, 4, 3, 64), device=cuda_device))
+    with pytest.raises(TypeError):                       # f16 operands
+        tgp.gemm(a, a.t())
+    with pytest.raises(TypeError):                       # int8 x int8 -> bf16
+        tgp.gemm(a8, a8.t(), out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="depth"):       # a ring deeper than 4
+        tgp.gemm(a.float(), a.float().t(), depth=5)

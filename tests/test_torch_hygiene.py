@@ -36,7 +36,9 @@ def test_engine_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch.serving.engine, repro_torch.launch.serve, "
             "repro_torch.bridge, repro_torch.quant, repro_torch.kernels.quant, "
-            "repro_torch.kernels.gemm_int8; print('ok')")
+            "repro_torch.kernels.gemm_int8, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.gemm_pipelined, repro_torch.kernels.registry, "
+            "repro_torch.quant.calibrate, repro_torch.quant.report; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -1,6 +1,7 @@
-"""Port kernels against the reference: the plain GeMM and plain paged
-decode against the Pallas kernels in interpret mode and the reference's
-oracles, on the same numpy-made inputs; CPU tensors never launch a CUDA
+"""Port kernels against the reference: the plain GeMM, plain paged
+decode, plain flash attention and plain pipelined GeMM against the Pallas
+kernels in interpret mode and the reference's oracles, on the same
+numpy-made inputs; the GeMM backend switch; CPU tensors never launch a CUDA
 kernel.  (The int8 kernels' plain versions: tests/test_torch_quant.py.)  (The CUDA kernels themselves are held against these plain
 versions on the card: tests/test_torch_gpu.py and chip_smoke.py.)"""
 
@@ -9,16 +10,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.generator import TpuGemmSpec
 from repro.kernels import flash_decode as rfd
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.kernels.flash_attention import flash_attention as r_flash_attention
+from repro.kernels.gemm_pipelined import make_pipelined_gemm
 from repro.models.attention import decode_attention as r_decode_attention
 from repro.serving import kv_cache as rkvc
 from repro_torch import quant
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import gemm as tgemm
 from repro_torch.kernels import gemm_int8 as tgemm8
+from repro_torch.kernels import gemm_pipelined as tgp
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import registry as tregistry
 from repro_torch.kernels import quant as tkquant
 from repro_torch.serving import kv_cache as tkvc
 
@@ -161,9 +168,10 @@ def test_paged_decode_plain_matches_reference(sq, window, splits):
 
 def test_cpu_tensors_launch_no_kernel():
     """On CPU tensors the wrappers run the plain versions: no CUDA kernel
-    launches, so the launch counters stay 0 (float and int8 GeMMs, row
-    quantization, and paged decode over a float and an int8 pool)."""
-    for mod in (tgemm, tgemm8, tkquant, tfd):
+    launches, so the launch counters stay 0 (float and int8 GeMMs under both
+    backends, row quantization, paged decode over a float and an int8 pool,
+    and flash attention)."""
+    for mod in (tgemm, tgemm8, tkquant, tfd, tfa, tgp):
         mod.reset_launches()
     a, b = _operands(4, 8, 8, False)
     x, w = torch.from_numpy(a), torch.from_numpy(b)
@@ -177,5 +185,118 @@ def test_cpu_tensors_launch_no_kernel():
     cache8 = tkvc.init_paged_kv(tcache.k.shape[0], BS, HKV, D, torch.float32, "cpu",
                                 kv_precision="int8")
     tfd.paged_decode_attention(torch.from_numpy(q), cache8, tbt, torch.from_numpy(idx))
+    tops.linear(x, w, backend="pipelined")
+    tops.gemm(tops.quantize(x)[0], quant.quantize_leaf(w).q, backend="pipelined")
+    qa = torch.from_numpy(_query(4)[0])
+    tfa.flash_attention(qa, qa[:, :, :HKV], qa[:, :, :HKV])
     assert (tgemm.launches, tgemm8.launches, tgemm8.int_launches, tkquant.launches,
-            tfd.launches, tfd.launches_int8) == (0,) * 6
+            tfd.launches, tfd.launches_int8, tfa.launches, tgp.launches) == (0,) * 8
+
+
+# ---------------------------------------------------------------------------
+# flash attention (K5): shapes of tests/test_flash_attention.py + gemma3 smoke
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [  # (B, S, Hq, Hkv, D, causal, window, reference tile)
+    (1, 128, 2, 2, 64, True, None, 128),    # MHA
+    (2, 256, 4, 2, 64, True, None, 128),    # GQA
+    (1, 192, 4, 1, 128, True, None, 128),   # MQA, ragged seq vs tile
+    (1, 128, 2, 2, 64, False, None, 64),    # non-causal
+    (1, 256, 2, 1, 64, True, 64, 64),       # sliding window
+    (2, 32, 4, 1, 16, True, 8, 512),        # gemma3-1b smoke: window 8 < S
+]
+# f32: the reference's flash tests' bar.  bf16: p and out round to bf16 at
+# the same points in both (same tiling), sums in another order.
+FLASH_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+             "bfloat16": dict(rtol=0, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,tile", FLASH_CASES)
+def test_flash_attention_plain_matches_reference_kernel(B, S, Hq, Hkv, D, causal,
+                                                        window, tile, dtype):
+    """The port's flash attention on CPU tensors (its plain version, kv
+    blocks of the reference's tile) reproduces the Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.normal(size=(B, S, h, D)).astype(np.float32)
+               for h in (Hq, Hkv, Hkv))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = r_flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                             jnp.asarray(v, jdt), causal=causal, window=window,
+                             block_q=tile, block_kv=tile, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    got = tfa.flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                    block_kv=tile)
+    assert got.dtype == tdt and got.shape == (B, S, Hq, D)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **FLASH_TOL[dtype])
+    dispatched = tfa.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(dispatched.float().numpy(), np.asarray(want, np.float32),
+                               **FLASH_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# pipelined GeMM (K6) and the backend switch
+# ---------------------------------------------------------------------------
+
+PIPE_CASES = [  # (M, K, N, transposed B view)
+    (13, 70, 45, False),      # ragged everywhere, one K tile
+    (1, 300, 129, True),      # tied-head shape class, K steps 3 at tile 128
+    (64, 520, 200, False),    # K steps 5 > depth
+]
+
+
+def _pad_to(x, m):
+    return np.pad(x, [(0, -n % m) for n in x.shape])
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("M,K,N,transposed", PIPE_CASES)
+def test_pipelined_gemm_plain_matches_reference_kernel(M, K, N, transposed, dtype, depth):
+    """The port's pipelined GeMM on CPU tensors equals the Pallas
+    pipelined kernel in interpret mode (operands padded to its 128 tile):
+    f32 within 1e-5, int8 -> int32 exactly."""
+    rng = np.random.default_rng(depth)
+    if dtype == "int8":
+        a = rng.integers(-127, 128, size=(M, K)).astype(np.int8)
+        b = rng.integers(-127, 128, size=(K, N)).astype(np.int8)
+    else:
+        # B scaled by K^-0.5 (as weights are): outputs of order 1, so the
+        # f32 reordering error stays near 1e-6 absolute.
+        a = rng.normal(size=(M, K)).astype(np.float32)
+        b = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
+    kern = make_pipelined_gemm(TpuGemmSpec(128, 128, 128, depth), interpret=True)
+    want = np.asarray(kern(jnp.asarray(_pad_to(a, 128)), jnp.asarray(_pad_to(b, 128))))[:M, :N]
+    tb = torch.from_numpy(np.ascontiguousarray(b.T)).t() if transposed else torch.from_numpy(b)
+    got = tgp.gemm(torch.from_numpy(a), tb, depth=depth)
+    assert got.dtype == (torch.int32 if dtype == "int8" else torch.float32)
+    if dtype == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(tops.gemm(torch.from_numpy(a), tb, backend="pipelined"), got)
+
+
+@pytest.mark.parametrize("bad", ["auto", "xla", "interpret", "pallas", "nope"])
+def test_backend_switch(bad):
+    """"tiled" (K1) and "pipelined" (K6) are the two float GeMM kernels; the
+    reference's device-choosing backends have no counterpart and raise."""
+    assert tregistry.registered_kernels() == ("dequant", "pipelined", "tiled", "w8a8")
+    assert tops.get_default_backend() == "tiled"
+    with pytest.raises(ValueError, match="backend"):
+        tops.set_default_backend(bad)
+    a, b = _operands(6, 16, 8, False)
+    x, w = torch.from_numpy(a), torch.from_numpy(b)
+    with pytest.raises(ValueError, match="backend"):
+        tops.linear(x, w, backend=bad)
+    tops.set_default_backend("pipelined")
+    try:
+        assert tops.get_default_backend() == "pipelined"
+        got = tops.linear(x, w)
+    finally:
+        tops.set_default_backend("tiled")
+    assert torch.equal(got, tops.linear(x, w, backend="tiled"))
+    with pytest.raises(ValueError, match="depth"):
+        tgp.gemm(x, w, depth=5)

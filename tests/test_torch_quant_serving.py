@@ -97,8 +97,13 @@ def test_precision_mode_hygiene(models):
             assert quant.get_mode() == "w8a8"
             raise RuntimeError("boom")
     assert quant.get_mode() == "float"
-    with pytest.raises(NotImplementedError, match="w8a8-calibrated"):
-        TEngine(tcfg, tparams, device="cpu", precision="w8a8-calibrated")
+    # "w8a8-calibrated" serves now: warmup calibrates in float mode, then
+    # runs the calibrated steps, and leaves the mode float.
+    eng = TEngine(tcfg, tparams, device="cpu", precision="w8a8-calibrated",
+                  slots=1, max_seq=8, max_chunk=4)
+    eng.warmup()
+    assert eng.metrics.calib_sites == 7 * tcfg.n_layers + 1
+    assert quant.get_mode() == "float"
     with pytest.raises(ValueError, match="precision"):
         TEngine(tcfg, tparams, device="cpu", precision="int4")
     with pytest.raises(ValueError, match="kv_precision"):

@@ -6,12 +6,18 @@
 Phases, in order; any failure exits non-zero:
 
   1. card name and power limit; build the CUDA kernels from src/ (one nvcc
-     per source, all at once) and print the build seconds.
+     per source, all at once) and print the build seconds and each
+     source's registers and spill bytes (nvcc -Xptxas -v).
   2. each kernel against its plain PyTorch version on the card, at the
      shapes gemma3-1b gives it, with stated tolerances; the int8 GeMM
      (dequant epilogue and int mode) and the row quantization bit for bit;
-     flash attention (K5) at the reference's test shapes and gemma3-1b's
-     (D 256, 4 q heads over 1 kv head, S 1024, global and window 512); the
+     paged flash-decode (K2) over float and int8 pools at 1 and 4 splits,
+     at the split count of its rule and at one split per table column
+     (most splits dead for the short slots), the last two also against the
+     plain split-K `split_decode_plain`; flash attention (K5) at the
+     reference's test shapes, gemma3-1b's (D 256, 4 q heads over 1 kv
+     head, S 1024, global and window 512) and S 32 / 100 / 1000 at each
+     head dim; the
      pipelined GeMM (K6) at depths 2, 3 and 4 on every projection shape and
      the tied head, f32 / bf16 / int8.
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
@@ -19,7 +25,8 @@ Phases, in order; any failure exits non-zero:
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
      tokens, chunk 64, block 16).  Launch counters are zeroed just before
      the run and read just after: both kernels must have run, the GeMM
-     183 times per prefill chunk and per decode step.
+     183 times per prefill chunk and per decode step.  A line gives the
+     split counts K2 ran with, per layer kind and step shape.
   3b. the same run in the int8 deployment precision (w8a8 weights, int8 KV
      pool): the dequant GeMM and the row quantization 183 times per step,
      the int8 decode branch 26 times, the float GeMM never.
@@ -41,7 +48,9 @@ Phases, in order; any failure exits non-zero:
      layers of the weight-error table.
   5. each kernel timed at its main-path shapes with CUDA events (L2 cold),
      beside its bound, its plain version and the library call; K6 at each
-     ring depth beside K1 (the paper's Fig. 5 depth sweep).
+     ring depth beside K1 (the paper's Fig. 5 depth sweep); K2 per decode
+     step and per prefill chunk at its rule's split count (also as eager
+     calls), at 1 and at 4 splits; K5 per shape and per forward.
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -53,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -149,19 +159,11 @@ def phase_kernels(torch, gemm, fd, kvc):
             q = torch.randn((B, sq, Hkv * G, D), generator=g, device=dev).to(dt)
             idx = torch.tensor([n - sq for n in lengths], dtype=torch.int32, device=dev)
             for window in (None, 512):
-                for splits in (1, 4):
-                    spec = fd.FlashDecodeSpec(num_splits=splits)
-                    got = fd.flash_decode_attention(q, cache, tables, idx,
-                                                    window=window, spec=spec)
-                    want = fd.ref_paged_decode(q, cache, tables, idx, window=window)
-                    rtol, atol = DECODE_TOL[dname]
-                    abs_e, rel_e, ok = close(got, want, rtol, atol)
-                    worst["flash_decode"] = max(worst["flash_decode"], abs_e)
-                    print(f"  flash_decode {dname} Sq={sq} window={window} "
-                          f"splits={splits}: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
-                          f"tol=(rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}")
-                    check(ok, f"flash_decode {dname} Sq={sq} window={window} "
-                              f"splits={splits}")
+                wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx, window=window)}
+                for splits in SPLIT_CASES:
+                    _check_decode(torch, fd, f"flash_decode {dname}", q, cache, tables, idx,
+                                  window, splits, wants, DECODE_TOL[dname], worst,
+                                  "flash_decode")
         if dname == "bfloat16":
             oracle_q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(dt)
             oidx = torch.tensor([n - 1 for n in lengths], dtype=torch.int32, device=dev)
@@ -198,6 +200,35 @@ def _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq, lengths):
     kq, ks = kvc.quantize_kv_tokens(cache.k)
     vq, vs = kvc.quantize_kv_tokens(cache.v)
     return kvc.PagedKVCache(k=kq, v=vq, k_scale=ks, v_scale=vs), tables
+
+
+# K2 split counts checked in phase 2: 1, 4, the rule's (None), and one split
+# per table column ("all"): the 64-token slot's 4 live columns leave 71 of
+# its 75 splits dead, and the window empties the first splits of the long
+# slots.
+SPLIT_CASES = (1, 4, None, "all")
+
+
+def _check_decode(torch, fd, label, q, cache, tables, idx, window, splits, wants, tol,
+                  worst, key):
+    """K2 at one split count against the plain versions in `wants` and, at
+    the rule's count and the dead-split count, the plain split version at
+    that count too (the second oracle)."""
+    spec = None if splits is None else fd.FlashDecodeSpec(
+        num_splits=tables.shape[1] if splits == "all" else splits)
+    n = fd.launch_splits(q, tables, cache.k.shape[2], spec)
+    got = fd.flash_decode_attention(q, cache, tables, idx, window=window, spec=spec)
+    if splits in (None, "all"):
+        wants = dict(wants, split=fd.split_decode_plain(q, cache, tables, idx, n,
+                                                        window=window))
+    name = {None: f"rule={n}", "all": f"{n} (one per column)"}.get(splits, splits)
+    for oracle, want in wants.items():
+        abs_e, rel_e, ok = close(got, want, *tol)
+        worst[key] = max(worst[key], abs_e)
+        print(f"  {label} Sq={q.shape[1]} window={window} splits={name} vs {oracle}: "
+              f"max_abs={abs_e:.3e} max_rel={rel_e:.3e} tol=(rtol {tol[0]:g}, atol "
+              f"{tol[1]:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{label} Sq={q.shape[1]} window={window} splits={name} vs {oracle}")
 
 
 def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
@@ -263,19 +294,10 @@ def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
             for window in (None, 512):
                 wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx, window=window),
                          "gather": fd.gather_decode(q, cache, tables, idx, window=window)}
-                for splits in (1, 4):
-                    got = fd.flash_decode_attention(
-                        q, cache, tables, idx, window=window,
-                        spec=fd.FlashDecodeSpec(num_splits=splits))
-                    for oracle, want in wants.items():
-                        abs_e, rel_e, ok = close(got, want, rtol, atol)
-                        worst["flash_decode_int8"] = max(worst["flash_decode_int8"], abs_e)
-                        print(f"  flash_decode int8 pool, q {dname} Sq={sq} window={window} "
-                              f"splits={splits} vs {oracle}: max_abs={abs_e:.3e} "
-                              f"max_rel={rel_e:.3e} tol=(rtol {rtol:g}, atol {atol:g}) "
-                              f"{'ok' if ok else 'FAIL'}")
-                        check(ok, f"flash_decode int8 {dname} Sq={sq} window={window} "
-                                  f"splits={splits} vs {oracle}")
+                for splits in SPLIT_CASES:
+                    _check_decode(torch, fd, f"flash_decode int8 pool, q {dname}", q, cache,
+                                  tables, idx, window, splits, wants, (rtol, atol), worst,
+                                  "flash_decode_int8")
     del cache, tables
     torch.cuda.synchronize()
     return worst
@@ -288,7 +310,9 @@ FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
     (2, 1024, 4, 1, 256, True, None), (2, 1024, 4, 1, 256, True, 512),   # gemma3-1b
     (2, 1000, 4, 1, 256, True, 512),                    # S not a multiple of the tile
     (2, 32, 4, 1, 256, True, None), (2, 32, 4, 1, 256, True, 512),  # the calibration batches
-]
+] + [  # each head dim of the tensor-core body, S short, ragged and long
+    (1, S, 4, 1, D, True, None if S < 1000 else 512)
+    for D in (64, 128, 256) for S in (32, 100, 1000)]
 
 
 def phase_kernels_slice3(torch, fa, gp):
@@ -456,6 +480,8 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
             check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
         want = {k: plan.get(k, 0) * steps for k in launches}
         check(launches == want, f"launches per step: got {launches}, want {want}")
+        if precision == "float" and backend == "tiled":
+            _print_splits(torch, mods["fd"], eng, cfg)
         check(m.cold_compiles == 0, "warmup covered every step shape")
         ops_ = _count_decode_ops(torch, M, eng, mods, quant)
         print(f"  one decode step dispatches {ops_['ops']} PyTorch ops ({ops_['views']} views, "
@@ -487,6 +513,26 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     del eng
     torch.cuda.empty_cache()
     return summary
+
+
+def _print_splits(torch, fd, eng, cfg):
+    """The K2 split count the run launched with (the wrapper's own rule) per
+    layer kind, for the decode step and each prefill chunk bucket."""
+    from repro_torch.serving.prefill import chunk_buckets
+
+    tables = eng.state.block_tables
+    hkv, hq, d = cfg.n_kv_heads, cfg.n_heads, cfg.resolved_head_dim
+    kinds = sorted(set(cfg.layer_kinds()))
+    shapes = [("decode step", eng.slots, 1)] + [
+        (f"prefill chunk {c}", 1, c) for c in chunk_buckets(eng.max_chunk)]
+    parts = []
+    for label, b, sq in shapes:
+        q = torch.empty((b, sq, hq, d), device=eng.device, dtype=torch.bfloat16)
+        n = fd.launch_splits(q, tables[:b], hkv)
+        parts.append(f"{label} (B={b}, Sq={sq}, {tables.shape[1]} columns): "
+                     + ", ".join(f"{k} {n}" for k in kinds))
+    print(f"  K2 splits by the rule on {torch.cuda.get_device_properties(0).multi_processor_count}"
+          " SMs: " + "; ".join(parts))
 
 
 def _paired_backends(torch, M, eng, ops, quant, mods, reps: int = 20, calls: int = 1000):
@@ -810,8 +856,6 @@ def _time_ms(torch, calls, iters: int, graph: bool = True) -> float:
 
 
 def phase_times(torch, gemm, gp, fd, kvc):
-    import torch.nn.functional as F
-
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(2)
@@ -859,19 +903,39 @@ def phase_times(torch, gemm, gp, fd, kvc):
     lengths = [1100, 1024, 950, 700, 513, 260, 128, 64]
     pools = [_lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq, lengths)
              for _ in range(12)]                   # ~120 MB: the pool is L2-cold
-    for label, b_, sq in (("decode", B, 1), ("prefill", 1, 64)):
+    _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, "flash_decode")
+    del pools
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key):
+    """K2 over L2-cold copies of a lived-in pool (float or int8), bf16 q, at
+    the decode step (8 slots, Sq 1) and a prefill chunk (the 1100-token
+    slot, Sq 64), global and window 512: the wrapper's rule (graph replay
+    and eager call), num_splits 1 and 4, the plain walk, SDPA over K/V
+    gathered (and dequantized) beforehand, and the bound."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    int8 = key == "flash_decode_int8"
+    Hkv, D = pools[0][0].k.shape[2], pools[0][0].k.shape[3]
+    for label, b_, sq in (("decode", len(lengths), 1), ("prefill", 1, 64)):
         lens = lengths[:b_]
         q = torch.randn((b_, sq, Hkv * G, D), generator=g, device=dev).to(dt)
         idx = torch.tensor([n - sq for n in lens], dtype=torch.int32, device=dev)
+        sel = [(c, t[:b_].contiguous()) for c, t in pools]
+        n_rule = fd.launch_splits(q, sel[0][1], Hkv)
         for window in (None, 512):
-            sel = [(c, t[:b_].contiguous()) for c, t in pools]
-            kcalls = [lambda c=c, t=t: fd.flash_decode_attention(
-                q, c, t, idx, window=window) for c, t in sel]
-            t_k = _time_ms(torch, kcalls, 120)
-            t_e = _time_ms(torch, kcalls, 120, graph=False)
+            def kcalls(spec=None):
+                return [lambda c=c, t=t: fd.flash_decode_attention(
+                    q, c, t, idx, window=window, spec=spec) for c, t in sel]
+            t_k = _time_ms(torch, kcalls(), 120)
+            t_e = _time_ms(torch, kcalls(), 120, graph=False)
+            t_s = {n: _time_ms(torch, kcalls(fd.FlashDecodeSpec(num_splits=n)), 120)
+                   for n in (1, 4)}
             t_p = _time_ms(torch, [lambda c=c, t=t: fd.ref_paged_decode(
                 q, c, t, idx, window=window) for c, t in sel[:4]], 8, graph=False)
-            # library yardstick: SDPA over K/V gathered beforehand (gather untimed)
             qpos = idx[:, None].long() + torch.arange(sq, device=dev)[None]
             kpos = torch.arange(sel[0][1].shape[1] * bs, device=dev)
             mask = kpos[None, None, :] <= qpos[..., None]
@@ -879,36 +943,33 @@ def phase_times(torch, gemm, gp, fd, kvc):
                 mask &= (qpos[..., None] - kpos[None, None, :]) < window
             lib_in = []
             for c, t in sel[:4]:
-                k, v = kvc.gather_kv(c, t)
-                lib_in.append((k.permute(0, 2, 1, 3).repeat_interleave(G, 1),
-                               v.permute(0, 2, 1, 3).repeat_interleave(G, 1)))
+                k, v = kvc.gather_kv(c, t)            # int8: dequantized, f32
+                lib_in.append((k.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1),
+                               v.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1)))
             qs = q.permute(0, 2, 1, 3)
             t_l = _time_ms(torch, [lambda k=k, v=v: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=mask[:, None]) for k, v in lib_in], 120)
-            keys = 0
-            flops = 0
-            for n, i0 in zip(lens, idx.tolist()):
+            keys, flops = 0, 0
+            for i0 in idx.tolist():
                 lo = 0 if window is None else max(0, i0 - window + 1)
                 keys += (i0 + sq) - lo
                 for t in range(sq):
                     qp = i0 + t
-                    flops += 4 * G * D * (qp + 1 - (0 if window is None else max(0, qp - window + 1)))
-            nbytes = 2 * (2 * keys * Hkv * D + 2 * q.numel()) + 4 * idx.numel() + \
-                4 * b_ * (max_seq // bs)
-            bound = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]) * 1e3
-            rows[("flash_decode", label, window)] = (t_k, t_p, t_l, bound)
-            if label == "decode":   # the split count a tuned spec could pick
-                t_s4 = _time_ms(torch, [lambda c=c, t=t: fd.flash_decode_attention(
-                    q, c, t, idx, window=window, spec=fd.FlashDecodeSpec(num_splits=4))
-                    for c, t in sel], 120)
-                print(f"  flash_decode bf16 decode window={window} num_splits=4: "
-                      f"kernel {t_s4 * 1e3:.1f} us")
-            print(f"  flash_decode bf16 {label} B={b_} Sq={sq} window={window}: kernel "
-                  f"{t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, "
-                  f"bound {bound * 1e3:.2f} us (bytes), {bound / t_k:.1%} of bound")
-    del pools
-    torch.cuda.empty_cache()
-    return rows
+                    flops += 4 * G * D * (qp + 1 - (0 if window is None
+                                                     else max(0, qp - window + 1)))
+            row_bytes = Hkv * (D + 4) if int8 else Hkv * D * 2
+            nbytes = (2 * keys * row_bytes + 2 * 2 * q.numel() + 4 * idx.numel()
+                      + 4 * b_ * (max_seq // bs))
+            bound, by = _bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+            rows[(key, label, window)] = (t_k, t_p, t_l, bound, by, t_s[1], t_s[4], t_e)
+            pool = "int8 pool, q bf16" if int8 else "bf16"
+            print(f"  {key} {pool} {label} B={b_} Sq={sq} window={window}: kernel "
+                  f"{t_k * 1e3:.1f} us at the rule's {n_rule} splits (eager call "
+                  f"{t_e * 1e3:.1f} us), num_splits=1 {t_s[1] * 1e3:.1f} us, num_splits=4 "
+                  f"{t_s[4] * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
+                  f"{t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+                  f"{bound / t_k:.1%} of bound")
+            del lib_in
 
 
 def phase_times_flash(torch, fa):
@@ -970,8 +1031,6 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
     (bf16 out, weights in the serving layout) at M = 8 and 64 beside
     torch._int_mm, the row quantization at the decode shapes, the int8
     decode branch beside SDPA over K/V gathered and dequantized beforehand."""
-    import torch.nn.functional as F
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     i8 = dict(generator=g, device=dev, dtype=torch.int8)
@@ -1026,48 +1085,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
     lengths = [1100, 1024, 950, 700, 513, 260, 128, 64]
     pools = [_lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq, lengths)
              for _ in range(24)]                   # ~120 MB of codes: the pool is L2-cold
-    dt = torch.bfloat16
-    for label, b_, sq in (("decode", B, 1), ("prefill", 1, 64)):
-        lens = lengths[:b_]
-        q = torch.randn((b_, sq, Hkv * G, D), generator=g, device=dev).to(dt)
-        idx = torch.tensor([n - sq for n in lens], dtype=torch.int32, device=dev)
-        for window in (None, 512):
-            sel = [(c, t[:b_].contiguous()) for c, t in pools]
-            kcalls = [lambda c=c, t=t: fd.flash_decode_attention(
-                q, c, t, idx, window=window) for c, t in sel]
-            t_k = _time_ms(torch, kcalls, 120)
-            t_e = _time_ms(torch, kcalls, 120, graph=False)
-            t_p = _time_ms(torch, [lambda c=c, t=t: fd.ref_paged_decode(
-                q, c, t, idx, window=window) for c, t in sel[:4]], 8, graph=False)
-            qpos = idx[:, None].long() + torch.arange(sq, device=dev)[None]
-            kpos = torch.arange(sel[0][1].shape[1] * bs, device=dev)
-            mask = kpos[None, None, :] <= qpos[..., None]
-            if window is not None:
-                mask &= (qpos[..., None] - kpos[None, None, :]) < window
-            lib_in = []
-            for c, t in sel[:4]:
-                k, v = kvc.gather_kv(c, t)            # dequantized, f32
-                lib_in.append((k.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1),
-                               v.to(dt).permute(0, 2, 1, 3).repeat_interleave(G, 1)))
-            qs = q.permute(0, 2, 1, 3)
-            t_l = _time_ms(torch, [lambda k=k, v=v: F.scaled_dot_product_attention(
-                qs, k, v, attn_mask=mask[:, None]) for k, v in lib_in], 120)
-            keys, flops = 0, 0
-            for i0 in idx.tolist():
-                lo = 0 if window is None else max(0, i0 - window + 1)
-                keys += (i0 + sq) - lo
-                for t in range(sq):
-                    qp = i0 + t
-                    flops += 4 * G * D * (qp + 1 - (0 if window is None
-                                                     else max(0, qp - window + 1)))
-            nbytes = (2 * keys * Hkv * (D + 4) + 2 * 2 * q.numel() + 4 * idx.numel()
-                      + 4 * b_ * (max_seq // bs))
-            bound, by = _bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
-            rows[("flash_decode_int8", label, window)] = (t_k, t_p, t_l, bound, by)
-            print(f"  flash_decode int8 pool, q bf16, {label} B={b_} Sq={sq} window={window}: "
-                  f"kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
-                  f"{t_p * 1e3:.1f} us, sdpa over dequantized K/V {t_l * 1e3:.1f} us, "
-                  f"bound {bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+    _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, "flash_decode_int8")
     del pools
     torch.cuda.empty_cache()
     return rows
@@ -1104,6 +1122,18 @@ def per_step_slice3(rows, n_layers: int = 26, n_global: int = 4, depth: int = 3)
              for i in range(4)]
     return {"gemm_pipelined": pipe + ["bytes"],
             "flash_attention": flash + [rows[("flash_attention", 1024, None)][4]]}
+
+
+def per_step_decode(rows, key, n_layers: int = 26, n_global: int = 4):
+    """K2's times summed over one gemma3-1b step (4 global + 22 window-512
+    layers) for the decode step and a prefill chunk of the 1100-token slot:
+    the rule (graph replay), num_splits 1 and 4, the eager call, SDPA and
+    the bound, in ms."""
+    names = {"rule": 0, "sdpa": 2, "bound": 3, "splits=1": 5, "splits=4": 6, "eager": 7}
+    return {label: {name: n_global * rows[(key, label, None)][i]
+                    + (n_layers - n_global) * rows[(key, label, 512)][i]
+                    for name, i in names.items()}
+            for label in ("decode", "prefill")}
 
 
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
@@ -1144,9 +1174,20 @@ def main() -> int:
     logs = _build.build()
     print(f"[1] kernels built in {time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
+        regs, spills, n = 0, 0, 0
         for line in log.splitlines():
+            if name in ("flash_decode", "flash_attention") and "Compiling entry" in line:
+                print(f"    {name}: {line.strip()}")
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs, n = max(regs, int(m.group(1))), n + 1
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills += int(m.group(1)) + int(m.group(2))
+        print(f"[1] {name}.cu: {n} kernels, at most {regs} registers a thread, "
+              f"{spills} bytes of spill stores and loads in all")
 
     print("[2] kernels vs plain versions on the card")
     worst = phase_kernels(torch, gemm, fd, kvc)
@@ -1169,7 +1210,8 @@ def main() -> int:
     rows = phase_times(torch, gemm, gp, fd, kvc)
     agg = per_step(rows)
     agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
-    agg.update(per_step_int8(phase_times_int8(torch, gemm8, kq, fd, kvc)))
+    rows8 = phase_times_int8(torch, gemm8, kq, fd, kvc)
+    agg.update(per_step_int8(rows8))
     print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (bound "
           f"{agg['gemm'][3]:.3f}), flash_decode {agg['flash_decode'][0]:.3f} ms (bound "
           f"{agg['flash_decode'][3]:.3f}); engine decode step {summary['decode_ms']:.2f} ms")
@@ -1183,6 +1225,13 @@ def main() -> int:
           f"{agg['gemm_pipelined'][0]:.3f} ms (bound {agg['gemm_pipelined'][3]:.3f}); "
           f"engine decode step {summary_pipe['decode_ms']:.2f} ms; calibrated w8a8 "
           f"engine decode step {summary_cal['decode_ms']:.2f} ms")
+    for key in ("flash_decode", "flash_decode_int8"):
+        for label, t in per_step_decode({**rows, **rows8}, key).items():
+            what = "decode step (8 slots)" if label == "decode" else \
+                "prefill chunk (64 tokens of the 1100-token slot)"
+            print(f"[5] {key} per {what}: rule {t['rule']:.3f} ms (eager calls "
+                  f"{t['eager']:.3f}), num_splits=1 {t['splits=1']:.3f} ms, num_splits=4 "
+                  f"{t['splits=4']:.3f} ms, sdpa {t['sdpa']:.3f} ms, bound {t['bound']:.4f} ms")
     print(f"[5] one forward over (2, 1024) tokens: flash_attention "
           f"{agg['flash_attention'][0]:.3f} ms (bound {agg['flash_attention'][3]:.3f}, "
           f"sdpa {agg['flash_attention'][2]:.3f})")

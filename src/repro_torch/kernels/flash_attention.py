@@ -6,8 +6,9 @@ kernel `_flash_kernel`: full-sequence attention over q (B, Sq, Hq, D) and
 k/v (B, Skv, Hkv, D) with causal and sliding-window masks and GQA, online
 softmax, the score matrix never in device memory.  It is bound by its
 operations (~2 * Sq * Skv * D multiply-adds per q head, halved by the
-causal mask); the note at the top of the .cu file says what the design does
-about that.
+causal mask): bf16 inputs run on the tensor cores (mma.sync), f32 inputs on
+a SIMT FMA body that keeps full f32; the note at the top of the .cu file
+says what each design does about it.
 
 The plain version `flash_attention_plain` is the reference kernel's
 arithmetic (q scaled in f32 before the dot, p rounded to v's dtype before
@@ -95,7 +96,10 @@ def _flash_cuda(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
     if min(B, Sq, Skv) < 1 or max(q.numel(), k.numel()) > _INT_MAX:
         raise ValueError(f"flash attention kernel shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)} out of range")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # 16-byte copies: a contiguous view that starts off a 16-byte boundary is
+    # copied (fresh allocations are aligned).
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, Hq, Hkv, D, int(causal),

@@ -8,13 +8,16 @@ pool through the block tables (GQA rows packed per kv head, causal /
 seq-cap / sliding-window masks in the kernel, split-K online-softmax
 partials merged in a second kernel).  An int8 pool (the reference's
 quantized branch) carries a float32 scale per (block, position, kv head)
-and the kernel dequantizes each K/V element as it loads it.  It is bound by
-the pool bytes it reads; the note at the top of the .cu file says what the
-design does about that.
+and the kernel dequantizes each K/V element as it leaves shared memory.
+It is bound by the pool bytes it reads and by latency; the note at the top
+of the .cu file says what the design does about that.  Without an explicit
+`FlashDecodeSpec` the split count comes from `decode_splits`: enough
+splits of the table extent for about two blocks per SM.
 
 Plain versions beside it: `ref_paged_decode`, the bounded online-softmax
-walk over table-column chunks (the reference's CPU default), and
-`gather_decode`, the `gather_kv` + `decode_attention` oracle.
+walk over table-column chunks (the reference's CPU default);
+`gather_decode`, the `gather_kv` + `decode_attention` oracle; and
+`split_decode_plain`, the kernel's own split partials and merge.
 
 `paged_decode_attention` is the entry the model calls: CUDA tensors launch
 the kernel (or raise), CPU tensors run `ref_paged_decode`.
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -41,7 +45,8 @@ launches_int8 = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)   # instantiated in csrc/flash_decode.cu
-_KV_PER_BLOCK = 16 * 256      # block_size * head_dim the kernel stages (KV_PER * NT)
+_MAX_SPLIT_COLS = 4096        # table entries of one split the kernel holds in shared memory
+_SM_COUNT = {}                # device index -> multiprocessor count
 
 
 def reset_launches() -> None:
@@ -55,6 +60,8 @@ class FlashDecodeSpec:
 
     num_splits     split-K factor over the block-table columns; each split
                    emits partial (acc, m, l) merged by the combine kernel.
+                   The CUDA wrapper, given no spec, picks it with
+                   `decode_splits`.
     cols_per_iter  table columns the plain version gathers per iteration.
     """
 
@@ -67,6 +74,51 @@ class FlashDecodeSpec:
         if self.cols_per_iter < 1:
             raise ValueError(
                 f"cols_per_iter must be >= 1, got {self.cols_per_iter}")
+
+
+def _row_tile(rows: int) -> int:
+    """Packed query rows per kernel block (RT in csrc/flash_decode.cu)."""
+    return 4 if rows <= 4 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def decode_splits(B: int, Hkv: int, row_tiles: int, max_blocks: int, n_sm: int) -> int:
+    """Split count for a launch over B slots x Hkv kv heads x `row_tiles`
+    row tiles and a table of `max_blocks` columns on `n_sm` SMs: enough
+    splits for about two blocks per SM, no split under two columns, never
+    more splits than columns.  The rule reads the table extent, known on the
+    host, not the live lengths, which lie on the card; splits past a slot's
+    length cost one block that exits at once."""
+    want = -(-2 * n_sm // max(1, B * Hkv * row_tiles))
+    return max(1, min(want, max_blocks // 2))
+
+
+def split_columns(max_blocks: int, splits: int):
+    """[(first, end)) table columns of each split, as the kernel cuts them:
+    split s owns [s * max_blocks // splits, (s + 1) * max_blocks // splits)."""
+    return [(s * max_blocks // splits, (s + 1) * max_blocks // splits)
+            for s in range(splits)]
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    n = _SM_COUNT.get(i)
+    if n is None:
+        n = _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return n
+
+
+def launch_splits(q: torch.Tensor, block_tables: torch.Tensor, Hkv: int,
+                  spec: Optional[FlashDecodeSpec] = None) -> int:
+    """The split count `flash_decode_attention` launches with for q (B, Sq,
+    Hq, D) on a CUDA device: the spec's, else `decode_splits`'."""
+    B, Sq, Hq, _ = q.shape
+    max_blocks = block_tables.shape[1]
+    if spec is not None:
+        return max(1, min(spec.num_splits, max_blocks))
+    rows = (Hq // Hkv) * Sq
+    return decode_splits(B, Hkv, -(-rows // _row_tile(rows)), max_blocks,
+                         _sm_count(q.device))
 
 
 def _index_vector(index, B: int, device) -> torch.Tensor:
@@ -154,6 +206,46 @@ def gather_decode(q: torch.Tensor, cache: PagedKVCache,
     return decode_attention(q, k, v, index=index, window=window)
 
 
+def split_decode_plain(q: torch.Tensor, cache: PagedKVCache,
+                       block_tables: torch.Tensor, index, splits: int, *,
+                       window: Optional[int] = None) -> torch.Tensor:
+    """The kernel's split-K in plain PyTorch: per-split partials (acc, m, l)
+    over `split_columns`, each over its visible keys only (the kernel clips
+    a split to those keys; the keys it drops are masked here), merged as the
+    combine kernel merges them: a split with m = NEG_INF (nothing visible to
+    the row) is skipped, the rest weighted by exp(m - max m)."""
+    B, Sq, Hq, D = q.shape
+    _, bs, Hkv, _ = cache.k.shape
+    G, max_blocks = Hq // Hkv, block_tables.shape[1]
+    splits = max(1, min(splits, max_blocks))
+    dev = q.device
+    k, v = gather_kv(cache, block_tables)                   # (B, seq_cap, Hkv, D)
+    k, v = k.to(torch.float32), v.to(torch.float32)
+    idx = _index_vector(index, B, dev).to(torch.int64)
+    qf = (q.to(torch.float32) * (D ** -0.5)).reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k)             # (B, H, G, Sq, K)
+    qpos = idx[:, None] + torch.arange(Sq, device=dev)[None, :]
+    kpos = torch.arange(max_blocks * bs, device=dev)
+    live = kpos[None, None, :] <= qpos[:, :, None]          # (B, Sq, K)
+    if window is not None:
+        live &= (qpos[:, :, None] - kpos[None, None, :]) < window
+    ms, ls, accs = [], [], []
+    for c0, c1 in split_columns(max_blocks, splits):
+        ok = (live & (kpos >= c0 * bs) & (kpos < c1 * bs))[:, None, None]
+        m = torch.where(ok, s, torch.full_like(s, NEG_INF)).amax(dim=-1)
+        p = torch.where(ok, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgqk,bkhd->bhgqd", p, v))
+    m = torch.stack(ms)                                     # (S, B, H, G, Sq)
+    m_g = m.amax(dim=0)
+    alpha = torch.where(m > NEG_INF, torch.exp(m - m_g), torch.zeros_like(m))
+    l_g = (torch.stack(ls) * alpha).sum(dim=0)
+    acc = (torch.stack(accs) * alpha[..., None]).sum(dim=0)
+    out = acc / torch.clamp_min(l_g[..., None], 1e-30)      # (B, H, G, Sq, D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel
 # ---------------------------------------------------------------------------
@@ -177,9 +269,9 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     Hkv, D) in q's dtype, or int8 with float32 scales (num_blocks,
     block_size, Hkv); block_tables (B, max_blocks) int32; index the first
     query position per slot ((B,) int32, or a scalar).  Returns
-    (B, Sq, Hq, D) in q's dtype."""
+    (B, Sq, Hq, D) in q's dtype.  `spec` None: the split count of
+    `decode_splits`."""
     global launches, launches_int8
-    spec = spec or FlashDecodeSpec()
     if q.dim() != 4 or cache.k.dim() != 4 or cache.k.shape != cache.v.shape:
         raise ValueError(f"flash decode shapes q {tuple(q.shape)}, "
                          f"pool {tuple(cache.k.shape)}/{tuple(cache.v.shape)}")
@@ -208,33 +300,36 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
             or cache.v.dtype != pool_dtype:
         raise TypeError(f"flash decode kernel takes f32/bf16 q and a pool of q's "
                         f"dtype or int8, got {q.dtype}, {cache.k.dtype}, {cache.v.dtype}")
-    if D not in _HEAD_DIMS or not 1 <= bs * D <= _KV_PER_BLOCK:
-        raise ValueError(f"flash decode kernel: head_dim {D} not in {_HEAD_DIMS} "
-                         f"or block_size * head_dim {bs * D} > {_KV_PER_BLOCK}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash decode kernel: head_dim {D} not in {_HEAD_DIMS}")
     if block_tables.dtype != torch.int32:
         raise TypeError(f"block tables must be int32, got {block_tables.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash decode kernel takes contiguous tensors")
+    if cache.k.data_ptr() % 16 or cache.v.data_ptr() % 16:
+        raise ValueError("flash decode kernel: the pools must be 16-byte aligned")
     idx = _index_vector(index, B, q.device).contiguous()
     if idx.shape != (B,) or idx.dtype != torch.int32:
         raise ValueError(f"index must be (B,) int32, got {tuple(idx.shape)} {idx.dtype}")
 
     groups, max_blocks = Hq // Hkv, block_tables.shape[1]
-    rows = groups * Sq
-    splits = max(1, min(spec.num_splits, max_blocks))
+    splits = launch_splits(q, block_tables, Hkv, spec)
+    if -(-max_blocks // splits) > _MAX_SPLIT_COLS:
+        raise ValueError(f"flash decode kernel: {max_blocks} table columns over "
+                         f"{splits} splits exceed {_MAX_SPLIT_COLS} per split")
     out = torch.empty_like(q)
     ws = [None, None, None]
-    if splits > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        ws = [torch.empty((B, Hkv, splits, rows, D), **f32),
-              torch.empty((B, Hkv, splits, rows), **f32),
-              torch.empty((B, Hkv, splits, rows), **f32)]
+    if splits > 1:   # one workspace: acc (B, Hkv, splits, rows, D), then m, then l
+        n = B * Hkv * splits * groups * Sq
+        buf = torch.empty((n * (D + 2),), dtype=torch.float32, device=q.device)
+        ptr = buf.data_ptr()
+        ws = [ptr, ptr + 4 * n * D, ptr + 4 * n * (D + 1)]
     scales = (cache.k_scale.data_ptr(), cache.v_scale.data_ptr()) if quantized \
         else (None, None)
     err = _lib()(
         q.data_ptr(), cache.k.data_ptr(), cache.v.data_ptr(), *scales,
         block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        *[None if w is None else w.data_ptr() for w in ws],
+        *ws,
         B, Sq, Hkv, groups, D, bs, max_blocks, splits,
         0 if window is None else int(window), D ** -0.5, _CODES[q.dtype],
         int(quantized), torch.cuda.current_stream(q.device).cuda_stream)
@@ -257,11 +352,11 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
                            spec: Optional[FlashDecodeSpec] = None) -> torch.Tensor:
     """Decode attention over a paged KV cache, the entry the model layer
     calls: the CUDA kernel for CUDA tensors, `ref_paged_decode` for CPU
-    tensors.  Equivalent to `gather_decode` either way."""
-    spec = spec or FlashDecodeSpec()
+    tensors.  Equivalent to `gather_decode` either way.  With no `spec` the
+    kernel's split count comes from `decode_splits`."""
     if q.device.type == "cpu":
         return ref_paged_decode(q, cache, block_tables, index, window=window,
-                                cols_per_iter=spec.cols_per_iter)
+                                cols_per_iter=(spec or FlashDecodeSpec()).cols_per_iter)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode: no kernel for device {q.device}")
     return flash_decode_attention(q, cache, block_tables, index, window=window,

@@ -150,6 +150,51 @@ def test_flash_decode_kernel_matches_plain(cuda_device, sq, window, splits,
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _ragged_pool(cuda_device, kv_precision, rng, d, lengths, bs=4, max_blocks=16, hkv=1):
+    B = len(lengths)
+    nb = 1 + B * max_blocks
+    cache = tkvc.init_paged_kv(nb, bs, hkv, d, torch.float32, cuda_device,
+                               kv_precision=kv_precision)
+    alloc, tables = tkvc.BlockAllocator(nb, bs), tkvc.BlockTables(B, max_blocks)
+    for s, n in enumerate(lengths):
+        tables.ensure(s, n, alloc)
+    bt = tables.array(cuda_device)
+    kv = torch.from_numpy(rng.normal(size=(2, B, max(lengths), hkv, d))
+                          .astype(np.float32)).to(cuda_device)
+    tkvc.write_kv(cache, bt, kv[0], kv[1], 0)
+    return cache, bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_precision", ["float", "int8"])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("sq,window", [(1, None), (1, 6), (3, None), (3, 9)])
+def test_flash_decode_split_rule_matches_plain(cuda_device, kv_precision, d, sq, window):
+    """K2 with no spec (the split count of `decode_splits`: 8 splits of 2
+    columns here, so the 1- and 5-token slots leave most splits dead) and
+    with one split per column, against the plain walk and the plain split
+    version at the same count, over ragged lengths: a 1-token slot, one at
+    the table's capacity."""
+    rng = np.random.default_rng(7)
+    lengths = [1, 5, 40, 64]
+    cache, bt = _ragged_pool(cuda_device, kv_precision, rng, d, lengths)
+    B, groups = len(lengths), 4
+    q = torch.from_numpy(rng.normal(size=(B, sq, groups, d)).astype(np.float32)) \
+        .to(cuda_device)
+    idx = torch.tensor([max(n - sq, 0) for n in lengths], dtype=torch.int32,
+                       device=cuda_device)
+    walk = tfd.ref_paged_decode(q, cache, bt, idx, window=window)
+    for spec in (None, tfd.FlashDecodeSpec(num_splits=bt.shape[1])):
+        splits = tfd.launch_splits(q, bt, 1, spec)
+        assert splits == (bt.shape[1] // 2 if spec is None else bt.shape[1])
+        tfd.reset_launches()
+        got = tfd.flash_decode_attention(q, cache, bt, idx, window=window, spec=spec)
+        assert (tfd.launches, tfd.launches_int8) == \
+            ((0, 1) if kv_precision == "int8" else (1, 0))
+        for want in (walk, tfd.split_decode_plain(q, cache, bt, idx, splits, window=window)):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 FLASH_CASES = [  # (B, S, Hq, Hkv, D, causal, window)
     (1, 128, 2, 2, 64, True, None),      # MHA
     (2, 256, 4, 2, 64, True, None),      # GQA
@@ -178,6 +223,32 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), want.float(), **tol)
     assert tfa.launches == len(FLASH_CASES)
+
+
+MMA_CASES = [  # (B, S, Hq, Hkv, D, causal, window): S not a multiple of 64
+    (1, 100, 2, 1, 64, True, None),
+    (2, 200, 4, 2, 128, True, 64),
+    (1, 33, 4, 1, 256, True, 16),
+    (2, 130, 4, 1, 256, True, None),
+    (1, 70, 2, 2, 128, False, None),
+    (1, 1000, 4, 1, 256, True, 512),
+]
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_tensor_core_path(cuda_device):
+    """K5's bf16 body (mma.sync) at head dims 64, 128 and 256 with ragged
+    sequence lengths, against its plain version within one bf16 ulp."""
+    rng = np.random.default_rng(11)
+    tfa.reset_launches()
+    for B, S, Hq, Hkv, D, causal, window in MMA_CASES:
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+        want = tfa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        assert got.dtype == torch.bfloat16 and bool(got.isfinite().all())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=2 ** -8)
+    assert tfa.launches == len(MMA_CASES)
 
 
 @pytest.mark.gpu

@@ -7,9 +7,12 @@ Phases, in order; any failure exits non-zero:
 
   1. card name and power limit; build the CUDA kernels from src/ (one nvcc
      per source, all at once) and print the build seconds and each
-     source's registers and spill bytes (nvcc -Xptxas -v).
+     source's registers and spill bytes (nvcc -Xptxas -v; the float GeMMs
+     must not spill); where cuobjdump exists, the tensor-core (HMMA)
+     instructions in the float GeMMs' libraries, which must be some.
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes gemma3-1b gives it, with stated tolerances; the int8 GeMM
+     shapes gemma3-1b gives it (the float GeMMs K1 and K6 at M = 1, 8 and
+     64), with stated tolerances; the int8 GeMM
      (dequant epilogue and int mode) and the row quantization bit for bit;
      paged flash-decode (K2) over float and int8 pools at 1 and 4 splits,
      at the split count of its rule and at one split per table column
@@ -48,7 +51,9 @@ Phases, in order; any failure exits non-zero:
      layers of the weight-error table.
   5. each kernel timed at its main-path shapes with CUDA events (L2 cold),
      beside its bound, its plain version and the library call; K6 at each
-     ring depth beside K1 (the paper's Fig. 5 depth sweep); K2 per decode
+     ring depth beside K1 (the paper's Fig. 5 depth sweep); the float GeMMs
+     per decode step (M = 8) and per prefill chunk (the projections at
+     M = 64, the tied head at M = 1, as prefill_chunk runs it); K2 per decode
      step and per prefill chunk at its rule's split count (also as eager
      calls), at 1 and at 4 splits; K5 per shape and per forward.
 
@@ -62,7 +67,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -133,7 +140,7 @@ def phase_kernels(torch, gemm, fd, kvc):
     worst = {"gemm": 0.0, "flash_decode": 0.0}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for M in (8, 64):
+        for M in (1, 8, 64):
             for name, K, N, transposed in GEMM_SHAPES:
                 a = torch.randn((M, K), generator=g, device=dev).to(dt)
                 b = (torch.randn((N, K) if transposed else (K, N), generator=g,
@@ -318,7 +325,7 @@ FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
 def phase_kernels_slice3(torch, fa, gp):
     """Slice 3's kernels against their plain versions: flash attention at
     the reference's test shapes and gemma3-1b's, bf16 and f32; the
-    pipelined GeMM at every depth on GEMM_SHAPES for M = 8 and 64 (B as the
+    pipelined GeMM at every depth on GEMM_SHAPES for M = 1, 8 and 64 (B as the
     model holds it: (K, N), the head a .t() view) in f32 and bf16, and in
     int8 with B in the serving layout, bit for bit."""
     dev = torch.device("cuda")
@@ -340,7 +347,7 @@ def phase_kernels_slice3(torch, fa, gp):
                   f"{'ok' if ok else 'FAIL'}")
             check(ok, f"flash_attention {dname} {(B, S, Hq, Hkv, D, causal, window)}")
     for dname in ("bfloat16", "float32", "int8"):
-        for M in (8, 64):
+        for M in (1, 8, 64):
             for name, K, N, transposed in GEMM_SHAPES:
                 shape_b = (N, K) if transposed or dname == "int8" else (K, N)
                 if dname == "int8":
@@ -861,44 +868,48 @@ def phase_times(torch, gemm, gp, fd, kvc):
     g = torch.Generator(device=dev).manual_seed(2)
     dt = torch.bfloat16
     rows = {}
-    for M in (8, 64):
-        for name, K, N, transposed in GEMM_SHAPES:
-            b_bytes = K * N * 2
-            copies = max(1, min(128, math.ceil(2 * L2_BYTES / b_bytes)))
-            a = torch.randn((M, K), generator=g, device=dev).to(dt)
-            bs_ = []
-            for _ in range(copies):
-                b = torch.randn((N, K) if transposed else (K, N), generator=g,
-                                device=dev).to(dt)
-                bs_.append(b.t() if transposed else b)
-            iters = max(20, min(400, 4 * copies))
-            kcalls = [lambda b=b: gemm.gemm(a, b, out_dtype=dt) for b in bs_]
-            t_k = _time_ms(torch, kcalls, iters)
-            t_e = _time_ms(torch, kcalls, iters, graph=False)
-            t_p = _time_ms(torch, [lambda b=b: gemm.gemm_plain(a, b, dt) for b in bs_[:4]],
-                           max(4, iters // 10), graph=False)
-            t_l = _time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs_], iters)
-            nbytes = (M * K + K * N + M * N) * 2
-            flops = 2 * M * K * N
-            bound = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]) * 1e3
-            rows[("gemm", M, name)] = (t_k, t_p, t_l, bound)
-            print(f"  gemm bf16 M={M} {name} {K}x{N}: kernel {t_k * 1e3:.1f} us "
-                  f"(eager call {t_e * 1e3:.1f} us), plain "
-                  f"{t_p * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, bound "
-                  f"{bound * 1e3:.2f} us ({'bytes' if nbytes / HBM_BPS >= flops / PEAK_FLOPS['bfloat16'] else 'operations'}), "
-                  f"{bound / t_k:.1%} of bound")
-            # K6 on the same L2-cold copies at each ring depth (Fig. 5 sweep);
-            # its plain version is K1's (the same function).
-            t_d = {}
-            for d in DEPTHS:
-                t_d[d] = _time_ms(torch, [lambda b=b, d=d: gp.gemm(a, b, depth=d, out_dtype=dt)
-                                          for b in bs_], iters)
-                rows[("gemm_pipelined", M, name, d)] = (t_d[d], t_p, t_l, bound)
-            print(f"  gemm_pipelined bf16 M={M} {name} {K}x{N}: depth "
-                  + " / ".join(f"{d}: {t_d[d] * 1e3:.1f}" for d in DEPTHS)
-                  + f" us (K1 {t_k * 1e3:.1f} us, bound {bound * 1e3:.2f} us)")
-            del a, bs_
+    # Every shape at M = 8 (decode) and 64 (prefill projections); the head
+    # also at M = 1 (prefill_chunk runs it on the last position only).
+    shapes = [(M, s) for M in (8, 64) for s in GEMM_SHAPES] + \
+        [(1, s) for s in GEMM_SHAPES if s[0] == "head"]
+    for M, (name, K, N, transposed) in shapes:
+        b_bytes = K * N * 2
+        copies = max(1, min(128, math.ceil(2 * L2_BYTES / b_bytes)))
+        a = torch.randn((M, K), generator=g, device=dev).to(dt)
+        bs_ = []
+        for _ in range(copies):
+            b = torch.randn((N, K) if transposed else (K, N), generator=g,
+                            device=dev).to(dt)
+            bs_.append(b.t() if transposed else b)
+        iters = max(20, min(400, 4 * copies))
+        kcalls = [lambda b=b: gemm.gemm(a, b, out_dtype=dt) for b in bs_]
+        t_k = _time_ms(torch, kcalls, iters)
+        t_e = _time_ms(torch, kcalls, iters, graph=False)
+        t_p = _time_ms(torch, [lambda b=b: gemm.gemm_plain(a, b, dt) for b in bs_[:4]],
+                       max(4, iters // 10), graph=False)
+        t_l = _time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs_], iters)
+        nbytes = (M * K + K * N + M * N) * 2
+        flops = 2 * M * K * N
+        bound = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]) * 1e3
+        rows[("gemm", M, name)] = (t_k, t_p, t_l, bound)
+        print(f"  gemm bf16 M={M} {name} {K}x{N}: kernel {t_k * 1e3:.1f} us "
+              f"(eager call {t_e * 1e3:.1f} us), plain "
+              f"{t_p * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, bound "
+              f"{bound * 1e3:.2f} us ({'bytes' if nbytes / HBM_BPS >= flops / PEAK_FLOPS['bfloat16'] else 'operations'}), "
+              f"{bound / t_k:.1%} of bound")
+        # K6 on the same L2-cold copies at each ring depth (Fig. 5 sweep);
+        # its plain version is K1's (the same function).
+        t_d = {}
+        for d in DEPTHS:
+            t_d[d] = _time_ms(torch, [lambda b=b, d=d: gp.gemm(a, b, depth=d, out_dtype=dt)
+                                      for b in bs_], iters)
+            rows[("gemm_pipelined", M, name, d)] = (t_d[d], t_p, t_l, bound)
+        print(f"  gemm_pipelined bf16 M={M} {name} {K}x{N}: depth "
+              + " / ".join(f"{d}: {t_d[d] * 1e3:.1f}" for d in DEPTHS)
+              + f" us (K1 {t_k * 1e3:.1f} us, bound {bound * 1e3:.2f} us)")
+        del a, bs_
 
+    _time_split_rules(torch, gemm, g)
     B, Hkv, G, D, bs, max_seq = 8, 1, 4, 256, 16, 1200
     lengths = [1100, 1024, 950, 700, 513, 260, 128, 64]
     pools = [_lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq, lengths)
@@ -907,6 +918,42 @@ def phase_times(torch, gemm, gp, fd, kvc):
     del pools
     torch.cuda.empty_cache()
     return rows
+
+
+def _time_split_rules(torch, gemm, g):
+    """K1 at M = 8 on the projection shapes where the two rules differ (L2
+    cold): at the split count of its rule (one block per SM, at most 16
+    splits) and at the count a rule of two blocks per SM (at most 32) gives,
+    launched through the kernel's C entry with the forced plan: the
+    evidence for the rule.  Timing only; nothing is counted."""
+    dev, dt, M = torch.device("cuda"), torch.bfloat16, 8
+    sms = gemm.sm_count(dev)
+    ws, counters = gemm.splitk_scratch(dev)
+
+    def launch(a, b, out, plan):
+        err = gemm._lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                          counters.data_ptr(), M, b.shape[1], a.shape[1], a.stride(0),
+                          b.stride(0), 1, 1, 1, plan.swap, plan.kmajor, plan.kps, plan.splits,
+                          torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"gemm launch with a forced plan: cudaError_t {err}")
+
+    for name, K, N, _ in [s for s in GEMM_SHAPES if s[0] in ("gate", "down")]:
+        a = torch.randn((M, K), generator=g, device=dev).to(dt)
+        bs_ = [torch.randn((K, N), generator=g, device=dev).to(dt)
+               for _ in range(max(1, math.ceil(2 * L2_BYTES / (K * N * 2))))]
+        out = torch.empty((M, N), dtype=dt, device=dev)
+        tiles, k_tiles = -(-N // gemm.TILE_N), -(-K // 64)
+        times = {}
+        for label, target, cap in (("one block per SM (the rule)", sms, gemm.MAX_SPLITS[True]),
+                                   ("two blocks per SM", 2 * sms, 32)):
+            plan = gemm.gemm_plan(M, N, K, False, sms, 2, max(1, min(
+                -(-target // tiles), k_tiles // gemm.MIN_K_TILES, cap)))
+            check(plan.ws_elems <= ws.numel(), "forced plan fits the workspace")
+            times[label] = (plan.splits, _time_ms(torch, [
+                lambda b=b, plan=plan: launch(a, b, out, plan) for b in bs_], 200))
+        print(f"  gemm bf16 M={M} {name} {K}x{N} split rule: " + ", ".join(
+            f"{label} {n} splits {t * 1e3:.1f} us" for label, (n, t) in times.items()))
+        del a, bs_
 
 
 def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key):
@@ -1136,6 +1183,32 @@ def per_step_decode(rows, key, n_layers: int = 26, n_global: int = 4):
             for label in ("decode", "prefill")}
 
 
+def per_prefill_chunk(rows, n_layers: int = 26, depth: int = 3):
+    """The float GeMMs over one 64-token prefill chunk of gemma3-1b: 26 x
+    the projections at M = 64 and the tied head at M = 1 (prefill_chunk
+    runs it on the last position only): {kernel: [kernel, plain, library,
+    bound]} for K1 and K6 at `depth`."""
+    layer = ("q", "k", "v", "o", "gate", "up", "down")
+    keys = {"gemm": lambda M, s: ("gemm", M, s),
+            "gemm_pipelined": lambda M, s: ("gemm_pipelined", M, s, depth)}
+    return {name: [sum(n_layers * rows[key(64, s)][i] for s in layer) + rows[key(1, "head")][i]
+                   for i in range(4)]
+            for name, key in keys.items()}
+
+
+def hmma_count(lib: Path):
+    """Tensor-core (HMMA) instructions in the SASS of `lib`, or None where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(out.returncode == 0, f"cuobjdump -sass {lib.name}: {out.stderr.strip()[:200]}")
+    return sum("HMMA" in line for line in out.stdout.splitlines())
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -1188,6 +1261,13 @@ def main() -> int:
                 spills += int(m.group(1)) + int(m.group(2))
         print(f"[1] {name}.cu: {n} kernels, at most {regs} registers a thread, "
               f"{spills} bytes of spill stores and loads in all")
+        if name in ("gemm", "gemm_pipelined"):
+            check(spills == 0, f"{name}.cu: no spills in the float GeMMs")
+    for name in ("gemm", "gemm_pipelined"):
+        n = hmma_count(_build._lib_path(name))
+        print(f"[1] lib{name}.so: " + ("HMMA not counted (no cuobjdump)" if n is None
+                                      else f"{n} HMMA (tensor-core) instructions"))
+        check(n is None or n > 0, f"lib{name}.so runs its bf16 products on the tensor cores")
 
     print("[2] kernels vs plain versions on the card")
     worst = phase_kernels(torch, gemm, fd, kvc)
@@ -1212,9 +1292,16 @@ def main() -> int:
     agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
     rows8 = phase_times_int8(torch, gemm8, kq, fd, kvc)
     agg.update(per_step_int8(rows8))
-    print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (bound "
-          f"{agg['gemm'][3]:.3f}), flash_decode {agg['flash_decode'][0]:.3f} ms (bound "
-          f"{agg['flash_decode'][3]:.3f}); engine decode step {summary['decode_ms']:.2f} ms")
+    print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (torch.matmul "
+          f"{agg['gemm'][2]:.3f}, bound {agg['gemm'][3]:.3f}), flash_decode "
+          f"{agg['flash_decode'][0]:.3f} ms (bound {agg['flash_decode'][3]:.3f}); engine "
+          f"decode step {summary['decode_ms']:.2f} ms")
+    chunk = per_prefill_chunk(rows)
+    print(f"[5] one float prefill chunk (26 x projections at M=64, head at M=1): gemm "
+          f"{chunk['gemm'][0]:.3f} ms, gemm_pipelined (depth 3) "
+          f"{chunk['gemm_pipelined'][0]:.3f} ms, torch.matmul {chunk['gemm'][2]:.3f} ms, "
+          f"bound {chunk['gemm'][3]:.3f} ms; engine prefill chunk "
+          f"{summary['prefill_ms']:.2f} ms")
     print(f"[5] one w8a8 + int8 KV decode step: dequant_gemm {agg['dequant_gemm'][0]:.3f} ms "
           f"(bound {agg['dequant_gemm'][3]:.3f}), quantize_rows "
           f"{agg['quantize_rows'][0]:.3f} ms (bound {agg['quantize_rows'][3]:.4f}), "
@@ -1222,7 +1309,8 @@ def main() -> int:
           f"{agg['flash_decode_int8'][3]:.3f}); engine decode step "
           f"{summary8['decode_ms']:.2f} ms")
     print(f"[5] one decode step under the pipelined backend: gemm_pipelined (depth 3) "
-          f"{agg['gemm_pipelined'][0]:.3f} ms (bound {agg['gemm_pipelined'][3]:.3f}); "
+          f"{agg['gemm_pipelined'][0]:.3f} ms (torch.matmul {agg['gemm_pipelined'][2]:.3f}, "
+          f"bound {agg['gemm_pipelined'][3]:.3f}); "
           f"engine decode step {summary_pipe['decode_ms']:.2f} ms; calibrated w8a8 "
           f"engine decode step {summary_cal['decode_ms']:.2f} ms")
     for key in ("flash_decode", "flash_decode_int8"):

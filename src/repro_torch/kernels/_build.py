@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles with nvcc into `_build/lib<name>.so`, a
 shared library with a plain C interface that the wrappers load with
-ctypes.  Sources build at first use (and again when a source is newer than
-its library); `build()` starts one nvcc per stale source, all at once.
+ctypes.  Sources build at first use (and again when a source, or any
+`csrc/*.cuh` header, is newer than its library); `build()` starts one nvcc
+per stale source, all at once.
 The build directory is listed in .gitignore.
 """
 
@@ -43,8 +44,14 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = _lib_path(name), CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    """No library yet, or one older than its source or than any header in
+    csrc/ (a source may include any of them)."""
+    so = _lib_path(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime
+                 for p in [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")])
+    return so.stat().st_mtime < newest
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

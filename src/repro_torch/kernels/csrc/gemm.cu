@@ -2,207 +2,90 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/gemm.py::_gemm_kernel (built
 // by make_gemm).  The TPU kernel walks a (M/TM, N/TN, K/TK) grid with K
-// innermost and carries a VMEM accumulator across the sequential K steps.
-// Here blocks run in parallel and in no order, so the K walk is a loop
-// inside the block and the accumulator lives in registers; a block owns one
-// (BM x BN) output tile for its whole K range.
+// innermost and carries a VMEM accumulator across the sequential K steps,
+// its BlockSpecs double-buffering each operand's next tile behind the
+// current one.  Here blocks run in parallel and in no order, so the K walk
+// is a loop inside the block and the accumulator lives in registers; a
+// block owns one output tile for its whole K range, with two shared-memory
+// stages: the next stage's 16-byte cp.async copies are in flight while the
+// current stage is multiplied.
 //
 // What bounds it on the H100: at decode (M = slots <= 8) every launch reads
-// all of B once and does 2*M FLOPs per weight element, far below the
+// all of B once and does 2 * M operations per weight element, far below the
 // ~295 FLOP/byte ridge, so the bound is B's bytes over 3.35 TB/s (the tied
-// head, 1152 x 262144 bf16, is 604 MB per step).  Prefill chunks (M = 64)
-// are still under the ridge.
+// head, 1152 x 262144 bf16, is 604 MB per step); prefill chunks (M = 64)
+// are still under the ridge.  What the design does about it: bf16 products
+// run on the tensor cores (mma.sync, the weight rows on the mma's 16-row
+// side when M <= 16), so the copies and not the product loop set the pace;
+// launches with too few output tiles to fill the 132 SMs split K, and the
+// last split of each tile sums the partials in a fixed order inside the
+// same launch (one launch per GeMM).  The tiles, the bodies and the fix-up
+// are in gemm_mma.cuh, shared with K6 (gemm_pipelined.cu); the f32 body is
+// plain FMA, never TF32.
 //
-// What this simple design does about it: B streams through shared memory
-// once per block in (BK x BN) tiles read by coalesced loads, along whichever
-// of B's axes is contiguous (the tied head is a transposed view with row
-// stride 1, read in place, never copied), and the next tile's loads are in
-// flight, staged in registers, while the current tile is multiplied.
-// Small-M launches use a 16-row tile so no block computes 48 dead rows, and
-// launches with too few output tiles to fill the 132 SMs split K across
-// blocks into a float32 workspace that a second pass reduces in a fixed
-// order (deterministic).  Ragged edges are
-// masked in the kernel, so nothing is padded on the host.  The f32 path is
-// plain FMA, never TF32.  A later PR replaces the scalar shared-memory
-// tiles with a TMA-fed multistage pipeline and wgmma (bf16) with the
-// accumulator in registers.
+// Operands: A with K contiguous; B K-major (the tied head's .t() view,
+// read in place) or N-contiguous.  Every row starts 16-byte aligned: the
+// wrapper re-lays an operand that is not (never on the model's path).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "gemm_mma.cuh"
 
 namespace {
 
-constexpr int BN = 128;   // output columns per block
-constexpr int BK = 32;    // K depth per shared-memory tile
-constexpr int NT = 256;   // threads per block: 16 x 16
+using namespace gemm_body;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T, class Body>
+__global__ void __launch_bounds__(NT, 2) gemm_kernel(const Args p) {
+  using S = typename Body::S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int m0 = blockIdx.y * S::ROWS, n0 = blockIdx.x * BN;
+  const int k_steps = (p.K + S::BK - 1) / S::BK;
+  const int ks0 = blockIdx.z * p.kps;
+  const int n_local = max(0, min(k_steps, ks0 + p.kps) - ks0);
 
-template <typename O> __device__ __forceinline__ O from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// One (BM x BN) tile of C over K steps [z * kps, (z + 1) * kps).  Thread
-// (ty, tx) owns rows ty * TM + i and columns tx + 16 * j, so neighbouring
-// threads read neighbouring shared-memory words and write neighbouring
-// columns of C.  The next K step's tiles are loaded into registers while
-// the current one is multiplied, so global loads overlap the FMAs.
-template <typename T, typename O, int BM>
-__global__ void __launch_bounds__(NT) gemm_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, O* __restrict__ c,
-    float* __restrict__ ws, int M, int N, int K,
-    long long sam, long long sak, long long sbk, long long sbn, int kps) {
-  constexpr int TM = BM / 16;
-  constexpr int TN = BN / 16;
-  constexpr int A_PER = BM * BK / NT;   // A elements each thread stages
-  constexpr int B_PER = BK * BN / NT;   // B elements each thread stages
-  __shared__ float As[BK][BM + 1];   // +1: conflict-free transposing stores
-  __shared__ float Bs[BK][BN + 1];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_steps = (K + BK - 1) / BK;
-  const int ks0 = blockIdx.z * kps;
-  const int ks1 = min(k_steps, ks0 + kps);
-  const bool a_k_contig = (sak == 1);
-  const bool b_n_contig = (sbn == 1);
-
-  // Staging coordinates: element i of this thread is tile entry
-  // tid + i * NT, walked along whichever operand axis is contiguous.
-  int a_mm[A_PER], a_kk[A_PER], b_kk[B_PER], b_nn[B_PER];
-#pragma unroll
-  for (int i = 0; i < A_PER; ++i) {
-    const int e = tid + i * NT;
-    a_mm[i] = a_k_contig ? e / BK : e % BM;
-    a_kk[i] = a_k_contig ? e % BK : e / BM;
-  }
-#pragma unroll
-  for (int i = 0; i < B_PER; ++i) {
-    const int e = tid + i * NT;
-    b_kk[i] = b_n_contig ? e / BN : e % BK;
-    b_nn[i] = b_n_contig ? e % BN : e / BK;
-  }
-  float ra[A_PER], rb[B_PER];
-  auto load = [&](int ks) {
-    const int k0 = ks * BK;
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) {
-      const int m = m0 + a_mm[i], k = k0 + a_kk[i];
-      ra[i] = (m < M && k < K) ? to_f(a[m * sam + k * sak]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) {
-      const int k = k0 + b_kk[i], n = n0 + b_nn[i];
-      rb[i] = (k < K && n < N) ? to_f(b[k * sbk + n * sbn]) : 0.f;
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  if (ks0 < ks1) load(ks0);
-  for (int ks = ks0; ks < ks1; ++ks) {
-#pragma unroll
-    for (int i = 0; i < A_PER; ++i) As[a_kk[i]][a_mm[i]] = ra[i];
-#pragma unroll
-    for (int i = 0; i < B_PER; ++i) Bs[b_kk[i]][b_nn[i]] = rb[i];
+  Body body;
+  body.zero();
+  if (n_local > 0) issue_stage<T, S>(smem, p, m0, n0, ks0 * S::BK);
+  cp_async_commit();
+  for (int t = 0; t < n_local; ++t) {
+    if (t + 1 < n_local)        // the next stage, in flight during this product
+      issue_stage<T, S>(smem + ((t + 1) & 1) * S::ELEMS, p, m0, n0, (ks0 + t + 1) * S::BK);
+    cp_async_commit();
+    cp_async_wait<1>();         // stage t has landed
     __syncthreads();
-    if (ks + 1 < ks1) load(ks + 1);   // in flight during the FMAs below
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    body.step(smem + (t & 1) * S::ELEMS);
+    __syncthreads();            // its slot is free for stage t + 2
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      if (ws != nullptr) {
-        ws[((long long)blockIdx.z * M + m) * N + n] = acc[i][j];
-      } else {
-        c[(long long)m * N + n] = from_f<O>(acc[i][j]);
-      }
-    }
-  }
+  cp_async_wait<0>();
+  finish<acc_t<T>>(body, p, m0, n0);
 }
 
-// Split-K second pass: sum the partial tiles in split order, cast, store.
-template <typename O>
-__global__ void splitk_reduce(const float* __restrict__ ws, O* __restrict__ c,
-                              long long mn, int splits) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-  c[i] = from_f<O>(s);
-}
-
-template <typename T, typename O>
-int launch_typed(const void* a, const void* b, void* c, void* ws, int M, int N,
-                 int K, long long sam, long long sak, long long sbk,
-                 long long sbn, int splits, cudaStream_t stream) {
-  const int k_steps = (K + BK - 1) / BK;
-  const int kps = (k_steps + splits - 1) / splits;
-  float* part = splits > 1 ? static_cast<float*>(ws) : nullptr;
-  const T* ta = static_cast<const T*>(a);
-  const T* tb = static_cast<const T*>(b);
-  O* tc = static_cast<O*>(c);
-  if (M <= 16) {
-    dim3 grid((N + BN - 1) / BN, (M + 15) / 16, splits);
-    gemm_kernel<T, O, 16><<<grid, NT, 0, stream>>>(ta, tb, tc, part, M, N, K,
-                                                   sam, sak, sbk, sbn, kps);
-  } else {
-    dim3 grid((N + BN - 1) / BN, (M + 63) / 64, splits);
-    gemm_kernel<T, O, 64><<<grid, NT, 0, stream>>>(ta, tb, tc, part, M, N, K,
-                                                   sam, sak, sbk, sbn, kps);
-  }
-  if (splits > 1) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long mn = (long long)M * N;
-    splitk_reduce<O><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(part, tc, mn, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+template <typename T>
+int launch_typed(const Args& p, bool swap, bool kmajor, cudaStream_t st) {
+  return with_body<T>(swap, p.M, kmajor, [&](auto tag) {
+    using Body = typename decltype(tag)::type;
+    return launch<T, 2, Body, gemm_kernel<T, Body>>(p, st);
+  });
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  A and B share one dtype; C is
-// written in out_code's dtype.  `ws` is a (splits, M, N) float32 workspace,
-// unused when splits == 1.  Returns the launch's cudaError_t (0 = success).
-extern "C" int gemm_launch(const void* a, const void* b, void* c, void* ws,
-                           int M, int N, int K, long long sam, long long sak,
-                           long long sbk, long long sbn, int in_code,
-                           int out_code, int splits, void* stream) {
+// written in out_code's dtype.  A is (M, K) with unit K stride and row
+// stride sam; B is (K, N) with strides (sbk, sbn), sbk == 1 when kmajor
+// and sbn == 1 otherwise.  Every row of both starts 16-byte aligned.  swap,
+// kmajor, kps and splits come from the launch plan
+// (kernels/gemm.py::gemm_plan); with
+// splits > 1, `ws` holds (splits, M, N) float32 and `counters` one zeroed
+// int per output tile.  Returns the launch's cudaError_t (0 = success).
+extern "C" int gemm_launch(const void* a, const void* b, void* c, void* ws, int* counters,
+                           int M, int N, int K, long long sam, long long sbk, long long sbn,
+                           int in_code, int out_code, int swap, int kmajor, int kps,
+                           int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_code == 0 && out_code == 0)
-    return launch_typed<float, float>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, splits, st);
-  if (in_code == 0 && out_code == 1)
-    return launch_typed<float, __nv_bfloat16>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, splits, st);
-  if (in_code == 1 && out_code == 0)
-    return launch_typed<__nv_bfloat16, float>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, splits, st);
-  if (in_code == 1 && out_code == 1)
-    return launch_typed<__nv_bfloat16, __nv_bfloat16>(a, b, c, ws, M, N, K, sam, sak, sbk, sbn, splits, st);
+  if (out_code != 0 && out_code != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args p{a, b, c, ws, counters, M, N, K, sam, sbk, sbn, kps, splits, out_code};
+  if (in_code == 0) return launch_typed<float>(p, swap != 0, kmajor != 0, st);
+  if (in_code == 1) return launch_typed<__nv_bfloat16>(p, swap != 0, kmajor != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

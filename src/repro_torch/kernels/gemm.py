@@ -1,11 +1,16 @@
-"""The tiled GeMM: CUDA kernel wrapper, its plain version, a launch count.
+"""The tiled GeMM: CUDA kernel wrapper, its plain versions, a launch count,
+and the launch plan and split-K scratch it shares with the pipelined GeMM.
 
 Port of repro/kernels/gemm.py::_gemm_kernel (the Pallas TPU kernel built by
 `make_gemm`).  The kernel, `csrc/gemm.cu`, computes C = A @ B with float32
-accumulation for float32 or bfloat16 operands and writes C in the dtype the
-caller asks for.  It is bound by B's bytes at decode batch sizes (every
-launch reads all of B; the note at the top of gemm.cu says what the simple
-design does about that and what a later PR changes).
+accumulation for float32 or bfloat16 operands (bf16 on the tensor cores)
+and writes C in the dtype the caller asks for.  It is bound by B's bytes at
+decode batch sizes (every launch reads all of B; the notes at the top of
+gemm.cu and gemm_mma.cuh say what the design does about that).
+
+One launch per call: `gemm_plan` picks the tile and the split-K count, and
+the kernel sums the splits' partials itself, in split order, in a
+workspace allocated once per device (`splitk_scratch`).
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version `gemm_plain`.  No fallback on the card.
@@ -15,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,7 +30,15 @@ from repro_torch.kernels import _build, ref
 # counts): the proof that a run went through the kernel.
 launches = 0
 
-BM_SMALL, BM_LARGE, BN, BK = 16, 64, 128, 32   # must match csrc/gemm.cu
+# The tiles of csrc/gemm_mma.cuh.
+TILE_N = 128          # output columns per block
+K_TILE_BYTES = 128    # K per stage, in bytes: 64 bf16, 32 f32, 128 int8
+SWAP_ROWS = 16        # M <= 16: the swapped tensor-core tile (SIMT: 16 rows)
+FULL_ROWS = 64        # M > 16: 64 rows per block
+# The split rule (`gemm_plan`).
+MIN_K_TILES = 2       # K stages per split, at least
+MAX_SPLITS = {True: 16, False: 8}   # by swap: the fix-up block reads every split's tile
+
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
 
@@ -34,14 +48,12 @@ def reset_launches() -> None:
     launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
-    lib = _build.load("gemm")
-    fn = lib.gemm_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = _build.load("gemm").gemm_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -50,27 +62,140 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_k(M: int, N: int, K: int, sms: int, *,
-            tile=(BM_SMALL, BM_LARGE, BN, BK)) -> int:
-    """K splits for one launch on a card with `sms` multiprocessors: 1 when
-    the output tiles alone give every SM two blocks, else enough splits to
-    get there, keeping >= 4 K-steps per split (capped at 16).  `tile` is
-    the kernel's (small-M rows, rows, columns, K depth)."""
-    bm_small, bm_large, bn, bk = tile
-    bm = bm_small if M <= bm_small else bm_large
-    tiles = -(-M // bm) * -(-N // bn)
-    k_steps = -(-K // bk)
-    if tiles >= 2 * sms:
+class GemmPlan(NamedTuple):
+    """One launch of K1 or K6: tile, operand roles, K partition, grid."""
+    swap: bool          # M <= 16: C^T = B^T A^T on the tensor cores (SIMT: 16-row tile)
+    kmajor: bool        # B is K-contiguous (the tied head's .t() view)
+    bm: int             # rows of C per block tile
+    bk: int             # K per stage, in elements
+    splits: int         # K ranges, one per blockIdx.z; none empty
+    kps: int            # K stages per split (the last split may hold fewer)
+    grid: Tuple[int, int, int]
+    ws_elems: int       # workspace elements the launch writes: splits * M * N, or 0
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(M: int, N: int, K: int, b_kmajor: bool, sms: int,
+              elem_bytes: int = 2, splits: Optional[int] = None) -> GemmPlan:
+    """The launch for a (M, K) @ (K, N) product of `elem_bytes` operands on
+    a card with `sms` multiprocessors.  One split when the output tiles give
+    every SM a block; else `requested_splits` asks for enough splits to get
+    there, each keeping at least MIN_K_TILES K stages, at most
+    MAX_SPLITS[swap].  (One block per SM and not two: every split adds a
+    partial tile to write, fence and read back, and on the H100 fewer,
+    longer splits were faster; chip_smoke.py times both rules.)  `splits`
+    forces a count instead (the plain split version's tests).  Either way
+    the K stages are dealt ceil(k_tiles / splits) per split, and splits
+    left empty by the rounding are dropped."""
+    swap = M <= SWAP_ROWS
+    bm = SWAP_ROWS if swap else FULL_ROWS
+    bk = K_TILE_BYTES // elem_bytes
+    tiles = -(-M // bm) * -(-N // TILE_N)
+    k_tiles = -(-K // bk)
+    if splits is None:
+        splits = requested_splits(tiles, k_tiles, swap, sms)
+    kps = -(-k_tiles // max(1, splits))
+    splits = -(-k_tiles // kps)
+    return GemmPlan(swap, b_kmajor, bm, bk, splits, kps,
+                    (-(-N // TILE_N), -(-M // bm), splits),
+                    splits * M * N if splits > 1 else 0)
+
+
+def requested_splits(tiles: int, k_tiles: int, swap: bool, sms: int) -> int:
+    """The split count the rule asks for before rounding: one block per SM,
+    at least MIN_K_TILES stages a split, at most MAX_SPLITS[swap]."""
+    if tiles >= sms:
         return 1
-    splits = max(1, min(-(-2 * sms // tiles), k_steps // 4, 16))
-    kps = -(-k_steps // splits)
-    return -(-k_steps // kps)          # no empty trailing split
+    return max(1, min(-(-sms // tiles), k_tiles // MIN_K_TILES, MAX_SPLITS[swap]))
+
+
+def split_ranges(plan: GemmPlan, K: int) -> List[Tuple[int, int]]:
+    """The K range [k0, k1) of each split, in split order."""
+    step = plan.kps * plan.bk
+    return [(z * step, min(K, (z + 1) * step)) for z in range(plan.splits)]
+
+
+def workspace_elems(sms: int) -> int:
+    """Elements of the split-K workspace: every plan that splits has
+    tiles < sms and splits <= ceil(sms / tiles), so tiles * splits
+    < 2 * sms partial tiles of at most FULL_ROWS x TILE_N."""
+    return 2 * sms * FULL_ROWS * TILE_N
+
+
+_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def splitk_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-K workspace (float32; the int8 mode reads it as int32) and
+    the per-tile arrival counters of `device`, allocated at first use and
+    shared by K1 and K6.  The kernels leave every counter at 0.  Launches go
+    on PyTorch's current stream, which orders their uses of it."""
+    got = _scratch.get(device)
+    if got is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the GeMM's split-K scratch is allocated at its first "
+                               "eager call; call it once before capturing a graph")
+        sms = sm_count(device)
+        got = (torch.empty(workspace_elems(sms), dtype=torch.float32, device=device),
+               torch.zeros(sms, dtype=torch.int32, device=device))
+        _scratch[device] = got
+    return got
+
+
+def _aligned(t: torch.Tensor, lead_stride: int) -> bool:
+    """Every row of `t` along its unit-stride axis starts 16-byte aligned."""
+    return t.data_ptr() % 16 == 0 and (lead_stride * t.element_size()) % 16 == 0
+
+
+def _relaid(t: torch.Tensor) -> torch.Tensor:
+    """A copy of 2-D `t` with its last axis contiguous and each row padded
+    to a multiple of 16 bytes (the view keeps the logical shape)."""
+    rows, cols = t.shape
+    per = 16 // t.element_size()
+    buf = torch.zeros((rows, -(-cols // per) * per), dtype=t.dtype, device=t.device)
+    buf[:, :cols] = t
+    return buf[:, :cols]
+
+
+def operands_for_copies(a: torch.Tensor, b: torch.Tensor):
+    """(a, b, b_kmajor) as the kernels' 16-byte copies take them: A with K
+    contiguous, B with K (an (N, K) store seen through .t()) or N
+    contiguous, every row 16-byte aligned.  An operand that is not comes
+    back as a re-laid copy (never on the model's path, whose widths are
+    multiples of 128)."""
+    sa0, sa1 = a.stride()
+    if not (sa1 == 1 and _aligned(a, sa0)):
+        a = _relaid(a)
+    sb0, sb1 = b.stride()
+    kmajor = sb0 == 1 and sb1 != 1
+    if kmajor:
+        if not _aligned(b, sb1):
+            b = _relaid(b.t()).t()
+    elif not (sb1 == 1 and _aligned(b, sb0)):
+        b = _relaid(b)
+    return a, b, kmajor
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32-accumulated A @ B."""
     return ref.gemm_ref(a, b).to(out_dtype)
+
+
+def gemm_split_plain(a: torch.Tensor, b: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32, *,
+                     sms: int = 132, splits: Optional[int] = None) -> torch.Tensor:
+    """The kernel's split-K arithmetic in plain PyTorch: one f32 partial
+    per split of `gemm_plan`'s K partition (or of a forced `splits`),
+    summed in split order from zero, then rounded once to `out_dtype`."""
+    M, K = a.shape
+    N = b.shape[1]
+    plan = gemm_plan(M, N, K, b.stride(0) == 1 and b.stride(1) != 1, sms,
+                     a.element_size(), splits)
+    out = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    for k0, k1 in split_ranges(plan, K):
+        out = out + ref.gemm_ref(a[:, k0:k1], b[k0:k1])
+    return out.to(out_dtype)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
@@ -88,6 +213,31 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     return _gemm_cuda(a, b, out_dtype)
 
 
+def check_launch(a: torch.Tensor, b: torch.Tensor, what: str) -> Tuple[int, int, int]:
+    """(M, N, K) of a kernel launch, or raise on what the kernels do not take."""
+    M, K = a.shape
+    N = b.shape[1]
+    if min(M, N, K) < 1 or max(M, N, K) > _INT_MAX or M * N > _INT_MAX:
+        raise ValueError(f"{what} kernel shape ({M}, {K}, {N}) out of range")
+    if min(*a.stride(), *b.stride()) < 0:
+        raise ValueError(f"{what} kernel takes non-negative strides only")
+    return M, N, K
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(M: int, N: int, K: int, kmajor: bool, elem_bytes: int,
+                device: torch.device):
+    """(plan, workspace pointer, counters pointer) of one launch on
+    `device`; cached, since the scratch is never freed."""
+    plan = gemm_plan(M, N, K, kmajor, sm_count(device), elem_bytes)
+    if plan.splits == 1:
+        return plan, None, None
+    ws, counters = splitk_scratch(device)
+    if plan.ws_elems > ws.numel():
+        raise RuntimeError(f"split-K plan {plan} exceeds the workspace ({ws.numel()})")
+    return plan, ws.data_ptr(), counters.data_ptr()
+
+
 def _gemm_cuda(a: torch.Tensor, b: torch.Tensor,
                out_dtype: torch.dtype) -> torch.Tensor:
     global launches
@@ -95,21 +245,15 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor,
         raise TypeError(f"gemm kernel takes f32/bf16 pairs, got {a.dtype}, {b.dtype}")
     if out_dtype not in _CODES:
         raise TypeError(f"gemm kernel writes f32 or bf16, not {out_dtype}")
-    M, K = a.shape
-    N = b.shape[1]
-    if min(M, N, K) < 1 or max(M, N, K) > _INT_MAX or M * N > _INT_MAX:
-        raise ValueError(f"gemm kernel shape ({M}, {K}, {N}) out of range")
-    strides = (*a.stride(), *b.stride())
-    if min(strides) < 0:
-        raise ValueError("gemm kernel takes non-negative strides only")
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    splits = split_k(M, N, K, sm_count(a.device))
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-          if splits > 1 else None)
-    err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(),
-                 M, N, K, *strides, _CODES[a.dtype], _CODES[out_dtype], splits,
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    M, N, K = check_launch(a, b, "gemm")
+    a, b, kmajor = operands_for_copies(a, b)
+    dev = a.device
+    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws, counters,
+                 M, N, K, a.stride(0), *b.stride(), _CODES[a.dtype], _CODES[out_dtype],
+                 plan.swap, plan.kmajor, plan.kps, plan.splits,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"gemm kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gemm import sm_count, split_k
+from repro_torch.kernels.gemm import sm_count
 
 # Launches of the CUDA kernel since the last reset (the plain versions never
 # count): `launches` for the dequant mode (K3), `int_launches` for the int
@@ -38,6 +38,23 @@ _INT_MAX = 2**31 - 1
 def reset_launches() -> None:
     global launches, int_launches
     launches = int_launches = 0
+
+
+def split_k(M: int, N: int, K: int, sms: int) -> int:
+    """K splits for one launch on a card with `sms` multiprocessors: 1 when
+    the output tiles alone give every SM two blocks, else enough splits to
+    get there, keeping >= 4 K-steps per split (capped at 16).  The kernel
+    writes each split's partial tile to a workspace that a second pass
+    reduces in split order."""
+    bm_small, bm_large, bn, bk = TILE
+    bm = bm_small if M <= bm_small else bm_large
+    tiles = -(-M // bm) * -(-N // bn)
+    k_steps = -(-K // bk)
+    if tiles >= 2 * sms:
+        return 1
+    splits = max(1, min(-(-2 * sms // tiles), k_steps // 4, 16))
+    kps = -(-k_steps // splits)
+    return -(-k_steps // kps)          # no empty trailing split
 
 
 def _lib():
@@ -118,7 +135,7 @@ def _launch(a, b, sa, sb, out_dtype):
     if min(strides) < 0:
         raise ValueError("int8 gemm kernel takes non-negative strides only")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    splits = split_k(M, N, K, sm_count(a.device), tile=TILE)
+    splits = split_k(M, N, K, sm_count(a.device))
     ws = (torch.empty((splits, M, N), dtype=torch.int32, device=a.device)
           if splits > 1 else None)
     err = _lib()(a.data_ptr(), b.data_ptr(),

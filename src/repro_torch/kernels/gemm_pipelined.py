@@ -6,9 +6,12 @@ Port of repro/kernels/gemm_pipelined.py (`_pipelined_kernel`, built by
 `depth` K steps ahead of the compute, through a ring of `depth` buffers per
 operand.  The kernel, `csrc/gemm_pipelined.cu`, fills a shared-memory ring
 with cp.async copies and computes C = A @ B with f32 accumulation for f32 or
-bf16 operands, or exact int32 sums for int8 operands (the reference writes
-the accumulator dtype).  Bound by B's bytes at decode batch sizes; the note
-at the top of the .cu file says what the design does about that.
+bf16 operands (bf16 on the tensor cores, through the body it shares with
+K1), or exact int32 sums for int8 operands (the reference writes the
+accumulator dtype).  Bound by B's bytes at decode batch sizes; the note at
+the top of the .cu file says what the design does about that.  One launch
+per call: the launch plan and the split-K scratch are K1's
+(`gemm.gemm_plan`, `gemm.splitk_scratch`).
 
 `depth` is 2, 3 or 4 (default 3, the case study's D_stream =
 repro/core/generator.py:63); it is clamped as the reference clamps it:
@@ -21,11 +24,12 @@ tensor runs the plain version `gemm_plain`.  No fallback on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gemm import sm_count, split_k
+from repro_torch.kernels.gemm import check_launch, launch_plan, operands_for_copies
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
@@ -33,10 +37,8 @@ launches = 0
 
 DEFAULT_DEPTH = 3
 MAX_DEPTH = 4                      # instantiated in csrc/gemm_pipelined.cu
-TILE = (16, 64, 128, 32)           # small-M rows, rows, columns, K depth: the .cu file
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-_INT_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
@@ -44,13 +46,12 @@ def reset_launches() -> None:
     launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
     fn = _build.load("gemm_pipelined").gemm_pipelined_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -94,21 +95,6 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, depth: int = DEFAULT_DEPTH,
     return _gemm_cuda(a, b, depth, out_dtype)
 
 
-def _aligned(t: torch.Tensor, lead_stride: int) -> bool:
-    """Every row of `t` along its unit-stride axis starts 16-byte aligned."""
-    return t.data_ptr() % 16 == 0 and (lead_stride * t.element_size()) % 16 == 0
-
-
-def _relaid(t: torch.Tensor) -> torch.Tensor:
-    """A copy of 2-D `t` with its last axis contiguous and each row padded
-    to a multiple of 16 bytes (the view keeps the logical shape)."""
-    rows, cols = t.shape
-    per = 16 // t.element_size()
-    buf = torch.zeros((rows, -(-cols // per) * per), dtype=t.dtype, device=t.device)
-    buf[:, :cols] = t
-    return buf[:, :cols]
-
-
 def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, depth: int,
                out_dtype: torch.dtype) -> torch.Tensor:
     global launches
@@ -117,31 +103,16 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, depth: int,
                         f"got {a.dtype}, {b.dtype}")
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"pipelined gemm kernel writes f32, bf16 or int32, not {out_dtype}")
-    M, K = a.shape
-    N = b.shape[1]
-    if min(M, N, K) < 1 or max(M, N, K) > _INT_MAX or M * N > _INT_MAX:
-        raise ValueError(f"pipelined gemm kernel shape ({M}, {K}, {N}) out of range")
-    if min(*a.stride(), *b.stride()) < 0:
-        raise ValueError("pipelined gemm kernel takes non-negative strides only")
-    # The copies move 16-byte chunks along each operand's unit-stride axis.
-    if not (a.stride(1) == 1 and _aligned(a, a.stride(0))):
-        a = _relaid(a)
-    if b.stride(0) == 1 and b.stride(1) != 1:         # (N, K) store, K contiguous
-        if not _aligned(b, b.stride(1)):
-            b = _relaid(b.t()).t()
-    elif not (b.stride(1) == 1 and _aligned(b, b.stride(0))):
-        b = _relaid(b)
-    sbk, sbn = b.stride()
-    k_steps = -(-K // TILE[3])
-    d = clamp_depth(depth, k_steps)
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    splits = split_k(M, N, K, sm_count(a.device), tile=TILE)
-    ws = (torch.empty((splits, M, N), dtype=_acc_dtype(a, b), device=a.device)
-          if splits > 1 else None)
-    err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), M, N, K, a.stride(0), sbk, sbn,
-                 _IN_CODES[a.dtype], _OUT_CODES[out_dtype], d, splits,
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    M, N, K = check_launch(a, b, "pipelined gemm")
+    a, b, kmajor = operands_for_copies(a, b)
+    dev = a.device
+    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev)
+    d = clamp_depth(depth, -(-K // plan.bk))
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws, counters, M, N, K,
+                 a.stride(0), *b.stride(), _IN_CODES[a.dtype], _OUT_CODES[out_dtype], d,
+                 plan.swap, plan.kmajor, plan.kps, plan.splits,
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"pipelined gemm kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -285,6 +285,106 @@ def test_pipelined_gemm_kernel_matches_plain(cuda_device, dtype, depth):
     assert tgp.launches == n
 
 
+# gemma3-1b's GeMMs (K, N, B K-major) and ragged variants: N and K off the
+# 128-column tile and the 64-deep bf16 stage (multiples of 8, so the rows
+# stay 16-byte aligned and nothing is re-laid).
+MODEL_SHAPES = [
+    (1152, 1024, False), (1152, 256, False), (1024, 1152, False),
+    (1152, 6912, False), (6912, 1152, False), (1152, 262144, True),
+    (1160, 1000, False), (1000, 1160, True), (6904, 200, False), (72, 136, True),
+]
+FLOAT_KERNELS = {
+    "tiled": lambda a, b, out: tgemm.gemm(a, b, out_dtype=out),
+    **{f"pipelined-{d}": (lambda a, b, out, d=d: tgp.gemm(a, b, depth=d, out_dtype=out))
+       for d in (2, 3, 4)},
+}
+
+
+def _float_operands(rng, M, K, N, kmajor, device, dtype=torch.bfloat16):
+    a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(N, K) if kmajor else (K, N))
+                          * K ** -0.5).astype(np.float32))
+    a, b = a.to(device, dtype), b.to(device, dtype)
+    return a, (b.t() if kmajor else b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("kernel", sorted(FLOAT_KERNELS))
+def test_float_gemm_at_model_shapes(cuda_device, kernel, M):
+    """K1 and K6 (each depth) on the tensor cores at gemma3-1b's shapes,
+    both B layouts (the head K-major only, as the model holds it), ragged
+    N and K: f32 out within 1e-5 of the plain version (B scaled by K^-0.5,
+    as weights are), bf16 out within one bf16 ulp."""
+    rng = np.random.default_rng(M)
+    fn = FLOAT_KERNELS[kernel]
+    for K, N, head_kmajor in MODEL_SHAPES:
+        for kmajor in ((True,) if head_kmajor and N > 100000 else (False, True)):
+            a, b = _float_operands(rng, M, K, N, kmajor, cuda_device)
+            want = tgemm.gemm_plain(a, b)
+            got = fn(a, b, torch.float32)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                       msg=lambda m: f"{(M, K, N, kmajor)}: {m}")
+            got16 = fn(a, b, torch.bfloat16)
+            torch.testing.assert_close(got16.float(), want.to(torch.bfloat16).float(),
+                                       rtol=2 ** -7, atol=1e-5)
+            del a, b, want, got, got16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tiled", "pipelined-3", "pipelined-int8"])
+def test_gemm_bitwise_repeatable_and_graph_replay(cuda_device, kernel):
+    """One launch per call with the split-K fix-up inside: two calls, a
+    CUDA-graph capture replayed twice and a call after the replays give
+    bitwise-equal results (the fix-up sums in split order and re-arms its
+    counters), at a split shape of each tile (M = 8: 27 splits; M = 64)."""
+    rng = np.random.default_rng(5)
+    for M, K, N in [(8, 6912, 1152), (64, 1152, 1000), (1, 1152, 256)]:
+        if kernel == "pipelined-int8":
+            a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8))
+            b = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8))
+            a, b = a.to(cuda_device), b.to(cuda_device).t()
+            fn = lambda: tgp.gemm(a, b)                      # noqa: E731
+        else:
+            a, b = _float_operands(rng, M, K, N, False, cuda_device)
+            fn = (lambda: tgemm.gemm(a, b)) if kernel == "tiled" else \
+                (lambda: tgp.gemm(a, b, depth=3))
+        first, second = fn(), fn()
+        assert torch.equal(first, second), (M, K, N)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = fn()
+        for _ in range(2):
+            captured.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, first), (M, K, N)
+        assert torch.equal(fn(), first), (M, K, N)
+        want = tgp.gemm_plain(a, b) if kernel == "pipelined-int8" else tgemm.gemm_plain(a, b)
+        torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["tiled", "pipelined-3"])
+def test_gemm_relays_unaligned_operands(cuda_device, kernel):
+    """Operands whose rows are not 16-byte aligned (an A one element off
+    its allocation, a (K, N) B whose row stride is odd, a K-major B one
+    element off) are re-laid by the wrappers and give the plain version's
+    result."""
+    rng = np.random.default_rng(9)
+    fn = FLOAT_KERNELS[kernel]
+    M, K, N = 8, 1152, 300
+    base_a, base_b = _float_operands(rng, M, K + 1, N + 1, False, cuda_device)
+    a = base_a[:, 1:]                                  # misaligned start
+    b_rows = base_b[1:, :N]                            # row stride N + 1 elements
+    store = torch.from_numpy(rng.normal(size=(N, K + 1)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    b_kmajor = store[:, 1:].t()                        # K-major, one element off
+    for b in (b_rows, b_kmajor):
+        want = tgemm.gemm_plain(a, b)
+        torch.testing.assert_close(fn(a, b, torch.float32), want, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     a = torch.zeros((4, 8), device=cuda_device, dtype=torch.float16)

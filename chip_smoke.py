@@ -7,13 +7,17 @@ Phases, in order; any failure exits non-zero:
 
   1. card name and power limit; build the CUDA kernels from src/ (one nvcc
      per source, all at once) and print the build seconds and each
-     source's registers and spill bytes (nvcc -Xptxas -v; the float GeMMs
-     must not spill); where cuobjdump exists, the tensor-core (HMMA)
-     instructions in the float GeMMs' libraries, which must be some.
+     source's registers and spill bytes (nvcc -Xptxas -v; the GeMMs, float
+     and int8, must not spill); where cuobjdump exists, the tensor-core
+     instructions in the GeMMs' libraries (HMMA in the float GeMMs', IMMA
+     in the int8 GeMM's), which must be some.
   2. each kernel against its plain PyTorch version on the card, at the
      shapes gemma3-1b gives it (the float GeMMs K1 and K6 at M = 1, 8 and
      64), with stated tolerances; the int8 GeMM
      (dequant epilogue and int mode) and the row quantization bit for bit;
+     the w8a8 GeMM (the rows quantized in the int8 GeMM's prologue, per row
+     and with a static scale, bf16 and f32 in and out, a zero row) bit for
+     bit against its plain composition at M = 1, 8, 64 and 300;
      paged flash-decode (K2) over float and int8 pools at 1 and 4 splits,
      at the split count of its rule and at one split per table column
      (most splits dead for the short slots), the last two also against the
@@ -31,12 +35,15 @@ Phases, in order; any failure exits non-zero:
      183 times per prefill chunk and per decode step.  A line gives the
      split counts K2 ran with, per layer kind and step shape.
   3b. the same run in the int8 deployment precision (w8a8 weights, int8 KV
-     pool): the dequant GeMM and the row quantization 183 times per step,
-     the int8 decode branch 26 times, the float GeMM never.
+     pool): the w8a8 GeMM as one launch per GeMM (the row quantization
+     inside it) at M <= 16, i.e. 183 per decode step, and for the 182
+     projections of every longer prefill chunk the row quantization then
+     the dequant GeMM; the int8 decode branch 26 times per step; the float
+     GeMM never.
   3c. the same run in calibrated w8a8 (static activation scales) with an
      int8 KV pool: warmup calibrates through the unpaged forward (flash
      attention 26 x 2 batches, the float GeMM 7 x 26 x 2); serving runs the
-     dequant GeMM 183 times per step and the row quantization never.
+     w8a8 GeMMs as 3b, with the static scales.
   3d. phase 3's float run under the pipelined GeMM backend (depth 3): K6
      183 times per step, K1 never; its first decode step's logits near the
      tiled backend's.
@@ -53,7 +60,10 @@ Phases, in order; any failure exits non-zero:
      beside its bound, its plain version and the library call; K6 at each
      ring depth beside K1 (the paper's Fig. 5 depth sweep); the float GeMMs
      per decode step (M = 8) and per prefill chunk (the projections at
-     M = 64, the tied head at M = 1, as prefill_chunk runs it); K2 per decode
+     M = 64, the tied head at M = 1, as prefill_chunk runs it); the w8a8
+     GeMM at M = 1, 8 and 64 beside the two-launch row quantization + dequant
+     GeMM, torch._int_mm and its bound, per w8a8 and calibrated decode step
+     and per prefill chunk; K2 per decode
      step and per prefill chunk at its rule's split count (also as eager
      calls), at 1 and at 4 splits; K5 per shape and per forward.
 
@@ -129,9 +139,10 @@ DEPTHS = (2, 3, 4)
 # The int8 decode branch dequantizes as code * scale in f32 exactly as its
 # plain versions do, so it takes the float branch's tolerances.
 INT8_QUANT_SHAPES = [(m, k) for m in (1, 8, 64, 300) for k in (1024, 1152, 6912)]
-# K of each activation row-quantized in one decode step: q, k, v, gate, up
-# and the head read d = 1152, o reads 1024, down reads 6912.
-QUANT_PER_STEP = {1152: 5 * 26 + 1, 1024: 26, 6912: 26}
+# K of each activation the row quantization runs on in one 64-token prefill
+# chunk in w8a8 (the 182 projections at M = 64; the head at M = 1 quantizes
+# inside the w8a8 GeMM): q, k, v, gate and up read d = 1152, o 1024, down 6912.
+QUANT_PER_CHUNK = {1152: 5 * 26, 1024: 26, 6912: 26}
 
 
 def phase_kernels(torch, gemm, fd, kvc):
@@ -241,7 +252,7 @@ def _check_decode(torch, fd, label, q, cache, tables, idx, window, splits, wants
 def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
     """The int8 slice's kernels against their plain versions: the dequant
     GeMM (bf16 and f32 out) and K1's int mode at every GEMM_SHAPES entry
-    for M = 8 and 64 with the weight in its serving layout (an (N, K)
+    for M = 1, 8 and 64 with the weight in its serving layout (an (N, K)
     store read through a .t() view), bit for bit; the row quantization
     bit for bit; the int8 decode branch against both plain versions."""
     dev = torch.device("cuda")
@@ -249,7 +260,7 @@ def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
     worst = {"dequant_gemm": 0.0, "gemm_int": 0.0, "quantize_rows": 0.0,
              "flash_decode_int8": 0.0}
     i8 = dict(generator=g, device=dev, dtype=torch.int8)
-    for M in (8, 64):
+    for M in (1, 8, 64):
         for name, K, N, _ in GEMM_SHAPES:
             a = torch.randint(-127, 128, (M, K), **i8)
             b = torch.randint(-127, 128, (N, K), **i8).t()
@@ -279,13 +290,16 @@ def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
             x = (torch.randn((M, K), generator=g, device=dev) * 3).to(dt)
             if M > 1:
                 x[1] = 0                                   # the 1e-8 scale floor
-            q, s_ = kq.quantize_rows(x)
-            qp, sp = kq.quantize_rows_plain(x)
-            err = float((q.int() - qp.int()).abs().max())
-            worst["quantize_rows"] = max(worst["quantize_rows"], err)
-            if not (torch.equal(q, qp) and torch.equal(s_, sp)):
-                bad.append((M, K))
-        print(f"  quantize_rows {dname} at M x K in {{1,8,64,300}} x {{1024,1152,6912}}: "
+            act = (x.float().abs().max() / 127 * 0.8).reshape(())   # some codes clip
+            for scale in (None, act):
+                q, s_ = kq.quantize_rows(x, scale)
+                qp, sp = kq.quantize_rows_plain(x, scale)
+                err = float((q.int() - qp.int()).abs().max())
+                worst["quantize_rows"] = max(worst["quantize_rows"], err)
+                if not (torch.equal(q, qp) and torch.equal(s_, sp)):
+                    bad.append((M, K, "static" if scale is not None else "per row"))
+        print(f"  quantize_rows {dname} at M x K in {{1,8,64,300}} x {{1024,1152,6912}}, per-row "
+              f"and static scales: "
               f"{'codes and scales bitwise equal' if not bad else f'FAIL at {bad}'}")
         check(not bad, f"quantize_rows {dname} bit for bit")
     B, Hkv, G, D, bs, max_seq = 8, 1, 4, 256, 16, 1200
@@ -308,6 +322,53 @@ def phase_kernels_int8(torch, gemm8, kq, fd, kvc):
     del cache, tables
     torch.cuda.synchronize()
     return worst
+
+
+W8A8_ROWS = (1, 8, 64, 300)
+
+
+def phase_kernels_w8a8(torch, gemm8):
+    """The w8a8 GeMM against its plain composition, bit for bit, at every
+    GEMM_SHAPES entry for M in W8A8_ROWS: as its plan runs it (one launch
+    at M <= gemm_int8.FUSED_ROWS, the row quantization then the dequant
+    GeMM above) and as one launch at every M; per-row and static scales,
+    bf16 and f32 activations, bf16 and f32 out, the weight in its serving
+    layout, one row all zero (the 1e-8 floor) and, with the static scale,
+    rows that clip at +-127."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    for M in W8A8_ROWS:
+        for name, K, N, _ in GEMM_SHAPES:
+            w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                              dtype=torch.int8).t()
+            sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+            x32 = torch.randn((M, K), generator=g, device=dev) * 3
+            if M > 1:
+                x32[M // 2] = 0
+            act = (x32.abs().max() / 127 * 0.8).reshape(())   # 0-d, on the card
+            n_ok = 0
+            for xdt in (torch.bfloat16, torch.float32):
+                x = x32.to(xdt)
+                for scale in (None, act):
+                    for out in (torch.bfloat16, torch.float32):
+                        want = gemm8.gemm_w8a8_plain(x, w, sb, scale, out)
+                        for path, got in (
+                                ("plan", gemm8.gemm_w8a8(x, w, sb, scale, out_dtype=out)),
+                                ("one launch", gemm8._w8a8_fused(x, w, sb, scale, out))):
+                            worst = max(worst, float((got.float() - want.float()).abs().max()))
+                            ok = got.dtype == out and torch.equal(got, want)
+                            check(ok, f"gemm_w8a8 ({path}) M={M} {name} x {xdt} "
+                                      f"{'static' if scale is not None else 'dynamic'} "
+                                      f"out {out} bit for bit")
+                            n_ok += 1
+            plan = "one launch" if M <= gemm8.FUSED_ROWS else "quantize_rows + dequant_gemm"
+            print(f"  gemm_w8a8 M={M} {name} {K}x{N}: dynamic and static scales x bf16/f32 "
+                  f"in x bf16/f32 out, as planned ({plan}) and as one launch ({n_ok} calls): "
+                  f"bitwise equal")
+            del w, x32, x, got, want
+    torch.cuda.synchronize()
+    return {"gemm_w8a8": worst}
 
 
 FLASH_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
@@ -386,20 +447,31 @@ def phase_kernels_slice3(torch, fa, gp):
 # Hand-kernel launch counters: name -> (module key, counter attribute).
 COUNTERS = {"gemm": ("gemm", "launches"), "flash_decode": ("fd", "launches"),
             "gemm_int": ("gemm8", "int_launches"), "dequant_gemm": ("gemm8", "launches"),
-            "quantize_rows": ("kq", "launches"),
+            "gemm_w8a8": ("gemm8", "w8a8_launches"), "quantize_rows": ("kq", "launches"),
             "flash_decode_int8": ("fd", "launches_int8"),
             "flash_attention": ("fa", "launches"), "gemm_pipelined": ("gp", "launches")}
 # Launches per step (prefill chunk or decode step) of gemma3-1b, by precision:
-# 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs (each with
-# its row quantization in w8a8), one decode-attention launch per layer.
-# Calibrated w8a8 quantizes activations with static scales in plain ops
-# (no row quantization); the pipelined backend swaps K1 for K6.
+# 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs, one
+# decode-attention launch per layer; the pipelined backend swaps K1 for K6.
+# In both w8a8 modes a GeMM of M <= gemm_int8.FUSED_ROWS rows is one launch
+# of the w8a8 GeMM (its activations quantized, per row or with the static
+# scales, inside it): every decode step (M = 8), the head of every prefill
+# chunk (M = 1, the last position) and the projections of chunks of <= 16
+# tokens.  A longer chunk's 182 projections each run the row quantization,
+# then the dequant GeMM (`w8a8_launches`).
 PER_STEP = {("float", "float", "tiled"): {"gemm": 183, "flash_decode": 26},
-            ("w8a8", "int8", "tiled"): {"dequant_gemm": 183, "quantize_rows": 183,
-                                        "flash_decode_int8": 26},
-            ("w8a8-calibrated", "int8", "tiled"): {"dequant_gemm": 183,
+            ("w8a8", "int8", "tiled"): {"gemm_w8a8": 183, "flash_decode_int8": 26},
+            ("w8a8-calibrated", "int8", "tiled"): {"gemm_w8a8": 183,
                                                    "flash_decode_int8": 26},
             ("float", "float", "pipelined"): {"gemm_pipelined": 183, "flash_decode": 26}}
+
+
+def w8a8_launches(chunks, decode_steps: int, fused_rows: int):
+    """The w8a8 GeMMs' launches of a run in a w8a8 mode: `chunks` the prefill
+    chunk sizes, one launch per GeMM at M <= fused_rows, else two."""
+    long_ = sum(c > fused_rows for c in chunks)
+    return {"gemm_w8a8": 183 * decode_steps + 183 * len(chunks) - 182 * long_,
+            "quantize_rows": 182 * long_, "dequant_gemm": 182 * long_}
 
 
 def reset_counts(mods) -> None:
@@ -449,7 +521,13 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
             check(warm["flash_attention"] == n_calib,
                   f"calibration ran flash attention 26 x 2 times: {warm['flash_attention']}")
             check(warm["gemm"] == 7 * n_calib, f"calibration ran K1 7 x 26 x 2 times: {warm['gemm']}")
-            check(warm["quantize_rows"] == 0, "static scales: no row quantization in warmup")
+        if precision != "float":
+            # warmup runs the decode step and each chunk bucket once; the
+            # calibration's forwards (3c) run in float
+            from repro_torch.serving.prefill import chunk_buckets
+            want_w = w8a8_launches(chunk_buckets(eng.max_chunk), 1, mods["gemm8"].FUSED_ROWS)
+            check({k: warm[k] for k in want_w} == want_w,
+                  f"warmup's w8a8 GeMMs: got {warm}, want {want_w}")
         rng = np.random.default_rng(0)
         plens = rng.integers(200, 1101, size=12)
         plens[:3] = (1100, 800, 513)                  # several past the 512 window
@@ -486,6 +564,15 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
             check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
             check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
         want = {k: plan.get(k, 0) * steps for k in launches}
+        if precision != "float":
+            from repro_torch.serving.prefill import plan_chunks
+            chunks = [c for n in plens for c in plan_chunks(int(n), eng.max_chunk)]
+            check(len(chunks) == m.prefill_chunks, "prefill chunks as plan_chunks plans them")
+            want.update(w8a8_launches(chunks, m.decode_steps, mods["gemm8"].FUSED_ROWS))
+            print(f"  w8a8 GeMM plan: {183 * m.decode_steps} one-launch GeMMs in "
+                  f"{m.decode_steps} decode steps; {len(chunks)} prefill chunks, "
+                  f"{sum(c > mods['gemm8'].FUSED_ROWS for c in chunks)} of them longer than "
+                  f"{mods['gemm8'].FUSED_ROWS} tokens (row quantization + dequant GeMM)")
         check(launches == want, f"launches per step: got {launches}, want {want}")
         if precision == "float" and backend == "tiled":
             _print_splits(torch, mods["fd"], eng, cfg)
@@ -1074,31 +1161,36 @@ def _bound(nbytes: float, ops: float, peak: float):
 
 
 def phase_times_int8(torch, gemm8, kq, fd, kvc):
-    """The int8 slice's kernels at their main-path shapes: the dequant GeMM
-    (bf16 out, weights in the serving layout) at M = 8 and 64 beside
-    torch._int_mm, the row quantization at the decode shapes, the int8
-    decode branch beside SDPA over K/V gathered and dequantized beforehand."""
+    """The int8 slice's kernels at their main-path shapes (bf16 out, weights
+    in the serving layout, L2 cold): at M = 1, 8 and 64 the w8a8 GeMM as one
+    launch with per-row scales (graph replay and eager call) and with a
+    static scale, its two launches (the row quantization, then the dequant
+    GeMM), the dequant GeMM alone on quantized rows, their plain versions
+    and torch._int_mm; the row quantization at M = 8 and 64; the int8
+    decode branch beside SDPA over K/V gathered and dequantized
+    beforehand."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     i8 = dict(generator=g, device=dev, dtype=torch.int8)
+    bf = torch.bfloat16
     rows = {}
-    for M in (8, 64):
+    for M in (1, 8, 64):
         for name, K, N, _ in GEMM_SHAPES:
             copies = max(1, min(128, math.ceil(2 * L2_BYTES / (K * N))))
-            a = torch.randint(-127, 128, (M, K), **i8)
-            sa = torch.rand((M, 1), generator=g, device=dev) * 0.1
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            act = (x.float().abs().max() / 127).reshape(())
+            a, sa = kq.quantize_rows(x)
             ws = [(torch.randint(-127, 128, (N, K), **i8).t(),
                    torch.rand((1, N), generator=g, device=dev) * 0.1)
                   for _ in range(copies)]
             iters = max(20, min(400, 4 * copies))
-            kcalls = [lambda b=b, sb=sb: gemm8.dequant_gemm(a, b, sa, sb,
-                                                             out_dtype=torch.bfloat16)
+            n_plain = max(4, iters // 10)
+            kcalls = [lambda b=b, sb=sb: gemm8.dequant_gemm(a, b, sa, sb, out_dtype=bf)
                       for b, sb in ws]
             t_k = _time_ms(torch, kcalls, iters)
             t_e = _time_ms(torch, kcalls, iters, graph=False)
             t_p = _time_ms(torch, [lambda b=b, sb=sb: gemm8.dequant_gemm_plain(
-                a, b, sa, sb, torch.bfloat16) for b, sb in ws[:4]],
-                max(4, iters // 10), graph=False)
+                a, b, sa, sb, bf) for b, sb in ws[:4]], n_plain, graph=False)
             # cuBLASLt's int8 -> int32 product takes M > 16: A padded to 32 rows
             a_lib = torch.zeros((max(M, 32), K), device=dev, dtype=torch.int8)
             a_lib[:M] = a
@@ -1107,14 +1199,36 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
             bound, by = _bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
                                PEAK_FLOPS["int8"])
             rows[("dequant_gemm", M, name)] = (t_k, t_p, t_l, bound, by)
+            fcalls = [lambda b=b, sb=sb: gemm8._w8a8_fused(x, b, sb, None, bf)
+                      for b, sb in ws]
+            t_f = _time_ms(torch, fcalls, iters)
+            t_fe = _time_ms(torch, fcalls, iters, graph=False)
+            t_fs = _time_ms(torch, [lambda b=b, sb=sb: gemm8._w8a8_fused(
+                x, b, sb, act, bf) for b, sb in ws], iters)
+            def two_launches(b, sb):
+                x_q, sx = kq.quantize_rows(x)
+                return gemm8.dequant_gemm(x_q, b, sx, sb, out_dtype=bf)
+
+            t_two = _time_ms(torch, [lambda b=b, sb=sb: two_launches(b, sb) for b, sb in ws],
+                             iters)
+            t_fp = _time_ms(torch, [lambda b=b, sb=sb: gemm8.gemm_w8a8_plain(
+                x, b, sb, None, bf) for b, sb in ws[:4]], n_plain, graph=False)
+            bound_f, by_f = _bound(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N,
+                                   PEAK_FLOPS["int8"])
+            rows[("gemm_w8a8", M, name)] = (t_f, t_fp, t_l, bound_f, by_f, t_fs, t_two, t_fe)
+            print(f"  gemm_w8a8 bf16 -> bf16 M={M} {name} {K}x{N}: one launch {t_f * 1e3:.1f} us "
+                  f"(eager call {t_fe * 1e3:.1f} us), static scale {t_fs * 1e3:.1f} us, "
+                  f"two launches (quantize_rows + dequant_gemm) {t_two * 1e3:.1f} us "
+                  f"(the plan: {'one' if M <= gemm8.FUSED_ROWS else 'two'}), plain "
+                  f"{t_fp * 1e3:.1f} us, torch._int_mm (M padded to {max(M, 32)}) "
+                  f"{t_l * 1e3:.1f} us, bound {bound_f * 1e3:.2f} us ({by_f}), "
+                  f"{bound_f / t_f:.1%} of bound")
             print(f"  dequant_gemm int8 -> bf16 M={M} {name} {K}x{N}: kernel "
                   f"{t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
-                  f"{t_p * 1e3:.1f} us, torch._int_mm (M padded to {max(M, 32)}) "
-                  f"{t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+                  f"{t_p * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
                   f"{bound / t_k:.1%} of bound")
-            del a, ws, a_lib
-    M = 8
-    for K in sorted(QUANT_PER_STEP):
+            del a, x, ws, a_lib
+    for M, K in [(M, K) for M in (8, 64) for K in sorted(QUANT_PER_CHUNK)]:
         xs = [torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
               for _ in range(64)]
         kcalls = [lambda x=x: kq.quantize_rows(x) for x in xs]
@@ -1123,7 +1237,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
         t_p = _time_ms(torch, [lambda x=x: kq.quantize_rows_plain(x) for x in xs],
                        64, graph=False)
         bound, by = _bound(M * K * 2 + M * K + 4 * M, 3 * M * K, PEAK_FLOPS["float32"])
-        rows[("quantize_rows", K)] = (t_k, t_p, None, bound, by)
+        rows[("quantize_rows", M, K)] = (t_k, t_p, None, bound, by)
         print(f"  quantize_rows bf16 M={M} K={K}: kernel {t_k * 1e3:.2f} us (eager call "
               f"{t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, library: none, bound "
               f"{bound * 1e3:.4f} us ({by}), {bound / t_k:.2%} of bound")
@@ -1138,18 +1252,44 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
     return rows
 
 
+def per_step_w8a8(rows, fused_rows: int, n_layers: int = 26):
+    """The w8a8 GeMM's per-shape times summed over one gemma3-1b decode step
+    (183 GeMMs at M = 8) and one 64-token prefill chunk (26 x the
+    projections at M = 64, the head at M = 1), in ms: as one launch with
+    per-row (w8a8) and static (calibrated) scales, as two launches, as the
+    plan runs it (one launch at M <= fused_rows), the plain composition,
+    torch._int_mm and the bound."""
+    layer = ("q", "k", "v", "o", "gate", "up", "down")
+    names = {"kernel": 0, "plain": 1, "int_mm": 2, "bound": 3, "static": 5,
+             "two_launch": 6, "eager": 7}
+
+    def plan(M, s):
+        r = rows[("gemm_w8a8", M, s)]
+        return r[0] if M <= fused_rows else r[6]
+
+    out = {}
+    for label, mp, mh in (("decode", 8, 8), ("prefill", 64, 1)):
+        out[label] = {name: sum(n_layers * rows[("gemm_w8a8", mp, s)][i] for s in layer)
+                      + rows[("gemm_w8a8", mh, "head")][i] for name, i in names.items()}
+        out[label]["plan"] = sum(n_layers * plan(mp, s) for s in layer) + plan(mh, "head")
+    return out
+
+
 def per_step_int8(rows, n_layers: int = 26, n_global: int = 4):
-    """Aggregate the int8 kernels' per-shape times into one w8a8 + int8 KV
-    decode step of gemma3-1b (M = 8): [kernel, plain, library, bound]."""
+    """Aggregate the int8 kernels' per-shape times where the w8a8 + int8 KV
+    path of gemma3-1b runs them: the dequant GeMM and the row quantization
+    over one 64-token prefill chunk's 182 projections (M = 64, the w8a8
+    GeMM's two launches), the int8 decode branch over one decode step:
+    [kernel, plain, library, bound, bound_by]."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
 
     def total(terms, i):
         return None if any(r[i] is None for r, _ in terms) else sum(n * r[i] for r, n in terms)
 
     terms = {
-        "dequant_gemm": [(rows[("dequant_gemm", 8, s)], n_layers) for s in layer]
-        + [(rows[("dequant_gemm", 8, "head")], 1)],
-        "quantize_rows": [(rows[("quantize_rows", k)], n) for k, n in QUANT_PER_STEP.items()],
+        "dequant_gemm": [(rows[("dequant_gemm", 64, s)], n_layers) for s in layer],
+        "quantize_rows": [(rows[("quantize_rows", 64, k)], n)
+                          for k, n in QUANT_PER_CHUNK.items()],
         "flash_decode_int8": [(rows[("flash_decode_int8", "decode", None)], n_global),
                               (rows[("flash_decode_int8", "decode", 512)],
                                n_layers - n_global)],
@@ -1196,9 +1336,9 @@ def per_prefill_chunk(rows, n_layers: int = 26, depth: int = 3):
             for name, key in keys.items()}
 
 
-def hmma_count(lib: Path):
-    """Tensor-core (HMMA) instructions in the SASS of `lib`, or None where
-    the toolkit has no cuobjdump."""
+def sass_count(lib: Path, op: str):
+    """Instructions of mnemonic `op` (HMMA, IMMA: the tensor cores') in
+    the SASS of `lib`, or None where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
     if not Path(tool).exists():
@@ -1206,7 +1346,7 @@ def hmma_count(lib: Path):
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     check(out.returncode == 0, f"cuobjdump -sass {lib.name}: {out.stderr.strip()[:200]}")
-    return sum("HMMA" in line for line in out.stdout.splitlines())
+    return sum(op in line for line in out.stdout.splitlines())
 
 
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
@@ -1261,17 +1401,18 @@ def main() -> int:
                 spills += int(m.group(1)) + int(m.group(2))
         print(f"[1] {name}.cu: {n} kernels, at most {regs} registers a thread, "
               f"{spills} bytes of spill stores and loads in all")
-        if name in ("gemm", "gemm_pipelined"):
-            check(spills == 0, f"{name}.cu: no spills in the float GeMMs")
-    for name in ("gemm", "gemm_pipelined"):
-        n = hmma_count(_build._lib_path(name))
-        print(f"[1] lib{name}.so: " + ("HMMA not counted (no cuobjdump)" if n is None
-                                      else f"{n} HMMA (tensor-core) instructions"))
-        check(n is None or n > 0, f"lib{name}.so runs its bf16 products on the tensor cores")
+        if name in ("gemm", "gemm_pipelined", "gemm_int8"):
+            check(spills == 0, f"{name}.cu: no spills in the GeMMs")
+    for name, op in (("gemm", "HMMA"), ("gemm_pipelined", "HMMA"), ("gemm_int8", "IMMA")):
+        n = sass_count(_build._lib_path(name), op)
+        print(f"[1] lib{name}.so: " + (f"{op} not counted (no cuobjdump)" if n is None
+                                      else f"{n} {op} (tensor-core) instructions"))
+        check(n is None or n > 0, f"lib{name}.so runs its products on the tensor cores")
 
     print("[2] kernels vs plain versions on the card")
     worst = phase_kernels(torch, gemm, fd, kvc)
     worst.update(phase_kernels_int8(torch, gemm8, kq, fd, kvc))
+    worst.update(phase_kernels_w8a8(torch, gemm8))
     worst.update(phase_kernels_slice3(torch, fa, gp))
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
@@ -1292,6 +1433,9 @@ def main() -> int:
     agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
     rows8 = phase_times_int8(torch, gemm8, kq, fd, kvc)
     agg.update(per_step_int8(rows8))
+    w8 = per_step_w8a8(rows8, gemm8.FUSED_ROWS)
+    agg["gemm_w8a8"] = [w8["decode"][k] for k in ("kernel", "plain", "int_mm", "bound")] \
+        + ["bytes"]
     print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (torch.matmul "
           f"{agg['gemm'][2]:.3f}, bound {agg['gemm'][3]:.3f}), flash_decode "
           f"{agg['flash_decode'][0]:.3f} ms (bound {agg['flash_decode'][3]:.3f}); engine "
@@ -1302,12 +1446,21 @@ def main() -> int:
           f"{chunk['gemm_pipelined'][0]:.3f} ms, torch.matmul {chunk['gemm'][2]:.3f} ms, "
           f"bound {chunk['gemm'][3]:.3f} ms; engine prefill chunk "
           f"{summary['prefill_ms']:.2f} ms")
-    print(f"[5] one w8a8 + int8 KV decode step: dequant_gemm {agg['dequant_gemm'][0]:.3f} ms "
-          f"(bound {agg['dequant_gemm'][3]:.3f}), quantize_rows "
-          f"{agg['quantize_rows'][0]:.3f} ms (bound {agg['quantize_rows'][3]:.4f}), "
-          f"flash_decode_int8 {agg['flash_decode_int8'][0]:.3f} ms (bound "
-          f"{agg['flash_decode_int8'][3]:.3f}); engine decode step "
-          f"{summary8['decode_ms']:.2f} ms")
+    for label, what in (("decode", "decode step (183 GeMMs at M=8)"),
+                        ("prefill", "prefill chunk (26 x projections at M=64, head at M=1)")):
+        t = w8[label]
+        print(f"[5] one w8a8 {what}: as planned {t['plan']:.3f} ms; as one launch each "
+              f"{t['kernel']:.3f} ms (eager calls {t['eager']:.3f}), static scales "
+              f"{t['static']:.3f} ms; as two launches (quantize_rows + dequant_gemm) "
+              f"{t['two_launch']:.3f} ms; torch._int_mm {t['int_mm']:.3f} ms, bound "
+              f"{t['bound']:.3f} ms")
+    print(f"[5] one w8a8 + int8 KV decode step: gemm_w8a8 {agg['gemm_w8a8'][0]:.3f} ms "
+          f"(bound {agg['gemm_w8a8'][3]:.3f}), flash_decode_int8 "
+          f"{agg['flash_decode_int8'][0]:.3f} ms (bound {agg['flash_decode_int8'][3]:.3f}); "
+          f"engine decode step {summary8['decode_ms']:.2f} ms; one prefill chunk's 182 "
+          f"projections at M=64: dequant_gemm {agg['dequant_gemm'][0]:.3f} ms + "
+          f"quantize_rows {agg['quantize_rows'][0]:.3f} ms (bound "
+          f"{agg['quantize_rows'][3]:.4f}); engine prefill chunk {summary8['prefill_ms']:.2f} ms")
     print(f"[5] one decode step under the pipelined backend: gemm_pipelined (depth 3) "
           f"{agg['gemm_pipelined'][0]:.3f} ms (torch.matmul {agg['gemm_pipelined'][2]:.3f}, "
           f"bound {agg['gemm_pipelined'][3]:.3f}); "
@@ -1332,11 +1485,18 @@ def main() -> int:
          summary["launches"]),
         ("flash_decode", "flash_decode.cu", "src/repro/kernels/flash_decode.py:107",
          f"{step}: 4 global + 22 window-512 layers, B=8, Sq=1, bf16", summary["launches"]),
+        ("gemm_w8a8", "gemm_int8.cu",
+         "src/repro/kernels/gemm.py:54 with src/repro/kernels/quant.py:25 "
+         "(composed in make_w8a8_gemm, src/repro/kernels/quant.py:63)",
+         f"{step} in w8a8: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, bf16 -> bf16, "
+         f"rows quantized in the prologue", summary8["launches"]),
         ("dequant_gemm", "gemm_int8.cu", "src/repro/kernels/gemm.py:54",
-         f"{step} in w8a8: 26 x (q,k,v,o,gate,up,down) + tied head, M=8, int8 -> bf16",
+         "one 64-token gemma3-1b prefill chunk in w8a8: 26 x (q,k,v,o,gate,up,down) at "
+         "M=64, int8 -> bf16 (the w8a8 GeMM's second launch above 16 rows)",
          summary8["launches"]),
         ("quantize_rows", "quant.cu", "src/repro/kernels/quant.py:25",
-         f"{step} in w8a8: 183 bf16 rows (8, K), K = 1152 x 131, 1024 x 26, 6912 x 26",
+         "one 64-token gemma3-1b prefill chunk in w8a8: 182 bf16 rows (64, K), K = 1152 x "
+         "130, 1024 x 26, 6912 x 26 (the w8a8 GeMM's first launch above 16 rows)",
          summary8["launches"]),
         ("flash_decode_int8", "flash_decode.cu",
          "src/repro/kernels/flash_decode.py:107 (quantized branch :113-132)",

@@ -1,9 +1,10 @@
-// The body shared by the float GeMMs K1 (gemm.cu) and K6 (gemm_pipelined.cu)
-// on Hopper (sm_90a): the shared-memory stage layout and its 16-byte copies,
-// the per-stage products (tensor cores for bf16, exact SIMT FMA for f32,
-// integer multiply-add for int8), and the epilogue with its in-kernel
-// split-K fix-up.  The two kernels differ only in how they keep stages in
-// flight (K1: two, double-buffered; K6: a ring of `depth`).
+// The body shared by the GeMMs K1 (gemm.cu), K6 (gemm_pipelined.cu) and the
+// int8 GeMM K3 (gemm_int8.cu) on Hopper (sm_90a): the shared-memory stage
+// layout and its 16-byte copies, the per-stage products (tensor cores for
+// bf16 and for int8, exact SIMT FMA for f32), and the epilogue with its
+// in-kernel split-K fix-up.  K1 and K6 differ only in how they keep stages
+// in flight (K1: two, double-buffered; K6: a ring of `depth`); K3 keeps two
+// and may produce A's int8 codes itself (the fused row quantization).
 //
 // Tiles.  A block owns one output tile of BN = 128 columns of C and a row
 // tile of A, and walks its K range in stages of 128 bytes of K (64 bf16, 32
@@ -30,8 +31,15 @@
 //     accumulator with an ordinary (round-to-nearest) add, so the running
 //     sum never passes through the tensor core's own accumulation; the
 //     kernels then hold the f32 plain version's bars.
-// f32 operands keep the SIMT exact-FMA body (never TF32); int8 operands an
-// exact int32 multiply-add.
+// int8 products: mma.sync.m16n8k32 (s8 x s8 -> s32) fed by plain ldmatrix,
+// with B K-major.  An s8 fragment holds 4 codes per register where the bf16
+// one holds 2 values, so a 32-deep s8 step reads the same 16-byte rows at
+// the same byte offsets as a 16-deep bf16 step, and the bf16 bodies' address
+// patterns carry over with K counted in bytes.  int32 sums are exact in any
+// order, so the mma accumulates in place.  The same two tiles: weights on
+// the 16-row side at M <= 16, 64 x 128 above.
+// f32 operands keep the SIMT exact-FMA body (never TF32); int8 operands
+// with an N-contiguous B an exact int32 multiply-add.
 //
 // Split-K in one launch.  When the output tiles alone cannot fill the card,
 // the launch plan (kernels/gemm.py::gemm_plan) splits K into `splits`
@@ -41,8 +49,10 @@
 // partials in split order 0..S-1 (deterministic, whatever the arrival
 // order), writes C, and resets the counter to 0, so the launch can be
 // captured into a CUDA graph and replayed.  The workspace and counters are
-// allocated once per device by the wrapper and shared by K1 and K6; every
-// launch goes on PyTorch's current stream, which orders their uses.
+// allocated once per device by the wrapper and shared by K1, K6 and K3 (the
+// int8 GeMM reads the workspace as int32); every launch goes on PyTorch's
+// current stream, which orders their uses.  The fix-up hands each summed
+// value to the kernel's epilogue once, so K3 scales after the split sum.
 
 #pragma once
 
@@ -74,6 +84,8 @@ struct Args {
   long long sam, sbk, sbn;
   int kps, splits;     // stages per split, number of splits
   int out_code;        // 0 = float32, 1 = bfloat16, 2 = int32
+  const float* sa;     // int8 GeMM only: row scales (M,) or the static scale, else null
+  const float* sb;     // int8 GeMM only: column scales (N,)
 };
 
 __device__ __forceinline__ float to_acc(float x) { return x; }
@@ -122,6 +134,15 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned* r, const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
 }
 
+// acc += (16x32 A fragment) x (32x8 B fragment), s8 codes, exact int32.
+__device__ __forceinline__ void imma(int* acc, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // acc += (16x16 A fragment) x (16x8 B fragment), the product summed from
 // zero by the tensor core and added to acc in f32.
 __device__ __forceinline__ void mma_add(float* acc, const unsigned* a, unsigned b0,
@@ -152,24 +173,30 @@ struct Stage {
   static constexpr int ELEMS = A_ELEMS + B_ELEMS;
 };
 
-// Issue the copies of the stage starting at K index k0 into `as` (no
-// commit).  Rows past M, columns past N and K past K are zero-filled by the
-// copies themselves.
+// Issue the copies of A's part of the stage starting at K index k0 into
+// `as` (no commit).  Rows past M and K past K are zero-filled by the copies
+// themselves.
 template <typename T, class S>
-__device__ __forceinline__ void issue_stage(T* as, const Args& p, int m0, int n0, int k0) {
+__device__ __forceinline__ void issue_a(T* as, const Args& p, int m0, int k0) {
   constexpr int CE = S::CE, KC = S::BK / CE, ROWS = S::ROWS;
   const T* a = static_cast<const T*>(p.a);
-  const T* b = static_cast<const T*>(p.b);
-  T* bs = as + S::A_ELEMS;
-  const int tid = threadIdx.x;
 #pragma unroll
-  for (int e = tid; e < ROWS * KC; e += NT) {
+  for (int e = threadIdx.x; e < ROWS * KC; e += NT) {
     const int r = e / KC, kc = (e % KC) * CE;
     const int m = m0 + r, k = k0 + kc;
     const int valid = (m < p.M) ? max(0, min(CE, p.K - k)) : 0;
     const T* src = valid ? a + m * p.sam + k : a;
     cp_async16(as + r * S::LDA + kc, src, valid * (int)sizeof(T));
   }
+}
+
+// The same for B's part of the stage (columns past N zero-filled).
+template <typename T, class S>
+__device__ __forceinline__ void issue_b(T* as, const Args& p, int n0, int k0) {
+  constexpr int CE = S::CE, KC = S::BK / CE;
+  const T* b = static_cast<const T*>(p.b);
+  T* bs = as + S::A_ELEMS;
+  const int tid = threadIdx.x;
   if constexpr (S::KMAJOR) {
 #pragma unroll
     for (int e = tid; e < BN * KC; e += NT) {
@@ -190,6 +217,13 @@ __device__ __forceinline__ void issue_stage(T* as, const Args& p, int m0, int n0
       cp_async16(bs + r * S::LDB + nc, src, valid * (int)sizeof(T));
     }
   }
+}
+
+// Both parts of the stage starting at K index k0 (no commit).
+template <typename T, class S>
+__device__ __forceinline__ void issue_stage(T* as, const Args& p, int m0, int n0, int k0) {
+  issue_a<T, S>(as, p, m0, k0);
+  issue_b<T, S>(as, p, n0, k0);
 }
 
 // f32 / int8: thread (ty, tx) of a 16 x 16 grid owns rows ty * TM + i and
@@ -356,13 +390,137 @@ struct MmaBody {
   }
 };
 
-// Write the block's tile: straight to C with one split, else the split-K
-// fix-up described at the top of this file.
-template <typename A, class Body>
-__device__ __forceinline__ void finish(const Body& body, const Args& p, int m0, int n0) {
+// int8, M <= 16: C^T = B^T A^T on s8 mma.sync, as MmaSwapBody, B K-major.
+// Warp w owns columns n0 + 16 w .. + 15 of C for all TC * 8 token rows.
+template <int TC>
+struct ImmaSwapBody {
+  using S = Stage<int8_t, 8 * TC, true>;
+  static constexpr int ROWS = 8 * TC;
+  int acc[TC][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int t = 0; t < TC; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[t][i] = 0;
+  }
+
+  __device__ __forceinline__ void step(const int8_t* as) {
+    const int8_t* bs = as + S::A_ELEMS;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int kk = 0; kk < S::BK; kk += 32) {
+      unsigned w[4], x[2 * TC];
+      // Weight fragment (mma A, 16 columns of C x 32 codes): matrices
+      // (rows 0-7, bytes 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31).
+      ldsm_x4(w, bs + (16 * warp + (lane & 15)) * S::LDB + kk + (lane >> 4) * 16);
+      // Token fragment (mma B, 32 codes x 8 tokens): tokens are A's rows.
+      if constexpr (TC == 1)
+        ldsm_x2(x, as + r * S::LDA + kk + (j & 1) * 16);
+      else
+        ldsm_x4(x, as + ((j >> 1) * 8 + r) * S::LDA + kk + (j & 1) * 16);
+#pragma unroll
+      for (int t = 0; t < TC; ++t) imma(acc[t], w, x[2 * t], x[2 * t + 1]);
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(int m0, int n0, F f) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n = n0 + 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      const int m = m0 + 8 * t + 2 * (lane & 3);
+      f(m, n, acc[t][0]);
+      f(m + 1, n, acc[t][1]);
+      f(m, n + 8, acc[t][2]);
+      f(m + 1, n + 8, acc[t][3]);
+    }
+  }
+};
+
+// int8, M > 16: 64 rows of A x 128 columns on s8 mma.sync, as MmaBody, B
+// K-major; warp (wm, wn) of 2 x 4 owns rows 32 wm .. + 31, columns 32 wn .. + 31.
+struct ImmaBody {
+  using S = Stage<int8_t, 64, true>;
+  static constexpr int ROWS = 64;
+  int acc[2][4][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][t][e] = 0;
+  }
+
+  __device__ __forceinline__ void step(const int8_t* as) {
+    const int8_t* bs = as + S::A_ELEMS;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp >> 2, wn = warp & 3, j = lane >> 3, r = lane & 7;
+#pragma unroll 1
+    for (int kk = 0; kk < S::BK; kk += 32) {
+      unsigned a[2][4], b[4][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4(a[i], as + (32 * wm + 16 * i + (lane & 15)) * S::LDA + kk + (lane >> 4) * 16);
+      // Weight fragments (mma B), two 8-column tiles per ldmatrix: (tile 0,
+      // bytes 0-15), (tile 0, 16-31), (tile 1, 0-15), (tile 1, 16-31).
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        unsigned v[4];
+        const int col = 32 * wn + 16 * q + (j >> 1) * 8;
+        ldsm_x4(v, bs + (col + r) * S::LDB + kk + (j & 1) * 16);
+        b[2 * q][0] = v[0];
+        b[2 * q][1] = v[1];
+        b[2 * q + 1][0] = v[2];
+        b[2 * q + 1][1] = v[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) imma(acc[i][t], a[i], b[t][0], b[t][1]);
+    }
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(int m0, int n0, F f) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int m = m0 + 32 * wm + 16 * i + (lane >> 2);
+        const int n = n0 + 32 * wn + 8 * t + 2 * (lane & 3);
+        f(m, n, acc[i][t][0]);
+        f(m, n + 1, acc[i][t][1]);
+        f(m + 8, n, acc[i][t][2]);
+        f(m + 8, n + 1, acc[i][t][3]);
+      }
+  }
+};
+
+// The epilogue K1 and K6 write with: C[off] = v in out_code's type.
+struct StoreC {
+  const Args& p;
+  template <typename A>
+  __device__ __forceinline__ void operator()(long long off, int, int, A v) const {
+    store(p.c, p.out_code, off, v);
+  }
+};
+
+// Write the block's tile through `out(offset, m, n, sum)`: straight from
+// the registers with one split, else the split-K fix-up described at the
+// top of this file, which hands `out` the summed value once.
+template <typename A, class Body, class Out>
+__device__ __forceinline__ void finish(const Body& body, const Args& p, int m0, int n0,
+                                       const Out& out) {
   if (p.splits == 1) {
     body.each(m0, n0, [&](int m, int n, A v) {
-      if (m < p.M && n < p.N) store(p.c, p.out_code, (long long)m * p.N + n, v);
+      if (m < p.M && n < p.N) out((long long)m * p.N + n, m, n, v);
     });
     return;
   }
@@ -427,19 +585,32 @@ __device__ __forceinline__ void finish(const Body& body, const Args& p, int m0, 
       if (z == p.splits - 1) {
         const int m = m0 + g / (BN / 4), n = n0 + 4 * (g % (BN / 4));
         const long long off = (long long)m * p.N + n;
-        if (n < p.N) store(p.c, p.out_code, off, s.x);
-        if (n + 1 < p.N) store(p.c, p.out_code, off + 1, s.y);
-        if (n + 2 < p.N) store(p.c, p.out_code, off + 2, s.z);
-        if (n + 3 < p.N) store(p.c, p.out_code, off + 3, s.w);
+        if (n < p.N) out(off, m, n, s.x);
+        if (n + 1 < p.N) out(off + 1, m, n + 1, s.y);
+        if (n + 2 < p.N) out(off + 2, m, n + 2, s.z);
+        if (n + 3 < p.N) out(off + 3, m, n + 3, s.w);
       }
     }
   }
+}
+
+template <typename A, class Body>
+__device__ __forceinline__ void finish(const Body& body, const Args& p, int m0, int n0) {
+  finish<A>(body, p, m0, n0, StoreC{p});
 }
 
 template <class B>
 struct Tag {
   using type = B;
 };
+
+// The int8 tensor-core body for the plan's swap flag and M (B K-major).
+template <class F>
+int with_imma_body(bool swap, int M, F&& f) {
+  if (swap && M <= 8) return f(Tag<ImmaSwapBody<1>>{});
+  if (swap) return f(Tag<ImmaSwapBody<2>>{});
+  return f(Tag<ImmaBody>{});
+}
 
 // Calls f(Tag<Body>{}) with the body for operand type T, the plan's swap
 // flag (the 16-row tile in the SIMT bodies), M and B's layout; returns its
@@ -452,6 +623,9 @@ int with_body(bool swap, int M, bool kmajor, F&& f) {
     if (swap)
       return kmajor ? f(Tag<MmaSwapBody<2, true>>{}) : f(Tag<MmaSwapBody<2, false>>{});
     return kmajor ? f(Tag<MmaBody<true>>{}) : f(Tag<MmaBody<false>>{});
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    if (kmajor) return with_imma_body(swap, M, f);
+    return swap ? f(Tag<SimtBody<T, 16, false>>{}) : f(Tag<SimtBody<T, 64, false>>{});
   } else {
     if (swap)
       return kmajor ? f(Tag<SimtBody<T, 16, true>>{}) : f(Tag<SimtBody<T, 16, false>>{});
@@ -459,18 +633,19 @@ int with_body(bool swap, int M, bool kmajor, F&& f) {
   }
 }
 
-// Launch KERN over the tile grid with DEPTH stages of Body's layout in
-// dynamic shared memory.  The cap above 48 KB is raised once per kernel,
+// Launch KERN over the tile grid with DEPTH stages of Body's layout, and
+// EXTRA bytes after them, in dynamic shared memory.  The cap above 48 KB
+// is raised once per kernel,
 // never per launch: launches may be captured into a graph.  KERN is a
 // template argument so that `raised` is one flag per kernel: the kernels
 // live in each source's anonymous namespace, which gives this instance
 // internal linkage too (gemm.cu and gemm_pipelined.cu build into two
 // libraries in one process, and an instance with external linkage would
 // share its static between them).
-template <typename T, int DEPTH, class Body, void (*KERN)(Args)>
+template <typename T, int DEPTH, class Body, void (*KERN)(Args), size_t EXTRA = 0>
 int launch(const Args& p, cudaStream_t stream) {
   using S = typename Body::S;
-  const size_t smem = (size_t)DEPTH * S::ELEMS * sizeof(T);
+  const size_t smem = (size_t)DEPTH * S::ELEMS * sizeof(T) + EXTRA;
   static bool raised = false;
   if (smem > 48 * 1024 && !raised) {
     cudaError_t err =

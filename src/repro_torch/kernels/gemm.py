@@ -142,14 +142,14 @@ def splitk_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     return got
 
 
-def _aligned(t: torch.Tensor, lead_stride: int) -> bool:
-    """Every row of `t` along its unit-stride axis starts 16-byte aligned."""
-    return t.data_ptr() % 16 == 0 and (lead_stride * t.element_size()) % 16 == 0
-
-
-def _relaid(t: torch.Tensor) -> torch.Tensor:
-    """A copy of 2-D `t` with its last axis contiguous and each row padded
-    to a multiple of 16 bytes (the view keeps the logical shape)."""
+def rows_for_copies(t: torch.Tensor) -> torch.Tensor:
+    """2-D `t` as the kernels' 16-byte copies take it: its last axis
+    contiguous and every row starting 16-byte aligned.  A tensor that is
+    not comes back as a copy with each row padded to a multiple of 16 bytes
+    (the view keeps the logical shape)."""
+    s0, s1 = t.stride()
+    if s1 == 1 and t.data_ptr() % 16 == 0 and (s0 * t.element_size()) % 16 == 0:
+        return t
     rows, cols = t.shape
     per = 16 // t.element_size()
     buf = torch.zeros((rows, -(-cols // per) * per), dtype=t.dtype, device=t.device)
@@ -163,17 +163,10 @@ def operands_for_copies(a: torch.Tensor, b: torch.Tensor):
     contiguous, every row 16-byte aligned.  An operand that is not comes
     back as a re-laid copy (never on the model's path, whose widths are
     multiples of 128)."""
-    sa0, sa1 = a.stride()
-    if not (sa1 == 1 and _aligned(a, sa0)):
-        a = _relaid(a)
     sb0, sb1 = b.stride()
     kmajor = sb0 == 1 and sb1 != 1
-    if kmajor:
-        if not _aligned(b, sb1):
-            b = _relaid(b.t()).t()
-    elif not (sb1 == 1 and _aligned(b, sb0)):
-        b = _relaid(b)
-    return a, b, kmajor
+    b = rows_for_copies(b.t()).t() if kmajor else rows_for_copies(b)
+    return rows_for_copies(a), b, kmajor
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,

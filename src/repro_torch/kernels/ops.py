@@ -15,9 +15,12 @@ device decides) and raise.  The other kernels take no backend:
 
   int8 + dequant        kernels/gemm_int8.py  (K3)
   row quantization      kernels/quant.py      (K4)
+  w8a8                  kernels/gemm_int8.py  (K4's arithmetic fused into K3)
 
 As in the reference, int8-resident weights (`QuantTensor`) ignore the
-backend and always take K4 + K3, or the static-scale branch + K3.
+backend: their activations quantize per row or with a static scale inside
+the int8 GeMM at M <= 16 (`gemm_int8.gemm_w8a8`, one launch), through K4
+then K3 above; float weights under quant="int8" take K4, then K3.
 
 The kernels mask ragged edges themselves, so the reference's tile padding
 (`_pad2`) has no counterpart.
@@ -101,16 +104,11 @@ def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, *,
     f32 per-column scales -> (M, N) in `out_dtype` (f32 by default).
 
     Activations quantize per row on the fly (dynamic), or with the static
-    per-tensor `act_scale` when given (calibrated mode, plain PyTorch as the
-    reference's jnp)."""
-    M = x.shape[0]
-    w_scale = w_scale.reshape(1, -1)
-    if act_scale is None:
-        return _quant.gemm_w8a8(x, w_q, w_scale, out_dtype=out_dtype)
-    s = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device).reshape(())
-    xq = torch.clamp(torch.round(x.to(torch.float32) / s), -127, 127).to(torch.int8)
-    sx = s.expand(M, 1)
-    return gemm_int8_dequant(xq, w_q, sx, w_scale, out_dtype=out_dtype)
+    per-tensor `act_scale` when given (calibrated mode; on the card a
+    one-element float32 tensor on x's device, as `QuantTensor.act_scale`
+    is).  On the card both modes are one launch at M <= 16
+    (`gemm_int8.gemm_w8a8`); on the CPU the reference's composition."""
+    return _gemm_int8.gemm_w8a8(x, w_q, w_scale, act_scale, out_dtype=out_dtype)
 
 
 def linear(x: torch.Tensor, w, *, quant: Optional[str] = None,

@@ -12,7 +12,7 @@ function itself.
   "tiled"      kernels/gemm.py           K1 (the reference's "pallas")
   "pipelined"  kernels/gemm_pipelined.py K6 at depth 3
   "dequant"    kernels/gemm_int8.py      K3: int8 x int8 -> scaled float
-  "w8a8"       kernels/quant.py          K4 row quantization, then K3
+  "w8a8"       kernels/gemm_int8.py      K4's row quantization in K3's prologue (M <= 16)
 """
 
 from __future__ import annotations
@@ -24,7 +24,6 @@ import torch
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_int8 as _gemm_int8
 from repro_torch.kernels import gemm_pipelined as _pipelined
-from repro_torch.kernels import quant as _quant
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -59,4 +58,4 @@ def _tiled(a, b, *, out_dtype=None):
 register_kernel("tiled", _tiled)
 register_kernel("pipelined", _pipelined.gemm)
 register_kernel("dequant", _gemm_int8.dequant_gemm)
-register_kernel("w8a8", _quant.gemm_w8a8)
+register_kernel("w8a8", _gemm_int8.gemm_w8a8)

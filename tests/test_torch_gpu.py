@@ -60,11 +60,11 @@ def test_gemm_kernel_matches_plain(cuda_device, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["dequant_f32", "dequant_bf16", "int"])
 def test_int8_gemm_kernel_matches_plain_bitwise(cuda_device, mode):
-    """K3 (dequant epilogue, f32 or bf16 out) and K1's int mode equal their
-    plain versions bit for bit: the int32 sums are exact and the epilogue's
-    order is fixed.  Covers ragged shapes, a transposed-view B on the
-    16-byte path, a (K, N) B on the byte path, and split-K with a ragged
-    tail."""
+    """K3 (dequant epilogue, f32 or bf16 out) and K1's int mode on the s8
+    tensor-core body equal their plain versions bit for bit: the int32 sums
+    are exact and the epilogue's order is fixed.  Covers ragged shapes, a
+    transposed-view B read in place, a (K, N) B re-laid K-major, K not a
+    multiple of the 32-deep mma step, and split-K with a ragged tail."""
     rng = np.random.default_rng(0)
     tgemm8.reset_launches()
     for M, K, N, transposed in INT8_CASES:
@@ -331,20 +331,51 @@ def test_float_gemm_at_model_shapes(cuda_device, kernel, M):
             del a, b, want, got, got16
 
 
+def _w8a8_operands(rng, M, K, N, device, dtype=torch.bfloat16, static=False):
+    """x (M, K) with one zero row (the 1e-8 floor), the weight as the
+    model holds it (the .t() view of an (N, K) int8 store), its column
+    scales (1, N), and a static scale (a 0-d float32 tensor) or None."""
+    x = torch.from_numpy((rng.normal(size=(M, K)) * 3).astype(np.float32))
+    if M > 1:
+        x[M // 2] = 0.0
+    w = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8))
+    sb = torch.from_numpy(rng.uniform(1e-3, 1e-1, size=(1, N)).astype(np.float32))
+    act = torch.tensor(float(x.abs().max()) / 127.0 * 0.8) if static else None
+    x, w, sb = x.to(device, dtype), w.to(device).t(), sb.to(device)
+    return x, w, sb, (None if act is None else act.to(device))
+
+
+INT8_GRAPH_KERNELS = ("pipelined-int8", "dequant", "w8a8-dynamic", "w8a8-static")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["tiled", "pipelined-3", "pipelined-int8"])
+@pytest.mark.parametrize("kernel", ["tiled", "pipelined-3", *INT8_GRAPH_KERNELS])
 def test_gemm_bitwise_repeatable_and_graph_replay(cuda_device, kernel):
     """One launch per call with the split-K fix-up inside: two calls, a
     CUDA-graph capture replayed twice and a call after the replays give
     bitwise-equal results (the fix-up sums in split order and re-arms its
-    counters), at a split shape of each tile (M = 8: 27 splits; M = 64)."""
+    counters), at a split shape of each tile (M = 8: 27 splits; M = 64);
+    the int8 kernels (K6's int mode, K3, the w8a8 GeMM with per-row and
+    static scales) also bit for bit equal to their plain versions."""
     rng = np.random.default_rng(5)
     for M, K, N in [(8, 6912, 1152), (64, 1152, 1000), (1, 1152, 256)]:
-        if kernel == "pipelined-int8":
+        if kernel.startswith("w8a8"):
+            x, w, sb, act = _w8a8_operands(rng, M, K, N, cuda_device,
+                                           static=kernel == "w8a8-static")
+            fn = lambda: tgemm8.gemm_w8a8(x, w, sb, act, out_dtype=torch.bfloat16)  # noqa: E731
+            want = tgemm8.gemm_w8a8_plain(x, w, sb, act, torch.bfloat16)
+        elif kernel in ("pipelined-int8", "dequant"):
             a = torch.from_numpy(rng.integers(-127, 128, size=(M, K), dtype=np.int8))
             b = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8))
             a, b = a.to(cuda_device), b.to(cuda_device).t()
-            fn = lambda: tgp.gemm(a, b)                      # noqa: E731
+            sa = torch.rand((M, 1), device=cuda_device) * 0.1
+            sb = torch.rand((1, N), device=cuda_device) * 0.1
+            if kernel == "dequant":
+                fn = lambda: tgemm8.dequant_gemm(a, b, sa, sb)   # noqa: E731
+                want = tgemm8.dequant_gemm_plain(a, b, sa, sb)
+            else:
+                fn = lambda: tgp.gemm(a, b)                      # noqa: E731
+                want = tgp.gemm_plain(a, b)
         else:
             a, b = _float_operands(rng, M, K, N, False, cuda_device)
             fn = (lambda: tgemm.gemm(a, b)) if kernel == "tiled" else \
@@ -360,8 +391,10 @@ def test_gemm_bitwise_repeatable_and_graph_replay(cuda_device, kernel):
             torch.cuda.synchronize()
             assert torch.equal(captured, first), (M, K, N)
         assert torch.equal(fn(), first), (M, K, N)
-        want = tgp.gemm_plain(a, b) if kernel == "pipelined-int8" else tgemm.gemm_plain(a, b)
-        torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-5)
+        if kernel in INT8_GRAPH_KERNELS:
+            assert torch.equal(first, want), (M, K, N)
+        else:
+            torch.testing.assert_close(first, tgemm.gemm_plain(a, b), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -426,3 +459,116 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         tgp.gemm(a8, a8.t(), out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="depth"):       # a ring deeper than 4
         tgp.gemm(a.float(), a.float().t(), depth=5)
+
+
+# gemma3-1b's int8 GeMMs (K, N): the projections and the tied head.
+W8A8_SHAPES = [(1152, 1024), (1152, 256), (1024, 1152), (1152, 6912), (6912, 1152),
+               (1152, 262144)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("mode", ["dynamic", "static"])
+def test_w8a8_fused_matches_plain_at_model_shapes(cuda_device, mode, M):
+    """The w8a8 GeMM equals its plain composition bit for bit at gemma3-1b's
+    shapes, as its plan runs it (one launch, the rows quantized in the int8
+    GeMM's prologue, at M <= FUSED_ROWS; the row quantization then the
+    dequant GeMM above) and as one launch at every M: bf16 and f32
+    activations, bf16 and f32 out, a zero row, per-row and static scales."""
+    rng = np.random.default_rng(M)
+    tgemm8.reset_launches()
+    tquant.reset_launches()
+    n = 0
+    for K, N in W8A8_SHAPES:
+        for xdt in (torch.bfloat16, torch.float32):
+            x, w, sb, act = _w8a8_operands(rng, M, K, N, cuda_device, xdt,
+                                           static=mode == "static")
+            for out in (torch.bfloat16, torch.float32):
+                want = tgemm8.gemm_w8a8_plain(x, w, sb, act, out)
+                got = tgemm8.gemm_w8a8(x, w, sb, act, out_dtype=out)
+                assert got.dtype == out and torch.equal(got, want), (K, N, xdt, out)
+                got = tgemm8._w8a8_fused(x, w, sb, act, out)
+                assert got.dtype == out and torch.equal(got, want), (K, N, xdt, out)
+                n += 1
+            del x, w, got, want
+    planned = n if M <= tgemm8.FUSED_ROWS else 0
+    assert (tgemm8.w8a8_launches, tgemm8.launches, tquant.launches) == \
+        (n + planned, n - planned, n - planned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_static_scale_matches_plain_bitwise(cuda_device, dtype):
+    """K4 with a static scale (every row takes it, codes round(x / s) by
+    true division, clipped): codes and scales equal the plain version's."""
+    rng = np.random.default_rng(4)
+    tquant.reset_launches()
+    for M, K in [(1, 1152), (7, 70), (64, 6912)]:
+        x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda_device, dtype)
+        act = torch.tensor(0.01, device=cuda_device)          # most codes clip
+        q, s = tquant.quantize_rows(x, act)
+        qp, sp = tquant.quantize_rows_plain(x, act)
+        assert q.dtype == torch.int8 and s.shape == (M, 1)
+        assert torch.equal(q, qp) and torch.equal(s, sp), (M, K)
+        assert bool((s == 0.01).all()) and int(q.abs().max()) == 127
+    assert tquant.launches == 3
+
+
+@pytest.mark.gpu
+def test_int8_gemm_relays_unaligned_operands(cuda_device):
+    """Operands the kernel does not read in place are re-laid by the
+    wrappers and give the plain versions' results bit for bit: activations
+    one element off their allocation and with a K stride, a (K, N)
+    row-major int8 weight, and a K-major weight one element off."""
+    rng = np.random.default_rng(13)
+    M, K, N = 8, 1152, 300
+    xs = torch.from_numpy(rng.normal(size=(M, K + 1)).astype(np.float32)) \
+        .to(cuda_device, torch.bfloat16)
+    x_off = xs[:, 1:]                                    # rows 2 bytes off
+    x_kstride = xs[:, :K].t().contiguous().t()           # K stride M
+    store = torch.from_numpy(rng.integers(-127, 128, size=(N, K + 1), dtype=np.int8)) \
+        .to(cuda_device)
+    w_off = store[:, 1:].t()                             # K-major, 1 byte off
+    w_rows = store[:, :K].t().contiguous()               # (K, N) row-major
+    sb = torch.rand((1, N), device=cuda_device) * 0.1
+    for x in (x_off, x_kstride):
+        for w in (w_off, w_rows):
+            for act in (None, torch.tensor(0.02, device=cuda_device)):
+                got = tgemm8.gemm_w8a8(x, w, sb, act)
+                assert torch.equal(got, tgemm8.gemm_w8a8_plain(x, w, sb, act))
+    a = torch.from_numpy(rng.integers(-127, 128, size=(M, K + 1), dtype=np.int8)) \
+        .to(cuda_device)[:, 1:]
+    sa = torch.rand((M, 1), device=cuda_device) * 0.1
+    for w in (w_off, w_rows):
+        assert torch.equal(tgemm8.dequant_gemm(a, w, sa, sb),
+                           tgemm8.dequant_gemm_plain(a, w, sa, sb))
+        assert torch.equal(tgemm8.gemm_int(a, w), tgemm8.gemm_int_plain(a, w))
+
+
+@pytest.mark.gpu
+def test_w8a8_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    x = torch.zeros((4, 64), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((32, 64), device=cuda_device, dtype=torch.int8).t()
+    sb = torch.ones((1, 32), device=cuda_device)
+    act = torch.tensor(0.1, device=cuda_device)
+    assert tgemm8.gemm_w8a8(x, w, sb, act).shape == (4, 32)
+    with pytest.raises(TypeError):                       # f16 activations
+        tgemm8.gemm_w8a8(x.half(), w, sb)
+    with pytest.raises(TypeError):                       # int32 out
+        tgemm8.gemm_w8a8(x, w, sb, out_dtype=torch.int32)
+    with pytest.raises(TypeError):                       # float weight
+        tgemm8.gemm_w8a8(x, w.float(), sb)
+    with pytest.raises(ValueError, match="scales"):      # (N, 1) column scales
+        tgemm8.gemm_w8a8(x, w, sb.t())
+    with pytest.raises(TypeError):                       # f64 column scales
+        tgemm8.gemm_w8a8(x, w, sb.double())
+    with pytest.raises(ValueError):                      # column scales on the CPU
+        tgemm8.gemm_w8a8(x, w, sb.cpu())
+    with pytest.raises(TypeError, match="static scale"):  # a Python float
+        tgemm8.gemm_w8a8(x, w, sb, 0.1)
+    with pytest.raises(TypeError, match="static scale"):  # on the CPU
+        tgemm8.gemm_w8a8(x, w, sb, act.cpu())
+    with pytest.raises(TypeError, match="static scale"):  # float64
+        tgemm8.gemm_w8a8(x, w, sb, act.double())
+    with pytest.raises(TypeError, match="static scale"):  # two elements
+        tgemm8.gemm_w8a8(x, w, sb, act.expand(2))

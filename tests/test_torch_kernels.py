@@ -169,8 +169,9 @@ def test_paged_decode_plain_matches_reference(sq, window, splits):
 def test_cpu_tensors_launch_no_kernel():
     """On CPU tensors the wrappers run the plain versions: no CUDA kernel
     launches, so the launch counters stay 0 (float and int8 GeMMs under both
-    backends, row quantization, paged decode over a float and an int8 pool,
-    and flash attention)."""
+    backends, the w8a8 GeMM with dynamic and static scales, row
+    quantization, paged decode over a float and an int8 pool, and flash
+    attention)."""
     for mod in (tgemm, tgemm8, tkquant, tfd, tfa, tgp):
         mod.reset_launches()
     a, b = _operands(4, 8, 8, False)
@@ -178,6 +179,8 @@ def test_cpu_tensors_launch_no_kernel():
     tops.linear(x, w)
     tops.linear(x, w, quant="int8")
     tops.linear(x, quant.quantize_leaf(w))
+    tops.gemm_w8a8(x, quant.quantize_leaf(w).q, quant.quantize_leaf(w).scale,
+                   act_scale=torch.tensor(0.01))
     tops.gemm(tops.quantize(x)[0], quant.quantize_leaf(w).q)
     (_, _), (tcache, tbt) = _pools()
     q, idx = _query(1)
@@ -189,8 +192,9 @@ def test_cpu_tensors_launch_no_kernel():
     tops.gemm(tops.quantize(x)[0], quant.quantize_leaf(w).q, backend="pipelined")
     qa = torch.from_numpy(_query(4)[0])
     tfa.flash_attention(qa, qa[:, :, :HKV], qa[:, :, :HKV])
-    assert (tgemm.launches, tgemm8.launches, tgemm8.int_launches, tkquant.launches,
-            tfd.launches, tfd.launches_int8, tfa.launches, tgp.launches) == (0,) * 8
+    assert (tgemm.launches, tgemm8.launches, tgemm8.int_launches, tgemm8.w8a8_launches,
+            tkquant.launches, tfd.launches, tfd.launches_int8, tfa.launches,
+            tgp.launches) == (0,) * 9
 
 
 # ---------------------------------------------------------------------------

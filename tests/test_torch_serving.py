@@ -121,6 +121,46 @@ def test_engine_greedy_token_identical_to_reference(models, slots, max_chunk,
     assert m.kv_pool_bytes == reng.metrics.kv_pool_bytes
 
 
+def test_engine_eos_token_identical_to_reference(models):
+    """A request stops on its eos_token, the token included, as in the
+    reference Engine: the eos is a token the model emits mid-generation
+    (picked from a run without one), so some requests stop early and free
+    their slots for the queue, and every request's tokens equal the
+    reference's."""
+    rcfg, rparams, tcfg, tparams = models
+    rng = np.random.default_rng(4)
+    lens, gens = [6, 4, 8, 5], [6, 7, 5, 6]
+    prompts = [rng.integers(0, rcfg.vocab, size=n).astype(np.int32) for n in lens]
+    kw = dict(slots=2, max_seq=32, block_size=4, max_chunk=4)
+    probe = TEngine(tcfg, tparams, device="cpu", **kw)
+    for p, g in zip(prompts, gens):
+        probe.submit(TSpec(prompt=p, max_new=g))
+    free = probe.run()
+    mid = [int(t) for rid in sorted(free) for t in free[rid][1:-1]]
+    assert mid, "the probe run emitted no mid-generation token"
+    eos = max(set(mid), key=mid.count)
+    reng = REngine(rcfg, params=rparams, **kw)
+    reng.warmup()
+    teng = TEngine(tcfg, tparams, device="cpu", **kw)
+    teng.warmup()
+    for p, g in zip(prompts, gens):
+        reng.submit(RSpec(prompt=p, max_new=g, eos_token=eos))
+        teng.submit(TSpec(prompt=p, max_new=g, eos_token=eos))
+    want, got = reng.run(), teng.run()
+    assert sorted(got) == sorted(want) == list(range(len(prompts)))
+    stopped = 0
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+        toks = list(got[rid])
+        if eos in toks:
+            assert toks.index(eos) == len(toks) - 1      # nothing after the eos
+            stopped += len(toks) < gens[rid]
+        else:
+            assert len(toks) == gens[rid]
+    assert stopped >= 1                                   # the eos cut a request short
+    assert teng.alloc.in_use == 0
+
+
 def test_engine_rejects_bad_requests(models):
     _, _, tcfg, tparams = models
     eng = TEngine(tcfg, tparams, slots=1, max_seq=16, block_size=4, max_chunk=4,

@@ -30,10 +30,29 @@ Phases, in order; any failure exits non-zero:
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
-     tokens, chunk 64, block 16).  Launch counters are zeroed just before
-     the run and read just after: both kernels must have run, the GeMM
-     183 times per prefill chunk and per decode step.  A line gives the
-     split counts K2 ran with, per layer kind and step shape.
+     tokens, chunk 64, block 16) as it runs on the card: warmup captures
+     the decode step, every prefill-chunk bucket and the slot reset as
+     CUDA graphs (their count, capture seconds and graph pool bytes are
+     printed) and serving replays them.  An eager engine (graphs=False)
+     on the same weights serves the same requests in lockstep, one tick
+     each in turns: every request's tokens must be identical, and each
+     step pairs with the same step of the other engine (medians and the
+     pairs the graphed step won, for the decode step and the 64-token
+     chunk).  Launch counters are zeroed just before the run and read just
+     after: the graphed engine's launches are counted from its replays
+     (replays x the launches each graph captured), the eager one's by the
+     wrappers; both must match the plan, the GeMM 183 times per prefill
+     chunk and per decode step, and no shape may compile cold.  Then the
+     device time of one replayed decode step and 64-token chunk (CUDA
+     events, 8 slots live), one torch.profiler breakdown of a replayed
+     decode step (hand kernels against the PyTorch ops between them, the
+     top 10 of those by time), the peak device memory with and without
+     graphs, and a line with the split counts K2 ran with, per layer kind
+     and step shape.  Phases 3b-3d serve the same way (3b with the
+     profile, 3c and 3d without).
+  3e. the serve CLI (`repro_torch.launch.serve`) at published widths in
+     w8a8 with an int8 KV pool, 4 requests: its engine captures its steps
+     and serves them with no cold compile.
   3b. the same run in the int8 deployment precision (w8a8 weights, int8 KV
      pool): the w8a8 GeMM as one launch per GeMM (the row quantization
      inside it) at M <= 16, i.e. 183 per decode step, and for the 182
@@ -66,6 +85,8 @@ Phases, in order; any failure exits non-zero:
      and per prefill chunk; K2 per decode
      step and per prefill chunk at its rule's split count (also as eager
      calls), at 1 and at 4 splits; K5 per shape and per forward.
+  7. one line per phase 3-3d: the decode step and prefill chunk, graphed
+     and eager, and the device time of one replay of each.
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -444,12 +465,6 @@ def phase_kernels_slice3(torch, fa, gp):
     return worst
 
 
-# Hand-kernel launch counters: name -> (module key, counter attribute).
-COUNTERS = {"gemm": ("gemm", "launches"), "flash_decode": ("fd", "launches"),
-            "gemm_int": ("gemm8", "int_launches"), "dequant_gemm": ("gemm8", "launches"),
-            "gemm_w8a8": ("gemm8", "w8a8_launches"), "quantize_rows": ("kq", "launches"),
-            "flash_decode_int8": ("fd", "launches_int8"),
-            "flash_attention": ("fa", "launches"), "gemm_pipelined": ("gp", "launches")}
 # Launches per step (prefill chunk or decode step) of gemma3-1b, by precision:
 # 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs, one
 # decode-attention launch per layer; the pipelined backend swaps K1 for K6.
@@ -475,23 +490,53 @@ def w8a8_launches(chunks, decode_steps: int, fused_rows: int):
 
 
 def reset_counts(mods) -> None:
-    for mod in {id(m): m for m in mods.values()}.values():
-        mod.reset_launches()
+    """Zero the wrappers' launch counters (kernels/launches.py)."""
+    mods["counters"].reset()
 
 
 def read_counts(mods):
-    return {name: getattr(mods[key], attr) for name, (key, attr) in COUNTERS.items()}
+    """The wrappers' launch counters, by name: eager calls only; the
+    engine counts its graphs' replays itself (`Engine.replayed_launches`)."""
+    return mods["counters"].counts()
 
 
 def rel_l2(torch, got, want) -> float:
     return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
 
 
+def graph_pool_bytes(torch, eng) -> int:
+    """Bytes the allocator holds in the engine's graph memory pool: its
+    segments in the allocator's snapshot."""
+    pool = tuple(eng.graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2]
+
+
 def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops,
-                 precision="float", kv_precision="float", backend="tiled"):
+                 precision="float", kv_precision="float", backend="tiled",
+                 profile=False):
+    """The main path at full width, served twice on the same weights (seed
+    0): by the engine as it runs on the card, every step a replay of a
+    CUDA graph captured at warmup, and by an eager engine (graphs=False).
+    The two run in lockstep, one tick each in turns (the graphed engine
+    first on even ticks), so each step of one pairs with the same step of
+    the other on the same state.  Checks: every request's tokens equal
+    across the two, launches per step as PER_STEP plans them (the graphed
+    engine's counted from its replays, the eager one's by the wrappers),
+    no cold compile.  Prints the capture, the graph pool, the paired step
+    times, the device time of a replayed decode step and 64-token chunk,
+    and with `profile` the kernels of one replayed decode step."""
+    from repro_torch.serving.prefill import chunk_buckets, plan_chunks
+
     cfg = configs.get("gemma3-1b")
     check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
     plan = PER_STEP[(precision, kv_precision, backend)]
+    fused = mods["gemm8"].FUSED_ROWS
     t0 = time.monotonic()
     params = M.init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -501,95 +546,174 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     probe = rng.integers(0, cfg.vocab, size=300)
     if precision != "float" or backend != "tiled":   # the tiled float logits, for comparison
         float_logits = _prompt_logits(torch, M, kvc, quant, cfg, params, probe, "cuda")
-    eng = Engine(cfg, params, slots=8, max_seq=1200, block_size=16, max_chunk=64,
-                 precision=precision, kv_precision=kv_precision, device="cuda")
-    del params     # w8a8: the engine's warmup then drops the float weights
+    kw = dict(slots=8, max_seq=1200, block_size=16, max_chunk=64, precision=precision,
+              kv_precision=kv_precision, device="cuda")
     ops.set_default_backend(backend)
     try:
-        reset_counts(mods)
-        t0 = time.monotonic()
-        eng.warmup()
-        torch.cuda.synchronize()
-        warm = read_counts(mods)
-        print(f"  warmup: {time.monotonic() - t0:.2f}s ({eng.metrics.aot_steps} step shapes"
-              + (f", {eng.metrics.calib_sites} activation sites calibrated"
-                 if precision == "w8a8-calibrated" else "") + ")")
-        if precision == "w8a8-calibrated":
-            print("  warmup launches: " + " ".join(f"{k}={v}" for k, v in warm.items()))
-            n_calib = 2 * 26                           # 2 synthetic batches x 26 layers
-            check(eng.metrics.calib_sites == 7 * 26 + 1, "every projection and the head calibrated")
-            check(warm["flash_attention"] == n_calib,
-                  f"calibration ran flash attention 26 x 2 times: {warm['flash_attention']}")
-            check(warm["gemm"] == 7 * n_calib, f"calibration ran K1 7 x 26 x 2 times: {warm['gemm']}")
-        if precision != "float":
-            # warmup runs the decode step and each chunk bucket once; the
-            # calibration's forwards (3c) run in float
-            from repro_torch.serving.prefill import chunk_buckets
-            want_w = w8a8_launches(chunk_buckets(eng.max_chunk), 1, mods["gemm8"].FUSED_ROWS)
-            check({k: warm[k] for k in want_w} == want_w,
-                  f"warmup's w8a8 GeMMs: got {warm}, want {want_w}")
+        engines = {}
+        for graphs in (True, False):     # w8a8: warmup drops each engine's float weights
+            if params is None:
+                params = M.init_model(cfg, seed=0, device="cuda")
+            eng = Engine(cfg, params, graphs=graphs, **kw)
+            params = None
+            reset_counts(mods)
+            t0 = time.monotonic()
+            eng.warmup()
+            torch.cuda.synchronize()
+            warm = read_counts(mods)
+            m = eng.metrics
+            print(f"  {'graphed' if graphs else 'eager'} engine warmup: "
+                  f"{time.monotonic() - t0:.2f}s ({m.aot_steps} step shapes"
+                  + (f" captured as CUDA graphs in {m.capture_time_s:.2f}s, graph pool "
+                     f"{graph_pool_bytes(torch, eng) / 1e6:.1f} MB" if graphs else " run")
+                  + (f", {m.calib_sites} activation sites calibrated"
+                     if precision == "w8a8-calibrated" else "") + ")")
+            check(eng.graphs == graphs, f"the engine runs with graphs={graphs}")
+            if graphs:
+                check(m.aot_steps == len(chunk_buckets(eng.max_chunk)) + 2,
+                      f"decode, every chunk bucket and the reset captured: {m.aot_steps}")
+            if precision == "w8a8-calibrated":
+                print("  warmup launches: " + " ".join(f"{k}={v}" for k, v in warm.items()))
+                n_calib = 2 * 26                           # 2 synthetic batches x 26 layers
+                check(m.calib_sites == 7 * 26 + 1, "every projection and the head calibrated")
+                check(warm["flash_attention"] == n_calib,
+                      f"calibration ran flash attention 26 x 2 times: {warm['flash_attention']}")
+                check(warm["gemm"] == 7 * n_calib,
+                      f"calibration ran K1 7 x 26 x 2 times: {warm['gemm']}")
+            if precision != "float":
+                # warmup runs the decode step and each chunk bucket once (the
+                # calibration's forwards run in float), and the graphed
+                # engine's captures call each wrapper once more
+                n = 2 if graphs else 1
+                want_w = w8a8_launches(chunk_buckets(eng.max_chunk) * n, n, fused)
+                check({k: warm[k] for k in want_w} == want_w,
+                      f"warmup's w8a8 GeMMs: got {warm}, want {want_w}")
+            engines[graphs] = eng
+        graphed, eager = engines[True], engines[False]
         rng = np.random.default_rng(0)
         plens = rng.integers(200, 1101, size=12)
         plens[:3] = (1100, 800, 513)                  # several past the 512 window
         max_new = rng.integers(32, 65, size=12)
-        for n, m in zip(plens, max_new):
-            eng.submit(RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)),
-                                   max_new=int(m)))
+        for n, m_ in zip(plens, max_new):
+            prompt = rng.integers(0, cfg.vocab, size=int(n))
+            for eng in (graphed, eager):
+                eng.submit(RequestSpec(prompt=prompt, max_new=int(m_)))
+        check(sum(graphed.replayed_launches().values()) == 0, "no replay before the run")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(mods)
+        pairs = {"decode": [], "prefill": []}         # (graphed s, eager s) per step
         t0 = time.monotonic()
-        results = eng.run()
+        tick = 0
+        while graphed.scheduler.has_work:
+            took = {}
+            for eng in ((graphed, eager) if tick % 2 == 0 else (eager, graphed)):
+                m = eng.metrics
+                before = (m.decode_time_s, m.prefill_time_s, m.prefill_tokens)
+                check(eng.tick(), "a tick with work ran an action")
+                took[eng.graphs] = (m.decode_time_s - before[0], m.prefill_time_s - before[1],
+                                    m.prefill_tokens - before[2])
+            g, e = took[True], took[False]
+            check(g[2] == e[2] and (g[0] > 0) == (e[0] > 0), "both engines took the same step")
+            if g[0] > 0:
+                pairs["decode"].append((g[0], e[0]))
+            elif g[2] == 64:
+                pairs["prefill"].append((g[1], e[1]))
+            tick += 1
         torch.cuda.synchronize()
         t_run = time.monotonic() - t0
-        launches = read_counts(mods)
-        m = eng.metrics
+        run_peak = torch.cuda.max_memory_allocated() - resident
+        check(not eager.scheduler.has_work, "the eager engine drained with the graphed one")
+        launches = graphed.replayed_launches()
+        eager_launches = read_counts(mods)
+        m, me = graphed.metrics, eager.metrics
         steps = m.prefill_chunks + m.decode_steps
-        print(f"  served {len(results)} requests in {t_run:.2f}s: "
+        results = graphed.results
+        print(f"  served the 12 requests on both engines in lockstep in {t_run:.2f}s: "
               f"{m.prefill_chunks} prefill chunks ({m.prefill_tokens} tok), "
-              f"{m.decode_steps} decode steps ({m.decode_tokens} tok)")
-        print(f"  prefill step {m.prefill_time_s / m.prefill_chunks * 1e3:.2f} ms/chunk, "
-              f"decode step {m.decode_time_s / m.decode_steps * 1e3:.2f} ms/step, "
-              f"decode {m.throughput_tok_s:.1f} tok/s, prefill "
-              f"{m.prefill_tokens / m.prefill_time_s:.1f} tok/s")
-        wb = m.weight_bytes or quant.weight_bytes(eng.params)
+              f"{m.decode_steps} decode steps ({m.decode_tokens} tok) each")
+        for name, x in (("graphed", m), ("eager", me)):
+            print(f"  {name}: prefill step {x.prefill_time_s / x.prefill_chunks * 1e3:.3f} ms/chunk, "
+                  f"decode step {x.decode_time_s / x.decode_steps * 1e3:.3f} ms/step, "
+                  f"decode {x.throughput_tok_s:.1f} tok/s, prefill "
+                  f"{x.prefill_tokens / x.prefill_time_s:.1f} tok/s, cold_compiles={x.cold_compiles}")
+        paired = {}
+        for label, v in pairs.items():
+            g_ms, e_ms = [a * 1e3 for a, _ in v], [b * 1e3 for _, b in v]
+            paired[label] = {"pairs": len(v), "graphed_ms": _median(g_ms),
+                             "eager_ms": _median(e_ms),
+                             "graphed_faster": sum(a < b for a, b in v)}
+            check(len(v) >= 10, f"at least 10 paired {label} steps: {len(v)}")
+        print("  paired steps (the same step on the same state, one engine after the other, "
+              "medians): " + "; ".join(
+                  f"{'decode step' if k == 'decode' else '64-token prefill chunk'} "
+                  f"{p['pairs']} pairs, graphed {p['graphed_ms']:.3f} ms, eager "
+                  f"{p['eager_ms']:.3f} ms, graphed faster in {p['graphed_faster']}"
+                  for k, p in paired.items()))
+        wb = m.weight_bytes or quant.weight_bytes(graphed.params)
+        pool = graph_pool_bytes(torch, graphed)
         print(f"  resident weights {wb / 1e9:.3f} GB"
               + (f" (float {m.weight_bytes_float / 1e9:.3f} GB)" if m.weight_bytes_float else "")
               + f", kv pool {m.kv_pool_bytes / 1e9:.3f} GB {kv_precision} "
-              f"({m.kv_pool_blocks} blocks), peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, cold_compiles={m.cold_compiles}")
-        print("  launches: " + " ".join(f"{k}={v}" for k, v in launches.items())
+              f"({m.kv_pool_blocks} blocks) per engine; graph pool {pool / 1e9:.3f} GB; the "
+              f"run's peak above both engines' resident memory {run_peak / 1e9:.3f} GB (the "
+              f"eager steps' activations: replays allocate nothing); so one engine's peak "
+              f"device memory: graphed {(wb + m.kv_pool_bytes + pool) / 1e9:.3f} GB, eager "
+              f"{(wb + m.kv_pool_bytes + run_peak) / 1e9:.3f} GB")
+        print("  launches (graphed, counted from its replays): "
+              + " ".join(f"{k}={v}" for k, v in launches.items())
               + f" (steps={steps}, 183 x steps = {183 * steps})")
         check(sorted(results) == list(range(12)), "every request finished")
         for rid, toks in results.items():
             check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
             check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
+            check(np.array_equal(toks, eager.results[rid]),
+                  f"request {rid}: graphed tokens equal the eager engine's")
+        print(f"  the 12 requests' tokens ({sum(map(len, results.values()))}) are identical "
+              f"graphed and eager")
         want = {k: plan.get(k, 0) * steps for k in launches}
         if precision != "float":
-            from repro_torch.serving.prefill import plan_chunks
-            chunks = [c for n in plens for c in plan_chunks(int(n), eng.max_chunk)]
+            chunks = [c for n in plens for c in plan_chunks(int(n), graphed.max_chunk)]
             check(len(chunks) == m.prefill_chunks, "prefill chunks as plan_chunks plans them")
-            want.update(w8a8_launches(chunks, m.decode_steps, mods["gemm8"].FUSED_ROWS))
+            want.update(w8a8_launches(chunks, m.decode_steps, fused))
             print(f"  w8a8 GeMM plan: {183 * m.decode_steps} one-launch GeMMs in "
                   f"{m.decode_steps} decode steps; {len(chunks)} prefill chunks, "
-                  f"{sum(c > mods['gemm8'].FUSED_ROWS for c in chunks)} of them longer than "
-                  f"{mods['gemm8'].FUSED_ROWS} tokens (row quantization + dequant GeMM)")
-        check(launches == want, f"launches per step: got {launches}, want {want}")
+                  f"{sum(c > fused for c in chunks)} of them longer than "
+                  f"{fused} tokens (row quantization + dequant GeMM)")
+        check(launches == want, f"launches per step, from replays: got {launches}, want {want}")
+        check(eager_launches == want,
+              f"launches per step, eager engine: got {eager_launches}, want {want}")
+        check(m.cold_compiles == 0 and me.cold_compiles == 0, "warmup covered every step shape")
         if precision == "float" and backend == "tiled":
-            _print_splits(torch, mods["fd"], eng, cfg)
-        check(m.cold_compiles == 0, "warmup covered every step shape")
-        ops_ = _count_decode_ops(torch, M, eng, mods, quant)
-        print(f"  one decode step dispatches {ops_['ops']} PyTorch ops ({ops_['views']} views, "
-              f"{ops_['empty']} allocations) beside {ops_['kernels']} hand-kernel launches")
+            _print_splits(torch, mods["fd"], graphed, cfg)
+        replay = _replayed_step_ms(torch, np, graphed, [int(n) + 32 for n in plens[:8]])
+        print(f"  device time of one replay (CUDA events, median of 10; 8 slots live at "
+              f"{[int(n) + 32 for n in plens[:8]]} tokens): decode step "
+              f"{replay['decode']:.3f} ms, 64-token prefill chunk (slot 0) "
+              f"{replay['chunk64']:.3f} ms")
+        if profile:
+            summary_profile = _profile_decode(torch, graphed, [int(n) + 32 for n in plens[:8]])
+        ops_ = _count_decode_ops(torch, M, eager, mods, quant)
+        print(f"  one eager decode step dispatches {ops_['ops']} PyTorch ops ({ops_['views']} "
+              f"views, {ops_['empty']} allocations) beside {ops_['kernels']} hand-kernel "
+              f"launches; a graphed step is one replay")
         summary = {"decode_ms": m.decode_time_s / m.decode_steps * 1e3,
                    "prefill_ms": m.prefill_time_s / m.prefill_chunks * 1e3,
-                   "decode_tok_s": m.throughput_tok_s, "launches": launches}
+                   "eager_decode_ms": me.decode_time_s / me.decode_steps * 1e3,
+                   "eager_prefill_ms": me.prefill_time_s / me.prefill_chunks * 1e3,
+                   "decode_tok_s": m.throughput_tok_s, "launches": launches,
+                   "paired": paired, "replay_ms": replay, "graph_pool_bytes": pool,
+                   "capture_s": m.capture_time_s, "graphs": m.aot_steps}
+        if profile:
+            summary["profile"] = summary_profile
         if backend != "tiled":
-            summary["paired"] = _paired_backends(torch, M, eng, ops, quant, mods)
+            summary["paired_backends"] = _paired_backends(torch, M, eager, ops, quant, mods)
         if precision != "float" or backend != "tiled":
             # The decode step takes the float run's greedy token: over 262144
             # near-flat logits a run's own argmax may differ, and the step's
             # logits would then answer another token.
-            got = _prompt_logits(torch, M, kvc, quant, cfg, eng.params, probe, "cuda",
+            got = _prompt_logits(torch, M, kvc, quant, cfg, graphed.params, probe, "cuda",
                                  precision=precision, kv_precision=kv_precision,
                                  next_token=int(float_logits[0].argmax()))
             err = rel_l2(torch, got[1], float_logits[1])
@@ -604,9 +728,130 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
                       f"(on the float run's token) {err:.4f}")
     finally:
         ops.set_default_backend("tiled")
-    del eng
+    del engines, graphed, eager, eng
     torch.cuda.empty_cache()
     return summary
+
+
+def phase_serve_cli(np):
+    """`repro_torch.launch.serve.main` on the card at published widths: 4
+    requests' tokens of the right shape, in vocab, served through the
+    graphs its warmup captured, with no cold compile."""
+    import contextlib
+    import io
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(["--widths", "published", "--precision", "w8a8",
+                          "--kv-precision", "int8", "--requests", "4"])
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("warmup", "arch=", "engine")):
+            print(f"  {line}")
+    vocab = configs.get("gemma3-1b").vocab
+    check(gen.shape == (4, 16) and bool(((gen >= 0) & (gen < vocab)).all()),
+          f"the CLI's tokens: shape {gen.shape}")
+    check("captured as CUDA graphs" in text and "cold_compiles=0" in text,
+          "the CLI served through the graphs its warmup captured")
+    print(f"  {time.monotonic() - t0:.1f}s, tokens of the 4 requests in vocab")
+
+
+def _live_slots(torch, eng, lengths):
+    """Give the idle slots of `eng` (after its run) tables for their
+    lengths plus a 64-token chunk, and those lengths, as a served batch
+    holds them; returns the lengths on the device."""
+    for slot, n in enumerate(lengths):
+        eng.tables.ensure(slot, n + 64, eng.alloc)
+    eng.tables.copy_to(eng.state.block_tables)
+    base = torch.tensor(lengths, dtype=torch.int32, device=eng.device)
+    eng.state.lengths.copy_(base)
+    return base
+
+
+def _free_slots(eng):
+    for slot in range(eng.slots):
+        eng.tables.release(slot, eng.alloc)
+    eng.tables.copy_to(eng.state.block_tables)
+    eng.state.lengths.zero_()
+
+
+def _replayed_step_ms(torch, np, eng, lengths, reps: int = 10):
+    """Device ms of one replay of the decode graph (every slot active) and
+    of the 64-token chunk graph (into slot 0), from CUDA events around the
+    replay, median of `reps` after one untimed; the lengths are restored
+    before each replay, so each runs the same work."""
+    base = _live_slots(torch, eng, lengths)
+    eng.step_decode(np.zeros(eng.slots, np.int64), np.ones(eng.slots, bool))   # fills the inputs
+    eng.step_prefill(np.zeros(64, np.int64), 0)
+    out = {}
+    for key in ("decode", "chunk64"):
+        graph, _ = eng.step_graphs[key]
+        times = []
+        for i in range(reps + 1):
+            eng.state.lengths.copy_(base)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        out[key] = _median(times)
+    _free_slots(eng)
+    return out
+
+
+# Name fragments of the hand kernels in csrc/ (everything else a step runs
+# is a plain PyTorch op between them).
+HAND_KERNELS = ("gemm_kernel", "s8_kernel", "pipelined_kernel", "decode_split_kernel",
+                "decode_combine_kernel", "quant_rows_kernel", "flash_kernel", "mma_kernel")
+
+
+def _profile_decode(torch, eng, lengths, reps: int = 3):
+    """torch.profiler over `reps` replays of the decode graph (8 slots live
+    at `lengths`): device time per step split between the hand kernels and
+    the plain PyTorch ops between them, and the top 10 kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _live_slots(torch, eng, lengths)
+    graph, _ = eng.step_graphs["decode"]
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+    _free_slots(eng)
+    rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(t for _, t, _ in rows)
+    hand = sum(t for k, t, _ in rows if any(h in k for h in HAND_KERNELS))
+    n_hand = sum(c for k, _, c in rows if any(h in k for h in HAND_KERNELS))
+    n_all = sum(c for _, _, c in rows)
+    span = start.elapsed_time(end) / reps
+    print(f"  profile of one replayed decode step (torch.profiler, {reps} replays): "
+          f"{n_all} kernels, {total:.3f} ms of kernel time in a {span:.3f} ms replay "
+          f"({100 * (1 - total / span):.1f} % of it between kernels); hand kernels "
+          f"{n_hand} launches {hand:.3f} ms ({100 * hand / max(total, 1e-9):.1f} %), "
+          f"PyTorch ops {n_all - n_hand} kernels {total - hand:.3f} ms "
+          f"({100 * (total - hand) / max(total, 1e-9):.1f} %)")
+    check(total > 0, "the profiler saw the replayed kernels")
+    top = sorted((r for r in rows if not any(h in r[0] for h in HAND_KERNELS)),
+                 key=lambda r: -r[1])[:10]
+    print("  the 10 PyTorch-op kernels that take the most time in the step:")
+    for k, t, c in top:
+        print(f"    {t:8.4f} ms {c:5d}x {k[:120]}")
+    return {"kernel_ms": total, "replay_ms": span, "hand_ms": hand, "glue_ms": total - hand,
+            "kernels": n_all, "hand_kernels": n_hand,
+            "top": [(k[:110], t, c) for k, t, c in top]}
 
 
 def _print_splits(torch, fd, eng, cfg):
@@ -1373,13 +1618,14 @@ def main() -> int:
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
     from repro_torch.kernels import flash_attention as fa, gemm_pipelined as gp, ops
-    from repro_torch.kernels import quant as kq
+    from repro_torch.kernels import launches, quant as kq
     from repro_torch.models import model as M
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import RequestSpec
 
-    mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq, "fa": fa, "gp": gp}
+    mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq, "fa": fa, "gp": gp,
+            "counters": launches}
     t_start = time.monotonic()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1416,13 +1662,15 @@ def main() -> int:
     worst.update(phase_kernels_slice3(torch, fa, gp))
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
-    summary = phase_engine(*engine_args)
+    summary = phase_engine(*engine_args, profile=True)
     print("[3b] the same run in w8a8 with an int8 KV pool")
-    summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8")
+    summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8", profile=True)
     print("[3c] the same run in calibrated w8a8 with an int8 KV pool")
     summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8")
     print("[3d] phase 3's float run under the pipelined GeMM backend (depth 3)")
     summary_pipe = phase_engine(*engine_args, backend="pipelined")
+    print("[3e] the serve CLI at published widths, w8a8 + int8 KV")
+    phase_serve_cli(np)
     print("[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions")
     phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops)
     print("[6] quality: forward NLL in float, w8a8 and calibrated w8a8 (26 layers, bf16)")
@@ -1523,6 +1771,15 @@ def main() -> int:
         f"{k['name']}: launches={k['launches']} max_abs_err={k['max_abs_err']:.3e} "
         f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
         f"library_ms={k['library_ms']};" for k in kernels))
+    for label, x in (("3 float", summary), ("3b w8a8 + int8 KV", summary8),
+                     ("3c calibrated w8a8 + int8 KV", summary_cal),
+                     ("3d float, pipelined", summary_pipe)):
+        print(f"[7] {label}: decode step graphed {x['decode_ms']:.3f} ms (one replay "
+              f"{x['replay_ms']['decode']:.3f} ms on the device), eager "
+              f"{x['eager_decode_ms']:.3f} ms; prefill chunk graphed {x['prefill_ms']:.3f} ms "
+              f"(64 tokens, one replay {x['replay_ms']['chunk64']:.3f} ms), eager "
+              f"{x['eager_prefill_ms']:.3f} ms; {x['graphs']} graphs captured in "
+              f"{x['capture_s']:.2f}s, pool {x['graph_pool_bytes'] / 1e6:.1f} MB")
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -4,11 +4,16 @@ single-engine path of repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8 --kv-precision int8
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8-calibrated
+  PYTHONPATH=src python -m repro_torch.launch.serve --widths published   # on the card
 
-Runs on the CUDA device unless `--device cpu` is given.  The prompts are
+Runs on the CUDA device unless `--device cpu` is given; there the engine
+serves through the CUDA graphs its warmup captures.  The prompts are
 drawn exactly as the reference CLI draws them (np.random.default_rng(0)),
 so with the same weights both print the same tokens.  The model is the
-arch's smoke config, as in the reference CLI.
+arch's smoke config, as in the reference CLI, or with `--widths
+published` the arch at its published widths.  The card needs the latter:
+the smoke config's head_dim of 16 is below the decode kernel's smallest
+(64).
 """
 
 from __future__ import annotations
@@ -49,11 +54,14 @@ def main(argv=None, *, params=None):
     ap.add_argument("--kv-precision", default="float", choices=["float", "int8"],
                     help="KV pool residency: int8 keeps the paged pool int8 "
                          "with per-(block, position, head) scales")
+    ap.add_argument("--widths", default="smoke", choices=["smoke", "published"],
+                    help="the arch's smoke config (the reference CLI's) or its "
+                         "published widths")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda runs the hand-written kernels)")
     args = ap.parse_args(argv)
 
-    cfg = configs.get_smoke(args.arch)
+    cfg = configs.get_smoke(args.arch) if args.widths == "smoke" else configs.get(args.arch)
     slots = args.slots or args.requests
     max_seq = args.prompt_len + args.gen_len + 1
     eng = Engine(cfg, params, slots=slots, max_seq=max_seq,

@@ -72,6 +72,17 @@ def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
     )
 
 
+def clear_paged_decode_state(state: PagedDecodeState) -> PagedDecodeState:
+    """Return `state` to `init_paged_decode_state`'s contents in place
+    (zero pools and unit int8 scales, null tables, zero lengths): every
+    tensor keeps its address."""
+    for cache in state.caches:
+        kvc.clear_paged_kv(cache)
+    state.block_tables.zero_()
+    state.lengths.zero_()
+    return state
+
+
 def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = layers.embed(tokens, params["embed"])
     # Tied embeddings scale by sqrt(d_model) in x's dtype: the scale is
@@ -150,23 +161,27 @@ def paged_decode_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
-                  tokens: torch.Tensor, slot: int
-                  ) -> Tuple[torch.Tensor, PagedDecodeState]:
+                  tokens: torch.Tensor, slot) -> Tuple[torch.Tensor, PagedDecodeState]:
     """Advance one slot by a chunk of C prompt tokens: tokens (1, C) ->
     (last-position logits (1, 1, vocab), updated state).  The chunk attends
     causally over the slot's block-table view, which this step just wrote;
-    the LM head runs on the last position only."""
+    the LM head runs on the last position only.
+
+    `slot` is a Python int or a 0-d / (1,) integer tensor on the state's
+    device, as the reference traces it: read on the device, one captured
+    step serves every slot.  Both forms compute the same thing."""
     C = tokens.shape[1]
-    start = state.lengths[slot:slot + 1].clone()                # (1,)
-    tables = state.block_tables[slot:slot + 1]
+    idx = torch.as_tensor(slot, device=state.lengths.device).reshape(1).long()
+    start = state.lengths.index_select(0, idx)                  # (1,)
+    tables = state.block_tables.index_select(0, idx)            # (1, max_blocks)
     x = _embed_tokens(params, cfg, tokens)
     positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                               device=tokens.device)[None, :]
     x = _trunk_step(params, cfg, x, positions, state.caches, start, tables)
     x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     logits = _unembed(x, params, cfg)
-    new_lengths = state.lengths.clone()
-    new_lengths[slot] += C
+    new_lengths = state.lengths.index_add(
+        0, idx, torch.full((1,), C, dtype=state.lengths.dtype, device=idx.device))
     return logits, PagedDecodeState(caches=state.caches,
                                     block_tables=state.block_tables,
                                     lengths=new_lengths)

@@ -5,14 +5,23 @@ Continuous batching over the paged decode state:
 
   * `warmup()` runs every step shape the server can execute — the decode
     step, each power-of-two prefill-chunk bucket, the slot reset — once
-    before traffic (on the card this builds the kernels and warms the
-    allocator), then starts from a fresh state.
+    before traffic (on the card this builds the kernels, sets their
+    attributes and allocates the split-K scratch), then, on the card,
+    captures each shape as a CUDA graph, the counterpart of the
+    reference's jit-compiled steps, and returns the state to its fresh
+    contents in place.
+  * every step reads its inputs from static buffers and updates the state
+    in place, so no tensor a graph reads ever moves.  Serving fills the
+    buffers, replays the shape's graph and reads back only the greedy
+    token ids, taken on the device.  `graphs=False` runs the same steps
+    eagerly on the card; the CPU always runs them eagerly.
   * chunked prefill interleaves with decode; prefill work is proportional
     to real prompt tokens (serving/prefill.py).
   * the paged KV cache hands finished slots' blocks to the next request.
 
     eng = Engine(cfg, slots=4, max_seq=256)      # device="cuda" by default
-    eng.warmup()                                  # precision="w8a8" quantizes here
+    eng.warmup()                                  # captures the step graphs;
+                                                  # precision="w8a8" quantizes here
     for p in prompts:
         eng.submit(RequestSpec(prompt=p, max_new=16))
     results = eng.run()
@@ -31,7 +40,8 @@ precision mode on every call (quant/modes.py), so the engine enters it
 around every step it runs.
 
 Not ported yet: speculative decoding, sampling, preemption, the prefix
-cache, tracing and MFU gauges.
+cache, tracing and MFU gauges, and `share_steps_from` (a graph reads one
+engine's buffers).
 """
 
 from __future__ import annotations
@@ -39,13 +49,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch import quant
+from repro_torch.kernels import launches, ops
 from repro_torch.models import model as M
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.prefill import chunk_buckets
@@ -56,6 +67,14 @@ from repro_torch.serving.scheduler import Phase, Request, Scheduler
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def greedy_ids(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy token ids of the last position, on the logits' device:
+    (B, S, vocab) -> (B,) int64.  `torch.argmax` returns the first maximal
+    index, as `np.argmax` does; on bf16 logits it picks the index their
+    exact f32 upcast would."""
+    return torch.argmax(logits[:, -1], dim=-1)
 
 
 @dataclasses.dataclass
@@ -75,8 +94,9 @@ class EngineMetrics:
     decode_steps: int = 0
     decode_tokens: int = 0
     decode_time_s: float = 0.0    # wall clock in decode ticks only (synced)
-    aot_steps: int = 0            # step shapes run during warmup
+    aot_steps: int = 0            # step shapes captured (CUDA graphs) or run at warmup
     cold_compiles: int = 0        # steps whose shape warmup did not cover
+    capture_time_s: float = 0.0   # wall clock capturing CUDA graphs
     precision: str = "float"      # execution precision (quant/modes.py)
     calib_sites: int = 0          # activation sites calibrated (w8a8-calibrated)
     weight_bytes: int = 0         # resident param bytes (post-quantization)
@@ -135,7 +155,7 @@ class Engine:
                  max_chunk: int = 64, max_queue: Optional[int] = None,
                  precision: str = "float", kv_precision: str = "float",
                  calib_batches=None, seed: int = 0, device=None,
-                 verbose: bool = False):
+                 graphs: Optional[bool] = None, verbose: bool = False):
         if precision not in quant.MODES:
             raise ValueError(f"unknown precision {precision!r}; known: {quant.MODES}")
         if kv_precision not in ("float", "int8"):
@@ -144,6 +164,12 @@ class Engine:
         self.precision, self.kv_precision = precision, kv_precision
         self._calib_batches, self._seed = calib_batches, seed
         self.device = resolve_device(device)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        elif graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device; the engine runs on "
+                             f"{self.device}")
+        self.graphs = bool(graphs)
         self.cfg = cfg
         if params is None:
             params = M.init_model(cfg, seed=seed, device=self.device)
@@ -163,9 +189,28 @@ class Engine:
         self.scheduler = Scheduler(slots, max_chunk=max_chunk, max_queue=max_queue)
         self.alloc = kvc.BlockAllocator(self.num_blocks, block_size)
         self.tables = kvc.BlockTables(slots, self.max_blocks_per_slot)
-        self.state = self._fresh_state()
+        # Allocated once: the steps update it in place, never rebind it.
+        self.state = M.init_paged_decode_state(
+            self.cfg, self.slots, num_blocks=self.num_blocks,
+            block_size=self.block_size,
+            max_blocks_per_slot=self.max_blocks_per_slot, device=self.device,
+            kv_precision=self.kv_precision)
         self.metrics = EngineMetrics(kv_precision=kv_precision)
         self._account_kv_pools()
+        # The steps' static inputs, filled with copy_ before each step.
+        dev = self.device
+        self._tokens = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+        self._active = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self._chunk_tokens: Dict[int, torch.Tensor] = {}   # C -> (1, C) int64
+        self._slot = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self._reset_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        # step shape -> (graph, its ids output); the hand-kernel launches
+        # each graph holds, and its replays
+        self.step_graphs: Dict[str, Tuple[torch.cuda.CUDAGraph, Optional[torch.Tensor]]] = {}
+        self._graph_launches: Dict[str, Dict[str, int]] = {}
+        self._replays: Dict[str, int] = {}
+        self._graph_backend: Optional[str] = None
+        self.graph_pool = None                  # one memory pool for all graphs
         self._warmed: set = set()                # step shapes run so far
         self._slot_used = [False] * slots        # occupied at least once
         self._last_token = np.zeros((slots,), np.int32)
@@ -174,13 +219,6 @@ class Engine:
         self._submit_t: Dict[int, float] = {}
         self._first_tok_t: Dict[int, float] = {}
         self.results: Dict[int, np.ndarray] = {}
-
-    def _fresh_state(self) -> M.PagedDecodeState:
-        return M.init_paged_decode_state(
-            self.cfg, self.slots, num_blocks=self.num_blocks,
-            block_size=self.block_size,
-            max_blocks_per_slot=self.max_blocks_per_slot, device=self.device,
-            kv_precision=self.kv_precision)
 
     def _account_kv_pools(self) -> None:
         m = self.metrics
@@ -193,34 +231,34 @@ class Engine:
 
     def warmup(self) -> None:
         """Run every step shape once before traffic — decode, each prefill
-        chunk bucket, the slot reset — then start from a fresh state (the
-        chunk steps advanced slot 0's length and wrote the pools).  With
-        precision != "float" the weights become int8-resident first, so the
-        steps run here are the int8 steps serving runs."""
+        chunk bucket, the slot reset — and on the card capture each as a
+        CUDA graph; then return the state to its fresh contents in place
+        (the chunk steps advanced slot 0's length and wrote the pools).
+        With precision != "float" the weights become int8-resident first,
+        so the steps run and captured here are the int8 steps serving runs.
+
+        The eager run comes first: it builds the kernel libraries, makes
+        their one-time attribute calls and allocates the split-K scratch,
+        none of which may happen inside a capture."""
         if self.precision != "float":
             self._quantize_weights()
         buckets = chunk_buckets(self.max_chunk)
-        dev = self.device
+        keys = ["decode"] + [f"chunk{c}" for c in buckets] + ["reset"]
         with torch.no_grad(), self._precision_ctx():
-            tokens = torch.zeros((self.slots, 1), dtype=torch.int64, device=dev)
-            active = torch.zeros((self.slots,), dtype=torch.bool, device=dev)
-            _, state = M.paged_decode_step(self.params, self.cfg, self.state,
-                                           tokens, active)
-            self._warmed.add("decode")
-            for c in buckets:
-                _, state = M.prefill_chunk(
-                    self.params, self.cfg, state,
-                    torch.zeros((1, c), dtype=torch.int64, device=dev), 0)
-                self._warmed.add(f"chunk{c}")
-            M.reset_slots(self.cfg, state, active)
-            self._warmed.add("reset")
-        _sync(dev)
-        del state
-        self.state = self._fresh_state()
-        self.metrics.aot_steps = len(self._warmed)
+            for key in keys:
+                self._step_fn(key)()
+                self._warmed.add(key)
+            _sync(self.device)
+            if self.graphs:
+                for key in keys:
+                    self._capture(key)
+        M.clear_paged_decode_state(self.state)
+        _sync(self.device)
+        self.metrics.aot_steps = len(self.step_graphs) if self.graphs else len(self._warmed)
         if self.verbose:
-            print(f"warmup: {len(self._warmed)} step shapes run "
-                  f"(decode + chunks {buckets} + reset) on {dev}"
+            what = "captured as CUDA graphs" if self.graphs else "run"
+            print(f"warmup: {self.metrics.aot_steps} step shapes {what} "
+                  f"(decode + chunks {buckets} + reset) on {self.device}"
                   + (f" [{self.precision}]" if self.precision != "float" else ""))
 
     def _precision_ctx(self):
@@ -259,10 +297,123 @@ class Engine:
                   f"{self.metrics.weight_bytes_float / mb:.1f}MiB -> "
                   f"{self.metrics.weight_bytes / mb:.1f}MiB")
 
-    def _note_shape(self, key: str) -> None:
-        if key not in self._warmed:
-            self.metrics.cold_compiles += 1
-            self._warmed.add(key)
+    # -- the step shapes ------------------------------------------------------
+
+    def _chunk_buffer(self, c: int) -> torch.Tensor:
+        buf = self._chunk_tokens.get(c)
+        if buf is None:
+            buf = self._chunk_tokens[c] = torch.zeros((1, c), dtype=torch.int64,
+                                                      device=self.device)
+        return buf
+
+    def _decode_body(self) -> torch.Tensor:
+        logits, new = M.paged_decode_step(self.params, self.cfg, self.state,
+                                          self._tokens, self._active)
+        self.state.lengths.copy_(new.lengths)
+        return greedy_ids(logits)
+
+    def _chunk_body(self, c: int) -> torch.Tensor:
+        logits, new = M.prefill_chunk(self.params, self.cfg, self.state,
+                                      self._chunk_buffer(c), self._slot)
+        self.state.lengths.copy_(new.lengths)
+        return greedy_ids(logits)
+
+    def _reset_body(self) -> None:
+        self.state.lengths.copy_(
+            M.reset_slots(self.cfg, self.state, self._reset_mask).lengths)
+
+    def _step_fn(self, key: str) -> Callable[[], Optional[torch.Tensor]]:
+        """The body of step shape `key` ("decode", "chunk<C>", "reset"): it
+        reads the static inputs, updates the state in place and returns the
+        greedy ids on the device (None for the reset)."""
+        if key == "decode":
+            return self._decode_body
+        if key == "reset":
+            return self._reset_body
+        c = int(key[len("chunk"):])
+        return lambda: self._chunk_body(c)
+
+    def _capture(self, key: str) -> None:
+        """Capture step shape `key` as a CUDA graph in the engine's memory
+        pool, under the precision mode the caller entered and the GeMM
+        backend in force (both bind here, as the reference binds them at
+        trace time), and note the hand-kernel launches the graph holds."""
+        backend = ops.get_default_backend()
+        if self._graph_backend is None:
+            self._graph_backend = backend
+        self._check_backend()
+        if self.graph_pool is None:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+        fn = self._step_fn(key)
+        before = launches.counts()
+        t0 = time.monotonic()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.graph_pool):
+            out = fn()
+        self.metrics.capture_time_s += time.monotonic() - t0
+        after = launches.counts()
+        self._graph_launches[key] = {k: after[k] - v for k, v in before.items()
+                                     if after[k] != v}
+        self.step_graphs[key] = (graph, out)
+        self._replays[key] = 0
+
+    def _check_backend(self) -> None:
+        backend = ops.get_default_backend()
+        if backend != self._graph_backend:
+            raise RuntimeError(
+                f"the step graphs were captured under the {self._graph_backend!r} "
+                f"GeMM backend and the default is now {backend!r}; a graph binds "
+                f"its kernels at capture, so build a new engine")
+
+    def _run_step(self, key: str) -> Optional[torch.Tensor]:
+        """Run step shape `key` on the filled static inputs: replay its
+        graph, or run it eagerly (on the CPU, with graphs=False, and at a
+        shape's first use when warmup did not cover it, which counts in
+        `cold_compiles` and, on graphs, captures it for its next use).  The
+        ids it returns live until the next step."""
+        if key in self._warmed and self.graphs:
+            self._check_backend()
+            graph, out = self.step_graphs[key]
+            graph.replay()
+            self._replays[key] += 1
+            return out
+        with torch.no_grad(), self._precision_ctx():
+            if key not in self._warmed:
+                self.metrics.cold_compiles += 1
+                self._warmed.add(key)
+                out = self._step_fn(key)()
+                if self.graphs:
+                    self._capture(key)
+                return out
+            return self._step_fn(key)()
+
+    def step_decode(self, tokens: np.ndarray, active: np.ndarray) -> np.ndarray:
+        """One decode step for every slot on its last token: tokens and the
+        active mask (slots,) -> greedy ids (slots,) on the host.  The
+        active slots' lengths advance by one."""
+        self._tokens.copy_(torch.from_numpy(
+            np.asarray(tokens, np.int64).reshape(self.slots, 1)))
+        self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
+        return self._run_step("decode").cpu().numpy()
+
+    def step_prefill(self, tokens: np.ndarray, slot: int) -> int:
+        """One prefill chunk of `tokens` (C,) into `slot`: the greedy id of
+        its last position, on the host.  The slot's length advances by C."""
+        c = len(tokens)
+        self._chunk_buffer(c).copy_(torch.from_numpy(np.asarray(tokens, np.int64)[None]))
+        self._slot.fill_(slot)
+        return int(self._run_step(f"chunk{c}").cpu()[0])
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Hand-kernel launches the graph replays made, per launch counter:
+        the sum over step shapes of replays x the launches captured in the
+        shape's graph.  The wrappers' counters see eager calls (and each
+        capture once), never a replay."""
+        total = dict.fromkeys(launches.COUNTERS, 0)
+        for key, n in self._replays.items():
+            for name, per in self._graph_launches[key].items():
+                total[name] += n * per
+        return total
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -303,13 +454,12 @@ class Engine:
         if to_reset:
             mask = np.zeros((self.slots,), bool)
             mask[to_reset] = True
-            self._note_shape("reset")
-            self.state = M.reset_slots(
-                self.cfg, self.state, torch.from_numpy(mask).to(self.device))
+            self._reset_mask.copy_(torch.from_numpy(mask))
+            self._run_step("reset")
 
     def _sync_tables(self) -> None:
         if self.tables.dirty:
-            self.state.block_tables = self.tables.array(self.device)
+            self.tables.copy_to(self.state.block_tables)
 
     def _finish(self, req: Request) -> None:
         slot = self.scheduler.release(req)
@@ -334,12 +484,6 @@ class Engine:
         if req.phase is Phase.FINISHED:
             self._finish(req)
 
-    @staticmethod
-    def _greedy(logits: torch.Tensor) -> np.ndarray:
-        """Host-side argmax over the last position (ties -> first index).
-        Syncs with the device, so the step's time covers its kernels."""
-        return np.argmax(logits[:, -1].to(torch.float32).cpu().numpy(), axis=-1)
-
     # -- the serve loop ------------------------------------------------------
 
     @torch.no_grad()
@@ -351,8 +495,7 @@ class Engine:
         if action is None:
             return self.scheduler.has_work
         self._step += 1
-        with self._precision_ctx():
-            self._run_action(action)
+        self._run_action(action)
         self.metrics.peak_blocks_in_use = max(
             self.metrics.peak_blocks_in_use, self.alloc.in_use)
         self.metrics.occupancy_sum += self.alloc.occupancy()
@@ -360,18 +503,16 @@ class Engine:
         return True
 
     def _run_action(self, action) -> None:
+        """Fill the step's inputs, replay it (or run it eagerly) and read
+        back its greedy ids; the step times span the three, the read-back
+        being the device sync."""
         if action[0] == "prefill":
             _, req, chunk = action
             self.tables.ensure(req.slot, req.prefilled + chunk, self.alloc)
             self._sync_tables()
-            tokens = torch.from_numpy(
-                req.prompt[None, req.prefilled:req.prefilled + chunk].astype(np.int64)
-            ).to(self.device)
-            self._note_shape(f"chunk{chunk}")
             t_pre = time.monotonic()
-            logits, self.state = M.prefill_chunk(
-                self.params, self.cfg, self.state, tokens, req.slot)
-            _sync(self.device)
+            token = self.step_prefill(
+                req.prompt[req.prefilled:req.prefilled + chunk], req.slot)
             self.metrics.prefill_time_s += time.monotonic() - t_pre
             self.scheduler.on_prefill(req, chunk, self._step)
             self.metrics.prefill_chunks += 1
@@ -379,7 +520,7 @@ class Engine:
             if req.phase is Phase.DECODE:
                 # Prompt complete: the chunk's last logits give the first
                 # generated token (no separate step for it).
-                self._record_token(req, int(self._greedy(logits)[0]))
+                self._record_token(req, token)
         else:
             _, reqs = action
             # The step writes at position r.length - 1 (the last recorded
@@ -388,16 +529,10 @@ class Engine:
             for r in reqs:
                 self.tables.ensure(r.slot, r.length, self.alloc)
             self._sync_tables()
-            tokens = torch.from_numpy(
-                self._last_token[:, None].astype(np.int64)).to(self.device)
             active = np.zeros((self.slots,), bool)
             active[[r.slot for r in reqs]] = True
-            self._note_shape("decode")
             t_dec = time.monotonic()
-            logits, self.state = M.paged_decode_step(
-                self.params, self.cfg, self.state, tokens,
-                torch.from_numpy(active).to(self.device))
-            next_tok = self._greedy(logits)
+            next_tok = self.step_decode(self._last_token, active)
             self.metrics.decode_time_s += time.monotonic() - t_dec
             for r in reqs:
                 self._record_token(r, int(next_tok[r.slot]))

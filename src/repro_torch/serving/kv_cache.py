@@ -68,6 +68,17 @@ def init_paged_kv(num_blocks: int, block_size: int, n_kv_heads: int,
                         v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def clear_paged_kv(cache: PagedKVCache) -> PagedKVCache:
+    """Return the pools to `init_paged_kv`'s contents, in place: zero codes
+    and, for an int8 pool, unit scales."""
+    cache.k.zero_()
+    cache.v.zero_()
+    if cache.quantized:
+        cache.k_scale.fill_(1.0)
+        cache.v_scale.fill_(1.0)
+    return cache
+
+
 def quantize_kv_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per (token, kv head): (B, S, H, D) float -> ((B, S, H, D)
     int8 codes, (B, S, H) f32 scales).  A zero row quantizes to zero codes
@@ -237,8 +248,8 @@ class BlockAllocator:
 class BlockTables:
     """Host mirror of the device block tables: (slots, max_blocks) int32.
 
-    The engine pushes `array()` to the device whenever a row changed
-    (growth, release)."""
+    The engine copies it into the device tables (`copy_to`) whenever a row
+    changed (growth, release)."""
 
     def __init__(self, slots: int, max_blocks: int):
         self.slots = slots
@@ -274,6 +285,12 @@ class BlockTables:
     def array(self, device) -> torch.Tensor:
         self.dirty = False
         return torch.from_numpy(self.table.copy()).to(device)
+
+    def copy_to(self, dst: torch.Tensor) -> None:
+        """Write the tables into the device tensor `dst` in place, which
+        keeps its address (a CUDA graph reads the tables there)."""
+        dst.copy_(torch.from_numpy(self.table))
+        self.dirty = False
 
 
 def default_pool_blocks(slots: int, max_seq: int, block_size: int, *,

@@ -572,3 +572,155 @@ def test_w8a8_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         tgemm8.gemm_w8a8(x, w, sb, act.double())
     with pytest.raises(TypeError, match="static scale"):  # two elements
         tgemm8.gemm_w8a8(x, w, sb, act.expand(2))
+
+
+# -- the engine's CUDA graphs (gemma3-1b smoke config, float32) -------------------
+# The smoke config's head_dim of 16 is below the decode kernel's smallest
+# instantiation, so these runs take head_dim 64; the rest is the smoke config.
+
+GRAPH_MODES = [("float", "float"), ("w8a8", "int8"), ("w8a8-calibrated", "int8")]
+
+
+def _smoke_engine(cuda_device, params=None, **kw):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as TM
+    from repro_torch.serving.engine import Engine
+
+    cfg = dataclasses.replace(configs.get_smoke("gemma3-1b"), head_dim=64)
+    if params is None:
+        params = TM.init_model(cfg, seed=0, device=cuda_device)
+    kw = dict(dict(slots=3, max_seq=48, block_size=4, max_chunk=8), **kw)
+    return cfg, params, Engine(cfg, params, device=cuda_device, **kw)
+
+
+def _smoke_requests(vocab):
+    from repro_torch.serving.request import RequestSpec
+
+    rng = np.random.default_rng(11)
+    lens, gens = [13, 5, 22, 9, 17], [6, 9, 4, 7, 5]   # 5 requests over 3 slots
+    return [RequestSpec(prompt=rng.integers(0, vocab, size=n).astype(np.int32),
+                        max_new=g) for n, g in zip(lens, gens)]
+
+
+def _serve_smoke(cuda_device, params, warm=True, **kw):
+    cfg, _, eng = _smoke_engine(cuda_device, params, **kw)
+    if warm:
+        eng.warmup()
+    for spec in _smoke_requests(cfg.vocab):
+        eng.submit(spec)
+    return eng, eng.run()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["tiled", "pipelined"])
+@pytest.mark.parametrize("precision,kv_precision", GRAPH_MODES)
+def test_graphed_engine_tokens_equal_eager(cuda_device, precision, kv_precision, backend):
+    """The engine's replayed CUDA graphs give the eager engine's tokens on
+    the same weights, with slot refills and resets, for every precision and
+    both GeMM backends; every shape was captured at warmup (no cold
+    compile), and the launches counted from replays are the eager run's."""
+    from repro_torch.kernels import launches, ops
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    prev = ops.get_default_backend()
+    ops.set_default_backend(backend)
+    kw = dict(precision=precision, kv_precision=kv_precision)
+    runs = {}
+    try:
+        for graphs in (False, True):
+            eng = _smoke_engine(cuda_device, params, graphs=graphs, **kw)[2]
+            eng.warmup()
+            launches.reset()
+            for spec in _smoke_requests(cfg.vocab):
+                eng.submit(spec)
+            runs[graphs] = (eng, eng.run(), launches.counts())
+    finally:
+        ops.set_default_backend(prev)
+    (eager, want, eager_counts), (graphed, got, graphed_counts) = runs[False], runs[True]
+    assert graphed_counts == dict.fromkeys(launches.COUNTERS, 0)   # no eager call
+    assert graphed.graphs and not eager.graphs
+    assert graphed.metrics.aot_steps == len(graphed.step_graphs) == 1 + 4 + 1
+    assert graphed.metrics.cold_compiles == eager.metrics.cold_compiles == 0
+    assert sorted(got) == sorted(want) == list(range(5))
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert graphed.replayed_launches() == eager_counts
+    assert sum(eager_counts.values()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,kv_precision", GRAPH_MODES[:2])
+def test_replayed_decode_step_logits_bitwise(cuda_device, precision, kv_precision):
+    """A decode step captured as a CUDA graph and replayed gives the eager
+    step's logits and lengths bit for bit, on a state with live history in
+    every slot (K2's per-call workspace comes from the graph's pool)."""
+    from repro_torch import quant
+    from repro_torch.models import model as TM
+
+    cfg, params, eng = _smoke_engine(cuda_device, graphs=False, precision=precision,
+                                     kv_precision=kv_precision)
+    eng.warmup()
+    for spec in _smoke_requests(cfg.vocab)[:3]:
+        eng.submit(spec)
+    eng.run(max_ticks=8)                        # mid-prefill and decoding slots
+    state = eng.state
+    saved = [t.clone() for t in (state.lengths, *[x for c in state.caches for x in c
+                                                  if x is not None])]
+
+    def restore():
+        for t, s in zip((state.lengths, *[x for c in state.caches for x in c
+                                          if x is not None]), saved):
+            t.copy_(s)
+
+    tokens = torch.arange(3, device=cuda_device, dtype=torch.int64)[:, None] + 7
+    active = torch.tensor([True, False, True], device=cuda_device)
+    with torch.no_grad(), quant.precision(precision):
+        want, new = TM.paged_decode_step(eng.params, cfg, state, tokens, active)
+        want, want_len = want.clone(), new.lengths.clone()
+        restore()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got, new = TM.paged_decode_step(eng.params, cfg, state, tokens, active)
+        for _ in range(2):
+            restore()
+            got.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(new.lengths, want_len)
+
+
+@pytest.mark.gpu
+def test_engine_captures_cold_shapes_at_first_use(cuda_device):
+    """An engine that was never warmed runs each shape eagerly at its first
+    use, counts it in cold_compiles, captures it for its next use, and gives
+    the warmed engine's tokens."""
+    _, params, _ = _smoke_engine(cuda_device)
+    warm, want = _serve_smoke(cuda_device, params)
+    cold, got = _serve_smoke(cuda_device, params, warm=False)
+    assert cold.graphs and warm.metrics.cold_compiles == 0
+    assert cold.metrics.cold_compiles == len(cold.step_graphs) > 1
+    assert sum(cold._replays.values()) > 0
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+
+
+@pytest.mark.gpu
+def test_replay_under_another_backend_raises(cuda_device):
+    """The GeMM backend binds at capture: a replay after
+    `ops.set_default_backend` changed it raises instead of running the
+    other kernel's graph."""
+    from repro_torch.kernels import ops
+
+    cfg, _, eng = _smoke_engine(cuda_device)
+    eng.warmup()
+    assert ops.get_default_backend() == "tiled"
+    specs = _smoke_requests(cfg.vocab)
+    eng.submit(specs[0])
+    ops.set_default_backend("pipelined")
+    try:
+        with pytest.raises(RuntimeError, match="captured under the 'tiled' GeMM backend"):
+            eng.run()
+    finally:
+        ops.set_default_backend("tiled")

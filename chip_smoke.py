@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero:
      head, S 1024, global and window 512) and S 32 / 100 / 1000 at each
      head dim; the
      pipelined GeMM (K6) at depths 2, 3 and 4 on every projection shape and
-     the tied head, f32 / bf16 / int8.
+     the tied head, f32 / bf16 / int8.  Then the shapes of the dense family
+     gemma3-1b never reached: K1 (bf16) and the w8a8 GeMM (bit for bit) at
+     M = 1, 8 and 64 on qwen3-14b's q/o (5120 x 5120), k/v (5120 x 1024),
+     gate/up (5120 x 17408), down (17408 x 5120) and its N-contiguous
+     untied head (5120 x 151936); K2 over float and int8 pools at 40 q heads
+     over 8 kv heads (the 16-row tile), D 128, and at 12 / 12, D 64, Sq 1
+     and 64; K5 at the same head layouts.
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
@@ -85,8 +91,27 @@ Phases, in order; any failure exits non-zero:
      and per prefill chunk; K2 per decode
      step and per prefill chunk at its rule's split count (also as eager
      calls), at 1 and at 4 splits; K5 per shape and per forward.
-  7. one line per phase 3-3d: the decode step and prefill chunk, graphed
-     and eager, and the device time of one replay of each.
+  8a. qwen3-14b at published widths (40 layers, d 5120, 40 q heads over 8
+     kv heads, head_dim 128, d_ff 17408, untied 151936 vocab, qk-norm),
+     bf16, random weights (seed 0), served as phase 3 serves gemma3-1b (8
+     slots, 8 requests, prompts 256-1024 tokens, 32 new tokens each, chunk
+     64, block 16), graphed against eager in lockstep on the same weights:
+     tokens identical, paired step medians, one replay's device time,
+     capture, memory, launches per replayed decode step (281 GeMMs, 40
+     decode-attention launches), a profile of one replayed decode step.
+  8b. the same in w8a8 with an int8 KV pool (the eager engine on the
+     graphed one's int8-resident weights).
+  8. the kernels per qwen3-14b decode step (L2 cold): K1 and the w8a8 GeMM
+     at M = 8 on every projection and the head, K2 over float and int8
+     pools, beside torch.matmul / torch._int_mm / SDPA and the bounds.
+  8c. qwen3-14b, qwen2.5-14b, mistral-nemo-12b, bert-base and vit-b-16 at
+     published widths, depth cut to 2 layers (printed as `reduced`),
+     float32, on the card and on the CPU: `forward` logits and the logits of
+     a prompt's last prefill chunk and first decode step within phase 4's
+     bar, the engine's greedy tokens equal; no GeMM operand re-laid on the
+     card (bert-base's 30522-wide head is stored with aligned rows).
+  7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
+     graphed and eager, and the device time of one replay of each.
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -465,28 +490,120 @@ def phase_kernels_slice3(torch, fa, gp):
     return worst
 
 
-# Launches per step (prefill chunk or decode step) of gemma3-1b, by precision:
-# 26 x (q, k, v, o, gate, up, down) + the tied head = 183 GeMMs, one
-# decode-attention launch per layer; the pipelined backend swaps K1 for K6.
-# In both w8a8 modes a GeMM of M <= gemm_int8.FUSED_ROWS rows is one launch
-# of the w8a8 GeMM (its activations quantized, per row or with the static
-# scales, inside it): every decode step (M = 8), the head of every prefill
-# chunk (M = 1, the last position) and the projections of chunks of <= 16
-# tokens.  A longer chunk's 182 projections each run the row quantization,
-# then the dequant GeMM (`w8a8_launches`).
-PER_STEP = {("float", "float", "tiled"): {"gemm": 183, "flash_decode": 26},
-            ("w8a8", "int8", "tiled"): {"gemm_w8a8": 183, "flash_decode_int8": 26},
-            ("w8a8-calibrated", "int8", "tiled"): {"gemm_w8a8": 183,
-                                                   "flash_decode_int8": 26},
-            ("float", "float", "pipelined"): {"gemm_pipelined": 183, "flash_decode": 26}}
+QWEN3_SHAPES = [  # (name, K, N, transposed B view) of one qwen3-14b layer + untied head
+    ("q", 5120, 5120, False), ("k", 5120, 1024, False), ("v", 5120, 1024, False),
+    ("o", 5120, 5120, False), ("gate", 5120, 17408, False), ("up", 5120, 17408, False),
+    ("down", 17408, 5120, False), ("head", 5120, 151936, False),
+]
+# Lengths of the 8 slots K2 is checked and timed at for the dense family's
+# head layouts: from phase 8's longest prompt after its 32 new tokens (1056)
+# down to a short slot (64).
+QWEN3_LENGTHS = [1056, 1000, 900, 777, 640, 513, 288, 64]
+DENSE_DECODE = [  # (arch, Hq, Hkv, D): K2 and K5 at the dense family's new head layouts
+    ("qwen3-14b", 40, 8, 128), ("bert-base", 12, 12, 64)]
 
 
-def w8a8_launches(chunks, decode_steps: int, fused_rows: int):
+def phase_kernels_dense(torch, gemm, gemm8, fd, fa, kvc):
+    """The kernels at the shapes the dense family's archs give them and
+    gemma3-1b never did: K1 (bf16) and the w8a8 GeMM (bit for bit) on
+    qwen3-14b's projections and its untied, N-contiguous head at M = 1, 8
+    and 64; K2 over float and int8 pools at 40 q heads over 8 kv heads (5
+    per kv head: the 16-row tile), D 128, and at 12 / 12, D 64, Sq 1 and 64
+    at 1 split, the rule's and one per column; K5 at the same head layouts,
+    S 1024 and a ragged 100 (and (2, 32), the calibration batches)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst = {"gemm": 0.0, "gemm_w8a8": 0.0, "flash_decode": 0.0, "flash_decode_int8": 0.0,
+             "flash_attention": 0.0}
+    rtol, atol = GEMM_TOL["bfloat16"]
+    for name, K, N, _ in QWEN3_SHAPES:
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+        w_q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8).t()
+        sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+        for M in (1, 8, 64):
+            a = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            abs_e, rel_e, ok = close(gemm.gemm(a, w, out_dtype=torch.bfloat16),
+                                     gemm.gemm_plain(a, w, torch.bfloat16), rtol, atol)
+            worst["gemm"] = max(worst["gemm"], abs_e)
+            check(ok, f"gemm bf16 M={M} qwen3-14b {name}")
+            got = gemm8.gemm_w8a8(a, w_q, sb, out_dtype=torch.bfloat16)
+            want = gemm8.gemm_w8a8_plain(a, w_q, sb, None, torch.bfloat16)
+            worst["gemm_w8a8"] = max(worst["gemm_w8a8"],
+                                     float((got.float() - want.float()).abs().max()))
+            check(torch.equal(got, want), f"gemm_w8a8 M={M} qwen3-14b {name} bit for bit")
+            print(f"  qwen3-14b {name} {K}x{N} M={M}: gemm bf16 max_abs={abs_e:.3e} "
+                  f"max_rel={rel_e:.3e} tol=(rtol {rtol:g}, atol {atol:g}) ok; gemm_w8a8 "
+                  f"bitwise equal")
+            del a, got, want
+        del w, w_q, sb
+        torch.cuda.empty_cache()
+    bs, max_seq = 16, 1200
+    for arch, Hq, Hkv, D in DENSE_DECODE:
+        G, B = Hq // Hkv, len(QWEN3_LENGTHS)
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            pools = {"float": _lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq,
+                                             QWEN3_LENGTHS),
+                     "int8": _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq,
+                                                 QWEN3_LENGTHS)}
+            for pool, (cache, tables) in pools.items():
+                key = "flash_decode_int8" if pool == "int8" else "flash_decode"
+                for sq in (1, 64):
+                    q = torch.randn((B, sq, Hq, D), generator=g, device=dev).to(dt)
+                    idx = torch.tensor([n - sq for n in QWEN3_LENGTHS], dtype=torch.int32,
+                                       device=dev)
+                    wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx)}
+                    for splits in (1, None, "all"):
+                        _check_decode(torch, fd, f"{arch} ({Hq}/{Hkv}, D {D}) flash_decode "
+                                      f"{pool} pool, q {dname}", q, cache, tables, idx, None,
+                                      splits, wants, DECODE_TOL[dname], worst, key)
+            del pools
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            for B, S in ((1, 1024), (2, 100), (2, 32)):
+                q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                           for h in (Hq, Hkv, Hkv))
+                abs_e, rel_e, ok = close(fa.flash_attention(q, k, v),
+                                         fa.flash_attention_plain(q, k, v), *FLASH_TOL[dname])
+                worst["flash_attention"] = max(worst["flash_attention"], abs_e)
+                print(f"  {arch} flash_attention {dname} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                      f"causal: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                check(ok, f"{arch} flash_attention {dname} {(B, S, Hq, Hkv, D)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+# Launches per step (prefill chunk or decode step), by precision: one GeMM
+# per projection (q, k, v, o and the MLP's gate, up, down, or up, down for
+# the GELU MLP) of every layer, plus the head (gemma3-1b: 26 x 7 + 1 = 183;
+# qwen3-14b: 40 x 7 + 1 = 281), and one decode-attention launch per layer;
+# the pipelined backend swaps K1 for K6.  In both w8a8 modes a GeMM of M <=
+# gemm_int8.FUSED_ROWS rows is one launch of the w8a8 GeMM (its activations
+# quantized, per row or with the static scales, inside it): every decode
+# step (M = 8), the head of every prefill chunk (M = 1, the last position)
+# and the projections of chunks of <= 16 tokens.  A longer chunk's
+# projections each run the row quantization, then the dequant GeMM
+# (`w8a8_launches`).
+def gemms_per_step(cfg) -> int:
+    return (4 + (3 if cfg.mlp_variant == "swiglu" else 2)) * cfg.n_layers + 1
+
+
+def per_step_plan(cfg, precision, kv_precision, backend):
+    g, L = gemms_per_step(cfg), cfg.n_layers
+    gemm = "gemm_w8a8" if precision != "float" else \
+        ("gemm_pipelined" if backend == "pipelined" else "gemm")
+    return {gemm: g, "flash_decode_int8" if kv_precision == "int8" else "flash_decode": L}
+
+
+def w8a8_launches(chunks, decode_steps: int, fused_rows: int, per_step: int):
     """The w8a8 GeMMs' launches of a run in a w8a8 mode: `chunks` the prefill
-    chunk sizes, one launch per GeMM at M <= fused_rows, else two."""
+    chunk sizes, `per_step` GeMMs a step (the head's last), one launch per
+    GeMM at M <= fused_rows, else two for each projection."""
     long_ = sum(c > fused_rows for c in chunks)
-    return {"gemm_w8a8": 183 * decode_steps + 183 * len(chunks) - 182 * long_,
-            "quantize_rows": 182 * long_, "dequant_gemm": 182 * long_}
+    return {"gemm_w8a8": per_step * (decode_steps + len(chunks)) - (per_step - 1) * long_,
+            "quantize_rows": (per_step - 1) * long_, "dequant_gemm": (per_step - 1) * long_}
 
 
 def reset_counts(mods) -> None:
@@ -517,25 +634,39 @@ def _median(v):
     return v[len(v) // 2]
 
 
+def gemma_traffic(np):
+    """Phase 3's requests: 12 prompts of 200-1100 tokens (three past the
+    512 window), 32-64 new tokens each; the generator then draws the
+    prompts."""
+    rng = np.random.default_rng(0)
+    plens = rng.integers(200, 1101, size=12)
+    plens[:3] = (1100, 800, 513)
+    return plens, rng.integers(32, 65, size=12), rng
+
+
 def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops,
                  precision="float", kv_precision="float", backend="tiled",
-                 profile=False):
-    """The main path at full width, served twice on the same weights (seed
-    0): by the engine as it runs on the card, every step a replay of a
-    CUDA graph captured at warmup, and by an eager engine (graphs=False).
+                 profile=False, arch="gemma3-1b", n_layers=26, traffic=gemma_traffic):
+    """A model at published widths (phase 3: gemma3-1b; phase 8: qwen3-14b)
+    served twice on the same weights (seed 0): by the engine as it runs on
+    the card, every step a replay of a CUDA graph captured at warmup, and by
+    an eager engine (graphs=False) on the same weight tensors (calibrated
+    w8a8: on weights made again from the seed, since each engine
+    calibrates and quantizes its own).
     The two run in lockstep, one tick each in turns (the graphed engine
     first on even ticks), so each step of one pairs with the same step of
     the other on the same state.  Checks: every request's tokens equal
-    across the two, launches per step as PER_STEP plans them (the graphed
+    across the two, launches per step as `per_step_plan` says (the graphed
     engine's counted from its replays, the eager one's by the wrappers),
     no cold compile.  Prints the capture, the graph pool, the paired step
     times, the device time of a replayed decode step and 64-token chunk,
     and with `profile` the kernels of one replayed decode step."""
     from repro_torch.serving.prefill import chunk_buckets, plan_chunks
 
-    cfg = configs.get("gemma3-1b")
-    check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
-    plan = PER_STEP[(precision, kv_precision, backend)]
+    cfg = configs.get(arch)
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == n_layers, f"{arch} full config")
+    plan = per_step_plan(cfg, precision, kv_precision, backend)
+    per = gemms_per_step(cfg)
     fused = mods["gemm8"].FUSED_ROWS
     t0 = time.monotonic()
     params = M.init_model(cfg, seed=0, device="cuda")
@@ -551,11 +682,15 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     ops.set_default_backend(backend)
     try:
         engines = {}
-        for graphs in (True, False):     # w8a8: warmup drops each engine's float weights
-            if params is None:
+        for graphs in (True, False):
+            if params is None:           # calibrated: made again from the seed
                 params = M.init_model(cfg, seed=0, device="cuda")
             eng = Engine(cfg, params, graphs=graphs, **kw)
-            params = None
+            # The eager engine takes the graphed one's weights: float as they
+            # are, w8a8 already int8-resident (its warmup's quantization
+            # keeps QuantTensors as they are); calibrated w8a8 calibrates
+            # again on float weights.
+            params = None if precision == "w8a8-calibrated" else eng.params
             reset_counts(mods)
             t0 = time.monotonic()
             eng.warmup()
@@ -572,28 +707,30 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
             if graphs:
                 check(m.aot_steps == len(chunk_buckets(eng.max_chunk)) + 2,
                       f"decode, every chunk bucket and the reset captured: {m.aot_steps}")
+            if graphs and precision == "w8a8":
+                params = eng.params              # quantized at warmup
             if precision == "w8a8-calibrated":
                 print("  warmup launches: " + " ".join(f"{k}={v}" for k, v in warm.items()))
-                n_calib = 2 * 26                           # 2 synthetic batches x 26 layers
-                check(m.calib_sites == 7 * 26 + 1, "every projection and the head calibrated")
+                L = cfg.n_layers
+                n_calib = 2 * L                            # 2 synthetic batches x L layers
+                check(m.calib_sites == per, "every projection and the head calibrated")
                 check(warm["flash_attention"] == n_calib,
-                      f"calibration ran flash attention 26 x 2 times: {warm['flash_attention']}")
-                check(warm["gemm"] == 7 * n_calib,
-                      f"calibration ran K1 7 x 26 x 2 times: {warm['gemm']}")
+                      f"calibration ran flash attention {L} x 2 times: {warm['flash_attention']}")
+                check(warm["gemm"] == (per - 1) * 2,
+                      f"calibration ran K1 {per - 1} x 2 times: {warm['gemm']}")
             if precision != "float":
                 # warmup runs the decode step and each chunk bucket once (the
                 # calibration's forwards run in float), and the graphed
                 # engine's captures call each wrapper once more
                 n = 2 if graphs else 1
-                want_w = w8a8_launches(chunk_buckets(eng.max_chunk) * n, n, fused)
+                want_w = w8a8_launches(chunk_buckets(eng.max_chunk) * n, n, fused, per)
                 check({k: warm[k] for k in want_w} == want_w,
                       f"warmup's w8a8 GeMMs: got {warm}, want {want_w}")
             engines[graphs] = eng
+        del params
         graphed, eager = engines[True], engines[False]
-        rng = np.random.default_rng(0)
-        plens = rng.integers(200, 1101, size=12)
-        plens[:3] = (1100, 800, 513)                  # several past the 512 window
-        max_new = rng.integers(32, 65, size=12)
+        plens, max_new, rng = traffic(np)
+        n_req = len(plens)
         for n, m_ in zip(plens, max_new):
             prompt = rng.integers(0, cfg.vocab, size=int(n))
             for eng in (graphed, eager):
@@ -630,7 +767,7 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
         m, me = graphed.metrics, eager.metrics
         steps = m.prefill_chunks + m.decode_steps
         results = graphed.results
-        print(f"  served the 12 requests on both engines in lockstep in {t_run:.2f}s: "
+        print(f"  served the {n_req} requests on both engines in lockstep in {t_run:.2f}s: "
               f"{m.prefill_chunks} prefill chunks ({m.prefill_tokens} tok), "
               f"{m.decode_steps} decode steps ({m.decode_tokens} tok) each")
         for name, x in (("graphed", m), ("eager", me)):
@@ -663,21 +800,22 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
               f"{(wb + m.kv_pool_bytes + run_peak) / 1e9:.3f} GB")
         print("  launches (graphed, counted from its replays): "
               + " ".join(f"{k}={v}" for k, v in launches.items())
-              + f" (steps={steps}, 183 x steps = {183 * steps})")
-        check(sorted(results) == list(range(12)), "every request finished")
+              + f" (steps={steps}, {per} x steps = {per * steps}); per replayed decode "
+              f"step: " + " ".join(f"{k}={v}" for k, v in graphed._graph_launches["decode"].items()))
+        check(sorted(results) == list(range(n_req)), "every request finished")
         for rid, toks in results.items():
             check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
             check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
             check(np.array_equal(toks, eager.results[rid]),
                   f"request {rid}: graphed tokens equal the eager engine's")
-        print(f"  the 12 requests' tokens ({sum(map(len, results.values()))}) are identical "
+        print(f"  the {n_req} requests' tokens ({sum(map(len, results.values()))}) are identical "
               f"graphed and eager")
         want = {k: plan.get(k, 0) * steps for k in launches}
         if precision != "float":
             chunks = [c for n in plens for c in plan_chunks(int(n), graphed.max_chunk)]
             check(len(chunks) == m.prefill_chunks, "prefill chunks as plan_chunks plans them")
-            want.update(w8a8_launches(chunks, m.decode_steps, fused))
-            print(f"  w8a8 GeMM plan: {183 * m.decode_steps} one-launch GeMMs in "
+            want.update(w8a8_launches(chunks, m.decode_steps, fused, per))
+            print(f"  w8a8 GeMM plan: {per * m.decode_steps} one-launch GeMMs in "
                   f"{m.decode_steps} decode steps; {len(chunks)} prefill chunks, "
                   f"{sum(c > fused for c in chunks)} of them longer than "
                   f"{fused} tokens (row quantization + dequant GeMM)")
@@ -704,14 +842,16 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
                    "eager_prefill_ms": me.prefill_time_s / me.prefill_chunks * 1e3,
                    "decode_tok_s": m.throughput_tok_s, "launches": launches,
                    "paired": paired, "replay_ms": replay, "graph_pool_bytes": pool,
-                   "capture_s": m.capture_time_s, "graphs": m.aot_steps}
+                   "capture_s": m.capture_time_s, "graphs": m.aot_steps,
+                   "decode_graph_launches": dict(graphed._graph_launches["decode"]),
+                   "weight_bytes": wb, "kv_pool_bytes": m.kv_pool_bytes, "run_peak": run_peak}
         if profile:
             summary["profile"] = summary_profile
         if backend != "tiled":
             summary["paired_backends"] = _paired_backends(torch, M, eager, ops, quant, mods)
         if precision != "float" or backend != "tiled":
-            # The decode step takes the float run's greedy token: over 262144
-            # near-flat logits a run's own argmax may differ, and the step's
+            # The decode step takes the float run's greedy token: over the
+            # vocab's near-flat logits a run's own argmax may differ, and the step's
             # logits would then answer another token.
             got = _prompt_logits(torch, M, kvc, quant, cfg, graphed.params, probe, "cuda",
                                  precision=precision, kv_precision=kv_precision,
@@ -722,7 +862,7 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
                       f"backend: {err:.3e} (bar 1e-2)")
                 check(err < 1e-2, f"{backend} logits within 1e-2 relative L2 of tiled")
             else:
-                print(f"  26-layer bf16 fidelity (not checked): relative L2 of the logits, "
+                print(f"  {cfg.n_layers}-layer bf16 fidelity (not checked): relative L2 of the logits, "
                       f"{precision} + {kv_precision} KV vs float: last prefill chunk "
                       f"{rel_l2(torch, got[0], float_logits[0]):.4f}, first decode step "
                       f"(on the float run's token) {err:.4f}")
@@ -731,6 +871,89 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     del engines, graphed, eager, eng
     torch.cuda.empty_cache()
     return summary
+
+
+def qwen3_traffic(np):
+    """Phase 8's requests: 8 prompts of 256-1024 tokens (both ends drawn),
+    32 new tokens each; the generator then draws the prompts."""
+    rng = np.random.default_rng(8)
+    plens = rng.integers(256, 1025, size=8)
+    plens[:2] = (1024, 256)
+    return plens, np.full(8, 32), rng
+
+
+DENSE_ARCHS = ("qwen3-14b", "qwen2.5-14b", "mistral-nemo-12b", "bert-base", "vit-b-16")
+
+
+def _tree_cpu(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_cpu(torch, v) for v in tree]
+    return tree.cpu()
+
+
+def phase_parity_dense(torch, np, configs, M, kvc, Engine, RequestSpec, quant, mods):
+    """Each arch of the dense family at its published widths, depth cut to 2
+    layers, float32 (seed 1), on the card (kernels) and on the CPU (plain
+    versions): `forward` logits over 80 tokens, the logits of a 70-token
+    prompt's last prefill chunk and first decode step (phase 4's bar:
+    max_abs_diff <= 1e-4 x max|logit|, top-8 equal), and the engine's
+    greedy tokens for two prompts, equal.  Also counts the operands the
+    GeMM wrapper re-laid on the card (`gemm.relaid`): none, bert-base's
+    30522-wide head included."""
+    gemm = mods["gemm"]
+    for arch in DENSE_ARCHS:
+        full = configs.get(arch)
+        cfg = dataclasses.replace(full, n_layers=2, group_size=1, dtype="float32")
+        reduced = {"n_layers": [full.n_layers, 2], "group_size": [full.group_size, 1],
+                   "dtype": [full.dtype, "float32"]}
+        t0 = time.monotonic()
+        gemm.relaid = 0
+        params = M.init_model(cfg, seed=1, device="cuda")
+        cpu_params = _tree_cpu(torch, params)
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, cfg.vocab, size=n) for n in (70, 37)]
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab, size=(1, 80)))
+        lines = []
+        with torch.no_grad():
+            got = M.forward(params, cfg, {"tokens": tokens.cuda()}).float().cpu()
+            want = M.forward(cpu_params, cfg, {"tokens": tokens})
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        top_eq = got[0, -1].topk(8).indices.tolist() == want[0, -1].topk(8).indices.tolist()
+        lines.append(f"forward (1 x 80): max_abs_diff={err:.3e} (max |logit| {scale:.3e}), "
+                     f"top-8 {'equal' if top_eq else 'DIFFER'}")
+        check(err <= 1e-4 * scale and top_eq, f"{arch}: forward logits CUDA vs CPU")
+        del got, want
+        got = _prompt_logits(torch, M, kvc, quant, cfg, params, prompts[0], "cuda")
+        want = _prompt_logits(torch, M, kvc, quant, cfg, cpu_params, prompts[0], "cpu")
+        for what, g_, w_ in zip(("last prefill chunk", "first decode step"), got, want):
+            err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+            top_eq = g_.topk(8).indices.tolist() == w_.topk(8).indices.tolist()
+            lines.append(f"{what}: max_abs_diff={err:.3e} (max |logit| {scale:.3e}), "
+                         f"top-8 {'equal' if top_eq else 'DIFFER'}")
+            check(err <= 1e-4 * scale and top_eq, f"{arch}: {what} logits CUDA vs CPU")
+        out = {}
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            eng = Engine(cfg, p, slots=2, max_seq=96, block_size=16, max_chunk=32, device=dev)
+            eng.warmup()
+            for pr in prompts:
+                eng.submit(RequestSpec(prompt=pr, max_new=6))
+            out[dev] = eng.run()
+            check(eng.metrics.cold_compiles == 0, f"{arch} {dev}: no cold step")
+            del eng
+        for rid in out["cpu"]:
+            check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
+                  f"{arch} request {rid}: CUDA tokens equal the CPU plain-version tokens")
+        torch.cuda.synchronize()
+        relaid = gemm.relaid
+        print(f"  {arch} reduced {json.dumps(reduced)}: " + "; ".join(lines)
+              + f"; engine tokens equal on card and CPU "
+              f"{[out['cuda'][r].tolist() for r in sorted(out['cuda'])]}; GeMM operands "
+              f"re-laid on the card: {relaid}; {time.monotonic() - t0:.1f}s")
+        check(relaid == 0, f"{arch}: the GeMM re-laid {relaid} operands on the card path")
+        del params, cpu_params
+        torch.cuda.empty_cache()
 
 
 def phase_serve_cli(np):
@@ -1143,7 +1366,7 @@ def _prompt_logits(torch, M, kvc, quant, cfg, params, prompt, dev, *,
     int8-resident first, as the engine does."""
     from repro_torch.serving.prefill import plan_chunks
 
-    if precision != "float" and "head_q" not in params:
+    if precision != "float" and not quant.quantized_leaf_count(params):
         params = quant.quantize_params(params, cfg=cfg)
     bs = 16
     max_blocks = kvc.blocks_for(len(prompt) + 1, bs)
@@ -1194,6 +1417,32 @@ def _time_ms(torch, calls, iters: int, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _time_gemm(torch, gemm, g, M, name, K, N, transposed, rows, label=""):
+    """K1 in bf16 at (M, K) x (K, N) over L2-cold copies of B (graph
+    replay and eager call), its plain version, torch.matmul and the bound,
+    into rows[("gemm", M, name)]; returns (a, the copies of B, iters)."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    copies = max(1, min(128, math.ceil(2 * L2_BYTES / (K * N * 2))))
+    a = torch.randn((M, K), generator=g, device=dev).to(dt)
+    bs_ = []
+    for _ in range(copies):
+        b = torch.randn((N, K) if transposed else (K, N), generator=g, device=dev).to(dt)
+        bs_.append(b.t() if transposed else b)
+    iters = max(20, min(400, 4 * copies))
+    kcalls = [lambda b=b: gemm.gemm(a, b, out_dtype=dt) for b in bs_]
+    t_k = _time_ms(torch, kcalls, iters)
+    t_e = _time_ms(torch, kcalls, iters, graph=False)
+    t_p = _time_ms(torch, [lambda b=b: gemm.gemm_plain(a, b, dt) for b in bs_[:4]],
+                   max(4, iters // 10), graph=False)
+    t_l = _time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs_], iters)
+    bound, by = _bound((M * K + K * N + M * N) * 2, 2 * M * K * N, PEAK_FLOPS["bfloat16"])
+    rows[("gemm", M, name)] = (t_k, t_p, t_l, bound)
+    print(f"  {label}gemm bf16 M={M} {name} {K}x{N}: kernel {t_k * 1e3:.1f} us "
+          f"(eager call {t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, torch.matmul "
+          f"{t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+    return a, bs_, iters
+
+
 def phase_times(torch, gemm, gp, fd, kvc):
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1205,30 +1454,8 @@ def phase_times(torch, gemm, gp, fd, kvc):
     shapes = [(M, s) for M in (8, 64) for s in GEMM_SHAPES] + \
         [(1, s) for s in GEMM_SHAPES if s[0] == "head"]
     for M, (name, K, N, transposed) in shapes:
-        b_bytes = K * N * 2
-        copies = max(1, min(128, math.ceil(2 * L2_BYTES / b_bytes)))
-        a = torch.randn((M, K), generator=g, device=dev).to(dt)
-        bs_ = []
-        for _ in range(copies):
-            b = torch.randn((N, K) if transposed else (K, N), generator=g,
-                            device=dev).to(dt)
-            bs_.append(b.t() if transposed else b)
-        iters = max(20, min(400, 4 * copies))
-        kcalls = [lambda b=b: gemm.gemm(a, b, out_dtype=dt) for b in bs_]
-        t_k = _time_ms(torch, kcalls, iters)
-        t_e = _time_ms(torch, kcalls, iters, graph=False)
-        t_p = _time_ms(torch, [lambda b=b: gemm.gemm_plain(a, b, dt) for b in bs_[:4]],
-                       max(4, iters // 10), graph=False)
-        t_l = _time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs_], iters)
-        nbytes = (M * K + K * N + M * N) * 2
-        flops = 2 * M * K * N
-        bound = max(nbytes / HBM_BPS, flops / PEAK_FLOPS["bfloat16"]) * 1e3
-        rows[("gemm", M, name)] = (t_k, t_p, t_l, bound)
-        print(f"  gemm bf16 M={M} {name} {K}x{N}: kernel {t_k * 1e3:.1f} us "
-              f"(eager call {t_e * 1e3:.1f} us), plain "
-              f"{t_p * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, bound "
-              f"{bound * 1e3:.2f} us ({'bytes' if nbytes / HBM_BPS >= flops / PEAK_FLOPS['bfloat16'] else 'operations'}), "
-              f"{bound / t_k:.1%} of bound")
+        a, bs_, iters = _time_gemm(torch, gemm, g, M, name, K, N, transposed, rows)
+        t_k, t_p, t_l, bound = rows[("gemm", M, name)]
         # K6 on the same L2-cold copies at each ring depth (Fig. 5 sweep);
         # its plain version is K1's (the same function).
         t_d = {}
@@ -1250,6 +1477,66 @@ def phase_times(torch, gemm, gp, fd, kvc):
     del pools
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_times_dense(torch, gemm, gemm8, fd, kvc):
+    """The kernels per qwen3-14b decode step (8 slots, bf16, L2 cold): K1 at
+    M = 8 on each projection and the untied head (40 x (q, k, v, o, gate,
+    up, down) + head), beside torch.matmul and the bound; the w8a8 GeMM
+    (one launch, per-row scales) at the same shapes beside torch._int_mm
+    and its bound; K2 over float and int8 pools at 40 q heads over 8 kv
+    heads, D 128, 8 slots at QWEN3_LENGTHS (40 global layers), beside SDPA
+    and the bound."""
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(10)
+    rows = {}
+    for name, K, N, transposed in QWEN3_SHAPES:
+        a, bs_, iters = _time_gemm(torch, gemm, g, 8, name, K, N, transposed, rows,
+                                   "qwen3-14b ")
+        del bs_
+        ws = [(torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                             dtype=torch.int8).t(),
+               torch.rand((1, N), generator=g, device=dev) * 0.1)
+              for _ in range(max(1, min(128, math.ceil(2 * L2_BYTES / (K * N)))))]
+        t_f = _time_ms(torch, [lambda b=b, sb=sb: gemm8._w8a8_fused(a, b, sb, None, dt)
+                               for b, sb in ws], iters)
+        t_fp = _time_ms(torch, [lambda b=b, sb=sb: gemm8.gemm_w8a8_plain(a, b, sb, None, dt)
+                                for b, sb in ws[:2]], 4, graph=False)
+        a_lib = torch.zeros((32, K), device=dev, dtype=torch.int8)   # cuBLASLt takes M > 16
+        t_l = _time_ms(torch, [lambda b=b: torch._int_mm(a_lib, b) for b, _ in ws], iters)
+        bound, by = _bound(2 * 8 * K + K * N + 4 * N + 2 * 8 * N, 2 * 8 * K * N,
+                           PEAK_FLOPS["int8"])
+        rows[("gemm_w8a8", 8, name)] = (t_f, t_fp, t_l, bound)
+        print(f"  qwen3-14b gemm_w8a8 bf16 -> bf16 M=8 {name} {K}x{N}: one launch "
+              f"{t_f * 1e3:.1f} us, plain {t_fp * 1e3:.1f} us, torch._int_mm (M padded to "
+              f"32) {t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+              f"{bound / t_f:.1%} of bound")
+        del a, ws, a_lib
+        torch.cuda.empty_cache()
+    L, B, Hkv, G, D, bs, max_seq = 40, 8, 8, 5, 128, 16, 1200
+    # ~39 MB a pool (601 blocks of 16 tokens x 8 kv heads x D 128, K and V,
+    # bf16): four pools exceed the L2 three times over.
+    for key in ("flash_decode", "flash_decode_int8"):
+        pools = [_lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq,
+                                     QWEN3_LENGTHS) if key == "flash_decode_int8" else
+                 _lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq, QWEN3_LENGTHS)
+                 for _ in range(4)]
+        _time_decode(torch, fd, kvc, pools, g, QWEN3_LENGTHS, G, bs, max_seq, rows, key,
+                     windows=(None,), label="qwen3-14b ")
+        del pools
+        torch.cuda.empty_cache()
+    out = {}
+    for key, per in [(k, [((k, 8, n), L if n != "head" else 1) for n, *_ in QWEN3_SHAPES])
+                     for k in ("gemm", "gemm_w8a8")] + \
+            [(k, [((k, "decode", None), L)]) for k in ("flash_decode", "flash_decode_int8")]:
+        out[key] = [sum(n * rows[k][i] for k, n in per) for i in range(4)]
+    lib = {"gemm": "torch.matmul", "gemm_w8a8": "torch._int_mm", "flash_decode": "sdpa",
+           "flash_decode_int8": "sdpa"}
+    print("[8] one qwen3-14b decode step (8 slots, L2 cold; the GeMMs 40 x 7 projections + "
+          "head at M=8, K2 40 layers): " + "; ".join(
+              f"{k} {t[0]:.3f} ms ({lib[k]} {t[2]:.3f} ms, plain {t[1]:.3f} ms, bound "
+              f"{t[3]:.4f} ms)" for k, t in out.items()))
+    return out
 
 
 def _time_split_rules(torch, gemm, g):
@@ -1288,7 +1575,8 @@ def _time_split_rules(torch, gemm, g):
         del a, bs_
 
 
-def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key):
+def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key,
+                 windows=(None, 512), label=""):
     """K2 over L2-cold copies of a lived-in pool (float or int8), bf16 q, at
     the decode step (8 slots, Sq 1) and a prefill chunk (the 1100-token
     slot, Sq 64), global and window 512: the wrapper's rule (graph replay
@@ -1299,13 +1587,13 @@ def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key):
     dev, dt = torch.device("cuda"), torch.bfloat16
     int8 = key == "flash_decode_int8"
     Hkv, D = pools[0][0].k.shape[2], pools[0][0].k.shape[3]
-    for label, b_, sq in (("decode", len(lengths), 1), ("prefill", 1, 64)):
+    for what, b_, sq in (("decode", len(lengths), 1), ("prefill", 1, 64)):
         lens = lengths[:b_]
         q = torch.randn((b_, sq, Hkv * G, D), generator=g, device=dev).to(dt)
         idx = torch.tensor([n - sq for n in lens], dtype=torch.int32, device=dev)
         sel = [(c, t[:b_].contiguous()) for c, t in pools]
         n_rule = fd.launch_splits(q, sel[0][1], Hkv)
-        for window in (None, 512):
+        for window in windows:
             def kcalls(spec=None):
                 return [lambda c=c, t=t: fd.flash_decode_attention(
                     q, c, t, idx, window=window, spec=spec) for c, t in sel]
@@ -1340,9 +1628,9 @@ def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key):
             nbytes = (2 * keys * row_bytes + 2 * 2 * q.numel() + 4 * idx.numel()
                       + 4 * b_ * (max_seq // bs))
             bound, by = _bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
-            rows[(key, label, window)] = (t_k, t_p, t_l, bound, by, t_s[1], t_s[4], t_e)
+            rows[(key, what, window)] = (t_k, t_p, t_l, bound, by, t_s[1], t_s[4], t_e)
             pool = "int8 pool, q bf16" if int8 else "bf16"
-            print(f"  {key} {pool} {label} B={b_} Sq={sq} window={window}: kernel "
+            print(f"  {label}{key} {pool} {what} B={b_} Sq={sq} window={window}: kernel "
                   f"{t_k * 1e3:.1f} us at the rule's {n_rule} splits (eager call "
                   f"{t_e * 1e3:.1f} us), num_splits=1 {t_s[1] * 1e3:.1f} us, num_splits=4 "
                   f"{t_s[4] * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
@@ -1660,6 +1948,8 @@ def main() -> int:
     worst.update(phase_kernels_int8(torch, gemm8, kq, fd, kvc))
     worst.update(phase_kernels_w8a8(torch, gemm8))
     worst.update(phase_kernels_slice3(torch, fa, gp))
+    for k, v in phase_kernels_dense(torch, gemm, gemm8, fd, fa, kvc).items():
+        worst[k] = max(worst[k], v)
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
     summary = phase_engine(*engine_args, profile=True)
@@ -1724,6 +2014,17 @@ def main() -> int:
     print(f"[5] one forward over (2, 1024) tokens: flash_attention "
           f"{agg['flash_attention'][0]:.3f} ms (bound {agg['flash_attention'][3]:.3f}, "
           f"sdpa {agg['flash_attention'][2]:.3f})")
+    print("[8a] qwen3-14b at published widths (40 layers, bf16), float")
+    summary_qf = phase_engine(*engine_args, arch="qwen3-14b", n_layers=40,
+                              traffic=qwen3_traffic, profile=True)
+    print("[8b] qwen3-14b at published widths, w8a8 with an int8 KV pool")
+    summary_q8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8",
+                              arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic)
+    print("[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold)")
+    phase_times_dense(torch, gemm, gemm8, fd, kvc)
+    print("[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
+          "plain versions")
+    phase_parity_dense(torch, np, configs, M, kvc, Engine, RequestSpec, quant, mods)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -1773,13 +2074,17 @@ def main() -> int:
         f"library_ms={k['library_ms']};" for k in kernels))
     for label, x in (("3 float", summary), ("3b w8a8 + int8 KV", summary8),
                      ("3c calibrated w8a8 + int8 KV", summary_cal),
-                     ("3d float, pipelined", summary_pipe)):
+                     ("3d float, pipelined", summary_pipe), ("8a qwen3-14b float", summary_qf),
+                     ("8b qwen3-14b w8a8 + int8 KV", summary_q8)):
         print(f"[7] {label}: decode step graphed {x['decode_ms']:.3f} ms (one replay "
               f"{x['replay_ms']['decode']:.3f} ms on the device), eager "
               f"{x['eager_decode_ms']:.3f} ms; prefill chunk graphed {x['prefill_ms']:.3f} ms "
               f"(64 tokens, one replay {x['replay_ms']['chunk64']:.3f} ms), eager "
               f"{x['eager_prefill_ms']:.3f} ms; {x['graphs']} graphs captured in "
-              f"{x['capture_s']:.2f}s, pool {x['graph_pool_bytes'] / 1e6:.1f} MB")
+              f"{x['capture_s']:.2f}s, pool {x['graph_pool_bytes'] / 1e6:.1f} MB; weights "
+              f"{x['weight_bytes'] / 1e9:.3f} GB, kv pool {x['kv_pool_bytes'] / 1e9:.3f} GB; "
+              f"per replayed decode step " + " ".join(
+                  f"{k}={v}" for k, v in x["decode_graph_launches"].items()))
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.kernels.gemm import aligned_rows
 
 
 def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -27,21 +28,27 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
     """Reference params (nested dict of numpy arrays) -> port params.
 
     Layer g * group_size + i of the flat list takes slice g of the stacked
-    `params_np["blocks"]["sub{i}"]` leaves."""
+    `params_np["blocks"]["sub{i}"]` leaves, whatever they are (projections,
+    QKV biases, q/k norms, RMS weights or LayerNorm {"scale", "bias"}
+    dicts, the SwiGLU or GELU MLP's matrices and biases).  An untied "head"
+    is stored as `init_model` stores it (rows 16-byte aligned)."""
     dt = cfg.torch_dtype
 
-    def unstack(tree, g):
+    def convert(tree, g=None):
         if isinstance(tree, dict):
-            return {k: unstack(v, g) for k, v in tree.items()}
-        return _tensor(np.asarray(tree)[g], dt, device)
+            return {k: convert(v, g) for k, v in tree.items()}
+        a = np.asarray(tree)
+        return _tensor(a if g is None else a[g], dt, device)
 
-    layers = [unstack(params_np["blocks"][f"sub{i}"], g)
-              for g in range(cfg.n_groups) for i in range(cfg.group_size)]
-    return {
-        "embed": _tensor(params_np["embed"], dt, device),
-        "final_norm": _tensor(params_np["final_norm"], dt, device),
-        "layers": layers,
+    out = {
+        "embed": convert(params_np["embed"]),
+        "final_norm": convert(params_np["final_norm"]),
+        "layers": [convert(params_np["blocks"][f"sub{i}"], g)
+                   for g in range(cfg.n_groups) for i in range(cfg.group_size)],
     }
+    if not cfg.tie_embeddings:
+        out["head"] = aligned_rows(convert(params_np["head"]))
+    return out
 
 
 def param_count(params: dict, *, min_dim: int = 1) -> int:

@@ -2,7 +2,7 @@
 
 Each module defines `CONFIG` (the published widths) and `smoke_config()`
 (the reduced float32 config the tests use).  Only the archs the port
-serves are registered.
+serves are registered: the reference's dense family.
 """
 
 from __future__ import annotations
@@ -13,7 +13,13 @@ from typing import List
 from repro_torch.models.config import ArchConfig
 
 _ARCH_MODULES = {
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    # The paper's own transformer benchmark backbones (Table 2):
+    "bert-base": "repro_torch.configs.bert_base",
+    "vit-b-16": "repro_torch.configs.vit_b_16",
 }
 
 

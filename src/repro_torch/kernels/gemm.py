@@ -29,6 +29,11 @@ from repro_torch.kernels import _build, ref
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
 launches = 0
+# Operands `rows_for_copies` re-laid (copied) since the last reset, for
+# every kernel that takes its operands through it: a model whose weights
+# are stored aligned (`aligned_rows`, as `init_model` stores an untied
+# head) makes none.
+relaid = 0
 
 # The tiles of csrc/gemm_mma.cuh.
 TILE_N = 128          # output columns per block
@@ -44,8 +49,8 @@ _INT_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, relaid
+    launches = relaid = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,7 +147,7 @@ def splitk_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     return got
 
 
-def rows_for_copies(t: torch.Tensor) -> torch.Tensor:
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
     """2-D `t` as the kernels' 16-byte copies take it: its last axis
     contiguous and every row starting 16-byte aligned.  A tensor that is
     not comes back as a copy with each row padded to a multiple of 16 bytes
@@ -157,12 +162,24 @@ def rows_for_copies(t: torch.Tensor) -> torch.Tensor:
     return buf[:, :cols]
 
 
+def rows_for_copies(t: torch.Tensor) -> torch.Tensor:
+    """`aligned_rows(t)` on a launch's operand, counting the copies in
+    `relaid`."""
+    out = aligned_rows(t)
+    if out is not t:
+        global relaid
+        relaid += 1
+    return out
+
+
 def operands_for_copies(a: torch.Tensor, b: torch.Tensor):
     """(a, b, b_kmajor) as the kernels' 16-byte copies take them: A with K
     contiguous, B with K (an (N, K) store seen through .t()) or N
     contiguous, every row 16-byte aligned.  An operand that is not comes
-    back as a re-laid copy (never on the model's path, whose widths are
-    multiples of 128)."""
+    back as a re-laid copy.  On the model's path none is: the activations
+    are contiguous with K a multiple of 8, and an untied head whose vocab is
+    not a multiple of 8 (bert-base's 30522) is stored with padded rows
+    (`aligned_rows`)."""
     sb0, sb1 = b.stride()
     kmajor = sb0 == 1 and sb1 != 1
     b = rows_for_copies(b.t()).t() if kmajor else rows_for_copies(b)

@@ -5,6 +5,11 @@ single-engine path of repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8 --kv-precision int8
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8-calibrated
   PYTHONPATH=src python -m repro_torch.launch.serve --widths published   # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --widths published
+
+`--arch` takes any arch of the dense family the port registers
+(`configs.list_archs()`): qwen3-14b, mistral-nemo-12b, qwen2.5-14b,
+gemma3-1b (the default), bert-base and vit-b-16.
 
 Runs on the CUDA device unless `--device cpu` is given; there the engine
 serves through the CUDA graphs its warmup captures.  The prompts are

@@ -2,7 +2,10 @@
 `blockwise_attention`, the `decode_attention` oracle, and the unpaged and
 paged branches of `attention`).
 
-GQA/MQA with split-half RoPE.  The unpaged branch (prefill, `forward`,
+GQA/MQA/MHA with split-half RoPE, an optional QKV bias (qwen2.5; added
+after the GeMM, as the reference adds it outside its kernel) and optional
+qk-norm (qwen3: an RMS norm over head_dim of q and k after the head
+reshape, before RoPE).  The unpaged branch (prefill, `forward`,
 calibration) attends over the sequence itself through
 `blockwise_attention`.  The paged branch writes this step's K/V through the
 block tables first and then attends over the pool, so a query attends to
@@ -29,20 +32,30 @@ def init_attention(gen: torch.Generator, cfg, device) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dt = cfg.torch_dtype
-    return {
+    p = {
         "wq": layers._init_dense(gen, d, hq * hd, dt, device),
         "wk": layers._init_dense(gen, d, hkv * hd, dt, device),
         "wv": layers._init_dense(gen, d, hkv * hd, dt, device),
         "wo": layers._init_dense(gen, hq * hd, d, dt, device),
     }
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+            p[name] = torch.zeros((width,), dtype=dt, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
+    return p
 
 
 def _project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     B, S, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = layers.dense(x, p["wq"]).reshape(B, S, hq, hd)
-    k = layers.dense(x, p["wk"]).reshape(B, S, hkv, hd)
-    v = layers.dense(x, p["wv"]).reshape(B, S, hkv, hd)
+    q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, hq, hd)
+    k = layers.dense(x, p["wk"], p.get("bk")).reshape(B, S, hkv, hd)
+    v = layers.dense(x, p["wv"], p.get("bv")).reshape(B, S, hkv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

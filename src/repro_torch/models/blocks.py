@@ -1,6 +1,7 @@
 """Transformer blocks: attention (global or sliding-window) plus the SwiGLU
-FFN, with pre-norms and optional gemma-style post-norms (port of
-repro/models/blocks.py for the `attn` / `attn_local` kinds: `apply_block`
+or GELU FFN, with pre-norms and optional gemma-style post-norms, each an
+RMS norm or a LayerNorm as `cfg.norm` says (port of repro/models/blocks.py
+for the `attn` / `attn_local` kinds: `_init_norm`, `_norm`, `apply_block`
 over the paged cache or over the sequence itself, and `apply_group`).
 
 Residual adds run in the model dtype, as in the reference.
@@ -16,19 +17,33 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
 
 
+def _init_norm(cfg, device):
+    """A norm's parameters: the RMS weight (d,), or LayerNorm's
+    {"scale", "bias"}."""
+    if cfg.norm == "ln":
+        return layers.init_layernorm(cfg.d_model, cfg.torch_dtype, device)
+    return torch.ones((cfg.d_model,), dtype=cfg.torch_dtype, device=device)
+
+
+def _norm(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    if cfg.norm == "ln":
+        return layers.layer_norm(x, p, cfg.norm_eps)
+    return layers.rms_norm(x, p, cfg.norm_eps)
+
+
 def init_block(gen: torch.Generator, cfg, kind: str, device) -> dict:
     if kind not in ("attn", "attn_local"):
         raise NotImplementedError(f"block kind {kind!r} is not ported")
-    ones = lambda: torch.ones((cfg.d_model,), dtype=cfg.torch_dtype, device=device)
-    p = {"norm1": ones(), "mixer": attn_lib.init_attention(gen, cfg, device)}
+    p = {"norm1": _init_norm(cfg, device),
+         "mixer": attn_lib.init_attention(gen, cfg, device)}
     if cfg.d_ff:
-        p["norm2"] = ones()
-        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
+        p["norm2"] = _init_norm(cfg, device)
+        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant,
                                    cfg.torch_dtype, device)
     if cfg.post_block_norm:
-        p["post_norm1"] = ones()
+        p["post_norm1"] = _init_norm(cfg, device)
         if "ffn" in p:
-            p["post_norm2"] = ones()
+            p["post_norm2"] = _init_norm(cfg, device)
     return p
 
 
@@ -38,19 +53,19 @@ def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
                 block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block, over the sequence itself (cache None) or over the paged
     cache (the layer's pools update in place)."""
-    h = layers.rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = _norm(x, p["norm1"], cfg)
     window = cfg.local_window if kind == "attn_local" else None
     h = attn_lib.attention(h, p["mixer"], cfg, positions=positions,
                            window=window, cache=cache,
                            cache_index=cache_index, block_tables=block_tables)
     if cfg.post_block_norm:
-        h = layers.rms_norm(h, p["post_norm1"], cfg.norm_eps)
+        h = _norm(h, p["post_norm1"], cfg)
     x = x + h
     if "ffn" in p:
-        h = layers.rms_norm(x, p["norm2"], cfg.norm_eps)
-        h = layers.mlp(h, p["ffn"])
+        h = _norm(x, p["norm2"], cfg)
+        h = layers.mlp(h, p["ffn"], cfg.mlp_variant)
         if cfg.post_block_norm:
-            h = layers.rms_norm(h, p["post_norm2"], cfg.norm_eps)
+            h = _norm(h, p["post_norm2"], cfg)
         x = x + h
     return x
 

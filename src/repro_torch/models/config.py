@@ -1,10 +1,11 @@
 """Architecture configuration (port of repro/models/config.py).
 
 A copy, not an import: the reference module imports `jax.numpy`.  Only the
-dense-attention fields this slice serves are carried; `layer_kinds()` and
-`param_count()` are copied verbatim for those families so the layer
-pattern (gemma3-1b: 13-layer groups, globals where (i+1) % 6 == 0) and the
-parameter count agree with the reference exactly.
+fields of the dense family are carried (qk-norm, QKV bias, sliding windows,
+the SwiGLU or GELU MLP, RMS or LayerNorm, tied or untied heads);
+`layer_kinds()` and `param_count()` are copied verbatim for that family so
+the layer pattern (gemma3-1b: 13-layer groups, globals where (i+1) % 6 ==
+0) and the parameter count agree with the reference exactly.
 """
 
 from __future__ import annotations
@@ -28,15 +29,18 @@ class ArchConfig:
     head_dim: Optional[int] = None          # default d_model // n_heads
 
     # attention flavor
+    qk_norm: bool = False                   # qwen3: RMS norm of q and k per head
+    qkv_bias: bool = False                  # qwen2.5
     rope_theta: float = 10_000.0
     local_window: Optional[int] = None      # sliding-window size
     local_ratio: int = 0                    # gemma3: N local layers per global
     logit_softcap: Optional[float] = None   # attention-score tanh cap (unpaged path)
 
     # ffn flavor
-    mlp_variant: str = "swiglu"
+    mlp_variant: str = "swiglu"             # swiglu | gelu (encoders)
 
     # norms
+    norm: str = "rms"                       # rms | ln (encoders)
     norm_eps: float = 1e-6
     post_block_norm: bool = False           # gemma-style post norms
     tie_embeddings: bool = False
@@ -53,9 +57,13 @@ class ArchConfig:
             raise ValueError("n_heads must be divisible by n_kv_heads")
         if self.local_ratio and not self.local_window:
             raise ValueError("local_ratio needs local_window")
-        if self.family != "dense" or self.mlp_variant != "swiglu":
+        if self.family != "dense":
             raise NotImplementedError(
-                f"{self.name}: only dense swiglu decoders are ported")
+                f"{self.name}: only the dense family is ported, not {self.family!r}")
+        if self.mlp_variant not in ("swiglu", "gelu"):
+            raise ValueError(f"{self.name}: unknown mlp_variant {self.mlp_variant!r}")
+        if self.norm not in ("rms", "ln"):
+            raise ValueError(f"{self.name}: unknown norm {self.norm!r}")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -97,7 +105,7 @@ class ArchConfig:
         hd = self.resolved_head_dim
         n = v * d * (1 if self.tie_embeddings else 2)
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
-        ffn = 3 * d * self.d_ff
+        ffn = 3 * d * self.d_ff if self.mlp_variant == "swiglu" else 2 * d * self.d_ff
         per_group = sum(attn + (ffn if self.d_ff else 0)
                         for _ in self.layer_kinds())
         return n + self.n_groups * per_group

@@ -1,10 +1,13 @@
-"""Elementary layers: norms, embeddings, RoPE, the SwiGLU MLP (port of
-repro/models/layers.py).
+"""Elementary layers: norms (RMS and LayerNorm), embeddings, RoPE, the
+SwiGLU and GELU MLPs (port of repro/models/layers.py).
 
 Every dense projection goes through `kernels.ops.linear`, so the GeMM
-kernel underlies the whole model.  Cast points follow the reference
-exactly: norms and RoPE compute in float32 and cast back, and the SwiGLU
-gate is `silu(gate.f32).to(x.dtype) * up`.
+kernel underlies the whole model; a bias is added after it, in the
+activations' dtype, as the reference adds it outside its kernel.  Cast
+points follow the reference exactly: norms and RoPE compute in float32
+and cast back, the SwiGLU gate is `silu(gate.f32).to(x.dtype) * up`, and
+the GELU is `gelu(h.f32)` in its tanh form (`jax.nn.gelu`'s default;
+torch's default is the exact erf form).
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
 
 
 # -- embeddings ---------------------------------------------------------------
@@ -87,17 +104,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # -- feed-forward ---------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype, device) -> dict:
-    return {
-        "w_gate": _init_dense(gen, d, d_ff, dtype, device),
-        "w_up": _init_dense(gen, d, d_ff, dtype, device),
-        "w_down": _init_dense(gen, d_ff, d, dtype, device),
-    }
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, variant: str, dtype,
+             device) -> dict:
+    if variant == "swiglu":
+        return {
+            "w_gate": _init_dense(gen, d, d_ff, dtype, device),
+            "w_up": _init_dense(gen, d, d_ff, dtype, device),
+            "w_down": _init_dense(gen, d_ff, d, dtype, device),
+        }
+    if variant == "gelu":
+        return {
+            "w_up": _init_dense(gen, d, d_ff, dtype, device),
+            "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+            "w_down": _init_dense(gen, d_ff, d, dtype, device),
+            "b_down": torch.zeros((d,), dtype=dtype, device=device),
+        }
+    raise ValueError(f"unknown mlp variant {variant!r}")
 
 
-def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """SwiGLU: down(silu(gate.f32).to(x.dtype) * up)."""
-    gate = dense(x, p["w_gate"])
-    up = dense(x, p["w_up"])
-    h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return dense(h, p["w_down"])
+def mlp(x: torch.Tensor, p: dict, variant: str) -> torch.Tensor:
+    """SwiGLU: down(silu(gate.f32).to(x.dtype) * up).  GELU: h = x @ w_up +
+    b_up, then gelu_tanh(h.f32).to(x.dtype) @ w_down + b_down."""
+    if variant == "swiglu":
+        gate = dense(x, p["w_gate"])
+        up = dense(x, p["w_up"])
+        h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
+        return dense(h, p["w_down"])
+    if variant != "gelu":
+        raise ValueError(f"unknown mlp variant {variant!r}")
+    h = dense(x, p["w_up"], p["b_up"])
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    return dense(h, p["w_down"], p["b_down"])

@@ -2,15 +2,18 @@
 `forward`, the paged decode state, `paged_decode_step`, `prefill_chunk` and
 `reset_slots`).
 
-Parameters are a plain dict: "embed" (vocab, d), "final_norm" (d,), and
-"layers", a flat list of per-layer dicts.  The reference stacks each
+Parameters are a plain dict: "embed" (vocab, d), "final_norm" (an RMS
+weight (d,) or LayerNorm's {"scale", "bias"}), "head" (d, vocab) for an
+untied head, and "layers", a flat list of per-layer dicts.  The untied head
+is stored with its rows padded to 16 bytes (`gemm.aligned_rows`), so the
+GeMM reads it in place at any vocab.  The reference stacks each
 group's parameters on a leading n_groups axis and scans the groups; here
 layer g * group_size + i simply has kind `cfg.layer_kinds()[i]`
 (`cfg.all_layer_kinds()`).
 
 Under the w8a8 precision the projection matrices are `QuantTensor`s
-(quant/params.py) and "head_q" holds the int8 copy of the tied head; the
-model code is the same, since `ops.linear` dispatches on the weight.
+(quant/params.py), an untied "head" among them, and "head_q" holds the
+int8 copy of a tied head; the model code is the same, since `ops.linear` dispatches on the weight.
 
 The KV pools update in place where the reference donates the state to its
 jitted steps: the reference never keeps a pre-step pool (inactive slots and
@@ -25,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.kernels import gemm
 from repro_torch.models import blocks, layers
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import kv_cache as kvc
@@ -37,14 +41,16 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dt = cfg.torch_dtype
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: untied heads are not ported")
-    return {
+    params = {
         "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
+        "final_norm": blocks._init_norm(cfg, device),
         "layers": [blocks.init_block(gen, cfg, kind, device)
                    for kind in cfg.all_layer_kinds()],
     }
+    if not cfg.tie_embeddings:
+        params["head"] = gemm.aligned_rows(
+            layers._init_dense(gen, cfg.d_model, cfg.vocab, dt, device))
+    return params
 
 
 @dataclasses.dataclass
@@ -85,6 +91,8 @@ def clear_paged_decode_state(state: PagedDecodeState) -> PagedDecodeState:
 
 def _embed_tokens(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = layers.embed(tokens, params["embed"])
+    if not cfg.tie_embeddings:
+        return x
     # Tied embeddings scale by sqrt(d_model) in x's dtype: the scale is
     # rounded to that dtype first, as the reference's jnp.asarray does.
     scale = torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
@@ -116,7 +124,7 @@ def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     x = _run_groups(x, params, cfg, positions=positions)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = blocks._norm(x, params["final_norm"], cfg)
     if last_only:
         x = x[:, -1:]
     return _unembed(x, params, cfg)
@@ -124,10 +132,13 @@ def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
 
 def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
     # "head_q" is the int8 copy of the tied table that quantize_params adds:
-    # without it a w8a8 step would re-quantize the (vocab x d) table.
+    # without it a w8a8 step would re-quantize the (vocab x d) table.  An
+    # untied "head" is a float matrix or, quantized, a QuantTensor.
     if "head_q" in params:
         return layers.dense(x, params["head_q"])
-    return layers.unembed(x, params["embed"])
+    if cfg.tie_embeddings:
+        return layers.unembed(x, params["embed"])
+    return layers.dense(x, params["head"])
 
 
 def _trunk_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
@@ -153,7 +164,7 @@ def paged_decode_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
                     state.block_tables)
     step = 1 if active is None else active.to(torch.int32)
     new_lengths = state.lengths + step
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = blocks._norm(x, params["final_norm"], cfg)
     logits = _unembed(x, params, cfg)
     return logits, PagedDecodeState(caches=state.caches,
                                     block_tables=state.block_tables,
@@ -178,7 +189,7 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
     positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                               device=tokens.device)[None, :]
     x = _trunk_step(params, cfg, x, positions, state.caches, start, tables)
-    x = layers.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    x = blocks._norm(x[:, -1:], params["final_norm"], cfg)
     logits = _unembed(x, params, cfg)
     new_lengths = state.lengths.index_add(
         0, idx, torch.full((1,), C, dtype=state.lengths.dtype, device=idx.device))

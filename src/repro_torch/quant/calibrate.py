@@ -195,7 +195,7 @@ def calibrate(params, cfg, batches: Iterable, *, observer: str = "absmax",
     installed, in float mode.  The head site is fed to the tap directly:
     the observer reads only the head's input, so the (B * S, vocab) logits
     are never computed."""
-    from repro_torch.models import blocks, layers   # deferred: models import quant
+    from repro_torch.models import blocks   # deferred: models import quant
     from repro_torch.models import model as M
 
     observers: Dict[str, Observer] = {}
@@ -224,9 +224,9 @@ def calibrate(params, cfg, batches: Iterable, *, observer: str = "absmax",
                 for i, layer in enumerate(gl):
                     _register(idmap, f"blocks.{g}.sub{i}", layer)
                 x = blocks.apply_group(x, gl, cfg, positions=positions)
-            x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = blocks._norm(x, params["final_norm"], cfg)
             idmap.clear()
-            head = params["embed"]          # tied: the port has no untied head
+            head = params["embed"] if cfg.tie_embeddings else params["head"]
             idmap[id(head)] = "head"
             tap(x, head)
             n_batches += 1

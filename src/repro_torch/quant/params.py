@@ -15,7 +15,9 @@ axis -2, as the reference does.
 
 The port keeps its layers in a flat list (the reference stacks each
 group's layers on a leading axis), so `quantized_leaf_count` counts every
-layer's matrices: (reference count - 1) * n_groups + 1 for a tied model.
+layer's matrices: (reference count - 1) * n_groups + 1, the last one the
+head ("head_q" of a tied model, "head" of an untied one).  Biases and
+norm vectors stay float.
 
 Calibrated activation scales (quant/calibrate.py, keys
 "blocks.{g}.sub{i}.mixer.wq", ..., "head") ride on `QuantTensor.act_scale`

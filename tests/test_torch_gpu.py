@@ -724,3 +724,108 @@ def test_replay_under_another_backend_raises(cuda_device):
             eng.run()
     finally:
         ops.set_default_backend("tiled")
+
+
+# -- the dense family's shapes (qwen3-14b, bert-base) ---------------------------
+
+DENSE_GEMM_SHAPES = [  # (K, N): qwen3-14b's q/o, k/v, gate/up, down, untied head
+    (5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120), (5120, 151936)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_gemm_at_qwen3_shapes(cuda_device, M):
+    """K1 on qwen3-14b's projections, the long-K down projection (split-K
+    over 17408) and the N-contiguous 151936-wide head: bf16 out within one
+    bf16 ulp of the plain version."""
+    rng = np.random.default_rng(100 + M)
+    for K, N in DENSE_GEMM_SHAPES:
+        a, b = _float_operands(rng, M, K, N, False, cuda_device)
+        want = tgemm.gemm_plain(a, b)
+        got = tgemm.gemm(a, b, out_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), want.to(torch.bfloat16).float(),
+                                   rtol=2 ** -7, atol=1e-3, msg=lambda m: f"{(M, K, N)}: {m}")
+        del a, b, want, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_takes_the_aligned_unaligned_vocab_head_in_place(cuda_device, dtype):
+    """bert-base's 30522-wide untied head as `init_model` stores it (rows
+    padded to 16 bytes): the GeMM reads it in place (no operand re-laid) and
+    its logits equal the plain version's on the unpadded matrix."""
+    rng = np.random.default_rng(5)
+    a, b = _float_operands(rng, 8, 768, 30522, False, cuda_device, dtype)
+    head = tgemm.aligned_rows(b)
+    assert head.stride(0) != head.shape[1] and torch.equal(head, b)
+    tgemm.reset_launches()
+    got = tgemm.gemm(a, head)
+    assert tgemm.relaid == 0 and tgemm.launches == 1
+    torch.testing.assert_close(got, tgemm.gemm_plain(a, b), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_precision", ["float", "int8"])
+@pytest.mark.parametrize("hq,hkv,d", [(40, 8, 128), (12, 12, 64)])
+@pytest.mark.parametrize("sq", [1, 64])
+def test_flash_decode_at_dense_head_layouts(cuda_device, kv_precision, hq, hkv, d, sq):
+    """K2 at qwen3-14b's 5 q heads per kv head (the 16-row tile, 11 rows
+    dead at Sq 1) and bert-base's MHA at D 64, at the rule's split count
+    and one split per column, against the plain walk."""
+    rng = np.random.default_rng(hq + sq)
+    lengths = [64, 70, 23, 100, 64, 1, 90, 80]
+    cache, bt = _ragged_pool(cuda_device, kv_precision, rng, d, lengths, bs=8,
+                             max_blocks=13, hkv=hkv)
+    q = torch.from_numpy(rng.normal(size=(len(lengths), sq, hq, d)).astype(np.float32)) \
+        .to(cuda_device)
+    idx = torch.tensor([max(n - sq, 0) for n in lengths], dtype=torch.int32,
+                       device=cuda_device)
+    walk = tfd.ref_paged_decode(q, cache, bt, idx)
+    for spec in (None, tfd.FlashDecodeSpec(num_splits=bt.shape[1])):
+        got = tfd.flash_decode_attention(q, cache, bt, idx, spec=spec)
+        torch.testing.assert_close(got, walk, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", [(40, 8, 128), (12, 12, 64)])
+def test_flash_attention_at_dense_head_layouts(cuda_device, dtype, hq, hkv, d):
+    rng = np.random.default_rng(d)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -8)
+    for B, S in ((1, 300), (2, 32)):
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, d)).astype(np.float32))
+                   .to(cuda_device, dtype) for h in (hq, hkv, hkv))
+        torch.testing.assert_close(tfa.flash_attention(q, k, v).float(),
+                                   tfa.flash_attention_plain(q, k, v).float(), **tol)
+
+
+@pytest.mark.gpu
+def test_qwen3_published_width_engine_graphed_equals_eager(cuda_device):
+    """qwen3-14b at its published widths, depth cut to 2 layers, bf16: the
+    engine's replayed CUDA graphs give the eager engine's tokens on the
+    same weights."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as TM
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import RequestSpec
+
+    cfg = dataclasses.replace(configs.get("qwen3-14b"), n_layers=2, group_size=1)
+    params = TM.init_model(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    specs = [RequestSpec(prompt=rng.integers(0, cfg.vocab, size=n).astype(np.int32),
+                         max_new=g) for n, g in ((70, 6), (9, 8), (33, 5))]
+    out = {}
+    for graphs in (True, False):
+        eng = Engine(cfg, params, slots=2, max_seq=96, block_size=16, max_chunk=32,
+                     device=cuda_device, graphs=graphs)
+        eng.warmup()
+        for spec in specs:
+            eng.submit(spec)
+        out[graphs] = eng.run()
+        assert eng.metrics.cold_compiles == 0
+    assert sorted(out[True]) == list(range(len(specs)))
+    for rid in out[False]:
+        np.testing.assert_array_equal(out[True][rid], out[False][rid])

@@ -85,7 +85,8 @@ def test_layers_match_reference():
     p = {k: rng.normal(size=s).astype(np.float32) * 0.25 for k, s in
          (("w_gate", (16, 24)), ("w_up", (16, 24)), ("w_down", (24, 16)))}
     np.testing.assert_allclose(
-        tlayers.mlp(torch.from_numpy(h), {k: torch.from_numpy(v) for k, v in p.items()}).numpy(),
+        tlayers.mlp(torch.from_numpy(h), {k: torch.from_numpy(v) for k, v in p.items()},
+                    "swiglu").numpy(),
         np.asarray(rlayers.mlp(jnp.asarray(h), {k: jnp.asarray(v) for k, v in p.items()},
                                "swiglu")),
         rtol=1e-5, atol=1e-5)

@@ -32,7 +32,15 @@ Phases, in order; any failure exits non-zero:
      gate/up (5120 x 17408), down (17408 x 5120) and its N-contiguous
      untied head (5120 x 151936); K2 over float and int8 pools at 40 q heads
      over 8 kv heads (the 16-row tile), D 128, and at 12 / 12, D 64, Sq 1
-     and 64; K5 at the same head layouts.
+     and 64; K5 at the same head layouts.  Then the verify steps' shapes
+     (8 slots x widths 2, 3, 5): K1 (bf16, within one bf16 ulp) and the
+     w8a8 GeMM (bit for bit, as planned) at M = 16, 24 and 40 on
+     gemma3-1b's and qwen3-14b's projections and heads; K2 over float and
+     int8 pools at B = 8 with Sq = 2, 3 and 5, 4 / 1 heads at D 256
+     (global and window 512) and 40 / 8 at D 128, slot lengths 17-1100
+     across block boundaries and past the window, against
+     `ref_paged_decode` and at the rule's split count (also against
+     `split_decode_plain`).
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
@@ -101,17 +109,52 @@ Phases, in order; any failure exits non-zero:
      decode-attention launches), a profile of one replayed decode step.
   8b. the same in w8a8 with an int8 KV pool (the eager engine on the
      graphed one's int8-resident weights).
-  8. the kernels per qwen3-14b decode step (L2 cold): K1 and the w8a8 GeMM
-     at M = 8 on every projection and the head, K2 over float and int8
-     pools, beside torch.matmul / torch._int_mm / SDPA and the bounds.
+  8. the kernels per qwen3-14b decode step (L2 cold): K1, K6 (depth 3) and
+     the w8a8 GeMM at M = 8 on every projection and the head, K2 over float
+     and int8 pools, and K5 per forward over (2, 1024) tokens (40 q heads
+     over 8 kv heads, D 128), beside torch.matmul / torch._int_mm / SDPA
+     and the bounds.
   8c. qwen3-14b, qwen2.5-14b, mistral-nemo-12b, bert-base and vit-b-16 at
      published widths, depth cut to 2 layers (printed as `reduced`),
      float32, on the card and on the CPU: `forward` logits and the logits of
      a prompt's last prefill chunk and first decode step within phase 4's
      bar, the engine's greedy tokens equal; no GeMM operand re-laid on the
      card (bert-base's 30522-wide head is stored with aligned rows).
+  9a. speculative decoding at full width: gemma3-1b (26 layers, bf16,
+     random weights from seed 0), 8 slots, block 16, chunk 64, k = 4.  The
+     graphed engine captures `verify2`, `verify3` and `verify5` at warmup
+     beside decode, the 7 chunk buckets and the reset; each verify graph
+     launches 183 GeMMs and 26 K2.  Two traces: a regeneration storm (16
+     requests over 4 prompts of 256-1024 tokens, 64 new tokens each) and 8
+     random prompts; tokens identical to a non-speculative graphed engine
+     on the same weights, no cold compile, every step a replay.  Prints
+     the acceptance rate, tokens per decode tick and decode tok/s with
+     speculation on and off per trace, the median wall ms of a tick by the
+     verify width it ran, and the device time of one replay of each verify
+     graph beside the decode graph's.
+  9b. 9a in w8a8 with an int8 KV pool: tokens identical to non-speculative
+     w8a8; per verify graph the w8a8 GeMM as one launch at M <= FUSED_ROWS
+     (verify2, M = 16), else the row quantization then the dequant GeMM
+     (183 each), and 26 int8 K2.
+  9c. sampling: 4 sampled (T 0.8, top-k 50, top-p 0.95, seeds 1000-1003)
+     and 4 greedy requests in the same batches; graphed and eager engines in
+     lockstep give identical tokens, a second seeded graphed run replays
+     them, the greedy rows equal a greedy-only run's; with speculation on
+     the traffic finishes (its acceptance printed) and the greedy rows are
+     unchanged; 4096 draws of `sample_tokens` (seeds 0-4095) from one
+     fixed 262144-wide logits row lie within total variation 0.05 of
+     softmax(`_adjusted_logits`).
+  9d. KV-swap preemption and the prefix cache: 4 interactive arrivals over
+     8 decoding batch requests preempt 4 of them (preemptions, blocks and
+     swap ms printed), and every batch request's tokens equal an
+     unpreempted run's; 16 requests sharing a 512-token prefix with the
+     prefix cache (hit rate and prefill tokens saved printed) give the
+     tokens of a run without it.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
-     graphed and eager, and the device time of one replay of each.
+     graphed and eager, and the device time of one replay of each; one per
+     phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
+     with speculation on and off, one replay of each verify graph and of
+     the decode graph, launches per verify replay.
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -570,6 +613,82 @@ def phase_kernels_dense(torch, gemm, gemm8, fd, fa, kvc):
                       f"causal: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
                       f"{'ok' if ok else 'FAIL'}")
                 check(ok, f"{arch} flash_attention {dname} {(B, S, Hq, Hkv, D)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+# The verify steps' shapes (slots 8 x widths verify_buckets(4) = 2, 3, 5):
+# the GeMMs at M = 16, 24 and 40, K2 at B = 8 with Sq = 2, 3 and 5.  Slot
+# lengths spread across block boundaries (16-token blocks) and past the
+# 512-token window.
+VERIFY_ROWS = (16, 24, 40)
+VERIFY_WIDTHS = (2, 3, 5)
+VERIFY_LENGTHS = [1100, 700, 513, 511, 257, 100, 33, 17]
+VERIFY_DECODE = [  # (label, Hq, Hkv, D, windows)
+    ("gemma3-1b", 4, 1, 256, (None, 512)), ("qwen3-14b", 40, 8, 128, (None,))]
+
+
+def phase_kernels_verify(torch, gemm, gemm8, fd, kvc):
+    """The kernels at the verify steps' shapes: K1 (bf16, within one bf16
+    ulp) and the w8a8 GeMM (bit for bit, as planned) at M = 16, 24 and 40
+    on gemma3-1b's and qwen3-14b's projections and heads; K2 over float and
+    int8 pools with several slots at several positions each (B = 8, Sq = 2,
+    3, 5) at 4 / 1 heads, D 256 (global and window 512) and 40 / 8, D 128,
+    at the rule's split count (also against the plain split version)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    worst = {"gemm": 0.0, "gemm_w8a8": 0.0, "flash_decode": 0.0, "flash_decode_int8": 0.0}
+    rtol, atol = GEMM_TOL["bfloat16"]
+    for arch, shapes in (("gemma3-1b", GEMM_SHAPES), ("qwen3-14b", QWEN3_SHAPES)):
+        for name, K, N, transposed in shapes:
+            w = (torch.randn((N, K) if transposed else (K, N), generator=g, device=dev)
+                 * K ** -0.5).to(torch.bfloat16)
+            w = w.t() if transposed else w
+            w_q = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                                dtype=torch.int8).t()
+            sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+            errs = []
+            for M in VERIFY_ROWS:
+                a = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+                abs_e, _, ok = close(gemm.gemm(a, w, out_dtype=torch.bfloat16),
+                                     gemm.gemm_plain(a, w, torch.bfloat16), rtol, atol)
+                worst["gemm"] = max(worst["gemm"], abs_e)
+                check(ok, f"gemm bf16 M={M} {arch} {name}")
+                got = gemm8.gemm_w8a8(a, w_q, sb, out_dtype=torch.bfloat16)
+                want = gemm8.gemm_w8a8_plain(a, w_q, sb, None, torch.bfloat16)
+                worst["gemm_w8a8"] = max(worst["gemm_w8a8"],
+                                         float((got.float() - want.float()).abs().max()))
+                check(torch.equal(got, want), f"gemm_w8a8 M={M} {arch} {name} bit for bit")
+                errs.append(f"M={M} {abs_e:.3e}")
+                del a, got, want
+            print(f"  verify rows, {arch} {name} {K}x{N}: gemm bf16 max_abs " + ", ".join(errs)
+                  + f" (tol rtol {rtol:g}, atol {atol:g}) ok; gemm_w8a8 bitwise equal at "
+                  f"M = {', '.join(map(str, VERIFY_ROWS))}")
+            del w, w_q, sb
+        torch.cuda.empty_cache()
+    bs, max_seq, B = 16, 1200, len(VERIFY_LENGTHS)
+    for arch, Hq, Hkv, D, windows in VERIFY_DECODE:
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            pools = {"float": _lived_in_pool(torch, kvc, dev, g, dt, B, Hkv, D, bs, max_seq,
+                                             VERIFY_LENGTHS),
+                     "int8": _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq,
+                                                 VERIFY_LENGTHS)}
+            for pool, (cache, tables) in pools.items():
+                key = "flash_decode_int8" if pool == "int8" else "flash_decode"
+                for sq in VERIFY_WIDTHS:
+                    q = torch.randn((B, sq, Hq, D), generator=g, device=dev).to(dt)
+                    idx = torch.tensor([n - sq for n in VERIFY_LENGTHS], dtype=torch.int32,
+                                       device=dev)
+                    for window in windows:
+                        wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx,
+                                                             window=window)}
+                        _check_decode(torch, fd, f"verify {arch} ({Hq}/{Hkv}, D {D}) "
+                                      f"flash_decode {pool} pool, q {dname}, B={B}", q, cache,
+                                      tables, idx, window, None, wants, DECODE_TOL[dname],
+                                      worst, key)
+            del pools
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return worst
@@ -1479,10 +1598,12 @@ def phase_times(torch, gemm, gp, fd, kvc):
     return rows
 
 
-def phase_times_dense(torch, gemm, gemm8, fd, kvc):
-    """The kernels per qwen3-14b decode step (8 slots, bf16, L2 cold): K1 at
-    M = 8 on each projection and the untied head (40 x (q, k, v, o, gate,
-    up, down) + head), beside torch.matmul and the bound; the w8a8 GeMM
+def phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa):
+    """The kernels per qwen3-14b decode step (8 slots, bf16, L2 cold): K1 and
+    K6 (depth 3) at M = 8 on each projection and the untied head (40 x (q,
+    k, v, o, gate, up, down) + head), beside torch.matmul and the bound;
+    K5 per forward over (2, 1024) tokens (40 global layers, 40 q heads over
+    8 kv heads, D 128) beside SDPA and the bound; the w8a8 GeMM
     (one launch, per-row scales) at the same shapes beside torch._int_mm
     and its bound; K2 over float and int8 pools at 40 q heads over 8 kv
     heads, D 128, 8 slots at QWEN3_LENGTHS (40 global layers), beside SDPA
@@ -1493,6 +1614,11 @@ def phase_times_dense(torch, gemm, gemm8, fd, kvc):
     for name, K, N, transposed in QWEN3_SHAPES:
         a, bs_, iters = _time_gemm(torch, gemm, g, 8, name, K, N, transposed, rows,
                                    "qwen3-14b ")
+        t_k6 = _time_ms(torch, [lambda b=b: gp.gemm(a, b, depth=3, out_dtype=dt)
+                                for b in bs_], iters)
+        rows[("gemm_pipelined", 8, name)] = (t_k6,) + rows[("gemm", 8, name)][1:]
+        print(f"  qwen3-14b gemm_pipelined (depth 3) bf16 M=8 {name} {K}x{N}: kernel "
+              f"{t_k6 * 1e3:.1f} us, {rows[('gemm', 8, name)][3] / t_k6:.1%} of bound")
         del bs_
         ws = [(torch.randint(-127, 128, (N, K), generator=g, device=dev,
                              dtype=torch.int8).t(),
@@ -1525,18 +1651,51 @@ def phase_times_dense(torch, gemm, gemm8, fd, kvc):
                      windows=(None,), label="qwen3-14b ")
         del pools
         torch.cuda.empty_cache()
+    rows[("flash_attention", 1024, None)] = _time_flash_qwen3(torch, fa, g)
     out = {}
     for key, per in [(k, [((k, 8, n), L if n != "head" else 1) for n, *_ in QWEN3_SHAPES])
-                     for k in ("gemm", "gemm_w8a8")] + \
-            [(k, [((k, "decode", None), L)]) for k in ("flash_decode", "flash_decode_int8")]:
+                     for k in ("gemm", "gemm_pipelined", "gemm_w8a8")] + \
+            [(k, [((k, "decode", None), L)]) for k in ("flash_decode", "flash_decode_int8")] + \
+            [("flash_attention", [(("flash_attention", 1024, None), L)])]:
         out[key] = [sum(n * rows[k][i] for k, n in per) for i in range(4)]
-    lib = {"gemm": "torch.matmul", "gemm_w8a8": "torch._int_mm", "flash_decode": "sdpa",
-           "flash_decode_int8": "sdpa"}
+    lib = {"gemm": "torch.matmul", "gemm_pipelined": "torch.matmul",
+           "gemm_w8a8": "torch._int_mm", "flash_decode": "sdpa", "flash_decode_int8": "sdpa",
+           "flash_attention": "sdpa"}
     print("[8] one qwen3-14b decode step (8 slots, L2 cold; the GeMMs 40 x 7 projections + "
-          "head at M=8, K2 40 layers): " + "; ".join(
+          "head at M=8, K6 at depth 3, K2 40 layers) and, for flash_attention, one forward "
+          "over (2, 1024) tokens (40 layers): " + "; ".join(
               f"{k} {t[0]:.3f} ms ({lib[k]} {t[2]:.3f} ms, plain {t[1]:.3f} ms, bound "
               f"{t[3]:.4f} ms)" for k, t in out.items()))
     return out
+
+
+def _time_flash_qwen3(torch, fa, g):
+    """K5 on one qwen3-14b layer of a (2, 1024) forward (40 q heads over 8
+    kv heads, D 128, causal, bf16, L2 cold), beside its plain version, SDPA
+    over K/V repeated to the q heads beforehand (untimed) and the bound."""
+    import torch.nn.functional as F
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    B, S, Hq, Hkv, D = 2, 1024, 40, 8, 128
+    set_bytes = 2 * B * S * D * (2 * Hq + 2 * Hkv)
+    sets = [tuple(torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                  for h in (Hq, Hkv, Hkv))
+            for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+    t_k = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)
+                           for q, k, v in sets], 40)
+    t_p = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v)
+                           for q, k, v in sets[:2]], 4, graph=False)
+    lib = [(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1),
+            v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1)) for q, k, v in sets]
+    t_l = _time_ms(torch, [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True) for q, k, v in lib], 40)
+    bound, by = _bound(set_bytes, 4 * B * Hq * D * (S * (S + 1) // 2), PEAK_FLOPS["bfloat16"])
+    print(f"  qwen3-14b flash_attention bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal: "
+          f"kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, "
+          f"bound {bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+    del sets, lib
+    torch.cuda.empty_cache()
+    return (t_k, t_p, t_l, bound)
 
 
 def _time_split_rules(torch, gemm, g):
@@ -1869,6 +2028,366 @@ def per_prefill_chunk(rows, n_layers: int = 26, depth: int = 3):
             for name, key in keys.items()}
 
 
+# Phase 9: this slice's paths on gemma3-1b at published widths (26 layers,
+# bf16, random weights from seed 0), 8 slots, block 16, chunk 64, k = 4.
+PHASE9_KW = dict(slots=8, max_seq=1200, block_size=16, max_chunk=64)
+DRAFT_K = 4
+PHASE9_DEVICE = "cuda"
+
+
+def storm_traffic(np, vocab):
+    """A regeneration storm: 16 requests over 4 distinct prompts of
+    256-1024 tokens, 64 new tokens each; repeats admitted after a copy
+    finished find its stream in the drafter's corpus."""
+    rng = np.random.default_rng(9)
+    plens = rng.integers(256, 1025, size=4)
+    plens[:2] = (1024, 256)
+    prompts = [rng.integers(0, vocab, size=int(n)) for n in plens]
+    return [(prompts[i % 4], 64) for i in range(16)]
+
+
+def random_traffic(np, vocab):
+    """8 i.i.d. random prompts of 256-1024 tokens, 64 new tokens each."""
+    rng = np.random.default_rng(10)
+    return [(rng.integers(0, vocab, size=int(n)), 64) for n in rng.integers(256, 1025, size=8)]
+
+
+def _serve_ticks(eng, specs):
+    """Submit `specs`, tick until drained; return (tokens per request, the
+    wall ms of each decode tick by the step shape it replayed) and the
+    deltas of the engine's decode metrics."""
+    m = eng.metrics
+    fields = ("decode_tokens", "decode_time_s", "decode_steps", "spec_ticks",
+              "spec_draft_tokens", "spec_accepted_tokens", "prefill_tokens",
+              "sampled_tokens")
+    before = {f: getattr(m, f) for f in fields}
+    reqs = [eng.submit(s) for s in specs]
+    times = {}
+    while eng.scheduler.has_work:
+        t, steps, replays = m.decode_time_s, m.decode_steps, dict(eng._replays)
+        check(eng.tick(), "a tick with work ran an action")
+        if m.decode_steps > steps:
+            ran = [k for k, n in eng._replays.items() if n > replays.get(k, 0)] or ["eager"]
+            times.setdefault(ran[0], []).append((m.decode_time_s - t) * 1e3)
+    delta = {f: getattr(m, f) - before[f] for f in fields}
+    delta["tok_s"] = delta["decode_tokens"] / delta["decode_time_s"]
+    delta["accept"] = delta["spec_accepted_tokens"] / max(1, delta["spec_draft_tokens"])
+    delta["tok_per_tick"] = delta["decode_tokens"] / max(1, delta["decode_steps"])
+    return [eng.results[r.rid] for r in reqs], times, delta
+
+
+def _replayed_verify_ms(torch, np, eng, lengths, reps: int = 10):
+    """Device ms of one replay of the decode graph and of each verify graph,
+    8 slots live at `lengths` (CUDA events, median of `reps` after one
+    untimed; lengths restored before each replay)."""
+    base = _live_slots(torch, eng, lengths)
+    from repro_torch.serving.speculative import verify_buckets
+
+    n = eng.slots
+    eng.step_decode(np.zeros(n, np.int64), np.ones(n, bool))
+    widths = verify_buckets(eng.spec.k)
+    for w in widths:
+        eng.step_verify(np.zeros((n, w), np.int64), np.ones(n, bool), np.full(n, w, np.int32),
+                        np.full(n, -1, np.int32))
+    out = {}
+    for key in ["decode"] + [f"verify{w}" for w in widths]:
+        graph, _ = eng.step_graphs[key]
+        times = []
+        for i in range(reps + 1):
+            eng.state.lengths.copy_(base)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        out[key] = _median(times)
+    _free_slots(eng)
+    return out
+
+
+def verify_plan(cfg, precision, kv_precision, width, slots, fused_rows):
+    """Launches one replay of verify graph `width` holds: one GeMM per
+    projection and the head at M = slots x width (in w8a8 one launch at M <=
+    fused_rows, else the row quantization and the dequant GeMM each), one K2
+    per layer."""
+    per, L = gemms_per_step(cfg), cfg.n_layers
+    kd = "flash_decode_int8" if kv_precision == "int8" else "flash_decode"
+    if precision == "float":
+        return {"gemm": per, kd: L}
+    if slots * width <= fused_rows:
+        return {"gemm_w8a8": per, kd: L}
+    return {"quantize_rows": per, "dequant_gemm": per, kd: L}
+
+
+def phase_speculative(torch, np, configs, M, Engine, RequestSpec, mods, precision="float",
+                      kv_precision="float"):
+    """9a / 9b: speculative greedy decoding served by the graphed engine on
+    the regeneration storm and on random prompts, against a non-speculative
+    graphed engine on the same weights: tokens identical; acceptance, tokens
+    per decode tick, decode tok/s on and off, the median wall time of a
+    verify step by width, one replay of each verify graph and of the decode
+    graph on the device, launches per verify graph (183 GeMMs, 26 K2), no
+    cold compile."""
+    from repro_torch.serving.speculative import verify_buckets
+
+    cfg = configs.get("gemma3-1b")
+    fused = mods["gemm8"].FUSED_ROWS
+    params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
+    kw = dict(PHASE9_KW, precision=precision, kv_precision=kv_precision, device=PHASE9_DEVICE)
+    t0 = time.monotonic()
+    spec = Engine(cfg, params, speculative=DRAFT_K, **kw)
+    spec.warmup()
+    plain = Engine(cfg, spec.params, **kw)     # a w8a8 warmup left them int8-resident
+    plain.warmup()
+    del params
+    torch.cuda.synchronize()
+    widths = verify_buckets(DRAFT_K)
+    m = spec.metrics
+    print(f"  warmup of both engines {time.monotonic() - t0:.1f}s; speculative engine: "
+          f"{m.aot_steps} step shapes captured in {m.capture_time_s:.2f}s "
+          f"(verify widths {widths}), graph pool {graph_pool_bytes(torch, spec) / 1e6:.1f} MB")
+    check(m.aot_steps == 1 + 7 + len(widths) + 1, f"decode, 7 chunks, verify {widths}, reset")
+    for w in widths:
+        got = spec._graph_launches[f"verify{w}"]
+        want = verify_plan(cfg, precision, kv_precision, w, spec.slots, fused)
+        print(f"  launches per replay of verify{w} (M = {spec.slots * w}): "
+              + " ".join(f"{k}={v}" for k, v in got.items()))
+        check(got == want, f"verify{w} launches: got {got}, want {want}")
+    out = {"launches": {w: spec._graph_launches[f"verify{w}"] for w in widths}}
+    for trace, traffic in (("storm", storm_traffic), ("random", random_traffic)):
+        specs = [RequestSpec(prompt=p, max_new=n) for p, n in traffic(np, cfg.vocab)]
+        reset_counts(mods)
+        replays0 = spec.replayed_launches()
+        got, times, d = _serve_ticks(spec, specs)
+        eager_calls = read_counts(mods)
+        replays = {k: v - replays0[k] for k, v in spec.replayed_launches().items() if v != replays0[k]}
+        want, ptimes, pd = _serve_ticks(plain, specs)
+        check(sum(eager_calls.values()) == 0, f"every step a replay: eager calls {eager_calls}")
+        for rid, (a, b) in enumerate(zip(got, want)):
+            check(np.array_equal(a, b), f"{trace} request {rid}: speculative tokens equal "
+                                        f"non-speculative")
+            check(len(a) == 64, f"{trace} request {rid} got its budget")
+        verify_ms = {k: _median(v) for k, v in sorted(times.items()) if k.startswith("verify")}
+        print(f"  {trace}: {len(specs)} requests, {d['decode_tokens']} decode tokens identical "
+              f"with speculation on and off; acceptance {d['accept']:.3f} "
+              f"({d['spec_accepted_tokens']}/{d['spec_draft_tokens']} drafts), "
+              f"{d['spec_ticks']} of {d['decode_steps']} decode ticks verified "
+              f"({d['spec_draft_tokens'] / max(1, d['spec_ticks']):.2f} drafts a verify tick), "
+              f"{d['tok_per_tick']:.2f} tok/tick (off: {pd['tok_per_tick']:.2f}); decode "
+              f"{d['tok_s']:.1f} tok/s on, {pd['tok_s']:.1f} off "
+              f"({d['tok_s'] / pd['tok_s']:.2f}x); median wall ms per tick: "
+              + ", ".join(f"{k} {v:.3f} ({len(times[k])})" for k, v in verify_ms.items())
+              + f", decode {_median(times.get('decode', [0.0])):.3f} "
+              f"({len(times.get('decode', []))}) on, {_median(ptimes['decode']):.3f} off; "
+              f"replayed launches " + " ".join(f"{k}={v}" for k, v in replays.items()))
+        if trace == "storm":
+            check(d["spec_ticks"] > 0 and d["spec_accepted_tokens"] > 0,
+                  "the storm ran verify steps that accepted drafts")
+        out[trace] = dict(d, plain_tok_s=pd["tok_s"], plain_tok_per_tick=pd["tok_per_tick"],
+                          verify_ms=verify_ms,
+                          decode_ms=_median(ptimes["decode"]))
+    check(m.cold_compiles == 0 and plain.metrics.cold_compiles == 0, "no cold compile")
+    lengths = [1024 + 64, 1000, 900, 800, 700, 600, 513, 300]
+    replay = _replayed_verify_ms(torch, np, spec, lengths)
+    print(f"  device time of one replay (CUDA events, median of 10; 8 slots live at {lengths}"
+          f" tokens): " + ", ".join(f"{k} {v:.3f} ms" for k, v in replay.items()))
+    out["replay_ms"] = replay
+    del spec, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lockstep(engines):
+    """Tick the engines in turns until the first drains; all must drain
+    together."""
+    while engines[0].scheduler.has_work:
+        for eng in engines:
+            check(eng.tick(), "a tick with work ran an action")
+    check(not any(e.scheduler.has_work for e in engines), "the engines drained together")
+
+
+def phase_sampling(torch, np, configs, M, Engine, RequestSpec, mods):
+    """9c: 4 sampled (T 0.8, top-k 50, top-p 0.95, seeds 1000-1003) and 4
+    greedy requests in the same batches: graphed and eager engines in
+    lockstep give the same tokens, a second graphed run replays them, the
+    greedy rows equal a greedy-only run's, and the same traffic with
+    speculation on finishes (greedy rows again equal); then 4096 draws of
+    `sample_tokens` from one fixed vocab-wide logits row against
+    softmax(_adjusted_logits), total-variation distance below 0.05."""
+    from repro_torch.serving.request import GREEDY, SamplingParams
+
+    cfg = configs.get("gemma3-1b")
+    params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
+    kw = dict(PHASE9_KW, device=PHASE9_DEVICE)
+    rng = np.random.default_rng(11)
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95)
+    specs = [RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)), max_new=32,
+                         sampling=dataclasses.replace(sampled, seed=1000 + i // 2)
+                         if i % 2 == 0 else GREEDY)
+             for i, n in enumerate(rng.integers(256, 513, size=8))]
+    greedy_rows = [i for i, s in enumerate(specs) if s.sampling.is_greedy]
+    engines = [Engine(cfg, params, sampling=True, graphs=g, **kw) for g in (True, False)]
+    for eng in engines:
+        eng.warmup()
+    g_eng = engines[0]
+    print(f"  sampling engine: {g_eng.metrics.aot_steps} step shapes captured "
+          f"({g_eng.metrics.capture_time_s:.2f}s), graph pool "
+          f"{graph_pool_bytes(torch, g_eng) / 1e6:.1f} MB")
+    reqs = [[e.submit(s) for s in specs] for e in engines]
+    _lockstep(engines)
+    runs = [[e.results[r.rid] for r in rs] for e, rs in zip(engines, reqs)]
+    for i, (a, b) in enumerate(zip(*runs)):
+        check(np.array_equal(a, b), f"request {i}: graphed tokens equal eager (sampled and greedy)")
+    check(all(e.metrics.cold_compiles == 0 for e in engines), "no cold compile")
+    sampled_n = g_eng.metrics.sampled_tokens
+    del engines
+    again = Engine(cfg, params, sampling=True, **kw)
+    again.warmup()
+    second, _, _ = _serve_ticks(again, specs)
+    del again
+    for i, (a, b) in enumerate(zip(runs[0], second)):
+        check(np.array_equal(a, b), f"request {i}: a second seeded graphed run replays")
+    solo = Engine(cfg, params, **kw)
+    solo.warmup()
+    greedy_only, _, _ = _serve_ticks(solo, [specs[i] for i in greedy_rows])
+    del solo
+    for i, toks in zip(greedy_rows, greedy_only):
+        check(np.array_equal(runs[0][i], toks), f"greedy request {i} equals a greedy-only run")
+    spec_eng = Engine(cfg, params, sampling=True, speculative=DRAFT_K, **kw)
+    spec_eng.warmup()
+    pool_mb = graph_pool_bytes(torch, spec_eng) / 1e6
+    with_spec, _, d = _serve_ticks(spec_eng, specs)
+    check(spec_eng.metrics.cold_compiles == 0, "no cold compile with speculation")
+    for i in range(len(specs)):
+        check(len(with_spec[i]) == 32, f"request {i} finished under speculation")
+    for i in greedy_rows:
+        check(np.array_equal(with_spec[i], runs[0][i]),
+              f"greedy request {i} unchanged in a sampled speculative batch")
+    print(f"  8 requests (4 sampled, 4 greedy, 256 tokens): graphed and eager tokens identical "
+          f"in lockstep ({sampled_n} tokens from the sampling head), a second seeded run "
+          f"identical, greedy rows equal a greedy-only run; with speculation "
+          f"({spec_eng.metrics.aot_steps} graphs, pool {pool_mb:.1f} MB): finished, greedy rows "
+          f"unchanged, acceptance {d['accept']:.3f} ({d['spec_accepted_tokens']}/"
+          f"{d['spec_draft_tokens']}), {d['tok_per_tick']:.2f} tok/tick")
+    del spec_eng, params
+    torch.cuda.empty_cache()
+    tv = sampling_law(torch, np, M, cfg.vocab, PHASE9_DEVICE)
+    return {"tv": tv, "accept": d["accept"]}
+
+
+def sampling_law(torch, np, M, V, dev):
+    """4096 draws (seeds 0-4095) of `sample_tokens` from one fixed V-wide
+    logits row (seeded normals x 6: top-p then keeps 29 of the top 50, and
+    the distance 4096 draws leave by chance alone, ~0.024, is half the
+    bar) at T 0.8, top-k 50, top-p 0.95, in chunks of 512 rows, against
+    softmax(_adjusted_logits): the total-variation distance must be below
+    0.05.  Also compares the first 256 draws with the CPU's."""
+    N, chunk = 4096, 512
+    row = torch.from_numpy(np.random.default_rng(12).normal(size=V).astype(np.float32) * 6)
+    knobs = (0.8, 50, 0.95)
+
+    def draw(lo, n, device):
+        t = lambda v, dt: torch.full((n,), v, dtype=dt, device=device)
+        return M.sample_tokens(row.to(device).expand(n, V),
+                               torch.arange(lo, lo + n, device=device), t(0, torch.int64),
+                               t(knobs[0], torch.float32), t(knobs[1], torch.int64),
+                               t(knobs[2], torch.float32)).cpu()
+
+    with torch.no_grad():
+        adj = M._adjusted_logits(row.to(dev)[None], *knobs)[0]
+        probs = torch.softmax(adj, -1).double().cpu().numpy()
+        draws = torch.cat([draw(lo, min(chunk, N - lo), dev)
+                           for lo in range(0, N, chunk)]).numpy()
+        cpu = draw(0, 256, "cpu").numpy()
+    emp = np.bincount(draws, minlength=V) / N
+    tv = 0.5 * float(np.abs(emp - probs).sum())
+    support = int((probs > 0).sum())
+    floor = 0.5 * math.sqrt(2 / (math.pi * N)) * float(np.sqrt(probs * (1 - probs)).sum())
+    print(f"  sample_tokens law: {N} draws (seeds 0-{N - 1}) from one {V}-wide logits row at "
+          f"T {knobs[0]}, top-k {knobs[1]}, top-p {knobs[2]} (support {support} tokens): "
+          f"total-variation distance to softmax(_adjusted_logits) {tv:.4f} (bar 0.05; "
+          f"expected from {N} draws alone {floor:.4f}); the first 256 draws on the CPU equal "
+          f"these in {int((cpu == draws[:256]).sum())} of 256")
+    check(tv < 0.05, f"sampled tokens within TV 0.05 of softmax(adjusted): {tv:.4f}")
+    return tv
+
+
+def phase_preempt_prefix(torch, np, configs, M, Engine, RequestSpec, mods):
+    """9d: 8 batch-class requests (128 new tokens each) decode, then 4
+    interactive ones arrive:
+    preemptions, swapped blocks and swap ms; every batch request's tokens
+    equal an unpreempted run's.  Then 16 requests sharing a 512-token
+    prefix with the prefix cache: hit rate and prefill tokens saved, tokens
+    equal a run without the cache."""
+    cfg = configs.get("gemma3-1b")
+    params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
+    kw = dict(PHASE9_KW, device=PHASE9_DEVICE)
+    rng = np.random.default_rng(13)
+    batch = [RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)), max_new=128,
+                         priority="batch") for n in rng.integers(256, 513, size=8)]
+    inter = [RequestSpec(prompt=rng.integers(0, cfg.vocab, size=int(n)), max_new=16)
+             for n in rng.integers(64, 129, size=4)]
+    eng = Engine(cfg, params, preempt=True, **kw)
+    eng.warmup()
+    reqs = [eng.submit(s) for s in batch]
+    for _ in range(400):
+        if all(len(r.out_tokens) >= 8 for r in reqs):
+            break
+        eng.tick()
+    check(all(len(r.out_tokens) >= 8 and r.slot >= 0 for r in reqs),
+          "the 8 batch requests are decoding")
+    reqs += [eng.submit(s) for s in inter]
+    eng.run()
+    eng.alloc.check()
+    m = eng.metrics
+    base = Engine(cfg, params, **kw)
+    base.warmup()
+    want, _, _ = _serve_ticks(base, batch)
+    del base
+    victims = [r.rid for r in reqs[:8] if r.preemptions]
+    for i, r in enumerate(reqs[:8]):
+        check(np.array_equal(eng.results[r.rid], want[i]),
+              f"batch request {i} (preempted {r.preemptions}x) equals an unpreempted run")
+    for r in reqs[8:]:
+        check(len(eng.results[r.rid]) == 16, "interactive requests finished")
+    check(m.preemptions >= len(inter) and m.swap_out_blocks == m.swap_in_blocks > 0,
+          f"each interactive arrival preempted a batch request: {m.preemptions}")
+    check(m.cold_compiles == 0, "no cold compile")
+    print(f"  preemption: 4 interactive arrivals over 8 decoding batch requests: "
+          f"{m.preemptions} preemptions (victims {victims}), {m.swap_out_blocks} blocks "
+          f"swapped out and {m.swap_in_blocks} in "
+          f"({m.swap_out_blocks * m.kv_bytes_per_block / 1e6:.1f} MB each way), swap "
+          f"{m.swap_time_s * 1e3:.1f} ms in all; the 8 batch requests' tokens equal an "
+          f"unpreempted run's")
+    del eng
+    shared = rng.integers(0, cfg.vocab, size=512)
+    specs = [RequestSpec(prompt=np.concatenate([shared, rng.integers(0, cfg.vocab, size=int(n))]),
+                         max_new=16) for n in rng.integers(16, 65, size=16)]
+    outs = {}
+    for cache in (True, False):
+        e = Engine(cfg, params, prefix_cache=cache, **kw)
+        e.warmup()
+        outs[cache] = _serve_ticks(e, specs)
+        if cache:
+            pm = e.metrics
+            cached = e.prefix_cache.cached_blocks
+        check(e.metrics.cold_compiles == 0, "no cold compile")
+        del e
+    for i, (a, b) in enumerate(zip(outs[True][0], outs[False][0])):
+        check(np.array_equal(a, b), f"prefix request {i}: tokens equal without the cache")
+    check(pm.prefix_hits > 0, "the prefix cache hit")
+    print(f"  prefix cache: 16 requests sharing a 512-token prefix: {pm.prefix_hits}/"
+          f"{pm.prefix_lookups} admissions hit (rate {pm.prefix_hit_rate:.3f}), "
+          f"{pm.prefix_hit_tokens} prefill tokens saved ({outs[True][2]['prefill_tokens']} "
+          f"prefilled against {outs[False][2]['prefill_tokens']} without), {cached} blocks "
+          f"cached at the end; tokens equal a run without the cache")
+    del params
+    torch.cuda.empty_cache()
+    return {"preemptions": m.preemptions, "hit_rate": pm.prefix_hit_rate}
+
+
 def sass_count(lib: Path, op: str):
     """Instructions of mnemonic `op` (HMMA, IMMA: the tensor cores') in
     the SASS of `lib`, or None where the toolkit has no cuobjdump."""
@@ -1950,6 +2469,8 @@ def main() -> int:
     worst.update(phase_kernels_slice3(torch, fa, gp))
     for k, v in phase_kernels_dense(torch, gemm, gemm8, fd, fa, kvc).items():
         worst[k] = max(worst[k], v)
+    for k, v in phase_kernels_verify(torch, gemm, gemm8, fd, kvc).items():
+        worst[k] = max(worst[k], v)
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
     summary = phase_engine(*engine_args, profile=True)
@@ -2021,10 +2542,20 @@ def main() -> int:
     summary_q8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8",
                               arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic)
     print("[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold)")
-    phase_times_dense(torch, gemm, gemm8, fd, kvc)
+    phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa)
     print("[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
           "plain versions")
     phase_parity_dense(torch, np, configs, M, kvc, Engine, RequestSpec, quant, mods)
+    args9 = (torch, np, configs, M, Engine, RequestSpec, mods)
+    print(f"[9a] speculative greedy decoding, gemma3-1b at published widths (26 layers, "
+          f"bf16), k = {DRAFT_K}, float")
+    summary_9a = phase_speculative(*args9)
+    print("[9b] the same in w8a8 with an int8 KV pool")
+    summary_9b = phase_speculative(*args9, precision="w8a8", kv_precision="int8")
+    print("[9c] sampling: temperature / top-k / top-p with seeded streams")
+    phase_sampling(*args9)
+    print("[9d] KV-swap preemption and the prefix cache")
+    phase_preempt_prefix(*args9)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -2085,6 +2616,17 @@ def main() -> int:
               f"{x['weight_bytes'] / 1e9:.3f} GB, kv pool {x['kv_pool_bytes'] / 1e9:.3f} GB; "
               f"per replayed decode step " + " ".join(
                   f"{k}={v}" for k, v in x["decode_graph_launches"].items()))
+    for label, x in (("9a speculative, float", summary_9a),
+                     ("9b speculative, w8a8 + int8 KV", summary_9b)):
+        r = x["replay_ms"]
+        print(f"[7] {label}: " + "; ".join(
+            f"{t} acceptance {x[t]['accept']:.3f}, {x[t]['tok_per_tick']:.2f} tok/tick "
+            f"(off {x[t]['plain_tok_per_tick']:.2f}), decode {x[t]['tok_s']:.1f} tok/s "
+            f"(off {x[t]['plain_tok_s']:.1f})" for t in ("storm", "random"))
+              + "; one replay " + ", ".join(f"{k} {v:.3f} ms" for k, v in r.items())
+              + "; launches per verify replay " + "; ".join(
+                  f"verify{w}: " + " ".join(f"{k}={v}" for k, v in per.items())
+                  for w, per in x["launches"].items()))
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,8 +1,9 @@
 """PyTorch / CUDA port of the `repro` serving stack for NVIDIA Hopper.
 
 The JAX package `repro` is the reference; this package mirrors its
-subpackage layout (`configs`, `models`, `kernels`, `serving`, `launch`) so
-each module names its counterpart.  It imports `torch` and numpy only —
+subpackage layout (`configs`, `models`, `kernels`, `serving`, `cluster`,
+`launch`) so each module names its counterpart.  It imports `torch` and
+numpy only —
 never `jax`, never `repro` — and every Pallas TPU kernel on its path is a
 hand-written CUDA kernel under `kernels/csrc/`.
 

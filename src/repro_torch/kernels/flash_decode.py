@@ -46,6 +46,7 @@ launches_int8 = 0
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)   # instantiated in csrc/flash_decode.cu
 _MAX_SPLIT_COLS = 4096        # table entries of one split the kernel holds in shared memory
+INVARIANT_SQ = 16             # launch_splits: up to this Sq, one position's split count
 _SM_COUNT = {}                # device index -> multiprocessor count
 
 
@@ -111,12 +112,16 @@ def _sm_count(device: torch.device) -> int:
 def launch_splits(q: torch.Tensor, block_tables: torch.Tensor, Hkv: int,
                   spec: Optional[FlashDecodeSpec] = None) -> int:
     """The split count `flash_decode_attention` launches with for q (B, Sq,
-    Hq, D) on a CUDA device: the spec's, else `decode_splits`'."""
+    Hq, D) on a CUDA device: the spec's, else `decode_splits`'.  A step of
+    at most INVARIANT_SQ positions per slot (a speculative verify step)
+    takes the count of one position, so each position sums its keys in the
+    splits a decode step sums them in: its output equals the decode step's
+    bit for bit (the kernel's row tile does not change a row's sums)."""
     B, Sq, Hq, _ = q.shape
     max_blocks = block_tables.shape[1]
     if spec is not None:
         return max(1, min(spec.num_splits, max_blocks))
-    rows = (Hq // Hkv) * Sq
+    rows = (Hq // Hkv) * (1 if Sq <= INVARIANT_SQ else Sq)
     return decode_splits(B, Hkv, -(-rows // _row_tile(rows)), max_blocks,
                          _sm_count(q.device))
 

@@ -42,7 +42,12 @@ SWAP_ROWS = 16        # M <= 16: the swapped tensor-core tile (SIMT: 16 rows)
 FULL_ROWS = 64        # M > 16: 64 rows per block
 # The split rule (`gemm_plan`).
 MIN_K_TILES = 2       # K stages per split, at least
-MAX_SPLITS = {True: 16, False: 8}   # by swap: the fix-up block reads every split's tile
+# By swap; the fix-up block reads every split's tile.  One cap for both
+# tiles: at M <= FULL_ROWS every plan has one row tile, so the split count,
+# and with it every output element's sum, is the same at any such M (a
+# speculative verify step's rows at M = 16-40 equal the decode step's at
+# M = 8, bit for bit).
+MAX_SPLITS = {True: 16, False: 16}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -91,7 +96,8 @@ def gemm_plan(M: int, N: int, K: int, b_kmajor: bool, sms: int,
     longer splits were faster; chip_smoke.py times both rules.)  `splits`
     forces a count instead (the plain split version's tests).  Either way
     the K stages are dealt ceil(k_tiles / splits) per split, and splits
-    left empty by the rounding are dropped."""
+    left empty by the rounding are dropped.  Up to FULL_ROWS rows the plan
+    splits K as at M = 1, so a row's result does not depend on M."""
     swap = M <= SWAP_ROWS
     bm = SWAP_ROWS if swap else FULL_ROWS
     bk = K_TILE_BYTES // elem_bytes

@@ -6,6 +6,8 @@ single-engine path of repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --precision w8a8-calibrated
   PYTHONPATH=src python -m repro_torch.launch.serve --widths published   # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b --widths published
+  PYTHONPATH=src python -m repro_torch.launch.serve --speculative --temperature 0.8 \
+      --preempt --priority-classes interactive=0.5,batch=0.5 --prefix-cache
 
 `--arch` takes any arch of the dense family the port registers
 (`configs.list_archs()`): qwen3-14b, mistral-nemo-12b, qwen2.5-14b,
@@ -19,6 +21,13 @@ arch's smoke config, as in the reference CLI, or with `--widths
 published` the arch at its published widths.  The card needs the latter:
 the smoke config's head_dim of 16 is below the decode kernel's smallest
 (64).
+
+`--speculative` (with `--draft-k`), `--temperature` / `--top-k` /
+`--top-p` / `--seed`, `--preempt` with `--priority-classes`, and
+`--prefix-cache` switch on the engine's speculative decoding, sampling,
+KV-swap preemption and prefix cache, parsed as the reference parses them;
+the class of each request is drawn from its own generator (seed 0x5EED),
+so labelling never moves the prompt draws.
 """
 
 from __future__ import annotations
@@ -30,7 +39,23 @@ import numpy as np
 
 from repro_torch import configs
 from repro_torch.serving.engine import Engine
-from repro_torch.serving.request import RequestSpec
+from repro_torch.serving.request import PRIORITIES, RequestSpec, SamplingParams
+
+
+def _parse_class_mix(spec: str):
+    """'interactive=0.7,batch=0.3' -> (('interactive', 0.7), ('batch', 0.3));
+    empty -> None (all interactive)."""
+    if not spec:
+        return None
+    mix = []
+    for part in spec.split(","):
+        name, _, w = part.partition("=")
+        name = name.strip()
+        if name not in PRIORITIES:
+            raise SystemExit(f"--priority-classes: unknown class {name!r}; "
+                             f"expected one of {PRIORITIES}")
+        mix.append((name, float(w) if w else 1.0))
+    return tuple(mix)
 
 
 def main(argv=None, *, params=None):
@@ -64,15 +89,48 @@ def main(argv=None, *, params=None):
                          "published widths")
     ap.add_argument("--device", default="cuda",
                     help="torch device (cuda runs the hand-written kernels)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse prefilled KV blocks across requests sharing a "
+                         "prompt prefix")
+    ap.add_argument("--speculative", action="store_true",
+                    help="self-speculative decoding: an n-gram drafter proposes "
+                         "tokens and one verify step scores them (greedy tokens "
+                         "identical)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="max drafted tokens per request per tick (with "
+                         "--speculative)")
+    ap.add_argument("--priority-classes", default="",
+                    help="class mix of the generated traffic, e.g. "
+                         "'interactive=0.7,batch=0.3' (empty: all interactive)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="let a better class preempt decoding batch requests: "
+                         "the victim's KV blocks swap to host memory and come "
+                         "back on re-admission")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep the k most probable tokens (0: off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0: off)")
+    ap.add_argument("--seed", type=int, default=-1,
+                    help="sampling seed of every request (-1: each request's id)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.widths == "smoke" else configs.get(args.arch)
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p,
+                              seed=args.seed if args.seed >= 0 else None)
+    class_mix = _parse_class_mix(args.priority_classes)
     slots = args.slots or args.requests
     max_seq = args.prompt_len + args.gen_len + 1
     eng = Engine(cfg, params, slots=slots, max_seq=max_seq,
                  block_size=args.block_size, num_blocks=args.kv_blocks or None,
                  max_chunk=args.chunk, precision=args.precision,
-                 kv_precision=args.kv_precision, device=args.device, verbose=True)
+                 kv_precision=args.kv_precision, device=args.device,
+                 prefix_cache=args.prefix_cache,
+                 speculative=args.draft_k if args.speculative else False,
+                 sampling=not sampling.is_greedy, preempt=args.preempt,
+                 verbose=True)
     t0 = time.time()
     eng.warmup()
     t_warm = time.time() - t0
@@ -82,8 +140,16 @@ def main(argv=None, *, params=None):
         rng.integers(0, cfg.vocab, size=rng.integers(4, args.prompt_len + 1))
         for _ in range(args.requests)
     ]
+    crng = np.random.default_rng(0x5EED)
+    names = [c for c, _ in (class_mix or ())]
+    weights = np.asarray([w for _, w in (class_mix or ())], np.float64)
+    if names:
+        weights = weights / weights.sum()
     for p in prompts:
-        eng.submit(RequestSpec(prompt=p, max_new=args.gen_len))
+        prio = (PRIORITIES[0] if not names
+                else names[int(crng.choice(len(names), p=weights))])
+        eng.submit(RequestSpec(prompt=p, max_new=args.gen_len, sampling=sampling,
+                               priority=prio))
     t0 = time.time()
     results = eng.run()
     t_serve = time.time() - t0

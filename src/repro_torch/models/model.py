@@ -1,6 +1,8 @@
 """Model assembly (port of repro/models/model.py: `init_model`, the unpaged
-`forward`, the paged decode state, `paged_decode_step`, `prefill_chunk` and
-`reset_slots`).
+`forward`, the paged decode state, `paged_decode_step`, `prefill_chunk`,
+`reset_slots`, the speculative `paged_verify_step`, and the sampling head:
+`_adjusted_logits`, `sample_tokens`, `paged_decode_sample_step` and
+`paged_verify_sample_step`).
 
 Parameters are a plain dict: "embed" (vocab, d), "final_norm" (an RMS
 weight (d,) or LayerNorm's {"scale", "bias"}), "head" (d, vocab) for an
@@ -18,6 +20,13 @@ int8 copy of a tied head; the model code is the same, since `ops.linear` dispatc
 The KV pools update in place where the reference donates the state to its
 jitted steps: the reference never keeps a pre-step pool (inactive slots and
 slot slices pass the pools through whole), so the result is the same.
+
+Sampling draws from the port's own counter-based stream (`_fold_keys`):
+an integer hash of (seed, generated index[, draw]) computed with tensor
+ops, so it is a pure function of its inputs, gives the same bits on the
+CPU and on the card, and advances no generator state inside a CUDA graph.
+The reference's threefry keys cannot be matched, so sampled tokens agree
+with it in distribution, not bit for bit.
 """
 
 from __future__ import annotations
@@ -206,3 +215,256 @@ def reset_slots(cfg: ArchConfig, state: PagedDecodeState,
     lengths = torch.where(mask, torch.zeros_like(state.lengths), state.lengths)
     return PagedDecodeState(caches=state.caches,
                             block_tables=state.block_tables, lengths=lengths)
+
+
+# ---------------------------------------------------------------------------
+# Speculative verification
+# ---------------------------------------------------------------------------
+
+
+def _commit_verified(state: PagedDecodeState) -> List[kvc.PagedKVCache]:
+    """The caches after a verify step.  Paged KV pools pass through: writes
+    at rejected positions sit at or past the committed length, hidden until
+    a later write replaces them.  The reference selects each recurrent
+    layer's state at the accepted position here; the port has no recurrent
+    kind yet, so any other cache raises."""
+    for c in state.caches:
+        if not isinstance(c, kvc.PagedKVCache):
+            raise NotImplementedError(
+                f"verify over a {type(c).__name__} (recurrent state) is not ported")
+    return state.caches
+
+
+def _verify_trunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Logits (B, S, vocab) of S tokens per slot at positions lengths ..
+    lengths + S - 1; K/V of all S positions is written through the tables."""
+    S = tokens.shape[1]
+    x = _embed_tokens(params, cfg, tokens)
+    positions = state.lengths[:, None] + torch.arange(
+        S, dtype=torch.int32, device=tokens.device)[None, :]
+    x = _trunk_step(params, cfg, x, positions, state.caches, state.lengths,
+                    state.block_tables)
+    x = blocks._norm(x, params["final_norm"], cfg)
+    return _unembed(x, params, cfg)
+
+
+def _emitted(out: torch.Tensor, acc: torch.Tensor, active: torch.Tensor,
+             eos: torch.Tensor) -> torch.Tensor:
+    """Tokens each slot commits: acc + 1 (the accepted drafts and one more),
+    cut after the first eos among them; 0 for inactive slots."""
+    S = out.shape[1]
+    emit = torch.arange(S, device=out.device)[None, :] <= acc[:, None]
+    eos_hit = (out == eos[:, None].to(out.dtype)) & emit
+    first_eos = torch.argmax(eos_hit.to(torch.int32), dim=1)
+    n_new = torch.where(eos_hit.any(dim=1), first_eos + 1, acc + 1)
+    return torch.where(active, n_new, torch.zeros_like(n_new)).to(torch.int32)
+
+
+def paged_verify_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                      tokens: torch.Tensor, active: torch.Tensor,
+                      limits: torch.Tensor, eos: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, PagedDecodeState]:
+    """Score S drafted positions per slot in one paged pass and greedily
+    accept the longest matching prefix: every projection and the head run
+    at M = slots x S.
+
+    tokens (B, S): the last committed token, then the drafter's S - 1
+    guesses (padding past a slot's real drafts, bounded by `limits`);
+    active (B,) bool; limits (B,) int32, the most tokens a slot may emit
+    (>= 1 when active); eos (B,) int32, -1 for none.
+
+    Returns (greedy (B, S) int64, n_new (B,) int32, state): greedy[i,
+    :n_new[i]] are slot i's committed tokens, those n_new[i] successive
+    `paged_decode_step` calls would emit; lengths advance by n_new."""
+    logits = _verify_trunk(params, cfg, state, tokens)
+    greedy = torch.argmax(logits, dim=-1)                     # (B, S)
+    # Draft i is kept iff it equals the argmax at the position before it;
+    # the run stops at the first miss.
+    match = (tokens[:, 1:] == greedy[:, :-1]).to(torch.int32)
+    acc = torch.cumprod(match, dim=1).sum(dim=1)
+    acc = torch.minimum(acc, torch.clamp(limits, min=1) - 1)
+    n_new = _emitted(greedy, acc, active, eos)
+    return greedy, n_new, PagedDecodeState(
+        caches=_commit_verified(state), block_tables=state.block_tables,
+        lengths=(state.lengths + n_new).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Sampling: temperature / top-k / top-p from a counter-based stream
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant,
+    through the constant's 16-bit halves so no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer mix (xorshift-multiply, `lowbias32`'s
+    constants) of int64 values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _fold_keys(seeds, idx) -> torch.Tensor:
+    """Per-element keys: the 0-based generated-token index folded into the
+    seed.  A pure function of (seed, index), never of the batch, tick or
+    chunking, so a seeded request replays whatever else the engine serves;
+    for one seed, distinct indices give distinct keys.  seeds / idx share a
+    shape; the keys are int64 in [0, 2**32)."""
+    seeds = torch.as_tensor(seeds).to(torch.int64) & _M32
+    idx = torch.as_tensor(idx, device=seeds.device).to(torch.int64) & _M32
+    return _hash32(_hash32(seeds ^ 0x5EED5EED) ^ idx)
+
+
+def _fold_in(keys: torch.Tensor, data: int) -> torch.Tensor:
+    """A second key derived from `keys` and a small integer."""
+    return _hash32(keys ^ _hash32(torch.full_like(keys, data ^ 0x9E3779B9)))
+
+
+def _uniform(keys: torch.Tensor) -> torch.Tensor:
+    """One float32 uniform in (0, 1) per key: the top 24 bits of another
+    round of the hash, centred in their interval (exact in float32)."""
+    bits = _hash32(keys ^ 0x2545F491) >> 8
+    return (bits.to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def _categorical(keys: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
+    """One draw per row of softmax(adj) (..., V) by inverse CDF at the
+    key's uniform: the first index whose running mass reaches u x total.
+    A row's -inf entries add exactly 0 to the running mass, so they are
+    never drawn; a one-hot row always returns its hot index."""
+    probs = torch.softmax(adj, dim=-1)
+    cdf = torch.cumsum(probs, dim=-1)
+    target = _uniform(keys)[..., None] * cdf[..., -1:]
+    tok = torch.searchsorted(cdf.contiguous(), target.contiguous())[..., 0]
+    return torch.clamp(tok, max=adj.shape[-1] - 1)
+
+
+def _adjusted_logits(logits: torch.Tensor, temperature, top_k, top_p
+                     ) -> torch.Tensor:
+    """Temperature, then top-k and top-p over logits (..., V) (knobs
+    broadcast over logits.shape[:-1]): unnormalized float32 log-probs with
+    truncated entries at -inf, whose softmax is the sampling distribution.
+    Rows with temperature <= 0 are greedy: a one-hot 0 / -inf row at
+    argmax(logits).  Computes what the reference computes, op for op."""
+    V = logits.shape[-1]
+    dev = logits.device
+    logits = logits.to(torch.float32)
+    temperature = torch.as_tensor(temperature, dtype=torch.float32, device=dev)
+    top_k = torch.as_tensor(top_k, device=dev).to(torch.int64)
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
+    greedy = temperature <= 0.0
+    scaled = logits / torch.where(greedy, torch.ones_like(temperature),
+                                  temperature)[..., None]
+    desc = torch.sort(scaled, dim=-1, descending=True).values
+    # top-k: keep entries >= the k-th largest (k = 0 keeps all); ties at
+    # the threshold all survive.
+    k = torch.where(top_k > 0, torch.clamp(top_k, max=V), torch.full_like(top_k, V))
+    kth = torch.gather(desc, -1, (k - 1)[..., None].expand(desc.shape[:-1] + (1,)))
+    keep = scaled >= kth
+    # top-p: the smallest sorted prefix whose mass reaches top_p (exclusive
+    # cumsum, so the boundary token stays and top_p = 1 keeps everything).
+    probs = torch.softmax(desc, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    in_nucleus = before < top_p[..., None]
+    cutoff = torch.amin(torch.where(in_nucleus, desc, torch.full_like(desc, float("inf"))),
+                        dim=-1, keepdim=True)
+    keep = keep & (scaled >= cutoff)
+    neg_inf = torch.full_like(scaled, float("-inf"))
+    adj = torch.where(keep, scaled, neg_inf)
+    onehot = torch.arange(V, device=dev) == torch.argmax(logits, dim=-1, keepdim=True)
+    return torch.where(greedy[..., None], torch.where(onehot, torch.zeros_like(adj), neg_inf),
+                       adj)
+
+
+def sample_tokens(logits: torch.Tensor, seeds, gen_idx, temperature, top_k,
+                  top_p) -> torch.Tensor:
+    """One token per row of logits (..., V) from the (seed, gen_idx) stream
+    (int64, logits.shape[:-1]); greedy rows return argmax exactly."""
+    adj = _adjusted_logits(logits, temperature, top_k, top_p)
+    return _categorical(_fold_keys(seeds, gen_idx), adj)
+
+
+def paged_decode_sample_step(params: dict, cfg: ArchConfig,
+                             state: PagedDecodeState, tokens: torch.Tensor,
+                             active: Optional[torch.Tensor], temperature, top_k,
+                             top_p, seeds, gen_idx
+                             ) -> Tuple[torch.Tensor, PagedDecodeState]:
+    """`paged_decode_step` with the sampling head: (tokens (B,), state).
+    The trunk is the greedy step's; greedy rows of a mixed batch still emit
+    argmax."""
+    logits, new_state = paged_decode_step(params, cfg, state, tokens, active)
+    return sample_tokens(logits[:, -1], seeds, gen_idx, temperature, top_k,
+                         top_p), new_state
+
+
+def paged_verify_sample_step(params: dict, cfg: ArchConfig,
+                             state: PagedDecodeState, tokens: torch.Tensor,
+                             active: torch.Tensor, limits: torch.Tensor,
+                             eos: torch.Tensor, temperature, top_k, top_p,
+                             seeds, gen_idx
+                             ) -> Tuple[torch.Tensor, torch.Tensor, PagedDecodeState]:
+    """Speculative verification under sampling: `paged_verify_step`'s inputs
+    plus the per-slot knobs, its (out (B, S), n_new (B,), state) contract.
+
+    The drafter proposes a point mass, so rejection sampling reduces to:
+    accept draft d_j with probability p~(d_j) (the adjusted distribution at
+    the position before it) against the uniform of key (seed, gen_idx + j);
+    at the first real rejection resample p~ with the rejected token masked
+    out, from the key folded once more; after a run ended by the drafts or
+    the limit, sample p~ unmasked.  Every emitted position is distributed
+    as p~.  Greedy rows reduce to `paged_verify_step`'s accept rule."""
+    logits = _verify_trunk(params, cfg, state, tokens)
+    out, n_new = _verify_sample_tail(logits, tokens, active, limits, eos,
+                                     temperature, top_k, top_p, seeds, gen_idx)
+    return out, n_new, PagedDecodeState(
+        caches=_commit_verified(state), block_tables=state.block_tables,
+        lengths=(state.lengths + n_new).to(torch.int32))
+
+
+def _verify_sample_tail(logits: torch.Tensor, tokens: torch.Tensor,
+                        active: torch.Tensor, limits: torch.Tensor,
+                        eos: torch.Tensor, temperature, top_k, top_p, seeds,
+                        gen_idx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`paged_verify_sample_step` after its trunk: the verify logits (B, S,
+    V) and the step's inputs -> (out (B, S), n_new (B,))."""
+    B, S = tokens.shape
+    V = logits.shape[-1]
+    dev = tokens.device
+
+    def bcast(a):
+        return torch.as_tensor(a, device=dev)[:, None].expand(B, S)
+
+    adj = _adjusted_logits(logits, bcast(temperature), bcast(top_k), bcast(top_p))
+    probs = torch.softmax(adj, dim=-1)                        # p~
+    pos = torch.arange(S, device=dev)
+    keys = _fold_keys(bcast(seeds), bcast(gen_idx).to(torch.int64) + pos[None, :])
+    u = _uniform(keys)                                        # (B, S)
+    drafts = tokens[:, 1:]
+    p_draft = torch.gather(probs[:, :-1], -1, drafts[..., None])[..., 0]
+    accept = (u[:, :S - 1] < p_draft).to(torch.int32)
+    acc_raw = torch.cumprod(accept, dim=1).sum(dim=1)
+    acc = torch.minimum(acc_raw, torch.clamp(limits, min=1) - 1)
+    # Position acc emits a fresh draw: masked when a real rejection ended
+    # the run, unmasked after the drafts or the limit ran out.
+    rejected = (acc == acc_raw) & (acc < S - 1)
+    rows = torch.arange(B, device=dev)
+    acc64 = acc.to(torch.int64)
+    key2 = _fold_in(keys[rows, acc64], 1)
+    bad = tokens[rows, torch.clamp(acc64 + 1, max=S - 1)]
+    row = adj[rows, acc64]                                    # (B, V)
+    hit = rejected[:, None] & (torch.arange(V, device=dev)[None, :] == bad[:, None])
+    final = _categorical(key2, torch.where(hit, torch.full_like(row, float("-inf")), row))
+    draft_shift = torch.nn.functional.pad(drafts, (0, 1))
+    out = torch.where(pos[None, :] < acc[:, None], draft_shift, final[:, None])
+    return out, _emitted(out, acc, active, eos)

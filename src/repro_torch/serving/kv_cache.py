@@ -18,18 +18,22 @@ and writes from idle slots or positions past a table's capacity land there.
 The allocator never hands it out and the causal length mask never exposes
 it, so its contents are garbage nobody reads.
 
-Device side: `write_kv` updates the pools in place.  The reference returns
-new pools, but it never keeps the old ones (its steps donate the state and
-pass the pools through unchanged wherever a slot is inactive), so writing
-in place computes the same thing without copying the pool every step.
-Host side: `BlockAllocator` and `BlockTables` decide allocation between
-steps.
+Device side: `write_kv`, `copy_blocks` and `swap_in_blocks` update the
+pools in place.  The reference returns new pools, but it never keeps the
+old ones (its steps donate the state and pass the pools through unchanged
+wherever a slot is inactive), so writing in place computes the same thing
+without copying the pool, and a captured CUDA graph keeps reading the pools
+at their addresses.  `swap_out_blocks` copies blocks to (pinned) host
+memory for KV-swap preemption.
+Host side: `BlockAllocator` (refcounted blocks) and `BlockTables` (growth,
+prefix seeding, copy-on-write divergence, speculative rewind) decide
+allocation between steps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,6 +141,21 @@ def write_kv(cache: PagedKVCache, block_tables: torch.Tensor,
     return cache
 
 
+def _ids(ids, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(ids, np.int64), device=device)
+
+
+def copy_blocks(cache: PagedKVCache, src, dst) -> PagedKVCache:
+    """pool[dst[i]] = pool[src[i]] for K and V (and an int8 pool's scales),
+    in place: the write half of copy-on-write divergence
+    (`BlockTables.make_writable`).  `src` / `dst` are (n,) block ids."""
+    src, dst = _ids(src, cache.k.device), _ids(dst, cache.k.device)
+    for t in cache:
+        if t is not None:
+            t.index_copy_(0, dst, t.index_select(0, src))
+    return cache
+
+
 def gather_kv(cache: PagedKVCache, block_tables: torch.Tensor):
     """Per-slot contiguous K/V views (B, max_blocks * block_size, H, D): a
     gather through the block table.  Entries past a slot's length read the
@@ -160,6 +179,47 @@ def pool_bytes(cache: PagedKVCache) -> int:
     return sum(t.numel() * t.element_size() for t in cache if t is not None)
 
 
+_FIELDS = ("k", "v", "k_scale", "v_scale")
+
+
+def swap_out_blocks(caches, ids) -> List[Dict[str, torch.Tensor]]:
+    """Copy pool blocks `ids` of every layer to host memory (pinned when the
+    pools live on a card): one dict of tensors per layer, in the pool's
+    dtypes (an int8 pool's codes and f32 scales).  The device-to-host half
+    of KV-swap preemption.  The copies are queued on the current stream;
+    the caller synchronizes before it reads them on the host, and any
+    later write to those blocks is ordered after them on the stream."""
+    out: List[Dict[str, torch.Tensor]] = []
+    for c in caches:
+        if not isinstance(c, PagedKVCache):
+            raise TypeError(
+                "swap_out_blocks requires paged (attention) cache kinds; "
+                "recurrent state is not block-addressable")
+        idx = _ids(ids, c.k.device)
+        pin = c.k.device.type == "cuda"
+        entry = {}
+        for name, t in zip(_FIELDS, c):
+            if t is None:
+                continue
+            sel = t.index_select(0, idx)
+            host = torch.empty(sel.shape, dtype=sel.dtype, pin_memory=pin)
+            entry[name] = host.copy_(sel, non_blocking=pin)
+        out.append(entry)
+    return out
+
+
+def swap_in_blocks(caches, ids, saved: List[Dict[str, torch.Tensor]]):
+    """Write a `swap_out_blocks` payload into pool blocks `ids` (freshly
+    allocated, not necessarily the ids swapped out: block contents do not
+    depend on their id), in place; returns the caches."""
+    for c, entry in zip(caches, saved):
+        idx = _ids(ids, c.k.device)
+        for name, t in zip(_FIELDS, c):
+            if t is not None:
+                t.index_copy_(0, idx, entry[name].to(t.device, non_blocking=True))
+    return caches
+
+
 # ---------------------------------------------------------------------------
 # Host side: allocation decisions between steps
 # ---------------------------------------------------------------------------
@@ -171,11 +231,16 @@ def blocks_for(tokens: int, block_size: int) -> int:
 
 class BlockAllocator:
     """Free-list allocator over pool blocks 1..num_blocks-1 (0 is the null
-    block) with admission-time reservations.
+    block) with admission-time reservations and per-block refcounts.
 
     A request reserves its worst-case block count when admitted and draws
     blocks lazily as its length crosses block boundaries, so admission
-    control guarantees it never starves mid-decode."""
+    control guarantees it never starves mid-decode.  Refcounts make blocks
+    shareable (`ref`, `fork_blocks`): a prompt prefix reused by a later
+    request, or held by the prefix cache.  `free` returns a block to the
+    free list only when its last owner lets go.  Shared blocks are
+    read-only by convention; `BlockTables.make_writable` + `copy_blocks`
+    diverge one before a write."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 2:
@@ -183,7 +248,7 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))  # pop() -> 1 first
-        self._live: set = set()
+        self._refs: Dict[int, int] = {}
         self._reserved = 0
 
     @property
@@ -217,39 +282,78 @@ class BlockAllocator:
             raise RuntimeError(
                 f"block pool exhausted: want {n}, free {len(self._free)}")
         out = [self._free.pop() for _ in range(n)]
-        self._live.update(out)
+        for b in out:
+            self._refs[b] = 1
         if reserved:
             self._reserved = max(0, self._reserved - n)
         return out
 
-    def free(self, ids: List[int], *, unreserve: int = 0) -> int:
-        """Return blocks to the free list and drop `unreserve` blocks of the
-        caller's unused reservation; returns the number freed."""
+    def ref(self, ids: List[int]) -> None:
+        """Add one owner to each (already allocated) block."""
+        for b in ids:
+            if b not in self._refs:
+                raise ValueError(f"block {b} is not allocated; cannot share it")
+            self._refs[b] += 1
+
+    def refcount(self, b: int) -> int:
+        return self._refs.get(b, 0)
+
+    def free(self, ids: List[int], *, unreserve: int = 0,
+             rereserve: bool = False) -> int:
+        """Drop one owner per block; a block returns to the free list only
+        when its last owner frees it.  `unreserve` drops that many blocks of
+        the caller's unused reservation.  `rereserve` puts every block that
+        reached the free list back under the caller's reservation (the
+        speculative rewind: the request may redraw them later); a shared
+        block only loses a ref and is not re-reserved, since the free list
+        did not grow.  Returns the number of blocks that reached the free
+        list."""
+        returned = 0
         for b in ids:
             if b == NULL_BLOCK:
                 raise ValueError("cannot free the null block")
-            if b not in self._live:
+            rc = self._refs.get(b, 0)
+            if rc <= 0:
                 raise ValueError(f"double free of block {b}")
-            self._live.remove(b)
-            self._free.append(b)
+            if rc == 1:
+                del self._refs[b]
+                self._free.append(b)
+                returned += 1
+            else:
+                self._refs[b] = rc - 1
         self._reserved = max(0, self._reserved - unreserve)
-        return len(ids)
+        if rereserve:
+            self._reserved += returned
+        return returned
 
     def check(self) -> None:
-        """Invariant: free list and live blocks partition blocks 1..n-1."""
-        free = set(self._free)
+        """Invariant: the free list and the refcounted blocks partition
+        blocks 1..n-1, every refcount is positive, the null block is owned
+        by neither, and reservations fit the free list."""
+        free, live = set(self._free), set(self._refs)
         assert len(free) == len(self._free), "duplicate ids on the free list"
-        assert not (free & self._live), "blocks both free and live"
-        assert NULL_BLOCK not in free | self._live, "null block escaped"
-        assert free | self._live == set(range(1, self.num_blocks)), "leaked blocks"
+        assert not (free & live), f"blocks both free and live: {free & live}"
+        assert NULL_BLOCK not in free | live, "null block escaped"
+        every = set(range(1, self.num_blocks))
+        assert free | live == every, f"leaked blocks: {sorted(every - free - live)}"
+        assert all(rc > 0 for rc in self._refs.values()), "non-positive refcount"
         assert 0 <= self._reserved <= len(self._free), "over-reserved"
+
+
+def fork_blocks(alloc: BlockAllocator, ids: List[int]) -> List[int]:
+    """Copy-on-write fork: share `ids` with a new owner (refcount + 1 each)
+    and return the same ids.  No KV bytes move.  The engine forks only full
+    blocks at block-aligned prefix boundaries, so its writes never reach a
+    forked block."""
+    alloc.ref(ids)
+    return list(ids)
 
 
 class BlockTables:
     """Host mirror of the device block tables: (slots, max_blocks) int32.
 
     The engine copies it into the device tables (`copy_to`) whenever a row
-    changed (growth, release)."""
+    changed (growth, seeding, divergence, rewind, release)."""
 
     def __init__(self, slots: int, max_blocks: int):
         self.slots = slots
@@ -257,6 +361,9 @@ class BlockTables:
         self.table = np.zeros((slots, max_blocks), np.int32)
         self.blocks: List[List[int]] = [[] for _ in range(slots)]
         self.dirty = True
+
+    def covered_tokens(self, slot: int, block_size: int) -> int:
+        return len(self.blocks[slot]) * block_size
 
     def ensure(self, slot: int, length: int, alloc: BlockAllocator) -> bool:
         """Grow slot's table to cover `length` tokens; True if it changed."""
@@ -271,6 +378,62 @@ class BlockTables:
             self.blocks[slot].append(b)
         self.dirty = True
         return True
+
+    def seed(self, slot: int, ids: List[int]) -> None:
+        """Install already-owned blocks (a forked prefix, or restored swap
+        blocks) at the head of an empty slot row; `release` later drops
+        them like any other entry."""
+        if self.blocks[slot]:
+            raise RuntimeError(f"slot {slot} is not empty; seed only a fresh slot")
+        if len(ids) > self.max_blocks:
+            raise RuntimeError(
+                f"seed of {len(ids)} blocks exceeds max_blocks {self.max_blocks}")
+        self.table[slot, :len(ids)] = ids
+        self.blocks[slot] = list(ids)
+        self.dirty = True
+
+    def make_writable(self, slot: int, block_idx: int, alloc: BlockAllocator
+                      ) -> Optional[Tuple[int, int]]:
+        """Copy-on-write divergence of one entry: if its block is shared,
+        allocate a private replacement, swap it into the row, drop this
+        slot's ref on the original and return (src, dst) for `copy_blocks`;
+        None when the block is already exclusive."""
+        b = self.blocks[slot][block_idx]
+        if alloc.refcount(b) <= 1:
+            return None
+        [fresh] = alloc.alloc(1, reserved=False)
+        alloc.free([b])
+        self.blocks[slot][block_idx] = fresh
+        self.table[slot, block_idx] = fresh
+        self.dirty = True
+        return b, fresh
+
+    def rewind(self, slot: int, length: int, alloc: BlockAllocator, *,
+               rereserve: bool = True) -> Tuple[int, Optional[Tuple[int, int]]]:
+        """Shrink slot's table to cover exactly `length` tokens, returning
+        the blocks past it to the pool (and, with `rereserve`, to the
+        request's reservation): the rollback of rejected speculative
+        positions.  Freed blocks are not zeroed; every block is rewritten
+        before the length mask exposes it.  A partial, shared new tail
+        block is diverged first (`make_writable`), so the slot never writes
+        bytes another owner reads.  Returns (blocks freed, the (src, dst)
+        pair to clone with `copy_blocks` or None)."""
+        keep = blocks_for(length, alloc.block_size)
+        ids = self.blocks[slot]
+        if keep > len(ids):
+            raise ValueError(
+                f"slot {slot}: cannot rewind to {length} tokens ({keep} blocks)"
+                f" - only {len(ids)} blocks held")
+        dropped = ids[keep:]
+        if dropped:
+            alloc.free(dropped, rereserve=rereserve)
+            del ids[keep:]
+            self.table[slot, keep:] = NULL_BLOCK
+            self.dirty = True
+        pair = None
+        if keep and length % alloc.block_size:
+            pair = self.make_writable(slot, keep - 1, alloc)
+        return len(dropped), pair
 
     def release(self, slot: int, alloc: BlockAllocator, *, unreserve: int = 0) -> int:
         """Free all of slot's blocks back to the pool; returns count freed."""

@@ -1,5 +1,5 @@
-"""Request scheduler: admission queue, slot assignment, continuous batching
-(port of repro/serving/scheduler.py, one priority class, no preemption).
+"""Request scheduler: admission queues, slot assignment, continuous
+batching (port of repro/serving/scheduler.py).
 
 Pure host-side policy.  Each tick the engine asks for one action:
 
@@ -10,9 +10,14 @@ Pure host-side policy.  Each tick the engine asks for one action:
   None                             — nothing runnable
 
 Prefill chunks and decode batches alternate, so a slot mid-prefill never
-starves the decoding slots and vice versa.  Admission is FIFO and gated by
-the engine's block-reservation check: a blocked head blocks everything
-behind it.
+starves the decoding slots and vice versa.  Admission is gated by the
+engine's block-reservation check and is class-aware: one FIFO deque per
+priority class (`request.PRIORITIES`, best first), drained strictly by
+class rank.  A blocked head blocks everything behind it, lower classes
+included, so freed blocks always go to the most urgent waiter.  `preempt`
+returns a decoding victim to the front of its class queue with its
+progress intact; the engine swaps its KV blocks to host memory and
+restores them when the victim is admitted again (straight back to DECODE).
 """
 
 from __future__ import annotations
@@ -20,12 +25,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 from collections import deque
-from typing import Callable, Deque, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.serving.prefill import next_chunk
-from repro_torch.serving.request import RequestSpec
+from repro_torch.serving.request import (GREEDY, PRIORITIES, RequestSpec,
+                                         SamplingParams)
 
 
 class Phase(enum.Enum):
@@ -45,13 +51,40 @@ class Request:
     phase: Phase = Phase.QUEUED
     slot: int = -1
     prefilled: int = 0                 # prompt tokens already in the cache
+    cached_tokens: int = 0             # prompt tokens covered by a shared KV
+                                       # prefix at admission
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     submit_step: int = 0
     first_token_step: Optional[int] = None
+    finish_step: Optional[int] = None
+    # -- speculative decoding accounting --
+    spec_drafted: int = 0              # draft tokens proposed over its life
+    spec_accepted: int = 0             # draft tokens verification accepted
+    # -- from the RequestSpec --
+    sampling: SamplingParams = GREEDY
+    sample_seed: int = 0               # resolved: the spec's seed, else rid
+    priority: str = PRIORITIES[0]
+    tenant: str = "default"
+    preemptions: int = 0               # times this request was swapped out
+    swapped: bool = False              # queued with its KV parked on the host
 
     @property
     def prompt_len(self) -> int:
         return len(self.prompt)
+
+    @property
+    def remaining(self) -> int:
+        """Tokens this request may still emit."""
+        return self.max_new - len(self.out_tokens)
+
+    @property
+    def context(self) -> np.ndarray:
+        """The committed token history (prompt + generated): what the
+        self-speculative drafter matches n-grams over."""
+        if not self.out_tokens:
+            return self.prompt
+        return np.concatenate(
+            [self.prompt, np.asarray(self.out_tokens, np.int32)])
 
     @property
     def length(self) -> int:
@@ -66,48 +99,98 @@ class Request:
 
 
 class Scheduler:
-    """Slot-based continuous batching with FIFO admission."""
+    """Slot-based continuous batching with per-class FIFO admission."""
 
     def __init__(self, slots: int, *, max_chunk: int = 32,
                  max_queue: Optional[int] = None):
         self.n_slots = slots
         self.max_chunk = max_chunk
         self.max_queue = max_queue
-        self.queue: Deque[Request] = deque()
+        self.queues: Dict[str, Deque[Request]] = {p: deque() for p in PRIORITIES}
         self.slots: List[Optional[Request]] = [None] * slots
         self._next_rid = 0
         self._prefer_prefill = True   # round-robin flip between phases
         self.rejected = 0
+        self.admitted_total = 0       # requests that ever reached a slot
+        self.peak_queue_depth = 0     # admission-queue high-water mark
+        self.preemptions = 0          # decode slots returned to the queue
+
+    @property
+    def queue(self) -> List[Request]:
+        """Queued requests in admission order (class rank, then FIFO); a
+        view, the storage is `queues`."""
+        out: List[Request] = []
+        for p in PRIORITIES:
+            out.extend(self.queues[p])
+        return out
 
     # -- admission -----------------------------------------------------------
 
     def submit(self, spec: RequestSpec, *, step: int = 0) -> Optional[Request]:
         """Enqueue a request; None when the admission queue is full."""
-        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+        depth = sum(len(q) for q in self.queues.values())
+        if self.max_queue is not None and depth >= self.max_queue:
             self.rejected += 1
             return None
-        req = Request(rid=self._next_rid, prompt=spec.prompt,
-                      max_new=spec.max_new, eos_token=spec.eos_token,
-                      submit_step=step)
+        rid = self._next_rid
+        seed = spec.sampling.seed if spec.sampling.seed is not None else rid
+        req = Request(rid=rid, prompt=spec.prompt, max_new=spec.max_new,
+                      eos_token=spec.eos_token, submit_step=step,
+                      sampling=spec.sampling, sample_seed=int(seed),
+                      priority=spec.priority, tenant=spec.tenant)
         self._next_rid += 1
-        self.queue.append(req)
+        self.queues[spec.priority].append(req)
+        self.peak_queue_depth = max(self.peak_queue_depth, depth + 1)
         return req
+
+    def next_queued(self) -> Optional[Request]:
+        """The request the next free slot would admit (head of the best
+        non-empty class queue), or None."""
+        for p in PRIORITIES:
+            if self.queues[p]:
+                return self.queues[p][0]
+        return None
 
     def admit(self, can_admit: Callable[[Request], bool]
               ) -> List[Tuple[int, Request]]:
         """Move queued requests into free slots while `can_admit` (the
-        engine's block-reservation check) allows, in FIFO order."""
+        engine's block-reservation check) allows, best class first, FIFO
+        within a class; a blocked head blocks every class behind it."""
         admitted = []
         for slot in range(self.n_slots):
             if self.slots[slot] is not None:
                 continue
-            if not self.queue or not can_admit(self.queue[0]):
+            head = self.next_queued()
+            if head is None or not can_admit(head):
                 break
-            req = self.queue.popleft()
-            req.slot, req.phase = slot, Phase.PREFILL
+            req = self.queues[head.priority].popleft()
+            if req.swapped:
+                # A preempted victim: the engine restores its cache, so it
+                # resumes decoding with its progress.
+                req.slot, req.phase = slot, Phase.DECODE
+            else:
+                # Prefill starts after a shared KV prefix the admission
+                # check may have found (req.cached_tokens).
+                req.slot, req.phase = slot, Phase.PREFILL
+                req.prefilled = req.cached_tokens
+                self.admitted_total += 1
             self.slots[slot] = req
             admitted.append((slot, req))
         return admitted
+
+    def preempt(self, req: Request) -> int:
+        """Evict a decoding request to the front of its class queue (the
+        engine swaps its KV out); returns the freed slot."""
+        slot = req.slot
+        assert self.slots[slot] is req and req.phase is Phase.DECODE
+        self.slots[slot] = None
+        req.slot = -1
+        req.phase = Phase.QUEUED
+        req.preemptions += 1
+        req.swapped = True
+        self.queues[req.priority].appendleft(req)
+        self.preemptions += 1
+        return slot
 
     # -- tick policy ---------------------------------------------------------
 
@@ -119,7 +202,8 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.slots)
+        return (any(self.queues.values())
+                or any(r is not None for r in self.slots))
 
     def next_action(self):
         pre, dec = self.prefilling(), self.decoding()
@@ -146,6 +230,14 @@ class Scheduler:
         req.out_tokens.append(int(token))
         if req.done:
             req.phase = Phase.FINISHED
+            req.finish_step = step
+
+    def on_spec(self, req: Request, drafted: int, accepted: int) -> None:
+        """Account one speculative verification: `drafted` tokens were
+        proposed, `accepted` of them survived (the committed tokens still
+        go through on_token)."""
+        req.spec_drafted += drafted
+        req.spec_accepted += accepted
 
     def release(self, req: Request) -> int:
         """Detach a finished request from its slot; returns the slot."""

@@ -829,3 +829,197 @@ def test_qwen3_published_width_engine_graphed_equals_eager(cuda_device):
     assert sorted(out[True]) == list(range(len(specs)))
     for rid in out[False]:
         np.testing.assert_array_equal(out[True][rid], out[False][rid])
+
+
+# -- speculative verify, sampling, preemption and the prefix cache ---------------
+
+VERIFY_ROWS = (16, 24, 40)          # slots 8 x verify widths 2, 3, 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", VERIFY_ROWS)
+def test_gemms_at_verify_rows(cuda_device, M):
+    """The verify steps' GeMMs: K1 (bf16 out within one bf16 ulp) and the
+    w8a8 GeMM (bit for bit, as planned) at M = 16 (the last swapped and the
+    last fused row count), 24 and 40 (the 64-row tile, part unused) on
+    gemma3-1b's and qwen3-14b's projections and heads."""
+    rng = np.random.default_rng(200 + M)
+    for K, N in W8A8_SHAPES + DENSE_GEMM_SHAPES:
+        a, b = _float_operands(rng, M, K, N, N > 100000 and K == 1152, cuda_device)
+        got = tgemm.gemm(a, b, out_dtype=torch.bfloat16)
+        torch.testing.assert_close(got.float(), tgemm.gemm_plain(a, b).to(torch.bfloat16)
+                                   .float(), rtol=2 ** -7, atol=1e-3,
+                                   msg=lambda m: f"{(M, K, N)}: {m}")
+        x, w, sb, act = _w8a8_operands(rng, M, K, N, cuda_device)
+        assert torch.equal(tgemm8.gemm_w8a8(x, w, sb, act, out_dtype=torch.bfloat16),
+                           tgemm8.gemm_w8a8_plain(x, w, sb, act, torch.bfloat16)), (M, K, N)
+        del a, b, got, x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_precision", ["float", "int8"])
+@pytest.mark.parametrize("hq,hkv,d,window", [(4, 1, 256, None), (4, 1, 256, 40),
+                                             (40, 8, 128, None)])
+@pytest.mark.parametrize("sq", [2, 3, 5])
+def test_flash_decode_at_verify_shapes(cuda_device, kv_precision, hq, hkv, d, window, sq):
+    """K2 with several slots at several positions each (B = 8, Sq = the
+    verify width), the slots' lengths spread across block boundaries and
+    past the window, at the rule's split count and one split per column,
+    against the plain walk."""
+    rng = np.random.default_rng(300 + sq + hq)
+    lengths = [2, 9, 16, 17, 47, 64, 100, 7]
+    cache, bt = _ragged_pool(cuda_device, kv_precision, rng, d, lengths, bs=8,
+                             max_blocks=13, hkv=hkv)
+    q = torch.from_numpy(rng.normal(size=(len(lengths), sq, hq, d)).astype(np.float32)) \
+        .to(cuda_device)
+    idx = torch.tensor([max(n - sq, 0) for n in lengths], dtype=torch.int32,
+                       device=cuda_device)
+    walk = tfd.ref_paged_decode(q, cache, bt, idx, window=window)
+    for spec in (None, tfd.FlashDecodeSpec(num_splits=bt.shape[1])):
+        got = tfd.flash_decode_attention(q, cache, bt, idx, window=window, spec=spec)
+        torch.testing.assert_close(got, walk, rtol=1e-5, atol=1e-5)
+
+
+def _spec_requests(vocab, sampled=()):
+    """Repetitive prompts (the drafter's own-history and corpus matches)
+    and random ones; the indices in `sampled` sample at T 0.8 / top-k 50 /
+    top-p 0.95 with fixed seeds."""
+    from repro_torch.serving.request import RequestSpec, SamplingParams
+
+    rng = np.random.default_rng(12)
+    pat = rng.integers(0, vocab, size=5).astype(np.int32)
+    prompts = [np.tile(pat, 4), rng.integers(0, vocab, size=11).astype(np.int32),
+               np.tile(pat, 4), np.tile(pat, 3), rng.integers(0, vocab, size=7)
+               .astype(np.int32)]
+    return [RequestSpec(prompt=p, max_new=g, sampling=SamplingParams(
+        temperature=0.8, top_k=50, top_p=0.95, seed=100 + i) if i in sampled
+        else SamplingParams()) for i, (p, g) in enumerate(zip(prompts, (12, 9, 12, 10, 8)))]
+
+
+def _serve_specs(eng, specs, warm=True):
+    if warm:
+        eng.warmup()
+    reqs = [eng.submit(s) for s in specs]
+    out = eng.run()
+    eng.alloc.check()
+    assert eng.metrics.cold_compiles == 0
+    return [out[r.rid] for r in reqs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,kv_precision", GRAPH_MODES[:2])
+def test_graphed_speculative_engine_equals_eager_and_plain(cuda_device, precision,
+                                                           kv_precision):
+    """The verify shapes captured at warmup: the graphed speculative
+    engine gives the eager speculative engine's and the plain engine's
+    tokens, launches per replay as the eager run's, no cold compile."""
+    from repro_torch.kernels import launches
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    kw = dict(precision=precision, kv_precision=kv_precision)
+    specs = _spec_requests(cfg.vocab)
+    runs = {}
+    for graphs in (False, True):
+        eng = _smoke_engine(cuda_device, params, graphs=graphs, speculative=4, **kw)[2]
+        eng.warmup()
+        params = eng.params
+        launches.reset()
+        runs[graphs] = (eng, _serve_specs(eng, specs, warm=False), launches.counts())
+    plain = _serve_specs(_smoke_engine(cuda_device, params, **kw)[2], specs)
+    (eager, want, counts), (graphed, got, _) = runs[False], runs[True]
+    assert graphed.metrics.aot_steps == 1 + 4 + 3 + 1
+    assert {"verify2", "verify3", "verify5"} <= set(graphed.step_graphs)
+    for g, w, p in zip(got, want, plain):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, p)
+    assert graphed.metrics.spec_ticks == eager.metrics.spec_ticks > 0
+    assert graphed.replayed_launches() == counts
+
+
+@pytest.mark.gpu
+def test_graphed_sampling_engine_equals_eager(cuda_device):
+    """Sampled and greedy requests in the same batches, with and without
+    speculation: graphed and eager engines give the same tokens, a second
+    graphed run replays them, and the greedy rows equal a greedy-only
+    run's."""
+    cfg, params, _ = _smoke_engine(cuda_device)
+    sampled = {1, 3}
+    specs = _spec_requests(cfg.vocab, sampled)
+    greedy_only = _serve_specs(_smoke_engine(cuda_device, params)[2],
+                               [s for i, s in enumerate(specs) if i not in sampled])
+    for speculative in (False, 4):
+        runs = [_serve_specs(_smoke_engine(cuda_device, params, graphs=g, sampling=True,
+                                           speculative=speculative)[2], specs)
+                for g in (True, False, True)]
+        for a, b, c in zip(*runs):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+        greedy = [t for i, t in enumerate(runs[0]) if i not in sampled]
+        for g, w in zip(greedy, greedy_only):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_graphed_preemption_and_prefix_cache_equal_eager(cuda_device):
+    """A preempted victim restored into fresh blocks, and prompts seeded
+    from the prefix cache: the graphed engine's tokens equal the eager
+    engine's and an undisturbed run's."""
+    from repro_torch.serving.request import RequestSpec
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    rng = np.random.default_rng(13)
+    shared = rng.integers(0, cfg.vocab, size=16).astype(np.int32)
+    batch = [RequestSpec(prompt=np.concatenate([shared, rng.integers(0, cfg.vocab, size=n)
+                                                .astype(np.int32)]), max_new=10,
+                         priority="batch") for n in (3, 5, 2)]
+    inter = RequestSpec(prompt=rng.integers(0, cfg.vocab, size=6).astype(np.int32),
+                        max_new=4)
+    out = {}
+    for graphs in (True, False):
+        eng = _smoke_engine(cuda_device, params, graphs=graphs, preempt=True,
+                            prefix_cache=True)[2]
+        eng.warmup()
+        reqs = [eng.submit(batch[0])]
+        while reqs[0].phase.value != "decode":       # its prompt's blocks cached
+            eng.tick()
+        reqs += [eng.submit(s) for s in batch[1:]]
+        for _ in range(10):
+            eng.tick()
+        reqs.append(eng.submit(inter))
+        res = eng.run()
+        eng.alloc.check()
+        assert eng.metrics.preemptions >= 1 and eng.metrics.prefix_hits >= 1
+        out[graphs] = [res[r.rid] for r in reqs]
+    base = _serve_specs(_smoke_engine(cuda_device, params)[2], batch + [inter])
+    for g, e, b in zip(out[True], out[False], base):
+        np.testing.assert_array_equal(g, e)
+        np.testing.assert_array_equal(g, b)
+
+
+@pytest.mark.gpu
+def test_verify_rows_bitwise_equal_decode_rows(cuda_device):
+    """Row invariance, which makes speculative tokens identical to decode
+    tokens on the card: K1's rows at M = 16, 24, 40 equal its rows at M = 8
+    bit for bit (one split plan up to 64 rows), and K2's output for each
+    position of a step of Sq <= 16 equals a one-position step's (the split
+    count of one position)."""
+    rng = np.random.default_rng(400)
+    for K, N in W8A8_SHAPES + DENSE_GEMM_SHAPES[:4]:
+        a, b = _float_operands(rng, 40, K, N, N > 100000, cuda_device)
+        want = tgemm.gemm(a[:8], b, out_dtype=torch.bfloat16)
+        for m in VERIFY_ROWS:
+            assert torch.equal(tgemm.gemm(a[:m], b, out_dtype=torch.bfloat16)[:8], want), (K, N, m)
+    lengths = [2, 9, 16, 17, 47, 64, 100, 7]
+    for hq, hkv, d in ((4, 1, 256), (40, 8, 128)):
+        cache, bt = _ragged_pool(cuda_device, "float", rng, d, lengths, bs=8, max_blocks=13,
+                                 hkv=hkv)
+        idx = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+        for sq in (2, 3, 5, 9):
+            q = torch.from_numpy(rng.normal(size=(8, sq, hq, d)).astype(np.float32)) \
+                .to(cuda_device, torch.bfloat16)
+            cache16 = tkvc.PagedKVCache(cache.k.bfloat16(), cache.v.bfloat16())
+            full = tfd.flash_decode_attention(q, cache16, bt, idx, window=40)
+            for j in range(sq):
+                one = tfd.flash_decode_attention(q[:, j:j + 1].contiguous(), cache16, bt,
+                                                 idx + j, window=40)
+                assert torch.equal(one[:, 0], full[:, j]), (hq, sq, j)

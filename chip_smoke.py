@@ -150,11 +150,46 @@ Phases, in order; any failure exits non-zero:
      unpreempted run's; 16 requests sharing a 512-token prefix with the
      prefix cache (hit rate and prefill tokens saved printed) give the
      tokens of a run without it.
+  10. the recurrent, hybrid and MoE families (no new kernel; the Mamba
+     scan, the mLSTM / sLSTM recurrences and the MoE dispatch are plain
+     PyTorch, the experts' products K1 with f32 output).  10: K1 (f32 out
+     within the f32 bar, bf16 out within one bf16 ulp) and the w8a8 GeMM
+     (bit for bit) at M = 1, 8, 64 on the shapes the dense family never
+     ran: xlstm-1.3b's projections, its narrow mLSTM gates (4096 x 4, rows
+     padded to 16 bytes; no operand re-laid), its head; dbrx's f32 router
+     (N = 16) and one expert's gate / down; jamba's router (N = 4),
+     in-projection and x / dt projections (K = 512); K2 over float and int8
+     pools at jamba's 64 / 8 and dbrx's 48 / 8 heads, D 128, Sq 1 and 64;
+     the norms' mean (`layers.row_mean`) equal for a row at 1-40 rows.
+     10a-10c serve at published widths on random weights (seed 0), bf16,
+     8 slots, chunk 64, block 16, a graphed engine and an eager one in
+     lockstep (tokens identical; launches per captured graph and of the
+     whole run, counted from the replays and by the eager wrappers, equal
+     `family_plan`; paired step medians, one replay's device time, capture
+     seconds, graph pool / recurrent state / weight bytes, a profile of
+     one replayed decode step):
+     10a. xlstm-1.3b whole (48 layers: 42 mLSTM + 6 sLSTM, d 2048, 4
+     heads, vocab 50304, untied; 7.41 GB), 8 requests of 256-512 tokens,
+     32 new each, float then w8a8; then speculative greedy decoding (k = 4,
+     8 slots: 28.2 GB of per-position states in verify5) on a regeneration
+     storm (16 requests over 4 prompts), tokens equal to a non-speculative
+     graphed engine; then the serve CLI at published widths.
+     10b. dbrx-132b, `reduced` to one group of 4 layers (28.5 GB), 8
+     requests of 256-1024 tokens, float then w8a8 with an int8 KV pool.
+     10c. jamba-1.5-large-398b, `reduced` to one group of 8 layers (7
+     Mamba + 1 attention, MoE on layers 2/4/6/8) and 4 of its 16 experts
+     (32.5 GB), the same traffic, float; then the serve CLI refuses jamba
+     at published widths (797 GB), naming the bytes.
+     10d. the four family archs' smoke configs in float32 (head_dim 64
+     where the stack has attention) on the card and on the CPU: the logits
+     after a prompt's prefill and three decode steps within phase 4's bar,
+     argmax equal, and the engine's greedy tokens equal.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
      with speculation on and off, one replay of each verify graph and of
-     the decode graph, launches per verify replay.
+     the decode graph, launches per verify replay; one per phase 10a-10c
+     run.
 
 The line before the card line is the kernels' JSON summary; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
@@ -163,6 +198,7 @@ without a CUDA device or without the port package beside this script.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -859,28 +895,8 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts(mods)
-        pairs = {"decode": [], "prefill": []}         # (graphed s, eager s) per step
-        t0 = time.monotonic()
-        tick = 0
-        while graphed.scheduler.has_work:
-            took = {}
-            for eng in ((graphed, eager) if tick % 2 == 0 else (eager, graphed)):
-                m = eng.metrics
-                before = (m.decode_time_s, m.prefill_time_s, m.prefill_tokens)
-                check(eng.tick(), "a tick with work ran an action")
-                took[eng.graphs] = (m.decode_time_s - before[0], m.prefill_time_s - before[1],
-                                    m.prefill_tokens - before[2])
-            g, e = took[True], took[False]
-            check(g[2] == e[2] and (g[0] > 0) == (e[0] > 0), "both engines took the same step")
-            if g[0] > 0:
-                pairs["decode"].append((g[0], e[0]))
-            elif g[2] == 64:
-                pairs["prefill"].append((g[1], e[1]))
-            tick += 1
-        torch.cuda.synchronize()
-        t_run = time.monotonic() - t0
+        pairs, t_run = _run_paired(torch, graphed, eager)
         run_peak = torch.cuda.max_memory_allocated() - resident
-        check(not eager.scheduler.has_work, "the eager engine drained with the graphed one")
         launches = graphed.replayed_launches()
         eager_launches = read_counts(mods)
         m, me = graphed.metrics, eager.metrics
@@ -894,19 +910,7 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
                   f"decode step {x.decode_time_s / x.decode_steps * 1e3:.3f} ms/step, "
                   f"decode {x.throughput_tok_s:.1f} tok/s, prefill "
                   f"{x.prefill_tokens / x.prefill_time_s:.1f} tok/s, cold_compiles={x.cold_compiles}")
-        paired = {}
-        for label, v in pairs.items():
-            g_ms, e_ms = [a * 1e3 for a, _ in v], [b * 1e3 for _, b in v]
-            paired[label] = {"pairs": len(v), "graphed_ms": _median(g_ms),
-                             "eager_ms": _median(e_ms),
-                             "graphed_faster": sum(a < b for a, b in v)}
-            check(len(v) >= 10, f"at least 10 paired {label} steps: {len(v)}")
-        print("  paired steps (the same step on the same state, one engine after the other, "
-              "medians): " + "; ".join(
-                  f"{'decode step' if k == 'decode' else '64-token prefill chunk'} "
-                  f"{p['pairs']} pairs, graphed {p['graphed_ms']:.3f} ms, eager "
-                  f"{p['eager_ms']:.3f} ms, graphed faster in {p['graphed_faster']}"
-                  for k, p in paired.items()))
+        paired = _paired_medians(pairs)
         wb = m.weight_bytes or quant.weight_bytes(graphed.params)
         pool = graph_pool_bytes(torch, graphed)
         print(f"  resident weights {wb / 1e9:.3f} GB"
@@ -992,6 +996,54 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     return summary
 
 
+def _run_paired(torch, graphed, eager):
+    """Tick a graphed and an eager engine holding the same requests in
+    lockstep, one tick each in turns (the graphed engine first on even
+    ticks), so each step of one pairs with the same step of the other on
+    the same state: ({"decode": [(graphed s, eager s)], "prefill": [...]
+    (64-token chunks)}, wall seconds of the run)."""
+    pairs = {"decode": [], "prefill": []}
+    t0 = time.monotonic()
+    tick = 0
+    while graphed.scheduler.has_work:
+        took = {}
+        for eng in ((graphed, eager) if tick % 2 == 0 else (eager, graphed)):
+            m = eng.metrics
+            before = (m.decode_time_s, m.prefill_time_s, m.prefill_tokens)
+            check(eng.tick(), "a tick with work ran an action")
+            took[eng.graphs] = (m.decode_time_s - before[0], m.prefill_time_s - before[1],
+                                m.prefill_tokens - before[2])
+        g, e = took[True], took[False]
+        check(g[2] == e[2] and (g[0] > 0) == (e[0] > 0), "both engines took the same step")
+        if g[0] > 0:
+            pairs["decode"].append((g[0], e[0]))
+        elif g[2] == 64:
+            pairs["prefill"].append((g[1], e[1]))
+        tick += 1
+    torch.cuda.synchronize()
+    check(not eager.scheduler.has_work, "the eager engine drained with the graphed one")
+    return pairs, time.monotonic() - t0
+
+
+def _paired_medians(pairs, min_pairs: int = 10):
+    """Medians of `_run_paired`'s pairs (ms) and the pairs the graphed
+    step won, printed; at least `min_pairs` of each step kind."""
+    paired = {}
+    for label, v in pairs.items():
+        g_ms, e_ms = [a * 1e3 for a, _ in v], [b * 1e3 for _, b in v]
+        paired[label] = {"pairs": len(v), "graphed_ms": _median(g_ms),
+                         "eager_ms": _median(e_ms),
+                         "graphed_faster": sum(a < b for a, b in v)}
+        check(len(v) >= min_pairs, f"at least {min_pairs} paired {label} steps: {len(v)}")
+    print("  paired steps (the same step on the same state, one engine after the other, "
+          "medians): " + "; ".join(
+              f"{'decode step' if k == 'decode' else '64-token prefill chunk'} "
+              f"{p['pairs']} pairs, graphed {p['graphed_ms']:.3f} ms, eager "
+              f"{p['eager_ms']:.3f} ms, graphed faster in {p['graphed_faster']}"
+              for k, p in paired.items()))
+    return paired
+
+
 def qwen3_traffic(np):
     """Phase 8's requests: 8 prompts of 256-1024 tokens (both ends drawn),
     32 new tokens each; the generator then draws the prompts."""
@@ -1075,7 +1127,8 @@ def phase_parity_dense(torch, np, configs, M, kvc, Engine, RequestSpec, quant, m
         torch.cuda.empty_cache()
 
 
-def phase_serve_cli(np):
+def phase_serve_cli(np, arch="gemma3-1b", extra=("--precision", "w8a8", "--kv-precision",
+                                                  "int8")):
     """`repro_torch.launch.serve.main` on the card at published widths: 4
     requests' tokens of the right shape, in vocab, served through the
     graphs its warmup captured, with no cold compile."""
@@ -1088,13 +1141,13 @@ def phase_serve_cli(np):
     out = io.StringIO()
     t0 = time.monotonic()
     with contextlib.redirect_stdout(out):
-        gen = serve.main(["--widths", "published", "--precision", "w8a8",
-                          "--kv-precision", "int8", "--requests", "4"])
+        gen = serve.main(["--arch", arch, "--widths", "published", "--requests", "4",
+                          *extra])
     text = out.getvalue()
     for line in text.splitlines():
         if line.startswith(("warmup", "arch=", "engine")):
             print(f"  {line}")
-    vocab = configs.get("gemma3-1b").vocab
+    vocab = configs.get(arch).vocab
     check(gen.shape == (4, 16) and bool(((gen >= 0) & (gen < vocab)).all()),
           f"the CLI's tokens: shape {gen.shape}")
     check("captured as CUDA graphs" in text and "cold_compiles=0" in text,
@@ -2401,6 +2454,578 @@ def sass_count(lib: Path, op: str):
     return sum(op in line for line in out.stdout.splitlines())
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the recurrent, hybrid and MoE families at published widths
+# ---------------------------------------------------------------------------
+
+PHASE10_KW = dict(slots=8, block_size=16, max_chunk=64)
+FAMILY_ARCHS = ("xlstm-1.3b", "jamba-1.5-large-398b", "dbrx-132b", "arctic-480b")
+# The projections of each mixer kind, and the leaves w8a8 makes
+# int8-resident (QUANT_KEYS); the rest (the recurrences' gate, dt and x
+# projections, quant="none") run the float GeMM in every mode.
+MIXER_GEMMS = {"attn": ("wq", "wk", "wv", "wo"), "attn_local": ("wq", "wk", "wv", "wo"),
+               "mamba": ("w_in", "w_x", "w_dt", "w_out"),
+               "mlstm": ("w_up", "w_q", "w_k", "w_v", "w_i", "w_f", "w_down"),
+               "slstm": ("w_i", "w_z", "w_f", "w_o", "w_ff_up", "w_ff_down")}
+W8A8_LEAVES = frozenset({"wq", "wk", "wv", "wo", "w_in", "w_out", "w_up", "w_q", "w_k",
+                         "w_v", "w_down", "w_ff_up", "w_ff_down"})
+
+
+def family_cfg(configs, arch):
+    """`arch` at its published widths, cut only as far as one card forces:
+    (config, the cuts as {field: [published, run]})."""
+    full = configs.get(arch)
+    if arch == "dbrx-132b":            # 263 GB of bf16 weights: one group of 4 layers
+        return dataclasses.replace(full, n_layers=full.group_size), {"n_layers": [40, 4]}
+    if arch == "jamba-1.5-large-398b":  # 797 GB: one group of 8 layers, 4 of 16 experts
+        return (dataclasses.replace(full, n_layers=full.group_size,
+                                    moe=dataclasses.replace(full.moe, num_experts=4)),
+                {"n_layers": [72, 8], "num_experts": [16, 4]})
+    return full, {}
+
+
+def mamba_scan_chunks(seq: int, chunk: int = 16) -> int:
+    """The chunks Mamba's selective scan cuts `seq` tokens into (its x / dt
+    projections run once a chunk), as models/ssm.py cuts them."""
+    if seq == 1:
+        return 1
+    chunk = min(chunk, seq)
+    while seq % chunk:
+        chunk //= 2
+    return seq // chunk
+
+
+def family_plan(cfg, precision, kv_precision, rows, head_rows, fused, seq):
+    """Hand-kernel launches of one step of `seq` tokens a slot whose
+    projections run at `rows` rows and the head at `head_rows`.  Float: K1 per projection, the f32
+    router, each expert's gate / up / down (the experts stay float in every
+    mode), the head.  w8a8: an int8-resident leaf is one w8a8 GeMM at
+    <= `fused` rows, else the row quantization and the dequant GeMM; a
+    float weight without quant="none" (the router, arctic's dense
+    residual) is quantized on the fly (K4 then K3); quant="none" leaves
+    stay K1 (Mamba's x / dt projections once per scan chunk).  One K2 per
+    attention layer."""
+    w8 = precision != "float"
+    out = collections.Counter()
+
+    def gemm(quantized, m):
+        if not (w8 and quantized):
+            out["gemm"] += 1
+        elif m <= fused:
+            out["gemm_w8a8"] += 1
+        else:
+            out["quantize_rows"] += 1
+            out["dequant_gemm"] += 1
+
+    def mode_default():
+        if w8:
+            out["quantize_rows"] += 1
+            out["dequant_gemm"] += 1
+        else:
+            out["gemm"] += 1
+
+    for layer, kind in enumerate(cfg.all_layer_kinds()):
+        for name in MIXER_GEMMS[kind]:
+            for _ in range(mamba_scan_chunks(seq) if name in ("w_x", "w_dt") else 1):
+                gemm(name in W8A8_LEAVES, rows)
+        if kind in ("attn", "attn_local"):
+            out["flash_decode_int8" if kv_precision == "int8" else "flash_decode"] += 1
+        if kind in ("mlstm", "slstm") or not (cfg.d_ff or cfg.moe):
+            continue
+        if cfg.moe and (layer % cfg.group_size + 1) % cfg.moe_every == 0:
+            mode_default()                               # the router
+            out["gemm"] += 3 * cfg.moe.num_experts       # the experts
+            for _ in range(3 if cfg.moe.dense_residual else 0):
+                mode_default()
+        else:
+            for _ in range(3 if cfg.mlp_variant == "swiglu" else 2):
+                gemm(True, rows)
+    gemm(True, head_rows)
+    return dict(out)
+
+
+def step_plan(cfg, key, slots, precision, kv_precision, fused):
+    """`family_plan` of the engine's step shape `key`."""
+    if key == "reset":
+        return {}
+    if key == "decode":
+        seq, rows, head = 1, slots, slots
+    elif key.startswith("chunk"):
+        seq = int(key[len("chunk"):])
+        rows, head = seq, 1
+    else:
+        seq = int(key[len("verify"):])
+        rows = head = slots * seq
+    return family_plan(cfg, precision, kv_precision, rows, head, fused, seq)
+
+
+def family_traffic(seed, lo, hi, n=8, new=32):
+    def traffic(np):
+        """`n` prompts of `lo`-`hi` tokens (both ends drawn), `new` new
+        tokens each; the generator then draws the prompts."""
+        rng = np.random.default_rng(seed)
+        plens = rng.integers(lo, hi + 1, size=n)
+        plens[:2] = (hi, lo)
+        return plens, np.full(n, new), rng
+    return traffic
+
+
+def phase_family(torch, np, M, Engine, RequestSpec, mods, quant, cfg, reduced, traffic, *,
+                 precision="float", kv_precision="float", params=None):
+    """One family model served by a graphed engine and, in lockstep on the
+    same weights, an eager one (8 slots, chunk 64, block 16): tokens
+    identical; launches per captured graph as `step_plan` says, and the
+    run's, counted from the replays and by the eager wrappers, as the plan
+    summed over the steps run; paired step medians, one replay's device
+    time, capture seconds, graph pool / state / weight bytes, and a profile
+    of one replayed decode step."""
+    fused = mods["gemm8"].FUSED_ROWS
+    plens, max_new, rng = traffic(np)
+    # headroom for the replay timing's 64-token chunk past the longest slot
+    kw = dict(PHASE10_KW, max_seq=int(max(plens)) + int(max(max_new)) + 65,
+              precision=precision, kv_precision=kv_precision, device="cuda")
+    if params is None:
+        t0 = time.monotonic()
+        params = M.init_model(cfg, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        print(f"  init_model: {time.monotonic() - t0:.1f}s, {cfg.n_layers} layers "
+              f"{cfg.all_layer_kinds()[:cfg.group_size]}..., weights "
+              f"{quant.weight_bytes(params) / 1e9:.3f} GB (bf16 matrices, float32 biases, "
+              f"A_log, D, router)" + (f"; reduced {json.dumps(reduced)}" if reduced else ""))
+    engines = {}
+    for graphs in (True, False):
+        eng = Engine(cfg, params, graphs=graphs, **kw)
+        t0 = time.monotonic()
+        eng.warmup()
+        torch.cuda.synchronize()
+        m = eng.metrics
+        print(f"  {'graphed' if graphs else 'eager'} engine warmup: "
+              f"{time.monotonic() - t0:.2f}s ({m.aot_steps} step shapes"
+              + (f" captured as CUDA graphs in {m.capture_time_s:.2f}s, graph pool "
+                 f"{graph_pool_bytes(torch, eng) / 1e9:.3f} GB" if graphs else " run") + ")")
+        check(eng.graphs == graphs, f"the engine runs with graphs={graphs}")
+        if graphs and precision != "float":
+            params = eng.params                 # the eager engine takes the int8 weights
+        engines[graphs] = eng
+    del params
+    graphed, eager = engines[True], engines[False]
+    plan = {key: step_plan(cfg, key, graphed.slots, precision, kv_precision, fused)
+            for key in graphed.step_graphs}
+    for key, want in plan.items():
+        got = graphed._graph_launches[key]
+        check(got == want, f"{cfg.name} {key} graph launches: got {got}, want {want}")
+    print("  launches per replay (as planned): " + "; ".join(
+        f"{key}: " + " ".join(f"{k}={v}" for k, v in plan[key].items())
+        for key in ("decode", "chunk64", "chunk1")))
+    for n, m_ in zip(plens, max_new):
+        prompt = rng.integers(0, cfg.vocab, size=int(n))
+        for eng in (graphed, eager):
+            eng.submit(RequestSpec(prompt=prompt, max_new=int(m_)))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    pairs, t_run = _run_paired(torch, graphed, eager)
+    run_peak = torch.cuda.max_memory_allocated() - resident
+    launches, eager_launches = graphed.replayed_launches(), read_counts(mods)
+    want = dict.fromkeys(launches, 0)
+    for key, n in graphed._replays.items():
+        for k, v in plan[key].items():
+            want[k] += n * v
+    m, me = graphed.metrics, eager.metrics
+    print(f"  served the {len(plens)} requests (prompts {int(min(plens))}-{int(max(plens))} "
+          f"tokens, {int(max_new[0])} new each) on both engines in lockstep in {t_run:.2f}s: "
+          f"{m.prefill_chunks} prefill chunks, {m.decode_steps} decode steps each")
+    for rid, toks in graphed.results.items():
+        check(len(toks) == int(max_new[rid]), f"request {rid} got its full budget")
+        check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), f"request {rid} tokens in vocab")
+        check(np.array_equal(toks, eager.results[rid]),
+              f"{cfg.name} request {rid}: graphed tokens equal the eager engine's")
+    check(sorted(graphed.results) == list(range(len(plens))), "every request finished")
+    print(f"  the {len(plens)} requests' tokens ({sum(map(len, graphed.results.values()))}) "
+          f"are identical graphed and eager")
+    check(launches == want, f"launches from replays: got {launches}, want {want}")
+    check(eager_launches == want, f"launches, eager engine: got {eager_launches}, want {want}")
+    check(m.cold_compiles == 0 and me.cold_compiles == 0, "warmup covered every step shape")
+    print("  launches of the run (graphed from its replays = eager = the plan): "
+          + " ".join(f"{k}={v}" for k, v in launches.items() if v))
+    paired = _paired_medians(pairs)
+    pool = graph_pool_bytes(torch, graphed)
+    wb = m.weight_bytes or quant.weight_bytes(graphed.params)
+    print(f"  resident weights {wb / 1e9:.3f} GB, recurrent state {m.state_bytes / 1e9:.3f} GB "
+          f"(8 slots), kv pool {m.kv_pool_bytes / 1e9:.3f} GB {kv_precision} per engine; "
+          f"graph pool {pool / 1e9:.3f} GB ({m.aot_steps} graphs, captured in "
+          f"{m.capture_time_s:.2f}s); the eager steps' peak above both engines' resident "
+          f"memory {run_peak / 1e9:.3f} GB")
+    lengths = [int(n) + 32 for n in plens[:8]]
+    replay = _replayed_step_ms(torch, np, graphed, lengths)
+    print(f"  device time of one replay (CUDA events, median of 10; 8 slots live at {lengths} "
+          f"tokens): decode step {replay['decode']:.3f} ms, 64-token prefill chunk (slot 0) "
+          f"{replay['chunk64']:.3f} ms")
+    prof = _profile_decode(torch, graphed, lengths)
+    summary = {"decode_ms": m.decode_time_s / m.decode_steps * 1e3,
+               "prefill_ms": m.prefill_time_s / m.prefill_chunks * 1e3,
+               "paired": paired, "replay_ms": replay, "graph_pool_bytes": pool,
+               "capture_s": m.capture_time_s, "graphs": m.aot_steps, "launches": launches,
+               "decode_graph_launches": dict(graphed._graph_launches["decode"]),
+               "weight_bytes": wb, "state_bytes": m.state_bytes,
+               "kv_pool_bytes": m.kv_pool_bytes, "profile": prof, "results": graphed.results}
+    del engines, graphed, eager, eng
+    torch.cuda.empty_cache()
+    return summary
+
+
+def family_storm(np, vocab, lo=256, hi=512):
+    """A regeneration storm: 16 requests over 4 distinct prompts of `lo`-`hi`
+    tokens, 32 new tokens each; repeats admitted after a copy finished find
+    its stream in the drafter's corpus."""
+    rng = np.random.default_rng(11)
+    plens = rng.integers(lo, hi + 1, size=4)
+    prompts = [rng.integers(0, vocab, size=int(n)) for n in plens]
+    return [(prompts[i % 4], 32) for i in range(16)]
+
+
+def per_position_bytes(cfg, slots, width):
+    """Bytes of the per-position recurrent states one verify step of
+    `width` holds until its commit (every recurrent layer's state per slot
+    and position)."""
+    from repro_torch.models import ssm
+
+    return sum(ssm.state_bytes(ssm.init_state_for_kind(cfg, kind, 1, "meta")) * slots * width
+               for kind in cfg.all_layer_kinds() if kind not in ("attn", "attn_local"))
+
+
+def phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg, k, slots):
+    """Speculative greedy decoding on a recurrent stack, graphed: the verify
+    graphs collect per-position states and commit each slot's at its
+    accepted position; the tokens equal a non-speculative graphed engine's
+    on the same weights; launches per verify replay as planned."""
+    from repro_torch.serving.speculative import verify_buckets
+
+    fused = mods["gemm8"].FUSED_ROWS
+    widths = verify_buckets(k)
+    kw = dict(PHASE10_KW, slots=slots, max_seq=512 + 32 + 65, device="cuda")
+    params = M.init_model(cfg, seed=0, device="cuda")
+    t0 = time.monotonic()
+    spec = Engine(cfg, params, speculative=k, **kw)
+    spec.warmup()
+    plain = Engine(cfg, params, **kw)
+    plain.warmup()
+    del params
+    torch.cuda.synchronize()
+    m = spec.metrics
+    per_pos = per_position_bytes(cfg, slots, max(widths))
+    print(f"  warmup of both engines {time.monotonic() - t0:.1f}s; speculative engine: "
+          f"{m.aot_steps} step shapes captured in {m.capture_time_s:.2f}s (verify widths "
+          f"{widths}), graph pool {graph_pool_bytes(torch, spec) / 1e9:.3f} GB; per-position "
+          f"states of verify{max(widths)} at {slots} slots: {per_pos / 1e9:.2f} GB")
+    for w in widths:
+        got = spec._graph_launches[f"verify{w}"]
+        want = step_plan(cfg, f"verify{w}", slots, "float", "float", fused)
+        check(got == want, f"verify{w} launches: got {got}, want {want}")
+    print("  launches per verify replay (as planned): " + "; ".join(
+        f"verify{w}: " + " ".join(f"{k_}={v}" for k_, v in spec._graph_launches[f"verify{w}"]
+                                  .items()) for w in widths))
+    specs = [RequestSpec(prompt=p, max_new=n) for p, n in family_storm(np, cfg.vocab)]
+    reset_counts(mods)
+    got, times, d = _serve_ticks(spec, specs)
+    want, ptimes, pd = _serve_ticks(plain, specs)
+    check(sum(read_counts(mods).values()) == 0, "every step a replay")
+    for rid, (a, b) in enumerate(zip(got, want)):
+        check(np.array_equal(a, b), f"request {rid}: speculative tokens equal non-speculative")
+        check(len(a) == 32, f"request {rid} got its budget")
+    check(d["spec_ticks"] > 0 and d["spec_accepted_tokens"] > 0,
+          "the storm ran verify steps that accepted drafts")
+    check(m.cold_compiles == 0 and plain.metrics.cold_compiles == 0, "no cold compile")
+    verify_ms = {key: _median(v) for key, v in sorted(times.items()) if key.startswith("verify")}
+    print(f"  storm: {len(specs)} requests, {d['decode_tokens']} decode tokens identical with "
+          f"speculation on and off; acceptance {d['accept']:.3f} "
+          f"({d['spec_accepted_tokens']}/{d['spec_draft_tokens']} drafts), {d['spec_ticks']} of "
+          f"{d['decode_steps']} decode ticks verified, {d['tok_per_tick']:.2f} tok/tick (off: "
+          f"{pd['tok_per_tick']:.2f}); decode {d['tok_s']:.1f} tok/s on, {pd['tok_s']:.1f} off; "
+          f"median wall ms per tick: " + ", ".join(f"{key} {v:.3f}" for key, v in verify_ms.items())
+          + f", decode {_median(ptimes['decode']):.3f} off")
+    replay = _replayed_verify_ms(torch, np, spec, [544, 500, 450, 400, 350, 300, 280, 260][:slots])
+    print(f"  device time of one replay (CUDA events, median of 10): "
+          + ", ".join(f"{key} {v:.3f} ms" for key, v in replay.items()))
+    out = dict(d, plain_tok_s=pd["tok_s"], plain_tok_per_tick=pd["tok_per_tick"],
+               replay_ms=replay, per_position_bytes=per_pos, slots=slots, k=k,
+               launches={w: spec._graph_launches[f"verify{w}"] for w in widths})
+    del spec, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+# Where the family archs have attention, K2 at their head layouts: jamba's
+# 64 q heads over 8 kv heads and dbrx's 48 over 8, D 128.
+FAMILY_DECODE = [("jamba-1.5-large-398b", 64, 8, 128), ("dbrx-132b", 48, 8, 128)]
+
+
+def family_gemm_shapes(configs):
+    """(label, K, N, dtype, w8a8) of the family archs' GeMMs the dense
+    family never ran: the narrow mLSTM gates (N = 4, rows padded to 16
+    bytes), the f32 routers (N = 16; 4 in the reduced jamba), one expert's
+    gate / down (bf16 operands, f32 out), Mamba's x / dt projections (K =
+    512), and the int8-resident projections under w8a8."""
+    xl, jb, db = (configs.get(a) for a in ("xlstm-1.3b", "jamba-1.5-large-398b", "dbrx-132b"))
+    d, di = xl.d_model, 2 * xl.d_model
+    ff = int(8 / 3 * d) // 8 * 8
+    mdi, dtr = jb.mamba.expand * jb.d_model, jb.mamba.resolved_dt_rank(jb.d_model)
+    return [("xlstm w_up", d, 2 * di, "bfloat16", True), ("xlstm w_q", di, di, "bfloat16", True),
+            ("xlstm w_i", di, xl.n_heads, "bfloat16", False),
+            ("xlstm w_down", di, d, "bfloat16", True),
+            ("xlstm w_ff_up", d, 2 * ff, "bfloat16", True),
+            ("xlstm w_ff_down", ff, d, "bfloat16", True),
+            ("xlstm head", d, xl.vocab, "bfloat16", True),
+            ("dbrx router", db.d_model, db.moe.num_experts, "float32", False),
+            ("dbrx expert w_gate", db.d_model, db.moe.d_ff_expert, "bfloat16", False),
+            ("dbrx expert w_down", db.moe.d_ff_expert, db.d_model, "bfloat16", False),
+            ("jamba router", jb.d_model, 4, "float32", False),
+            ("jamba w_in", jb.d_model, 2 * mdi, "bfloat16", True),
+            ("jamba w_x", mdi, dtr + 2 * jb.mamba.d_state, "bfloat16", False),
+            ("jamba w_dt", dtr, mdi, "bfloat16", False)]
+
+
+def phase_kernels_family(torch, configs, gemm, gemm8, fd, kvc):
+    """K1 (f32 out: the experts' and the router's products, held within the
+    f32 bar of reordered sums; bf16 out within one bf16 ulp) and the w8a8
+    GeMM (bit for bit) at the family archs' new shapes, M = 1, 8 and 64;
+    the norms' mean row-invariant (`layers.row_mean`; `torch.mean`
+    printed beside it); K2 over float and int8 pools at jamba's and dbrx's
+    head layouts, Sq 1 and 64."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    worst = {"gemm": 0.0, "gemm_w8a8": 0.0, "flash_decode": 0.0, "flash_decode_int8": 0.0}
+    relaid = gemm.relaid
+    for label, K, N, dname, w8 in family_gemm_shapes(configs):
+        dt = getattr(torch, dname)
+        w = gemm.aligned_rows((torch.randn((K, N), generator=g, device=dev)
+                               * K ** -0.5).to(dt))
+        w_q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8).t()
+        sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+        errs = []
+        for M in (1, 8, 64):
+            a = torch.randn((M, K), generator=g, device=dev).to(dt)
+            for out_dt in ((torch.float32,) if dname == "float32" or "expert" in label
+                           else (torch.bfloat16, torch.float32)):
+                tol = GEMM_TOL["float32" if out_dt == torch.float32 else "bfloat16"]
+                abs_e, _, ok = close(gemm.gemm(a, w, out_dtype=out_dt),
+                                     gemm.gemm_plain(a, w, out_dt), *tol)
+                worst["gemm"] = max(worst["gemm"], abs_e)
+                check(ok, f"gemm {dname} -> {out_dt} M={M} {label}")
+                errs.append(f"M={M} {str(out_dt)[6:]} {abs_e:.2e}")
+            if w8:
+                got = gemm8.gemm_w8a8(a, w_q, sb, out_dtype=torch.bfloat16)
+                want = gemm8.gemm_w8a8_plain(a, w_q, sb, None, torch.bfloat16)
+                worst["gemm_w8a8"] = max(worst["gemm_w8a8"],
+                                         float((got.float() - want.float()).abs().max()))
+                check(torch.equal(got, want), f"gemm_w8a8 M={M} {label} bit for bit")
+            del a
+        print(f"  {label} {K}x{N} {dname}: gemm max_abs " + ", ".join(errs) + " ok"
+              + ("; gemm_w8a8 bitwise equal at M = 1, 8, 64" if w8 else ""))
+        del w, w_q, sb
+    check(gemm.relaid == relaid, "no GeMM operand re-laid (the narrow gates' rows are padded)")
+    torch.cuda.empty_cache()
+    # The norms' mean must sum a row in the same order at any row count, so
+    # a verify step's rows (slots x S) equal a decode step's (slots).
+    from repro_torch.models import layers
+
+    means = {"row_mean": layers.row_mean,
+             "torch.mean": lambda v: torch.mean(v, dim=-1, keepdim=True)}
+    invariant = {name: [] for name in means}
+    for d in (1152, 2048, 4096, 5120, 6144, 8192):
+        x = torch.randn((40, d), generator=g, device=dev)
+        for name, fn in means.items():
+            full = fn(x)
+            if all(torch.equal(fn(x[:m]), full[:m]) for m in (1, 8, 16, 24)):
+                invariant[name].append(d)
+    print("  the norms' mean: rows of 1, 8, 16 and 24 equal the same rows of 40 at widths "
+          + "; ".join(f"{name} {v}" for name, v in invariant.items())
+          + " (of 1152, 2048, 4096, 5120, 6144, 8192)")
+    check(len(invariant["row_mean"]) == 6, "layers.row_mean is row-invariant at every width")
+    bs, max_seq = 16, 1200
+    for arch, Hq, Hkv, D in FAMILY_DECODE:
+        B = len(QWEN3_LENGTHS)
+        pools = {"float": _lived_in_pool(torch, kvc, dev, g, torch.bfloat16, B, Hkv, D, bs,
+                                         max_seq, QWEN3_LENGTHS),
+                 "int8": _lived_in_pool_int8(torch, kvc, dev, g, B, Hkv, D, bs, max_seq,
+                                             QWEN3_LENGTHS)}
+        for pool, (cache, tables) in pools.items():
+            key = "flash_decode_int8" if pool == "int8" else "flash_decode"
+            for sq in (1, 64):
+                q = torch.randn((B, sq, Hq, D), generator=g, device=dev).to(torch.bfloat16)
+                idx = torch.tensor([n - sq for n in QWEN3_LENGTHS], dtype=torch.int32,
+                                   device=dev)
+                wants = {"walk": fd.ref_paged_decode(q, cache, tables, idx)}
+                _check_decode(torch, fd, f"{arch} ({Hq}/{Hkv}, D {D}) flash_decode {pool} "
+                              f"pool, q bfloat16", q, cache, tables, idx, None, None, wants,
+                              DECODE_TOL["bfloat16"], worst, key)
+        del pools
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _family_logits(torch, M, kvc, cfg, params, prompt, dev, tokens=None, steps=3):
+    """Last-position logits of `prompt` prefilled in chunks of at most 16
+    tokens into slot 1 of 2, then of `steps` decode steps (slot 0 idle)
+    fed with `tokens`, or with this run's greedy tokens when None, through
+    the model functions on `dev`: (logits, the tokens fed)."""
+    from repro_torch.serving.prefill import plan_chunks
+
+    bs = 16
+    max_blocks = kvc.blocks_for(len(prompt) + steps + 1, bs)
+    state = M.init_paged_decode_state(cfg, 2, num_blocks=1 + 2 * max_blocks, block_size=bs,
+                                      max_blocks_per_slot=max_blocks, device=dev)
+    tables = kvc.BlockTables(2, max_blocks)
+    alloc = kvc.BlockAllocator(1 + 2 * max_blocks, bs)
+    for s in range(2):
+        tables.ensure(s, max_blocks * bs, alloc)
+    state.block_tables = tables.array(dev)
+    out, pos, fed = [], 0, []
+    active = torch.tensor([False, True], device=dev)
+    with torch.no_grad():
+        for c in plan_chunks(len(prompt), 16):
+            chunk = torch.as_tensor(prompt[None, pos:pos + c], device=dev)
+            logits, state = M.prefill_chunk(params, cfg, state, chunk,
+                                            torch.tensor([1], device=dev))
+            pos += c
+        out.append(logits[0, -1].float().cpu())
+        for i in range(steps):
+            t = int(out[-1].argmax()) if tokens is None else tokens[i]
+            fed.append(t)
+            step, new = M.paged_decode_step(params, cfg, state,
+                                            torch.tensor([[0], [t]], device=dev), active)
+            state.lengths = new.lengths
+            out.append(step[1, -1].float().cpu())
+    return out, fed
+
+
+def phase_family_parity(torch, np, configs, M, kvc, Engine, RequestSpec):
+    """The four family archs' smoke configs (float32; head_dim raised to 64,
+    K2's smallest instantiation, where the stack has attention) on the card
+    (kernels) and on the CPU (plain versions): the logits after a 37-token
+    prompt's prefill chunks and after each of three decode steps within
+    phase 4's bar (max_abs_diff <= 1e-4 x max|logit|, argmax equal), and the
+    engine's greedy tokens for three prompts over two slots (a refill),
+    equal."""
+    for arch in FAMILY_ARCHS:
+        smoke = configs.get_smoke(arch)
+        cfg, reduced = smoke, {"widths": "smoke config", "dtype": "float32"}
+        if any(k in ("attn", "attn_local") for k in smoke.layer_kinds()):
+            cfg = dataclasses.replace(smoke, head_dim=64)
+            reduced["head_dim"] = [smoke.resolved_head_dim, 64]
+        t0 = time.monotonic()
+        params = M.init_model(cfg, seed=1, device="cuda")
+        cpu_params = _tree_cpu(torch, params)
+        rng = np.random.default_rng(3)
+        prompt = rng.integers(0, cfg.vocab, size=37)
+        want, toks = _family_logits(torch, M, kvc, cfg, cpu_params, prompt, "cpu")
+        got, _ = _family_logits(torch, M, kvc, cfg, params, prompt, "cuda", toks)
+        errs = []
+        for i, (g_, w_) in enumerate(zip(got, want)):
+            err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+            errs.append(f"{err:.2e}")
+            check(err <= 1e-4 * scale and int(g_.argmax()) == int(w_.argmax()),
+                  f"{arch}: step {i} logits card vs CPU ({err:.3e}, scale {scale:.3e})")
+        out = {}
+        prompts = [rng.integers(0, cfg.vocab, size=n) for n in (37, 20, 9)]
+        for dev, p in (("cuda", params), ("cpu", cpu_params)):
+            eng = Engine(cfg, p, slots=2, max_seq=64, block_size=16, max_chunk=16, device=dev)
+            eng.warmup()
+            for pr in prompts:
+                eng.submit(RequestSpec(prompt=pr, max_new=6))
+            out[dev] = eng.run()
+            check(eng.metrics.cold_compiles == 0, f"{arch} {dev}: no cold step")
+            del eng
+        for rid in out["cpu"]:
+            check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
+                  f"{arch} request {rid}: card tokens equal the CPU plain-version tokens")
+        print(f"  {arch} reduced {json.dumps(reduced)}: logits max_abs_diff card vs CPU after "
+              f"the prefill and 3 decode steps {', '.join(errs)} (bar 1e-4 x max|logit|), "
+              f"argmax equal; engine tokens equal on card and CPU "
+              f"{[out['cuda'][r].tolist() for r in sorted(out['cuda'])]}; "
+              f"{time.monotonic() - t0:.1f}s")
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+
+def phase_family_refusal(np):
+    """The serve CLI sizes jamba at its published widths on the meta device
+    and refuses before allocating, naming the bytes."""
+    from repro_torch.launch import serve
+
+    free = None
+    try:
+        serve.main(["--arch", "jamba-1.5-large-398b", "--widths", "published"])
+    except SystemExit as e:
+        free = str(e)
+    check(free is not None and "bytes" in free, "the CLI refused jamba at published widths")
+    print(f"  serve --arch jamba-1.5-large-398b --widths published: refused: {free}")
+
+
+def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst):
+    """Phases 10-10d, and a `[7]` line per run of 10a-10c."""
+    print("[10] kernels vs plain versions at the family archs' new shapes")
+    for k, v in phase_kernels_family(torch, configs, mods["gemm"], mods["gemm8"], mods["fd"],
+                                     kvc).items():
+        worst[k] = max(worst[k], v)
+    args = (torch, np, M, Engine, RequestSpec, mods, quant)
+    out = {}
+    cfg, reduced = family_cfg(configs, "xlstm-1.3b")
+    xl_traffic = family_traffic(20, 256, 512)
+    print("[10a] xlstm-1.3b at published widths (48 layers: 42 mLSTM, 6 sLSTM; d 2048, "
+          "4 heads, vocab 50304, untied; bf16), float")
+    out["10a float"] = phase_family(*args, cfg, reduced, xl_traffic)
+    print("[10a] the same in w8a8 (no attention layer: no KV pool)")
+    out["10a w8a8"] = phase_family(*args, cfg, reduced, xl_traffic, precision="w8a8")
+    print(f"[10a] speculative greedy decoding, k = {DRAFT_K}, 8 slots")
+    out["10a spec"] = phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg,
+                                        DRAFT_K, 8)
+    print("[10a] the serve CLI: --arch xlstm-1.3b --widths published")
+    phase_serve_cli(np, arch="xlstm-1.3b", extra=())
+    big_traffic = family_traffic(21, 256, 1024)
+    cfg, reduced = family_cfg(configs, "dbrx-132b")
+    print("[10b] dbrx-132b at published widths (d 6144, 48 / 8 heads, 16 experts top-4, "
+          "d_ff 10752; bf16), one group of 4 layers, float")
+    out["10b float"] = phase_family(*args, cfg, reduced, big_traffic)
+    print("[10b] the same in w8a8 with an int8 KV pool")
+    out["10b w8a8"] = phase_family(*args, cfg, reduced, big_traffic, precision="w8a8",
+                                   kv_precision="int8")
+    cfg, reduced = family_cfg(configs, "jamba-1.5-large-398b")
+    print("[10c] jamba-1.5-large-398b at published widths (d 8192, 64 / 8 heads, Mamba "
+          "d_state 16, MoE top-2 on alternate layers, d_ff 24576; bf16), one group of 8 "
+          "layers (7 Mamba + 1 attention), 4 of 16 experts, float")
+    out["10c float"] = phase_family(*args, cfg, reduced, big_traffic)
+    phase_family_refusal(np)
+    print("[10d] the four family archs' smoke configs, f32: CUDA kernels vs CPU plain versions")
+    phase_family_parity(torch, np, configs, M, kvc, Engine, RequestSpec)
+    for label, x in out.items():
+        if label.endswith("spec"):
+            r = x["replay_ms"]
+            print(f"[7] {label} ({x['slots']} slots, k = {x['k']}): acceptance "
+                  f"{x['accept']:.3f}, {x['tok_per_tick']:.2f} tok/tick (off "
+                  f"{x['plain_tok_per_tick']:.2f}), decode {x['tok_s']:.1f} tok/s (off "
+                  f"{x['plain_tok_s']:.1f}); one replay " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in r.items())
+                  + f"; per-position states {x['per_position_bytes'] / 1e9:.2f} GB")
+            continue
+        p = x["profile"]
+        print(f"[7] {label}: decode step graphed {x['paired']['decode']['graphed_ms']:.3f} ms, "
+              f"eager {x['paired']['decode']['eager_ms']:.3f} ms (paired medians; one replay "
+              f"{x['replay_ms']['decode']:.3f} ms on the device); 64-token chunk graphed "
+              f"{x['paired']['prefill']['graphed_ms']:.3f} ms, eager "
+              f"{x['paired']['prefill']['eager_ms']:.3f} ms (one replay "
+              f"{x['replay_ms']['chunk64']:.3f} ms); {x['graphs']} graphs captured in "
+              f"{x['capture_s']:.2f}s, pool {x['graph_pool_bytes'] / 1e9:.3f} GB; weights "
+              f"{x['weight_bytes'] / 1e9:.3f} GB, state {x['state_bytes'] / 1e9:.3f} GB, kv "
+              f"pool {x['kv_pool_bytes'] / 1e9:.3f} GB; decode replay kernels: hand "
+              f"{p['hand_ms']:.3f} ms ({p['hand_kernels']} launches), PyTorch ops "
+              f"{p['glue_ms']:.3f} ms ({p['kernels'] - p['hand_kernels']}); per replayed "
+              f"decode step " + " ".join(f"{k}={v}" for k, v in
+                                         x["decode_graph_launches"].items()))
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -2433,6 +3058,7 @@ def main() -> int:
 
     mods = {"gemm": gemm, "fd": fd, "gemm8": gemm8, "kq": kq, "fa": fa, "gp": gp,
             "counters": launches}
+
     t_start = time.monotonic()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2556,6 +3182,7 @@ def main() -> int:
     phase_sampling(*args9)
     print("[9d] KV-swap preemption and the prefix cache")
     phase_preempt_prefix(*args9)
+    phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)

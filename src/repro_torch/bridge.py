@@ -13,6 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models import blocks
 from repro_torch.models.config import ArchConfig
 from repro_torch.kernels.gemm import aligned_rows
 
@@ -23,6 +24,12 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+# Leaves the reference makes float32 whatever the model dtype: Mamba's b_dt,
+# A_log and D (models/ssm.py:44-47), the mLSTM / sLSTM gate biases b_i and
+# b_f (:262-263, :406), and the MoE router (models/moe.py:32).
+FLOAT32_LEAVES = frozenset({"b_dt", "A_log", "D", "b_i", "b_f", "router"})
+
+
 def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
                           device) -> dict:
     """Reference params (nested dict of numpy arrays) -> port params.
@@ -30,20 +37,25 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
     Layer g * group_size + i of the flat list takes slice g of the stacked
     `params_np["blocks"]["sub{i}"]` leaves, whatever they are (projections,
     QKV biases, q/k norms, RMS weights or LayerNorm {"scale", "bias"}
-    dicts, the SwiGLU or GELU MLP's matrices and biases).  An untied "head"
-    is stored as `init_model` stores it (rows 16-byte aligned)."""
+    dicts, the SwiGLU or GELU MLP's matrices and biases, the Mamba / mLSTM
+    / sLSTM leaves, the router and the stacked experts (E, d, ff)).  The
+    leaves the reference keeps in float32 at any model dtype
+    (`FLOAT32_LEAVES`: the recurrences' biases, A_log, D, the router) stay
+    float32; the others take the model dtype.  Layers and an untied "head" are stored as
+    `init_model` stores them (matrix rows 16-byte aligned)."""
     dt = cfg.torch_dtype
 
-    def convert(tree, g=None):
+    def convert(tree, g=None, name=None):
         if isinstance(tree, dict):
-            return {k: convert(v, g) for k, v in tree.items()}
+            return {k: convert(v, g, k) for k, v in tree.items()}
         a = np.asarray(tree)
-        return _tensor(a if g is None else a[g], dt, device)
+        leaf_dt = torch.float32 if name in FLOAT32_LEAVES else dt
+        return _tensor(a if g is None else a[g], leaf_dt, device)
 
     out = {
         "embed": convert(params_np["embed"]),
         "final_norm": convert(params_np["final_norm"]),
-        "layers": [convert(params_np["blocks"][f"sub{i}"], g)
+        "layers": [blocks.stored(convert(params_np["blocks"][f"sub{i}"], g))
                    for g in range(cfg.n_groups) for i in range(cfg.group_size)],
     }
     if not cfg.tie_embeddings:

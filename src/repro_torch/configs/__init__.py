@@ -1,8 +1,9 @@
 """Architecture registry (port of repro/configs/__init__.py).
 
 Each module defines `CONFIG` (the published widths) and `smoke_config()`
-(the reduced float32 config the tests use).  Only the archs the port
-serves are registered: the reference's dense family.
+(the reduced float32 config the tests use).  The archs of the four
+decoder families the port serves are registered: dense, moe (dbrx,
+arctic), hybrid (jamba) and ssm (xlstm).
 """
 
 from __future__ import annotations
@@ -20,6 +21,11 @@ _ARCH_MODULES = {
     # The paper's own transformer benchmark backbones (Table 2):
     "bert-base": "repro_torch.configs.bert_base",
     "vit-b-16": "repro_torch.configs.vit_b_16",
+    # The recurrent, hybrid and MoE families:
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 

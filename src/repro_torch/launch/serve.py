@@ -9,9 +9,13 @@ single-engine path of repro/launch/serve.py).
   PYTHONPATH=src python -m repro_torch.launch.serve --speculative --temperature 0.8 \
       --preempt --priority-classes interactive=0.5,batch=0.5 --prefix-cache
 
-`--arch` takes any arch of the dense family the port registers
-(`configs.list_archs()`): qwen3-14b, mistral-nemo-12b, qwen2.5-14b,
-gemma3-1b (the default), bert-base and vit-b-16.
+`--arch` takes any arch the port registers (`configs.list_archs()`): of
+the dense family qwen3-14b, mistral-nemo-12b, qwen2.5-14b, gemma3-1b (the
+default), bert-base and vit-b-16, and of the recurrent, hybrid and MoE
+families xlstm-1.3b, jamba-1.5-large-398b, dbrx-132b and arctic-480b.
+`--widths published` sizes the arch's weights first (on the meta device)
+and refuses, naming the bytes, when they exceed the card's free memory:
+jamba, dbrx and arctic do; xlstm-1.3b (7.4 GB in bf16) does not.
 
 Runs on the CUDA device unless `--device cpu` is given; there the engine
 serves through the CUDA graphs its warmup captures.  The prompts are
@@ -36,8 +40,10 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
-from repro_torch import configs
+from repro_torch import configs, quant, resolve_device
+from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.request import PRIORITIES, RequestSpec, SamplingParams
 
@@ -56,6 +62,21 @@ def _parse_class_mix(spec: str):
                              f"expected one of {PRIORITIES}")
         mix.append((name, float(w) if w else 1.0))
     return tuple(mix)
+
+
+def check_weights_fit(cfg, device) -> int:
+    """The bytes of `cfg`'s weights, sized on the meta device (nothing is
+    allocated); raises when they exceed the free memory of a CUDA
+    `device`."""
+    need = quant.weight_bytes(M.init_model(cfg, device="meta"))
+    device = resolve_device(device)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        if need > free:
+            raise SystemExit(
+                f"{cfg.name} at these widths holds {need} bytes ({need / 1e9:.1f} GB) "
+                f"of weights; the card has {free} bytes free")
+    return need
 
 
 def main(argv=None, *, params=None):
@@ -117,6 +138,8 @@ def main(argv=None, *, params=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.widths == "smoke" else configs.get(args.arch)
+    if params is None:
+        check_weights_fit(cfg, args.device)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p,
                               seed=args.seed if args.seed >= 0 else None)

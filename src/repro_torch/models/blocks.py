@@ -1,10 +1,15 @@
-"""Transformer blocks: attention (global or sliding-window) plus the SwiGLU
-or GELU FFN, with pre-norms and optional gemma-style post-norms, each an
-RMS norm or a LayerNorm as `cfg.norm` says (port of repro/models/blocks.py
-for the `attn` / `attn_local` kinds: `_init_norm`, `_norm`, `apply_block`
-over the paged cache or over the sequence itself, and `apply_group`).
+"""Blocks: one mixer (attention, global or sliding-window | Mamba | mLSTM |
+sLSTM) plus its FFN (the SwiGLU or GELU MLP, or MoE), with pre-norms and
+optional gemma-style post-norms, each an RMS norm or a LayerNorm as
+`cfg.norm` says (port of repro/models/blocks.py: `_init_norm`, `_norm`,
+`init_block`, `apply_block` over the paged cache or over the sequence
+itself, `apply_group`, `init_cache_for_kind` and
+`init_paged_cache_for_kind`).
 
-Residual adds run in the model dtype, as in the reference.
+The xLSTM kinds carry their own feed-forward (no FFN); the other kinds take
+an MLP, or MoE on every `cfg.moe_every`-th layer of a group (by the layer's
+index inside its group).  Residual adds run in the model dtype, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -13,8 +18,12 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import gemm
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib, ssm
+from repro_torch.serving import kv_cache as kvc
+
+ATTENTION_KINDS = ("attn", "attn_local")
 
 
 def _init_norm(cfg, device):
@@ -31,43 +40,87 @@ def _norm(x: torch.Tensor, p, cfg) -> torch.Tensor:
     return layers.rms_norm(x, p, cfg.norm_eps)
 
 
-def init_block(gen: torch.Generator, cfg, kind: str, device) -> dict:
-    if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
+def _layer_uses_moe(cfg, layer_idx: int) -> bool:
+    return cfg.moe is not None and (layer_idx + 1) % cfg.moe_every == 0
+
+
+_INIT_MIXER = {"attn": attn_lib.init_attention, "attn_local": attn_lib.init_attention,
+               "mamba": ssm.init_mamba, "mlstm": ssm.init_mlstm, "slstm": ssm.init_slstm}
+
+
+def stored(tree):
+    """A layer's parameters as the GeMMs read them in place: every matrix
+    with 16-byte-aligned rows (`gemm.aligned_rows`; the mLSTM gates (di, H)
+    are 8-byte rows in bf16), everything else as it is."""
+    if isinstance(tree, dict):
+        return {k: stored(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dim() == 2:
+        return gemm.aligned_rows(tree)
+    return tree
+
+
+def init_block(gen: torch.Generator, cfg, kind: str, device, *,
+               layer_idx: int = 0) -> dict:
+    """One block of `kind`; `layer_idx` is its index inside its group,
+    which places MoE."""
+    if kind not in _INIT_MIXER:
+        raise ValueError(f"unknown block kind {kind!r}")
     p = {"norm1": _init_norm(cfg, device),
-         "mixer": attn_lib.init_attention(gen, cfg, device)}
-    if cfg.d_ff:
+         "mixer": _INIT_MIXER[kind](gen, cfg, device)}
+    # xLSTM blocks carry their own FFN; the others get an MLP or MoE.
+    if kind in ATTENTION_KINDS + ("mamba",) and (cfg.d_ff or cfg.moe):
         p["norm2"] = _init_norm(cfg, device)
-        p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant,
-                                   cfg.torch_dtype, device)
+        if _layer_uses_moe(cfg, layer_idx):
+            p["ffn"] = moe_lib.init_moe(gen, cfg, device)
+        else:
+            p["ffn"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant,
+                                       cfg.torch_dtype, device)
     if cfg.post_block_norm:
         p["post_norm1"] = _init_norm(cfg, device)
         if "ffn" in p:
             p["post_norm2"] = _init_norm(cfg, device)
-    return p
+    return stored(p)
+
+
+_RECURRENT = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
+              "slstm": ssm.slstm_block}
 
 
 def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
                 positions: torch.Tensor, cache=None,
                 cache_index: Optional[torch.Tensor] = None,
-                block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block, over the sequence itself (cache None) or over the paged
-    cache (the layer's pools update in place)."""
+                block_tables: Optional[torch.Tensor] = None,
+                collect_states: bool = False):
+    """One block over the sequence itself (cache None) or over its decode
+    state: returns (x, new recurrent state or None).  An attention layer's
+    paged pools update in place and it returns None; a recurrent layer
+    returns its new state (per position with `collect_states`) and leaves
+    `cache` untouched, for the caller to commit."""
     h = _norm(x, p["norm1"], cfg)
-    window = cfg.local_window if kind == "attn_local" else None
-    h = attn_lib.attention(h, p["mixer"], cfg, positions=positions,
-                           window=window, cache=cache,
-                           cache_index=cache_index, block_tables=block_tables)
+    new_state = None
+    if kind in ATTENTION_KINDS:
+        window = cfg.local_window if kind == "attn_local" else None
+        h = attn_lib.attention(h, p["mixer"], cfg, positions=positions,
+                               window=window, cache=cache,
+                               cache_index=cache_index, block_tables=block_tables)
+    elif kind in _RECURRENT:
+        h, new_state = _RECURRENT[kind](h, p["mixer"], cfg, state=cache,
+                                        collect_states=collect_states)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     if cfg.post_block_norm:
         h = _norm(h, p["post_norm1"], cfg)
     x = x + h
     if "ffn" in p:
         h = _norm(x, p["norm2"], cfg)
-        h = layers.mlp(h, p["ffn"], cfg.mlp_variant)
+        if "router" in p["ffn"]:
+            h = moe_lib.moe_block(h, p["ffn"], cfg)
+        else:
+            h = layers.mlp(h, p["ffn"], cfg.mlp_variant)
         if cfg.post_block_norm:
             h = _norm(h, p["post_norm2"], cfg)
         x = x + h
-    return x
+    return x, new_state
 
 
 def apply_group(x: torch.Tensor, group_layers: Sequence[dict], cfg, *,
@@ -80,5 +133,28 @@ def apply_group(x: torch.Tensor, group_layers: Sequence[dict], cfg, *,
     if len(group_layers) != len(kinds):
         raise ValueError(f"a group holds {len(kinds)} layers, got {len(group_layers)}")
     for p, kind in zip(group_layers, kinds):
-        x = apply_block(x, p, cfg, kind, positions=positions)
+        x, _ = apply_block(x, p, cfg, kind, positions=positions)
     return x
+
+
+def init_cache_for_kind(cfg, kind: str, batch: int, device):
+    """The per-slot decode state of a recurrent block kind (the reference's
+    dense `KVCache` of the attention kinds is not ported: the port serves
+    attention through the paged pool)."""
+    if kind in ATTENTION_KINDS:
+        raise NotImplementedError(
+            "the dense KVCache is not ported; attention decodes through the paged pool")
+    return ssm.init_state_for_kind(cfg, kind, batch, device)
+
+
+def init_paged_cache_for_kind(cfg, kind: str, batch: int, num_blocks: int,
+                              block_size: int, device, kv_precision: str = "float"):
+    """Paged-serving decode state of one layer: attention kinds share a
+    block pool (int8-resident with per-(block, position, head) scales under
+    kv_precision="int8"); the recurrent kinds keep their O(1) per-slot
+    state."""
+    if kind in ATTENTION_KINDS:
+        return kvc.init_paged_kv(num_blocks, block_size, cfg.n_kv_heads,
+                                 cfg.resolved_head_dim, cfg.torch_dtype, device,
+                                 kv_precision=kv_precision)
+    return init_cache_for_kind(cfg, kind, batch, device)

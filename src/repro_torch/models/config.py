@@ -1,11 +1,15 @@
 """Architecture configuration (port of repro/models/config.py).
 
-A copy, not an import: the reference module imports `jax.numpy`.  Only the
-fields of the dense family are carried (qk-norm, QKV bias, sliding windows,
-the SwiGLU or GELU MLP, RMS or LayerNorm, tied or untied heads);
-`layer_kinds()` and `param_count()` are copied verbatim for that family so
-the layer pattern (gemma3-1b: 13-layer groups, globals where (i+1) % 6 ==
-0) and the parameter count agree with the reference exactly.
+A copy, not an import: the reference module imports `jax.numpy`.  The
+fields of the decoder families are carried: dense (qk-norm, QKV bias,
+sliding windows, the SwiGLU or GELU MLP, RMS or LayerNorm, tied or untied
+heads), moe (`MoEConfig`, `moe_every`), hybrid (`attn_every`,
+`MambaConfig`) and ssm (`slstm_every`).  `layer_kinds()`,
+`param_count()` and `active_param_count()` are copied verbatim, so the
+layer pattern and the parameter counts agree with the reference exactly,
+including its mLSTM term, which counts the q/k/v matrices as di x hd
+where the weights are di x di (xlstm-1.3b: 1.85 B counted, 3.705 B held).
+The encoder-decoder and VLM families are not ported.
 """
 
 from __future__ import annotations
@@ -15,11 +19,34 @@ from typing import Optional, Tuple
 
 import torch
 
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # Snowflake Arctic: dense FFN residual in parallel with the MoE FFN.
+    dense_residual: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or -(-d_model // 16)
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense (only family ported so far)
+    family: str                   # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,6 +66,18 @@ class ArchConfig:
     # ffn flavor
     mlp_variant: str = "swiglu"             # swiglu | gelu (encoders)
 
+    # mixture of experts; MoE replaces the dense FFN on every `moe_every`-th
+    # layer of a group (Jamba: 2 -> alternate layers; DBRX/Arctic: 1 -> all).
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1
+
+    # hybrid (jamba): one attention layer per `attn_every` layers, rest Mamba
+    attn_every: int = 0
+    mamba: Optional[MambaConfig] = None
+
+    # ssm (xlstm): mLSTM blocks with one sLSTM per `slstm_every`
+    slstm_every: int = 0
+
     # norms
     norm: str = "rms"                       # rms | ln (encoders)
     norm_eps: float = 1e-6
@@ -55,11 +94,15 @@ class ArchConfig:
     def __post_init__(self):
         if self.n_heads % max(1, self.n_kv_heads):
             raise ValueError("n_heads must be divisible by n_kv_heads")
+        if self.family == "hybrid" and not (self.attn_every and self.mamba):
+            raise ValueError("hybrid needs attn_every and mamba config")
         if self.local_ratio and not self.local_window:
             raise ValueError("local_ratio needs local_window")
-        if self.family != "dense":
+        if self.family in ("encdec", "vlm"):
             raise NotImplementedError(
-                f"{self.name}: only the dense family is ported, not {self.family!r}")
+                f"{self.name}: the {self.family!r} family is not ported")
+        if self.family not in FAMILIES:
+            raise ValueError(f"{self.name}: unknown family {self.family!r}")
         if self.mlp_variant not in ("swiglu", "gelu"):
             raise ValueError(f"{self.name}: unknown mlp_variant {self.mlp_variant!r}")
         if self.norm not in ("rms", "ln"):
@@ -83,10 +126,20 @@ class ArchConfig:
         return self.n_layers // self.group_size
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Sub-layer kinds inside one group, in execution order."""
+        """Sub-layer kinds inside one group, in execution order:
+        'attn' | 'attn_local' | 'mamba' | 'mlstm' | 'slstm'."""
         kinds = []
         for i in range(self.group_size):
-            if self.local_ratio:
+            if self.family in ("ssm",):
+                # xLSTM: one sLSTM per slstm_every, rest mLSTM.
+                if self.slstm_every and (i + 1) % self.slstm_every == 0:
+                    kinds.append("slstm")
+                else:
+                    kinds.append("mlstm")
+            elif self.family == "hybrid":
+                # Jamba: attention once per attn_every, rest Mamba.
+                kinds.append("attn" if (i + 1) % self.attn_every == 0 else "mamba")
+            elif self.local_ratio:
                 # Gemma3: local_ratio local layers then one global.
                 kinds.append(
                     "attn" if (i + 1) % (self.local_ratio + 1) == 0 else "attn_local"
@@ -106,6 +159,48 @@ class ArchConfig:
         n = v * d * (1 if self.tie_embeddings else 2)
         attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
         ffn = 3 * d * self.d_ff if self.mlp_variant == "swiglu" else 2 * d * self.d_ff
-        per_group = sum(attn + (ffn if self.d_ff else 0)
-                        for _ in self.layer_kinds())
+        moe = 0
+        if self.moe:
+            moe = (
+                d * self.moe.num_experts
+                + self.moe.num_experts * 3 * d * self.moe.d_ff_expert
+            )
+            if self.moe.dense_residual:
+                moe += ffn
+
+        def ffn_params(layer_idx: int) -> int:
+            if self.moe and (layer_idx + 1) % self.moe_every == 0:
+                return moe
+            return ffn if self.d_ff else 0
+
+        mixer = {}
+        mixer["attn"] = mixer["attn_local"] = attn
+        if self.mamba:
+            di = self.mamba.expand * d
+            dtr = self.mamba.resolved_dt_rank(d)
+            mixer["mamba"] = (
+                d * 2 * di + self.mamba.d_conv * di
+                + di * (dtr + 2 * self.mamba.d_state) + dtr * di
+                + di * self.mamba.d_state + di + di * d
+            )
+        if self.family == "ssm":
+            # xLSTM blocks: in/out projections + gates, no separate FFN.
+            di = 2 * d
+            mixer["mlstm"] = d * 2 * di + 4 * di * hd + di * d + 3 * di
+            mixer["slstm"] = 4 * d * d + int(8 / 3 * d * d) * 2
+        kinds = self.layer_kinds()
+        per_group = sum(
+            mixer[k] + (ffn_params(i) if k not in ("mlstm", "slstm") else 0)
+            for i, k in enumerate(kinds)
+        )
         return n + self.n_groups * per_group
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top_k experts)."""
+        if not self.moe:
+            return self.param_count()
+        total = self.param_count()
+        expert_p = self.moe.num_experts * 3 * self.d_model * self.moe.d_ff_expert
+        active_p = self.moe.top_k * 3 * self.d_model * self.moe.d_ff_expert
+        n_moe_layers = self.n_layers // self.moe_every
+        return total - n_moe_layers * (expert_p - active_p)

@@ -28,9 +28,13 @@ def _init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return (w * d_in ** -0.5).to(dtype)
 
 
-def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w (+ b) for a float weight or an int8-resident QuantTensor."""
-    y = ops.linear(x, w)
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
+          quant: Optional[str] = None) -> torch.Tensor:
+    """x @ w (+ b) for a float weight or an int8-resident QuantTensor.
+    `quant` goes to `ops.linear`: None follows the precision mode, "none"
+    keeps a float weight float under w8a8 (the recurrences' gate
+    projections)."""
+    y = ops.linear(x, w, quant=quant)
     if b is not None:
         y = y + b
     return y
@@ -38,9 +42,28 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
 
 # -- norms -------------------------------------------------------------------
 
+ROW_PARTS = 16
+
+
+def row_mean(v: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis (keepdim), summed in an order that does not
+    depend on how many rows `v` holds: 16 partial sums a row, then their
+    sum.  PyTorch's CUDA reduction picks its thread layout from the number
+    of outputs, and below 16 outputs it lays a row over more threads; with
+    16 or more in each pass, a row of a verify step (slots x S rows) sums
+    in the same order as in a decode step (slots rows), so the two agree
+    bit for bit on the card.  A width that 16 does not divide takes
+    `torch.mean`."""
+    d = v.shape[-1]
+    if d % ROW_PARTS:
+        return torch.mean(v, dim=-1, keepdim=True)
+    parts = v.reshape(*v.shape[:-1], ROW_PARTS, d // ROW_PARTS).sum(dim=-1)
+    return parts.sum(dim=-1, keepdim=True) * (1.0 / d)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = row_mean(xf * xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
 
@@ -52,8 +75,8 @@ def init_layernorm(d: int, dtype, device) -> dict:
 
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
     xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    mu = row_mean(xf)
+    var = row_mean((xf - mu) ** 2)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"].to(torch.float32)
             + p["bias"].to(torch.float32)).to(x.dtype)
@@ -122,16 +145,17 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, variant: str, dtype,
     raise ValueError(f"unknown mlp variant {variant!r}")
 
 
-def mlp(x: torch.Tensor, p: dict, variant: str) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: dict, variant: str, *,
+        quant: Optional[str] = None) -> torch.Tensor:
     """SwiGLU: down(silu(gate.f32).to(x.dtype) * up).  GELU: h = x @ w_up +
     b_up, then gelu_tanh(h.f32).to(x.dtype) @ w_down + b_down."""
     if variant == "swiglu":
-        gate = dense(x, p["w_gate"])
-        up = dense(x, p["w_up"])
+        gate = dense(x, p["w_gate"], quant=quant)
+        up = dense(x, p["w_up"], quant=quant)
         h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-        return dense(h, p["w_down"])
+        return dense(h, p["w_down"], quant=quant)
     if variant != "gelu":
         raise ValueError(f"unknown mlp variant {variant!r}")
-    h = dense(x, p["w_up"], p["b_up"])
+    h = dense(x, p["w_up"], p["b_up"], quant=quant)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
-    return dense(h, p["w_down"], p["b_down"])
+    return dense(h, p["w_down"], p["b_down"], quant=quant)

@@ -2,7 +2,7 @@
 `forward`, the paged decode state, `paged_decode_step`, `prefill_chunk`,
 `reset_slots`, the speculative `paged_verify_step`, and the sampling head:
 `_adjusted_logits`, `sample_tokens`, `paged_decode_sample_step` and
-`paged_verify_sample_step`).
+`paged_verify_sample_step`), for the dense, moe, hybrid and ssm families.
 
 Parameters are a plain dict: "embed" (vocab, d), "final_norm" (an RMS
 weight (d,) or LayerNorm's {"scale", "bias"}), "head" (d, vocab) for an
@@ -19,7 +19,14 @@ int8 copy of a tied head; the model code is the same, since `ops.linear` dispatc
 
 The KV pools update in place where the reference donates the state to its
 jitted steps: the reference never keeps a pre-step pool (inactive slots and
-slot slices pass the pools through whole), so the result is the same.
+slot slices pass the pools through whole), so the result is the same.  The
+recurrent layers (Mamba, mLSTM, sLSTM) hold one state per slot instead of a
+pool, and every step writes it in place too, right after the layer ran:
+the decode step keeps inactive slots' state (`ssm.select_into_`), a prefill
+chunk runs on its slot's slice and writes the slice back (`index_copy_`),
+the verify steps collect per-position states and commit each slot's at its
+accepted position, and the reset returns masked slots to their init.  So a
+captured CUDA graph reads and writes every state at a fixed address.
 
 Sampling draws from the port's own counter-based stream (`_fold_keys`):
 an integer hash of (seed, generated index[, draw]) computed with tensor
@@ -32,29 +39,34 @@ with it in distribution, not bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import gemm
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import kv_cache as kvc
 
 
 def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded `torch.Generator` on `device`
-    (CUDA unless the caller names another)."""
+    (CUDA unless the caller names another).  On the "meta" device it
+    allocates nothing: the tree's shapes and dtypes, e.g. to size the
+    weights before making them."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None                      # the meta device: shapes and dtypes only
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dt = cfg.torch_dtype
     params = {
         "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device),
         "final_norm": blocks._init_norm(cfg, device),
-        "layers": [blocks.init_block(gen, cfg, kind, device)
-                   for kind in cfg.all_layer_kinds()],
+        "layers": [blocks.init_block(gen, cfg, kind, device, layer_idx=i)
+                   for _ in range(cfg.n_groups)
+                   for i, kind in enumerate(cfg.layer_kinds())],
     }
     if not cfg.tie_embeddings:
         params["head"] = gemm.aligned_rows(
@@ -64,10 +76,12 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
 
 @dataclasses.dataclass
 class PagedDecodeState:
-    """Serving decode state: one KV block pool per layer plus per-slot
-    block tables and lengths (all on the model's device)."""
+    """Serving decode state: per layer a KV block pool (attention kinds) or
+    a per-slot recurrent state (`ssm.MambaState`, `MLSTMState`,
+    `SLSTMState`), plus per-slot block tables and lengths (all on the
+    model's device)."""
 
-    caches: List[kvc.PagedKVCache]
+    caches: List
     block_tables: torch.Tensor        # (slots, max_blocks) int32
     lengths: torch.Tensor             # (slots,) int32 tokens held per slot
 
@@ -75,10 +89,9 @@ class PagedDecodeState:
 def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
                             block_size: int, max_blocks_per_slot: int,
                             device, kv_precision: str = "float") -> PagedDecodeState:
-    caches = [kvc.init_paged_kv(num_blocks, block_size, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, cfg.torch_dtype, device,
-                                kv_precision=kv_precision)
-              for _ in range(cfg.n_layers)]
+    caches = [blocks.init_paged_cache_for_kind(cfg, kind, slots, num_blocks,
+                                               block_size, device, kv_precision)
+              for kind in cfg.all_layer_kinds()]
     return PagedDecodeState(
         caches=caches,
         block_tables=torch.zeros((slots, max_blocks_per_slot),
@@ -89,10 +102,13 @@ def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
 
 def clear_paged_decode_state(state: PagedDecodeState) -> PagedDecodeState:
     """Return `state` to `init_paged_decode_state`'s contents in place
-    (zero pools and unit int8 scales, null tables, zero lengths): every
-    tensor keeps its address."""
+    (zero pools and unit int8 scales, recurrent states at their init, null
+    tables, zero lengths): every tensor keeps its address."""
     for cache in state.caches:
-        kvc.clear_paged_kv(cache)
+        if isinstance(cache, kvc.PagedKVCache):
+            kvc.clear_paged_kv(cache)
+        else:
+            ssm.reset_state_(cache)
     state.block_tables.zero_()
     state.lengths.zero_()
     return state
@@ -126,9 +142,7 @@ def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     """Logits (B, S, vocab) for batch["tokens"] (B, S) at positions 0..S-1,
     or only the last position's (B, 1, vocab) when `last_only`: causal
     attention over the sequence itself, no cache (train / prefill /
-    calibration / evaluation).  Dense decoders only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"forward for family {cfg.family!r} is not ported")
+    calibration / evaluation), recurrent layers from their init state."""
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
@@ -152,11 +166,18 @@ def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def _trunk_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, caches, cache_index: torch.Tensor,
-                block_tables: torch.Tensor) -> torch.Tensor:
-    for p, kind, cache in zip(params["layers"], cfg.all_layer_kinds(), caches):
-        x = blocks.apply_block(x, p, cfg, kind, positions=positions,
-                               cache=cache, cache_index=cache_index,
-                               block_tables=block_tables)
+                block_tables: torch.Tensor, commit: Callable,
+                collect_states: bool = False) -> torch.Tensor:
+    """Every layer over its decode state; a recurrent layer's new state goes
+    to `commit(layer index, new state)` as soon as the layer ran."""
+    for i, (p, kind, cache) in enumerate(zip(params["layers"],
+                                             cfg.all_layer_kinds(), caches)):
+        x, new = blocks.apply_block(x, p, cfg, kind, positions=positions,
+                                    cache=cache, cache_index=cache_index,
+                                    block_tables=block_tables,
+                                    collect_states=collect_states)
+        if new is not None:
+            commit(i, new)
     return x
 
 
@@ -164,13 +185,19 @@ def paged_decode_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
                       tokens: torch.Tensor, active: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, PagedDecodeState]:
     """One token for every slot at its own position: tokens (B, 1) ->
-    logits (B, 1, vocab).  `active` (B,) bool holds the lengths of idle or
-    mid-prefill slots; their KV writes land at/above their length (hidden
-    until a real write replaces them) or in the null block."""
+    logits (B, 1, vocab).  `active` (B,) bool holds the lengths and the
+    recurrent states of idle or mid-prefill slots (the whole batch
+    computes; inactive updates are discarded); their KV writes land
+    at/above their length (hidden until a real write replaces them) or in
+    the null block."""
     x = _embed_tokens(params, cfg, tokens)
     positions = state.lengths[:, None]
+
+    def commit(i, new):
+        ssm.select_into_(state.caches[i], new, active)
+
     x = _trunk_step(params, cfg, x, positions, state.caches, state.lengths,
-                    state.block_tables)
+                    state.block_tables, commit)
     step = 1 if active is None else active.to(torch.int32)
     new_lengths = state.lengths + step
     x = blocks._norm(x, params["final_norm"], cfg)
@@ -189,7 +216,8 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
 
     `slot` is a Python int or a 0-d / (1,) integer tensor on the state's
     device, as the reference traces it: read on the device, one captured
-    step serves every slot.  Both forms compute the same thing."""
+    step serves every slot.  Both forms compute the same thing.  Recurrent
+    layers advance the slot's slice of their state and write it back."""
     C = tokens.shape[1]
     idx = torch.as_tensor(slot, device=state.lengths.device).reshape(1).long()
     start = state.lengths.index_select(0, idx)                  # (1,)
@@ -197,7 +225,14 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
     x = _embed_tokens(params, cfg, tokens)
     positions = start[:, None] + torch.arange(C, dtype=torch.int32,
                                               device=tokens.device)[None, :]
-    x = _trunk_step(params, cfg, x, positions, state.caches, start, tables)
+    caches = [c if isinstance(c, kvc.PagedKVCache)
+              else type(c)(*(t.index_select(0, idx) for t in c)) for c in state.caches]
+
+    def commit(i, new):
+        for full, part in zip(state.caches[i], new):
+            full.index_copy_(0, idx, part.to(full.dtype))
+
+    x = _trunk_step(params, cfg, x, positions, caches, start, tables, commit)
     x = blocks._norm(x[:, -1:], params["final_norm"], cfg)
     logits = _unembed(x, params, cfg)
     new_lengths = state.lengths.index_add(
@@ -209,9 +244,13 @@ def prefill_chunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
 
 def reset_slots(cfg: ArchConfig, state: PagedDecodeState,
                 mask: torch.Tensor) -> PagedDecodeState:
-    """Zero the length of every masked slot for a fresh request.  KV pages
-    need no reset: freed blocks are rewritten before the length mask
-    exposes them."""
+    """Zero the length of every masked slot for a fresh request and return
+    its recurrent states to their init, in place (m = -1e30, the rest 0).
+    KV pages need no reset: freed blocks are rewritten before the length
+    mask exposes them."""
+    for cache in state.caches:
+        if not isinstance(cache, kvc.PagedKVCache):
+            ssm.reset_state_(cache, mask)
     lengths = torch.where(mask, torch.zeros_like(state.lengths), state.lengths)
     return PagedDecodeState(caches=state.caches,
                             block_tables=state.block_tables, lengths=lengths)
@@ -222,31 +261,48 @@ def reset_slots(cfg: ArchConfig, state: PagedDecodeState,
 # ---------------------------------------------------------------------------
 
 
-def _commit_verified(state: PagedDecodeState) -> List[kvc.PagedKVCache]:
-    """The caches after a verify step.  Paged KV pools pass through: writes
-    at rejected positions sit at or past the committed length, hidden until
-    a later write replaces them.  The reference selects each recurrent
-    layer's state at the accepted position here; the port has no recurrent
-    kind yet, so any other cache raises."""
+def _commit_verified(state: PagedDecodeState, per_pos: List[tuple],
+                     active: torch.Tensor, sel: torch.Tensor) -> list:
+    """The caches after a verify step, in place.  Paged KV pools pass
+    through: writes at rejected positions sit at or past the committed
+    length, hidden until a later write replaces them.  Each recurrent layer
+    (`per_pos`: (layer index, its per-position states, leaves (B, S, ...)))
+    takes each active slot's state after its `sel`-th token; inactive slots
+    keep theirs."""
     for c in state.caches:
-        if not isinstance(c, kvc.PagedKVCache):
+        if not isinstance(c, (kvc.PagedKVCache,) + ssm.RECURRENT_STATES):
             raise NotImplementedError(
-                f"verify over a {type(c).__name__} (recurrent state) is not ported")
+                f"verify over a {type(c).__name__}: neither a paged pool nor a "
+                f"recurrent state the port knows")
+    rows = torch.arange(sel.shape[0], device=sel.device)
+    sel = sel.to(torch.int64)
+    for i, states in per_pos:
+        picked = type(states)(*(leaf[rows, sel] for leaf in states))
+        ssm.select_into_(state.caches[i], picked, active)
     return state.caches
 
 
-def _verify_trunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
-                  tokens: torch.Tensor) -> torch.Tensor:
+def _verify_pass(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                 tokens: torch.Tensor) -> Tuple[torch.Tensor, List[tuple]]:
     """Logits (B, S, vocab) of S tokens per slot at positions lengths ..
-    lengths + S - 1; K/V of all S positions is written through the tables."""
+    lengths + S - 1, K/V of all S positions written through the tables, and
+    each recurrent layer's per-position states, not yet committed."""
     S = tokens.shape[1]
     x = _embed_tokens(params, cfg, tokens)
     positions = state.lengths[:, None] + torch.arange(
         S, dtype=torch.int32, device=tokens.device)[None, :]
+    per_pos: List[tuple] = []
     x = _trunk_step(params, cfg, x, positions, state.caches, state.lengths,
-                    state.block_tables)
+                    state.block_tables, lambda i, new: per_pos.append((i, new)),
+                    collect_states=True)
     x = blocks._norm(x, params["final_norm"], cfg)
-    return _unembed(x, params, cfg)
+    return _unembed(x, params, cfg), per_pos
+
+
+def _verify_trunk(params: dict, cfg: ArchConfig, state: PagedDecodeState,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """`_verify_pass`'s logits; recurrent states are left as they were."""
+    return _verify_pass(params, cfg, state, tokens)[0]
 
 
 def _emitted(out: torch.Tensor, acc: torch.Tensor, active: torch.Tensor,
@@ -276,8 +332,10 @@ def paged_verify_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
 
     Returns (greedy (B, S) int64, n_new (B,) int32, state): greedy[i,
     :n_new[i]] are slot i's committed tokens, those n_new[i] successive
-    `paged_decode_step` calls would emit; lengths advance by n_new."""
-    logits = _verify_trunk(params, cfg, state, tokens)
+    `paged_decode_step` calls would emit; lengths advance by n_new, and
+    each recurrent layer keeps its state after the n_new-th token
+    (checkpoint and restore at token granularity, not a KV rewind)."""
+    logits, per_pos = _verify_pass(params, cfg, state, tokens)
     greedy = torch.argmax(logits, dim=-1)                     # (B, S)
     # Draft i is kept iff it equals the argmax at the position before it;
     # the run stops at the first miss.
@@ -285,8 +343,9 @@ def paged_verify_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,
     acc = torch.cumprod(match, dim=1).sum(dim=1)
     acc = torch.minimum(acc, torch.clamp(limits, min=1) - 1)
     n_new = _emitted(greedy, acc, active, eos)
+    caches = _commit_verified(state, per_pos, active, torch.clamp(n_new - 1, min=0))
     return greedy, n_new, PagedDecodeState(
-        caches=_commit_verified(state), block_tables=state.block_tables,
+        caches=caches, block_tables=state.block_tables,
         lengths=(state.lengths + n_new).to(torch.int32))
 
 
@@ -424,11 +483,12 @@ def paged_verify_sample_step(params: dict, cfg: ArchConfig,
     out, from the key folded once more; after a run ended by the drafts or
     the limit, sample p~ unmasked.  Every emitted position is distributed
     as p~.  Greedy rows reduce to `paged_verify_step`'s accept rule."""
-    logits = _verify_trunk(params, cfg, state, tokens)
+    logits, per_pos = _verify_pass(params, cfg, state, tokens)
     out, n_new = _verify_sample_tail(logits, tokens, active, limits, eos,
                                      temperature, top_k, top_p, seeds, gen_idx)
+    caches = _commit_verified(state, per_pos, active, torch.clamp(n_new - 1, min=0))
     return out, n_new, PagedDecodeState(
-        caches=_commit_verified(state), block_tables=state.block_tables,
+        caches=caches, block_tables=state.block_tables,
         lengths=(state.lengths + n_new).to(torch.int32))
 
 

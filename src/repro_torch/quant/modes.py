@@ -104,3 +104,17 @@ def activation_capture(fn: Callable):
         yield
     finally:
         _capture_fn = None
+
+
+@contextlib.contextmanager
+def capture_paused():
+    """Hide the block's `linear` calls from an installed tap.  The
+    reference's tap skips the calls traced inside its scans (Mamba's
+    chunked dt / B / C projections), so its calibration tables have no
+    entry for them; the port pauses the tap there to make the same table."""
+    global _capture_fn
+    fn, _capture_fn = _capture_fn, None
+    try:
+        yield
+    finally:
+        _capture_fn = fn

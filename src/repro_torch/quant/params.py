@@ -7,6 +7,14 @@ memory drops and the serving hot path never re-quantizes a weight:
 `ops.linear` sees the `QuantTensor` and goes straight to the int8 GeMM with
 the stored scales.
 
+Eligibility is by leaf name (`QUANT_KEYS`), with one rule beside it, as in
+the reference: a dict with a "router" (an MoE FFN) stays float whole.  Its
+experts reuse the MLP leaf names but run through the per-expert float
+GeMMs (models/moe.py), not `ops.linear`; Arctic's dense residual inside it
+stays float too, and the router itself is no `QUANT_KEYS` name (under
+w8a8 it takes the int8 path on the fly).  Embeddings, norms, biases, convs
+and the recurrences' gate / dt projections stay float.
+
 Layout: `QuantTensor.q` has the reference's logical (K, N) shape, but it is
 the `.t()` view of an (N, K) tensor, so each output column's K codes are
 contiguous and the int8 GeMM kernel streams them as 16-byte loads.  The
@@ -127,15 +135,21 @@ def quantize_params(params: Dict[str, Any], *, cfg=None,
     if table and cfg is None:
         raise ValueError("quantize_params needs cfg to place calibrated scales")
 
-    def leaf(t, path):
-        if isinstance(t, QuantTensor):           # already quantized: idempotent
-            return t
-        if (path and path[-1] in QUANT_KEYS and isinstance(t, torch.Tensor)
-                and t.dim() >= 2 and path[0] != "embed"):
-            return quantize_leaf(t, _act_scale(table, path, cfg) if table else None)
-        return t
+    def walk(tree, path, keys):
+        if isinstance(tree, dict):
+            if "router" in tree:                 # MoE: the experts stay float
+                keys = frozenset()
+            return {k: walk(v, path + (k,), keys) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (i,), keys) for i, v in enumerate(tree)]
+        if isinstance(tree, QuantTensor):        # already quantized: idempotent
+            return tree
+        if (path and path[-1] in keys and isinstance(tree, torch.Tensor)
+                and tree.dim() >= 2 and path[0] != "embed"):
+            return quantize_leaf(tree, _act_scale(table, path, cfg) if table else None)
+        return tree
 
-    out = _walk(params, leaf)
+    out = walk(params, (), QUANT_KEYS)
     if cfg is not None and getattr(cfg, "tie_embeddings", False):
         out["head_q"] = quantize_leaf(params["embed"].t(), table.get("head"))
     return out

@@ -84,7 +84,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch import quant
 from repro_torch.kernels import launches, ops
-from repro_torch.models import model as M
+from repro_torch.models import model as M, ssm
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.prefill import chunk_buckets
 from repro_torch.serving.request import RequestSpec, priority_rank
@@ -146,6 +146,7 @@ class EngineMetrics:
     kv_pool_blocks: int = 0       # pool blocks (incl. the null block)
     kv_bytes_per_block: int = 0   # pool bytes per block across all layers
     kv_slot_capacity: int = 0     # max-length requests the pool can hold
+    state_bytes: int = 0          # per-slot recurrent state bytes across all layers
     prefix_lookups: int = 0       # admissions that consulted the prefix cache
     prefix_hits: int = 0          # admissions seeded from a cached prefix
     prefix_hit_tokens: int = 0    # prompt tokens whose prefill was skipped
@@ -194,12 +195,15 @@ class EngineMetrics:
             f"ttft={ttft * 1e3:.0f}ms latency={lat * 1e3:.0f}ms "
             f"kv_occupancy={self.mean_occupancy:.0%} "
             f"peak_blocks={self.peak_blocks_in_use} "
-            f"warmed={self.aot_steps} cold_compiles={self.cold_compiles} "
-            f"kv_pool={self.kv_pool_bytes / 2**20:.1f}MiB "
-            f"({self.kv_pool_blocks} blk x {self.kv_bytes_per_block / 2**10:.1f}KiB, "
-            f"{self.kv_precision}) "
-            f"slots@max_seq={self.kv_slot_capacity}"
+            f"warmed={self.aot_steps} cold_compiles={self.cold_compiles}"
         )
+        if self.kv_pool_bytes:
+            out += (f" kv_pool={self.kv_pool_bytes / 2**20:.1f}MiB "
+                    f"({self.kv_pool_blocks} blk x {self.kv_bytes_per_block / 2**10:.1f}KiB, "
+                    f"{self.kv_precision}) "
+                    f"slots@max_seq={self.kv_slot_capacity}")
+        if self.state_bytes:
+            out += f" recurrent_state={self.state_bytes / 2**20:.1f}MiB"
         if self.prefix_lookups:
             out += (f" prefix_hits={self.prefix_hits}/{self.prefix_lookups} "
                     f"({self.prefix_hit_tokens} tok reused)")
@@ -337,8 +341,15 @@ class Engine:
         self.results: Dict[int, np.ndarray] = {}
 
     def _account_kv_pools(self) -> None:
+        """Pool bytes over the attention layers (none in an attention-free
+        stack such as xLSTM), their cost per block, the max-length requests
+        the pool holds, and the bytes of the recurrent layers' per-slot
+        states."""
         m = self.metrics
-        m.kv_pool_bytes = sum(kvc.pool_bytes(c) for c in self.state.caches)
+        pools = [c for c in self.state.caches if isinstance(c, kvc.PagedKVCache)]
+        m.kv_pool_bytes = sum(kvc.pool_bytes(c) for c in pools)
+        m.state_bytes = sum(ssm.state_bytes(c) for c in self.state.caches
+                            if not isinstance(c, kvc.PagedKVCache))
         m.kv_pool_blocks = self.num_blocks
         m.kv_bytes_per_block = m.kv_pool_bytes // self.num_blocks
         m.kv_slot_capacity = (self.num_blocks - 1) // self.max_blocks_per_slot
@@ -362,8 +373,11 @@ class Engine:
         widths = verify_buckets(self.spec.k) if self.spec else []
         keys = (["decode"] + [f"chunk{c}" for c in buckets]
                 + (["decode_sample", "sample1"] if self.sampling else [])
-                + [f"verify{w}" for w in widths]
-                + ([f"verify_sample{w}" for w in widths] if self.sampling else [])
+                # widest first: a narrower verify graph reuses the wider
+                # one's pool memory (per-position recurrent states)
+                + [f"verify{w}" for w in sorted(widths, reverse=True)]
+                + ([f"verify_sample{w}" for w in sorted(widths, reverse=True)]
+                   if self.sampling else [])
                 + ["reset"])
         with torch.no_grad(), self._precision_ctx():
             for key in keys:
@@ -487,6 +501,8 @@ class Engine:
         return torch.cat([out, n_new.to(out.dtype)[:, None]], dim=1)
 
     def _reset_body(self) -> None:
+        # zeroes the masked slots' lengths and returns their recurrent
+        # states to their init in place
         self.state.lengths.copy_(
             M.reset_slots(self.cfg, self.state, self._reset_mask).lengths)
 
@@ -709,8 +725,8 @@ class Engine:
                         self.metrics.prefix_hits += 1
                         self.metrics.prefix_hit_tokens += ptoks
                         seeds.append((slot, list(blocks), ptoks))
-            # A refilled slot needs its length zeroed; a never-used slot is
-            # already zero.
+            # A refilled slot needs its length zeroed and its recurrent state
+            # returned to its init; a never-used slot is already fresh.
             if self._slot_used[slot]:
                 to_reset.append(slot)
             self._slot_used[slot] = True

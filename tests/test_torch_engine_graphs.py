@@ -172,6 +172,37 @@ def test_warmed_state_equals_fresh_state(models, kv_precision):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_warmed_state_equals_fresh_state_families(arch):
+    """The same for the recurrent stacks: after warmup (every step shape,
+    speculative verify widths included, run on the engine's own state) the
+    per-slot recurrent states are back at their init (m = -1e30, the rest
+    zero), at their addresses, as are the pools, tables and lengths; and
+    after serving requests that refilled slots, the same holds once the
+    state is cleared."""
+    tcfg = tconfigs.get_smoke(arch)
+    kw = dict(slots=2, max_seq=40, block_size=4, max_chunk=8)
+    eng = TEngine(tcfg, device="cpu", speculative=3, **kw)
+    ptrs = [t.data_ptr() for t in _state_tensors(eng.state)]
+    eng.warmup()
+    fresh = TM.init_paged_decode_state(
+        tcfg, 2, num_blocks=eng.num_blocks, block_size=4,
+        max_blocks_per_slot=eng.max_blocks_per_slot, device="cpu")
+    for got, want in zip(_state_tensors(eng.state), _state_tensors(fresh)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    rng = np.random.default_rng(0)
+    for n in (5, 9, 3):
+        eng.submit(TSpec(prompt=rng.integers(0, tcfg.vocab, size=n), max_new=4))
+    eng.run()
+    assert eng.metrics.cold_compiles == 0
+    assert [t.data_ptr() for t in _state_tensors(eng.state)] == ptrs
+    assert any(not torch.equal(got, want) for got, want in
+               zip(_state_tensors(eng.state), _state_tensors(fresh)))
+    TM.clear_paged_decode_state(eng.state)
+    for got, want in zip(_state_tensors(eng.state), _state_tensors(fresh)):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_greedy_ids_first_index_on_ties(dtype):
     """The device argmax picks the first maximal index, as np.argmax over

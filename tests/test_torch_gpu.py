@@ -1023,3 +1023,165 @@ def test_verify_rows_bitwise_equal_decode_rows(cuda_device):
                 one = tfd.flash_decode_attention(q[:, j:j + 1].contiguous(), cache16, bt,
                                                  idx + j, window=40)
                 assert torch.equal(one[:, 0], full[:, j]), (hq, sq, j)
+
+
+# -- the recurrent, hybrid and MoE families -------------------------------------
+
+FAMILY_ARCHS = ("xlstm-1.3b", "jamba-1.5-large-398b", "dbrx-132b", "arctic-480b")
+
+
+def _family_cfg(arch):
+    """The arch's smoke config (float32), head_dim raised to 64, K2's
+    smallest instantiation, where the stack has attention."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    cfg = configs.get_smoke(arch)
+    if "attn" in cfg.layer_kinds():
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    return cfg
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _family_requests(vocab):
+    from repro_torch.serving.request import RequestSpec
+
+    rng = np.random.default_rng(21)
+    pat = rng.integers(0, vocab, size=4).astype(np.int32)
+    prompts = [np.tile(pat, 5), rng.integers(0, vocab, size=13).astype(np.int32),
+               np.tile(pat, 5), rng.integers(0, vocab, size=30).astype(np.int32),
+               rng.integers(0, vocab, size=6).astype(np.int32)]
+    return [RequestSpec(prompt=p, max_new=g) for p, g in zip(prompts, (9, 7, 9, 5, 6))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_steps_on_card_equal_cpu(cuda_device, arch):
+    """A prefill chunk and three decode steps (one slot idle) on the card
+    against the CPU's plain versions on the same weights: logits within
+    1e-4 x max|logit| (float32 sums reordered), greedy tokens equal, and
+    every recurrent state within 1e-4."""
+    from repro_torch.models import model as TM
+
+    cfg = _family_cfg(arch)
+    params = TM.init_model(cfg, seed=0, device="cpu")
+    states = {}
+    for dev, p in (("cpu", params), ("cuda", _to_device(params, cuda_device))):
+        st = TM.init_paged_decode_state(cfg, 2, num_blocks=9, block_size=16,
+                                        max_blocks_per_slot=4, device=dev)
+        st.block_tables.copy_(torch.arange(1, 9, dtype=torch.int32).reshape(2, 4))
+        toks = torch.arange(20, dtype=torch.int64)[None] % cfg.vocab
+        logits = []
+        with torch.no_grad():
+            out, st = TM.prefill_chunk(p, cfg, st, toks.to(dev), torch.tensor([1], device=dev))
+            logits.append(out[0, -1].float().cpu())
+            tok = int(logits[-1].argmax())
+            for _ in range(3):
+                out, new = TM.paged_decode_step(
+                    p, cfg, st, torch.tensor([[0], [tok]], device=dev),
+                    torch.tensor([False, True], device=dev))
+                st.lengths = new.lengths
+                logits.append(out[1, -1].float().cpu())
+                tok = int(logits[-1].argmax())
+        states[dev] = (logits, st)
+    (want, st_c), (got, st_g) = states["cpu"], states["cuda"]
+    for g_, w_ in zip(got, want):
+        assert float((g_ - w_).abs().max()) <= 1e-4 * float(w_.abs().max())
+        assert int(g_.argmax()) == int(w_.argmax())
+    for c_g, c_c in zip(st_g.caches, st_c.caches):
+        if not isinstance(c_g, tkvc.PagedKVCache):
+            for a, b in zip(c_g, c_c):
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_graphed_engine_equals_eager(cuda_device, arch):
+    """The replayed CUDA graphs serve the family stacks as the eager engine
+    does on the same weights: tokens equal with slot refills (the reset
+    replayed on recurrent states), every shape captured at warmup, the
+    launches counted from replays the eager run's, and every state tensor
+    (pools, recurrent states, tables, lengths) still at the address the
+    graphs captured."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import model as TM
+    from repro_torch.serving.engine import Engine
+
+    cfg = _family_cfg(arch)
+    params = TM.init_model(cfg, seed=0, device=cuda_device)
+    runs = {}
+    for graphs in (False, True):
+        eng = Engine(cfg, params, slots=2, max_seq=64, block_size=16, max_chunk=16,
+                     device=cuda_device, graphs=graphs)
+        eng.warmup()
+        ptrs = [t.data_ptr() for c in eng.state.caches for t in c if t is not None]
+        launches.reset()
+        for spec in _family_requests(cfg.vocab):
+            eng.submit(spec)
+        runs[graphs] = (eng, eng.run(), launches.counts())
+        assert [t.data_ptr() for c in eng.state.caches for t in c if t is not None] == ptrs
+        assert eng.metrics.cold_compiles == 0
+    (eager, want, counts), (graphed, got, graphed_counts) = runs[False], runs[True]
+    assert graphed_counts == dict.fromkeys(launches.COUNTERS, 0)
+    assert graphed._replays["reset"] > 0
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    assert graphed.replayed_launches() == counts
+    assert counts["gemm"] > 0 and (counts["flash_decode"] > 0) == ("attn" in cfg.layer_kinds())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_family_graphed_speculative_equals_plain(cuda_device, arch):
+    """Graphed verify steps commit each slot's recurrent state at its
+    accepted position: speculative tokens equal the plain engine's."""
+    from repro_torch.models import model as TM
+    from repro_torch.serving.engine import Engine
+
+    cfg = _family_cfg(arch)
+    params = TM.init_model(cfg, seed=0, device=cuda_device)
+    out = []
+    for spec in (4, False):
+        eng = Engine(cfg, params, slots=2, max_seq=64, block_size=16, max_chunk=16,
+                     device=cuda_device, speculative=spec)
+        out.append(_serve_specs(eng, _family_requests(cfg.vocab)))
+        if spec:
+            assert eng.metrics.spec_ticks > 0
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_moe_combine_deterministic_on_card(cuda_device):
+    """The MoE block in bf16 gives the same bits on every call and on every
+    replay of a captured graph: a token's k weighted expert outputs are
+    summed in choice order, never by atomics."""
+    from repro_torch.models import model as TM
+    from repro_torch.models import moe as TMoE
+
+    import dataclasses
+
+    cfg = dataclasses.replace(_family_cfg("dbrx-132b"), dtype="bfloat16")
+    params = TM.init_model(cfg, seed=0, device=cuda_device)
+    ffn = params["layers"][0]["ffn"]
+    x = torch.randn((8, 5, cfg.d_model), device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        want = TMoE.moe_block(x, ffn, cfg)
+        for _ in range(3):
+            assert torch.equal(TMoE.moe_block(x, ffn, cfg), want)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = TMoE.moe_block(x, ffn, cfg)
+        for _ in range(3):
+            got.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)

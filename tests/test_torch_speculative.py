@@ -307,14 +307,17 @@ def _launch_splits_on(tfd, q, tables, hkv):
 
 
 def test_verify_refuses_recurrent_state(built):
-    """The seam that would select a recurrent layer's state at the accepted
-    position raises: the port has no recurrent kind yet."""
+    """The seam that selects each recurrent layer's state at the accepted
+    position (tests/test_torch_families.py holds it against the reference)
+    refuses a cache that is neither a paged pool nor a recurrent state it
+    knows."""
     _, _, tcfg, tparams = built("gemma3-1b")
     state = TM.init_paged_decode_state(tcfg, 1, num_blocks=3, block_size=4,
                                        max_blocks_per_slot=2, device="cpu")
     state.caches[0] = object()
     with pytest.raises(NotImplementedError, match="recurrent"):
-        TM._commit_verified(state)
+        TM._commit_verified(state, [], torch.ones(1, dtype=torch.bool),
+                            torch.zeros(1, dtype=torch.int64))
 
 
 # -- host decisions equal to the reference's ----------------------------------

@@ -40,7 +40,11 @@ Phases, in order; any failure exits non-zero:
      (global and window 512) and 40 / 8 at D 128, slot lengths 17-1100
      across block boundaries and past the window, against
      `ref_paged_decode` and at the rule's split count (also against
-     `split_decode_plain`).
+     `split_decode_plain`).  Then whisper-medium's and paligemma-3b's
+     shapes: K5 non-causal at Sq != Skv (8 x 1 | 64 | 1500 queries over
+     1500 frames, 16 / 16 heads, D 64), bf16 and f32; K1 (bf16) at M =
+     12000 (the cross K / V projections of 8 x 1500 frames, 1024 x 1024)
+     and M = 2048 (the projector over 8 x 256 patches, 1152 x 2048).
   3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
@@ -98,7 +102,9 @@ Phases, in order; any failure exits non-zero:
      GeMM, torch._int_mm and its bound, per w8a8 and calibrated decode step
      and per prefill chunk; K2 per decode
      step and per prefill chunk at its rule's split count (also as eager
-     calls), at 1 and at 4 splits; K5 per shape and per forward.
+     calls), at 1 and at 4 splits; K5 per shape and per forward; K5 at
+     whisper's encoder shape (8 x 1500 over 1500) and its Sq = 1 cross
+     shape beside SDPA; K1 at M = 12000 and 2048 beside torch.matmul.
   8a. qwen3-14b at published widths (40 layers, d 5120, 40 q heads over 8
      kv heads, head_dim 128, d_ff 17408, untied 151936 vocab, qk-norm),
      bf16, random weights (seed 0), served as phase 3 serves gemma3-1b (8
@@ -168,9 +174,10 @@ Phases, in order; any failure exits non-zero:
      `family_plan`; paired step medians, one replay's device time, capture
      seconds, graph pool / recurrent state / weight bytes, a profile of
      one replayed decode step):
-     10a. xlstm-1.3b whole (48 layers: 42 mLSTM + 6 sLSTM, d 2048, 4
-     heads, vocab 50304, untied; 7.41 GB), 8 requests of 256-512 tokens,
-     32 new each, float then w8a8; then speculative greedy decoding (k = 4,
+     10a. xlstm-1.3b (d 2048, 4 heads, vocab 50304, untied), `reduced`
+     to 16 of its 48 layers (14 mLSTM + 2 sLSTM) for the time limit, 8
+     requests of 256-512 tokens, 32 new each, float then w8a8; then, whole
+     (48 layers, 7.41 GB), speculative greedy decoding (k = 4,
      8 slots: 28.2 GB of per-position states in verify5) on a regeneration
      storm (16 requests over 4 prompts), tokens equal to a non-speculative
      graphed engine; then the serve CLI at published widths.
@@ -184,6 +191,30 @@ Phases, in order; any failure exits non-zero:
      where the stack has attention) on the card and on the CPU: the logits
      after a prompt's prefill and three decode steps within phase 4's bar,
      argmax equal, and the engine's greedy tokens equal.
+     10a's speculation also serves its storm again with the verify graphs
+     captured narrowest first (the order of the one run whose speculative
+     tokens differed, ROADMAP C.2), tokens equal to the non-speculative run.
+  11. the encoder-decoder and VLM families through the reference's
+     unpaged entry points (no new kernel; the dense-cache decode attention
+     and paligemma's prefix-LM attention are plain PyTorch).
+     11a. whisper-medium at published widths (24 encoder + 24 decoder
+     layers, d 1024, 16 / 16 heads, D 64, untied 51865 vocab; 1.62 GB),
+     bf16, random weights (seed 0): 8 requests of 1500 random frames and
+     16-token prompts through `prefill`, then 47 greedy `decode_step`s,
+     one state replayed from the step's CUDA graph and one eager, in
+     lockstep: tokens identical; the encoder's, prefill's and the step's
+     times, one replay's device time and profile, the cross caches'
+     bytes, launches per replay as planned (193 K1, 24 K5).
+     11b. paligemma-3b at published widths (18 layers, d 2048, MQA 8 / 1,
+     D 256, tied 257216 vocab; 5.02 GB): 256 random patches (width 1152)
+     and a 16-token prompt a request, 31 decode steps, the same checks
+     (127 K1 a replay).
+     11c. both smoke configs, head_dim 64, f32, card against CPU: forward
+     logits, prefill and 6 decode steps within phase 4's bar, argmax
+     equal.
+     11d. `serve --arch gemma3-1b --widths published --compare-prefill`:
+     the token-by-token prefill (the unpaged step's graph) against the
+     engine's chunked prefill, both times printed.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -1208,23 +1239,30 @@ HAND_KERNELS = ("gemm_kernel", "s8_kernel", "pipelined_kernel", "decode_split_ke
 
 def _profile_decode(torch, eng, lengths, reps: int = 3):
     """torch.profiler over `reps` replays of the decode graph (8 slots live
-    at `lengths`): device time per step split between the hand kernels and
-    the plain PyTorch ops between them, and the top 10 kernels by time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    at `lengths`): `_profile_replays`."""
     _live_slots(torch, eng, lengths)
     graph, _ = eng.step_graphs["decode"]
     graph.replay()
     torch.cuda.synchronize()
+    out = _profile_replays(torch, graph.replay, reps)
+    _free_slots(eng)
+    return out
+
+
+def _profile_replays(torch, replay, reps: int = 3):
+    """torch.profiler over `reps` calls of `replay` (a decode step's graph
+    replay): device time per step split between the hand kernels and the
+    plain PyTorch ops between them, and the top 10 kernels by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(reps):
-            graph.replay()
+            replay()
         end.record()
         torch.cuda.synchronize()
-    _free_slots(eng)
     rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total = sum(t for _, t, _ in rows)
@@ -1244,9 +1282,17 @@ def _profile_decode(torch, eng, lengths, reps: int = 3):
     print("  the 10 PyTorch-op kernels that take the most time in the step:")
     for k, t, c in top:
         print(f"    {t:8.4f} ms {c:5d}x {k[:120]}")
+    hand_top = collections.Counter()
+    for k, t, n in rows:
+        for h in HAND_KERNELS:
+            if h in k:
+                hand_top[h, "ms"] += t
+                hand_top[h, "n"] += n
     return {"kernel_ms": total, "replay_ms": span, "hand_ms": hand, "glue_ms": total - hand,
             "kernels": n_all, "hand_kernels": n_hand,
-            "top": [(k[:110], t, c) for k, t, c in top]}
+            "top": [(k[:110], t, c) for k, t, c in top],
+            "hand": sorted(((h, hand_top[h, "ms"], hand_top[h, "n"]) for h, f in hand_top
+                            if f == "ms"), key=lambda r: -r[1])}
 
 
 def _print_splits(torch, fd, eng, cfg):
@@ -2695,11 +2741,37 @@ def per_position_bytes(cfg, slots, width):
                for kind in cfg.all_layer_kinds() if kind not in ("attn", "attn_local"))
 
 
+def _recapture_narrow_first(torch, eng):
+    """Drop `eng`'s graphs and capture them again with the verify graphs
+    narrowest first, where the warmup captures them widest first (so that
+    the narrower ones reuse the widest one's pool memory); returns the
+    order."""
+    keys = list(eng.step_graphs)
+    verify = sorted((k for k in keys if re.fullmatch(r"verify\d+", k)), key=lambda k: int(k[6:]))
+    order = []
+    for key in keys:
+        if key in verify:
+            order += [v for v in verify if v not in order]
+        else:
+            order.append(key)
+    eng.step_graphs.clear()
+    eng.graph_pool = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with torch.no_grad(), eng._precision_ctx():
+        for key in order:
+            eng._capture(key)
+    torch.cuda.synchronize()
+    return order
+
+
 def phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg, k, slots):
     """Speculative greedy decoding on a recurrent stack, graphed: the verify
     graphs collect per-position states and commit each slot's at its
     accepted position; the tokens equal a non-speculative graphed engine's
-    on the same weights; launches per verify replay as planned."""
+    on the same weights, also with the verify graphs captured again
+    narrowest first (ROADMAP C.2); launches per verify replay as
+    planned."""
     from repro_torch.serving.speculative import verify_buckets
 
     fused = mods["gemm8"].FUSED_ROWS
@@ -2737,6 +2809,19 @@ def phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg, k, slots):
     check(d["spec_ticks"] > 0 and d["spec_accepted_tokens"] > 0,
           "the storm ran verify steps that accepted drafts")
     check(m.cold_compiles == 0 and plain.metrics.cold_compiles == 0, "no cold compile")
+    # ROADMAP C.2: the one run whose speculative tokens differed captured
+    # the verify graphs narrowest first; serve the storm again in that
+    # order.
+    order = _recapture_narrow_first(torch, spec)
+    pool_narrow = graph_pool_bytes(torch, spec)
+    got2, _, d2 = _serve_ticks(spec, specs)
+    for rid, (a, b) in enumerate(zip(got2, want)):
+        check(np.array_equal(a, b), f"request {rid}: speculative tokens with the verify graphs "
+                                    f"captured narrowest first equal non-speculative")
+    print(f"  C.2: graphs captured again in the order {order} (graph pool "
+          f"{pool_narrow / 1e9:.3f} GB): the storm's {d2['decode_tokens']} decode tokens equal "
+          f"the non-speculative run's; acceptance {d2['accept']:.3f}, {d2['spec_ticks']} "
+          f"verified ticks")
     verify_ms = {key: _median(v) for key, v in sorted(times.items()) if key.startswith("verify")}
     print(f"  storm: {len(specs)} requests, {d['decode_tokens']} decode tokens identical with "
           f"speculation on and off; acceptance {d['accept']:.3f} "
@@ -2974,11 +3059,17 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     out = {}
     cfg, reduced = family_cfg(configs, "xlstm-1.3b")
     xl_traffic = family_traffic(20, 256, 512)
-    print("[10a] xlstm-1.3b at published widths (48 layers: 42 mLSTM, 6 sLSTM; d 2048, "
-          "4 heads, vocab 50304, untied; bf16), float")
-    out["10a float"] = phase_family(*args, cfg, reduced, xl_traffic)
+    # The float and w8a8 runs are cut to 2 of the 6 groups to keep the whole
+    # script inside its time limit: their eager 64-token chunks (64
+    # sequential mLSTM steps a layer) were a fifth of it.  The speculative
+    # run and the CLI keep all 48 layers.
+    cut = dataclasses.replace(cfg, n_layers=2 * cfg.group_size)
+    cut_reduced = {"n_layers": [cfg.n_layers, cut.n_layers]}
+    print("[10a] xlstm-1.3b at published widths (d 2048, 4 heads, vocab 50304, untied; "
+          "bf16), 16 of its 48 layers (14 mLSTM, 2 sLSTM), float")
+    out["10a float"] = phase_family(*args, cut, cut_reduced, xl_traffic)
     print("[10a] the same in w8a8 (no attention layer: no KV pool)")
-    out["10a w8a8"] = phase_family(*args, cfg, reduced, xl_traffic, precision="w8a8")
+    out["10a w8a8"] = phase_family(*args, cut, cut_reduced, xl_traffic, precision="w8a8")
     print(f"[10a] speculative greedy decoding, k = {DRAFT_K}, 8 slots")
     out["10a spec"] = phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg,
                                         DRAFT_K, 8)
@@ -3024,6 +3115,327 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
               f"{p['glue_ms']:.3f} ms ({p['kernels'] - p['hand_kernels']}); per replayed "
               f"decode step " + " ".join(f"{k}={v}" for k, v in
                                          x["decode_graph_launches"].items()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the encoder-decoder and VLM families through the unpaged decode
+# path (whisper-medium, paligemma-3b), and K5 on a serving path
+# ---------------------------------------------------------------------------
+
+# K5 at whisper's cross-attention (non-causal, Sq != Skv: 1 | 64 queries over
+# 1500 frames) and its encoder (1500 over 1500), 16 / 16 heads, D 64.
+ENCDEC_FLASH = [(8, 1, 1500), (8, 64, 1500), (8, 1500, 1500)]   # (B, Sq, Skv)
+ENCDEC_GEMMS = [  # (label, M, K, N): K1 far above the M <= 64 its plan was set for
+    ("whisper cross wk / wv, 8 x 1500 frames", 12000, 1024, 1024),
+    ("paligemma projector, 8 x 256 patches", 2048, 1152, 2048)]
+UNPAGED_ARCHS = ("whisper-medium", "paligemma-3b")
+UNPAGED_SLOTS, UNPAGED_PROMPT = 8, 16
+
+
+def phase_kernels_encdec(torch, gemm, fa):
+    """K5 at Sq != Skv, non-causal (whisper's cross-attention and encoder,
+    16 / 16 heads, D 64), bf16 and f32 at FLASH_TOL; K1 at M = 12000 (the
+    cross K / V projections of 8 requests' frames) and 2048 (paligemma's
+    projector), bf16 out within one bf16 ulp."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    worst = {"flash_attention": 0.0, "gemm": 0.0}
+    H, D = 16, 64
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for B, Sq, Skv in ENCDEC_FLASH:
+            q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt)
+                    for _ in range(2))
+            abs_e, rel_e, ok = close(fa.flash_attention(q, k, v, causal=False),
+                                     fa.flash_attention_plain(q, k, v, causal=False),
+                                     *FLASH_TOL[dname])
+            worst["flash_attention"] = max(worst["flash_attention"], abs_e)
+            print(f"  whisper flash_attention {dname} B={B} Sq={Sq} Skv={Skv} Hq=Hkv={H} D={D} "
+                  f"non-causal: max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"flash_attention {dname} non-causal {(B, Sq, Skv)}")
+            del q, k, v
+    rtol, atol = GEMM_TOL["bfloat16"]
+    for label, M_, K, N in ENCDEC_GEMMS:
+        a = torch.randn((M_, K), generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16)
+        abs_e, rel_e, ok = close(gemm.gemm(a, w, out_dtype=torch.bfloat16),
+                                 gemm.gemm_plain(a, w, torch.bfloat16), rtol, atol)
+        worst["gemm"] = max(worst["gemm"], abs_e)
+        print(f"  {label}: gemm bf16 M={M_} {K}x{N} max_abs={abs_e:.3e} max_rel={rel_e:.3e} "
+              f"tol=(rtol {rtol:g}, atol {atol:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"gemm bf16 M={M_} {label}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_times_encdec(torch, gemm, fa):
+    """K5 at whisper's encoder shape (8 x 1500 over 1500, non-causal) and
+    its Sq = 1 cross shape (8 x 1 over 1500), bf16, L2 cold, beside SDPA
+    (MHA: no K/V repeat) and the bound; K1 at the cross-K/V (M = 12000) and
+    projector (M = 2048) shapes beside torch.matmul."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    dt, H, D = torch.bfloat16, 16, 64
+    rows = {}
+    for key, (B, Sq, Skv) in (("whisper encoder", ENCDEC_FLASH[2]),
+                              ("whisper cross Sq=1", ENCDEC_FLASH[0])):
+        set_bytes = 2 * B * H * D * (2 * Sq + 2 * Skv)
+        sets = [(torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt),
+                 torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt),
+                 torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt))
+                for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+        kcalls = [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=False)
+                  for q, k, v in sets]
+        t_k = _time_ms(torch, kcalls, 40)
+        t_e = _time_ms(torch, kcalls, 40, graph=False)
+        t_p = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention_plain(
+            q, k, v, causal=False) for q, k, v in sets[:2]], 4, graph=False)
+        lib = [tuple(t.permute(0, 2, 1, 3) for t in s) for s in sets]
+        t_l = _time_ms(torch, [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
+                               for q, k, v in lib], 40)
+        bound, by = _bound(set_bytes, 4 * B * H * Sq * Skv * D, PEAK_FLOPS["bfloat16"])
+        rows[("flash_attention", key)] = (t_k, t_p, t_l, bound, by)
+        print(f"  flash_attention bf16 {key}: B={B} Sq={Sq} Skv={Skv} Hq=Hkv={H} D={D} "
+              f"non-causal: kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
+              f"{t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+              f"{bound / t_k:.1%} of bound")
+        del sets, lib, kcalls
+    for label, M_, K, N in ENCDEC_GEMMS:
+        _time_gemm(torch, gemm, g, M_, label, K, N, False, rows, label="")
+        t_k, t_p, t_l, bound = rows[("gemm", M_, label)]
+        rows[("gemm", M_, label)] = (t_k, t_p, t_l, bound,
+                                     _bound((M_ * K + K * N + M_ * N) * 2, 2 * M_ * K * N,
+                                            PEAK_FLOPS["bfloat16"])[1])
+    torch.cuda.empty_cache()
+    return rows
+
+
+def unpaged_plan(cfg):
+    """Hand-kernel launches of one unpaged decode step: a K1 launch per
+    projection (self q, k, v, o; whisper's cross q and o, its K / V read
+    from the cross caches; the MLP's gate, up, down or up, down) and the
+    head; one K5 launch per whisper cross-attention (Sq = 1 over the
+    frames).  Self-attention over the dense cache is plain PyTorch."""
+    per_layer = 4 + (2 if cfg.family == "encdec" else 0) + \
+        (3 if cfg.mlp_variant == "swiglu" else 2)
+    plan = {"gemm": cfg.n_layers * per_layer + 1}
+    if cfg.family == "encdec":
+        plan["flash_attention"] = cfg.n_layers
+    return plan
+
+
+def _unpaged_batch(torch, np, cfg, dev, B, P, seed):
+    """B random prompts of P tokens, and whisper's frames (B, 1500, d) or
+    paligemma's patches (B, 256, 1152), from a seeded numpy generator."""
+    from repro_torch.models import model as M
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P))).to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(dev)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.prefix_len, M.VISION_DIM), dtype=np.float32)).to(dev)
+    return batch
+
+
+def phase_unpaged(torch, np, configs, M, mods, quant, arch, n_new):
+    """One arch at published widths (random weights, seed 0; bf16) through
+    the reference's unpaged entry points: 8 requests (prompts of 16 tokens
+    and the arch's frames or patches) go through `prefill`, then greedy
+    `decode_step`s, one state served by the step's CUDA graph and one
+    eager, in lockstep; tokens equal; launches per replay as planned."""
+    from repro_torch.launch import steps
+
+    cfg = configs.get(arch)
+    dev = torch.device("cuda")
+    B, P = UNPAGED_SLOTS, UNPAGED_PROMPT
+    max_seq = P + n_new
+    params = M.init_model(cfg, seed=0, device=dev)
+    batch = _unpaged_batch(torch, np, cfg, dev, B, P, seed=41)
+    reset_counts(mods)
+    t_run = time.monotonic()
+    with torch.no_grad():
+        prefill_ms = []
+        states = []
+        for _ in range(2):          # the eager state, then the graphed one
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            states.append(M.prefill(params, cfg, batch, max_seq))
+            torch.cuda.synchronize()
+            prefill_ms.append((time.monotonic() - t0) * 1e3)
+        (logits_e, st_e), (logits_g, st_g) = states
+        check(torch.equal(logits_e, logits_g), f"{arch}: the two prefills agree bit for bit")
+        t0 = time.monotonic()
+        step_g = steps.GraphedServeStep(cfg, params, st_g, B)
+        capture_s = time.monotonic() - t0
+        plan = unpaged_plan(cfg)
+        check(step_g.launches == plan,
+              f"{arch}: launches per replay {step_g.launches}, planned {plan}")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        toks_e, toks_g = [logits_e[:, -1].argmax(-1)], [logits_g[:, -1].argmax(-1)]
+        eager_ms, graphed_ms, replay_ms = [], [], []
+        for _ in range(n_new - 1):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits_e, st_e = M.decode_step(params, cfg, st_e, toks_e[-1][:, None])
+            toks_e.append(logits_e[:, -1].argmax(-1))
+            torch.cuda.synchronize()
+            eager_ms.append((time.monotonic() - t0) * 1e3)
+            t0 = time.monotonic()
+            start.record()
+            logits_g, _ = step_g(params, st_g, toks_g[-1][:, None])
+            end.record()
+            toks_g.append(logits_g[:, -1].argmax(-1))
+            torch.cuda.synchronize()
+            graphed_ms.append((time.monotonic() - t0) * 1e3)
+            replay_ms.append(start.elapsed_time(end))
+        got, want = torch.stack(toks_g, 1).cpu(), torch.stack(toks_e, 1).cpu()
+        check(torch.equal(got, want), f"{arch}: graphed tokens equal eager tokens")
+        check(int(st_g.index) == int(st_e.index) == max_seq - 1, f"{arch}: indices advanced")
+        # The index is at max_seq - 1: later replays overwrite the last
+        # position (the write clamps, as the reference's does), no token is
+        # read from them.
+        prof = _profile_replays(torch, lambda: step_g(params, st_g, toks_g[-1][:, None]))
+        print("  hand kernels in the replay: " + ", ".join(
+            f"{k} {t:.3f} ms ({n}x)" for k, t, n in prof["hand"]))
+        enc_ms = None
+        if cfg.family == "encdec":
+            enc_ms = _median([_time_ms(torch, [lambda: M._run_encoder(batch["frames"], params,
+                                                                      cfg)], 1, graph=False)
+                              for _ in range(3)])
+    run_s = time.monotonic() - t_run
+    replays = n_new - 1
+    counts = read_counts(mods)
+    # The capture called each wrapper once and launched nothing.
+    launched = {k: counts.get(k, 0) + (replays - 1) * step_g.launches.get(k, 0)
+                for k in set(counts) | set(step_g.launches)}
+    launched = {k: v for k, v in launched.items() if v}
+    for k in plan:
+        check(launched.get(k, 0) > 0, f"{arch}: {k} launched on the path")
+    cross_bytes = sum(t.numel() * t.element_size() for c in (st_g.cross_caches or [])
+                      for t in c)
+    self_bytes = sum(t.numel() * t.element_size() for c in st_g.caches for t in c)
+    wbytes = quant.weight_bytes(params)
+    out = dict(arch=arch, prefill_ms=prefill_ms, encoder_ms=enc_ms, capture_s=capture_s,
+               eager_ms=_median(eager_ms), graphed_ms=_median(graphed_ms),
+               replay_ms=_median(replay_ms), per_replay=step_g.launches, launches=launched,
+               cross_bytes=cross_bytes, self_bytes=self_bytes, weight_bytes=wbytes,
+               tokens=got.shape[1], profile=prof)
+    print(f"  weights {wbytes / 1e9:.3f} GB; {B} requests x {P}-token prompts"
+          + (f" x {cfg.encoder_seq} frames" if cfg.family == "encdec" else "")
+          + (f" x {cfg.prefix_len} patches" if cfg.family == "vlm" else "")
+          + f", {n_new} new tokens each; the {B * n_new} tokens are identical graphed and eager")
+    if enc_ms is not None:
+        print(f"  encoder ({cfg.encoder_layers} layers over {B} x {cfg.encoder_seq} frames): "
+              f"{enc_ms:.3f} ms")
+    print(f"  prefill (forward, then the caches through {P} decode steps"
+          + (", the encoder run twice" if cfg.family == "encdec" else "")
+          + f"): {prefill_ms[0]:.2f} ms, then {prefill_ms[1]:.2f} ms")
+    print(f"  decode step (paired medians over {replays} steps): graphed {out['graphed_ms']:.3f} ms,"
+          f" eager {out['eager_ms']:.3f} ms; device time of one replay {out['replay_ms']:.3f} ms;"
+          f" captured in {capture_s:.2f}s")
+    print(f"  cross caches {cross_bytes / 1e9:.3f} GB, self-attention caches "
+          f"{self_bytes / 1e9:.4f} GB; launches per replay (as planned) "
+          + " ".join(f"{k}={v}" for k, v in sorted(step_g.launches.items()))
+          + "; launches of the run " + " ".join(f"{k}={v}" for k, v in sorted(launched.items()))
+          + f"; {run_s:.1f}s")
+    del params, batch, states, st_e, st_g, step_g, logits_e, logits_g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_unpaged_parity(torch, np, configs, M):
+    """Both smoke configs, head_dim raised to 64 (K5's smallest), f32, on
+    the card (kernels) and on the CPU (plain versions): forward logits, and
+    prefill then 6 decode steps fed the CPU's greedy tokens, within phase
+    4's bar (max_abs_diff <= 1e-4 x max|logit|) with argmax equal."""
+    for arch in UNPAGED_ARCHS:
+        smoke = configs.get_smoke(arch)
+        cfg = dataclasses.replace(smoke, head_dim=64)
+        reduced = {"widths": "smoke config", "dtype": "float32",
+                   "head_dim": [smoke.resolved_head_dim, 64]}
+        t0 = time.monotonic()
+        params = M.init_model(cfg, seed=1, device="cuda")
+        cpu_params = _tree_cpu(torch, params)
+        logits = {}
+        with torch.no_grad():
+            for dev in ("cpu", "cuda"):
+                p = cpu_params if dev == "cpu" else params
+                batch = _unpaged_batch(torch, np, cfg, dev, 2, 12, seed=43)
+                out = [M.forward(p, cfg, batch).float().cpu()]
+                lg, st = M.prefill(p, cfg, batch, 12 + 6)
+                out.append(lg[:, -1].float().cpu())
+                for i in range(6):     # the card is fed the CPU's greedy tokens
+                    tok = logits["cpu"][i + 1].argmax(-1) if dev == "cuda" else \
+                        out[-1].argmax(-1)
+                    lg, st = M.decode_step(p, cfg, st, tok[:, None].to(dev))
+                    out.append(lg[:, -1].float().cpu())
+                logits[dev] = out
+        errs = []
+        for i, (g_, w_) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            err, scale = float((g_ - w_).abs().max()), float(w_.abs().max())
+            errs.append(f"{err:.2e}")
+            check(err <= 1e-4 * scale and torch.equal(g_.argmax(-1), w_.argmax(-1)),
+                  f"{arch}: {'forward' if i == 0 else f'step {i}'} logits card vs CPU "
+                  f"({err:.3e}, scale {scale:.3e})")
+        print(f"  {arch} reduced {json.dumps(reduced)}: logits max_abs_diff card vs CPU, "
+              f"forward then prefill and 6 decode steps: {', '.join(errs)} (bar 1e-4 x "
+              f"max|logit|), argmax equal; {time.monotonic() - t0:.1f}s")
+        del params, cpu_params
+        torch.cuda.empty_cache()
+
+
+def phase_compare_prefill(np):
+    """`python -m repro_torch.launch.serve --arch gemma3-1b --widths
+    published --compare-prefill`, through its `main`: the engine serves 4
+    requests through its graphs, then the token-by-token prefill (the
+    unpaged decode step, one CUDA-graph replay a position) and the engine's
+    chunked prefill are timed on the same prompts."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(["--arch", "gemma3-1b", "--widths", "published", "--compare-prefill"])
+    text = out.getvalue()
+    line = [ln for ln in text.splitlines() if ln.startswith("prefill:")]
+    for ln in text.splitlines():
+        if ln.startswith(("warmup", "arch=", "prefill:")):
+            print(f"  {ln}")
+    check(gen.shape == (4, 16) and "cold_compiles=0" in text, "the CLI served")
+    check(len(line) == 1, "the CLI printed the prefill comparison")
+    m = re.search(r"token-by-token ([\d.]+)ms vs chunked ([\d.]+)ms", line[0])
+    check(m is not None and float(m.group(1)) > 0 and float(m.group(2)) > 0,
+          "both prefill times measured")
+    print(f"  {time.monotonic() - t0:.1f}s")
+    return float(m.group(1)), float(m.group(2))
+
+
+def phase11(torch, np, configs, M, mods, quant):
+    """Phases 11a-11d; returns the runs' summaries."""
+    out = {}
+    print("[11a] whisper-medium at published widths (24 encoder + 24 decoder layers, d 1024, "
+          "16 / 16 heads, D 64, vocab 51865, untied; bf16): prefill -> decode_step, graphed "
+          "and eager")
+    out["whisper"] = phase_unpaged(torch, np, configs, M, mods, quant, "whisper-medium", 48)
+    print("[11b] paligemma-3b at published widths (18 layers, d 2048, MQA 8 / 1, D 256, vocab "
+          "257216, tied; bf16): 256 patches + 16 tokens, prefill -> decode_step")
+    out["paligemma"] = phase_unpaged(torch, np, configs, M, mods, quant, "paligemma-3b", 32)
+    print("[11c] both smoke configs, f32: CUDA kernels vs CPU plain versions")
+    phase_unpaged_parity(torch, np, configs, M)
+    print("[11d] serve --arch gemma3-1b --widths published --compare-prefill")
+    out["compare_prefill"] = phase_compare_prefill(np)
+    return out
 
 
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
@@ -3097,6 +3509,9 @@ def main() -> int:
         worst[k] = max(worst[k], v)
     for k, v in phase_kernels_verify(torch, gemm, gemm8, fd, kvc).items():
         worst[k] = max(worst[k], v)
+    worst_encdec = phase_kernels_encdec(torch, gemm, fa)
+    for k, v in worst_encdec.items():
+        worst[k] = max(worst[k], v)
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
     summary = phase_engine(*engine_args, profile=True)
@@ -3161,6 +3576,8 @@ def main() -> int:
     print(f"[5] one forward over (2, 1024) tokens: flash_attention "
           f"{agg['flash_attention'][0]:.3f} ms (bound {agg['flash_attention'][3]:.3f}, "
           f"sdpa {agg['flash_attention'][2]:.3f})")
+    print("[5] whisper-medium's K5 shapes and the encdec / vlm K1 shapes")
+    rows_ed = phase_times_encdec(torch, gemm, fa)
     print("[8a] qwen3-14b at published widths (40 layers, bf16), float")
     summary_qf = phase_engine(*engine_args, arch="qwen3-14b", n_layers=40,
                               traffic=qwen3_traffic, profile=True)
@@ -3183,6 +3600,7 @@ def main() -> int:
     print("[9d] KV-swap preemption and the prefix cache")
     phase_preempt_prefix(*args9)
     phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
+    summary11 = phase11(torch, np, configs, M, mods, quant)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -3226,6 +3644,32 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": agg[name][4] if len(agg[name]) > 4 else "bytes",
             "library_ms": t_l})
+    # This slice's shapes of K5 and K1 (launches: each kernel's in phase 11a's
+    # run, graph replays included; 11b's for the projector).
+    for name, kernel, key, per, run in (
+            ("flash_attention:whisper_encoder", "flash_attention",
+             ("flash_attention", "whisper encoder"),
+             "one whisper-medium encoder layer's attention: B=8, 1500 frames over 1500, "
+             "Hq=Hkv=16, D=64, non-causal, bf16", summary11["whisper"]),
+            ("flash_attention:whisper_cross_decode", "flash_attention",
+             ("flash_attention", "whisper cross Sq=1"),
+             "one whisper-medium cross-attention at decode: B=8, Sq=1 over 1500 frames, "
+             "Hq=Hkv=16, D=64, non-causal, bf16", summary11["whisper"]),
+            ("gemm:whisper_cross_kv", "gemm", ("gemm",) + ENCDEC_GEMMS[0][1:2]
+             + ENCDEC_GEMMS[0][:1], "one whisper-medium cross K or V projection of 8 x "
+             "1500 frames: M=12000, K=N=1024, bf16", summary11["whisper"]),
+            ("gemm:paligemma_projector", "gemm", ("gemm",) + ENCDEC_GEMMS[1][1:2]
+             + ENCDEC_GEMMS[1][:1], "paligemma-3b's projector over 8 x 256 patches: "
+             "M=2048, K=1152, N=2048, bf16", summary11["paligemma"])):
+        t_k, t_p, t_l, bound, by = rows_ed[key]
+        src, replaces = {"flash_attention": ("flash_attention.cu",
+                                             "src/repro/kernels/flash_attention.py:28"),
+                         "gemm": ("gemm.cu", "src/repro/kernels/gemm.py:33")}[kernel]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": run["launches"].get(kernel, 0),
+            "max_abs_err": worst_encdec[kernel], "ms": t_k, "plain_ms": t_p,
+            "bound_ms": bound, "bound_by": by, "library_ms": t_l})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} max_abs_err={k['max_abs_err']:.3e} "
         f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "

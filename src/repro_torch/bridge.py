@@ -37,12 +37,15 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
     Layer g * group_size + i of the flat list takes slice g of the stacked
     `params_np["blocks"]["sub{i}"]` leaves, whatever they are (projections,
     QKV biases, q/k norms, RMS weights or LayerNorm {"scale", "bias"}
-    dicts, the SwiGLU or GELU MLP's matrices and biases, the Mamba / mLSTM
-    / sLSTM leaves, the router and the stacked experts (E, d, ff)).  The
+    dicts, the SwiGLU or GELU MLP's matrices and biases, whisper's
+    "cross" / "norm_cross", the Mamba / mLSTM / sLSTM leaves, the router
+    and the stacked experts (E, d, ff)); encoder block e takes slice e of
+    `params_np["encoder_blocks"]`, stacked on encoder_layers.  The
     leaves the reference keeps in float32 at any model dtype
     (`FLOAT32_LEAVES`: the recurrences' biases, A_log, D, the router) stay
-    float32; the others take the model dtype.  Layers and an untied "head" are stored as
-    `init_model` stores them (matrix rows 16-byte aligned)."""
+    float32; the others take the model dtype.  Layers, an untied "head" and
+    paligemma's "projector" are stored as `init_model` stores them (matrix
+    rows 16-byte aligned)."""
     dt = cfg.torch_dtype
 
     def convert(tree, g=None, name=None):
@@ -60,6 +63,12 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ArchConfig,
     }
     if not cfg.tie_embeddings:
         out["head"] = aligned_rows(convert(params_np["head"]))
+    if "encoder_blocks" in params_np:       # stacked on encoder_layers
+        out["encoder_blocks"] = [blocks.stored(convert(params_np["encoder_blocks"], e))
+                                 for e in range(cfg.encoder_layers)]
+        out["encoder_norm"] = convert(params_np["encoder_norm"])
+    if "projector" in params_np:
+        out["projector"] = aligned_rows(convert(params_np["projector"]))
     return out
 
 

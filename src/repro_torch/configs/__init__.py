@@ -1,9 +1,11 @@
 """Architecture registry (port of repro/configs/__init__.py).
 
 Each module defines `CONFIG` (the published widths) and `smoke_config()`
-(the reduced float32 config the tests use).  The archs of the four
-decoder families the port serves are registered: dense, moe (dbrx,
-arctic), hybrid (jamba) and ssm (xlstm).
+(the reduced float32 config the tests use).  Every arch of the
+reference is registered: the decoder families the paged engine serves,
+dense, moe (dbrx, arctic), hybrid (jamba) and ssm (xlstm), and the
+encoder-decoder (whisper) and VLM (paligemma) families, which run
+through the unpaged decode path only.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import List
 from repro_torch.models.config import ArchConfig
 
 _ARCH_MODULES = {
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
@@ -26,6 +29,8 @@ _ARCH_MODULES = {
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    # The unpaged families:
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
 
 

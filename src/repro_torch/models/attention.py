@@ -1,21 +1,29 @@
-"""Attention (port of repro/models/attention.py: `_project_qkv`,
-`blockwise_attention`, the `decode_attention` oracle, and the unpaged and
-paged branches of `attention`).
+"""Attention (port of repro/models/attention.py: `KVCache`,
+`_project_qkv`, `blockwise_attention`, `decode_attention`, and the
+unpaged, dense-cache, cross and paged branches of `attention`).
 
 GQA/MQA/MHA with split-half RoPE, an optional QKV bias (qwen2.5; added
 after the GeMM, as the reference adds it outside its kernel) and optional
 qk-norm (qwen3: an RMS norm over head_dim of q and k after the head
 reshape, before RoPE).  The unpaged branch (prefill, `forward`,
-calibration) attends over the sequence itself through
-`blockwise_attention`.  The paged branch writes this step's K/V through the
-block tables first and then attends over the pool, so a query attends to
-its own key.  The scale is D**-0.5; only the unpaged path applies a logit
+calibration, the encoder) attends over the sequence itself, or over
+`kv_src` for cross-attention (no RoPE, non-causal), through
+`blockwise_attention`.  The dense-cache branch (the unpaged
+`decode_step`) writes this step's K/V into the (B, S_max, Hkv, D) cache
+in place at the device-held scalar `cache_index`, so a CUDA graph
+captures it, then attends over the whole cache (`decode_attention`,
+plain PyTorch, as the reference's is plain jnp).  Cross-attention at
+decode attends over the encoder's precomputed cache; the reference also
+projects K/V from the decoder state there and discards them, which the
+port skips.  The paged branch writes this step's K/V through the block
+tables first and then attends over the pool, so a query attends to its
+own key.  The scale is D**-0.5; only the unpaged path applies a logit
 softcap, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,7 +36,16 @@ from repro_torch.serving import kv_cache as kvc
 NEG_INF = -2.0e38
 
 
-def init_attention(gen: torch.Generator, cfg, device) -> dict:
+class KVCache(NamedTuple):
+    """A layer's dense decode cache: k, v (B, S_max, Hkv, D)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_attention(gen: torch.Generator, cfg, device, *, cross: bool = False) -> dict:
+    """q/k/v/o projections (and QKV biases, q/k norms as `cfg` says); a
+    cross-attention layer (`cross`) has no QKV bias, as in the reference."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     dt = cfg.torch_dtype
@@ -38,7 +55,7 @@ def init_attention(gen: torch.Generator, cfg, device) -> dict:
         "wv": layers._init_dense(gen, d, hkv * hd, dt, device),
         "wo": layers._init_dense(gen, hq * hd, d, dt, device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
             p[name] = torch.zeros((width,), dtype=dt, device=device)
     if cfg.qk_norm:
@@ -47,17 +64,29 @@ def init_attention(gen: torch.Generator, cfg, device) -> dict:
     return p
 
 
-def _project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
+def _project_qkv(x: torch.Tensor, kv_src: Optional[torch.Tensor], p: dict, cfg,
+                 positions: torch.Tensor, *, rope: bool = True):
+    """q from x (B, S, d); k, v from `kv_src` (B, Skv, d), or None when
+    the caller has them already (cross-attention at decode).  RoPE rotates
+    q at `positions` and k at `positions` (Skv == S) or 0..Skv-1."""
     B, S, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, hq, hd)
-    k = layers.dense(x, p["wk"], p.get("bk")).reshape(B, S, hkv, hd)
-    v = layers.dense(x, p["wv"], p.get("bv")).reshape(B, S, hkv, hd)
+    k = v = None
+    if kv_src is not None:
+        Skv = kv_src.shape[1]
+        k = layers.dense(kv_src, p["wk"], p.get("bk")).reshape(B, Skv, hkv, hd)
+        v = layers.dense(kv_src, p["wv"], p.get("bv")).reshape(B, Skv, hkv, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+        if k is not None:
+            k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        if k is not None:
+            kv_pos = positions if k.shape[1] == S else torch.arange(k.shape[1],
+                                                                    device=x.device)
+            k = layers.apply_rope(k, kv_pos, cfg.rope_theta)
     return q, k, v
 
 
@@ -83,9 +112,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     index, window: Optional[int] = None) -> torch.Tensor:
-    """Query-over-whole-cache attention (the oracle): q (B, Sq, Hq, D) at
-    positions index + t, k/v (B, Skv, Hkv, D) at positions 0..Skv-1."""
+                     index, window: Optional[int] = None,
+                     prefix_len: int = 0) -> torch.Tensor:
+    """Query-over-whole-cache attention (the dense decode path, and the
+    oracle of the paged one): q (B, Sq, Hq, D) at positions index + t
+    (`index` a scalar or (B,)), k/v (B, Skv, Hkv, D) at positions
+    0..Skv-1; a query sees the keys at or before it, within `window`, and
+    every key below `prefix_len`."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     groups = Hq // Hkv
@@ -101,6 +134,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = kpos[None, None, :] <= qpos[..., None]
     if window is not None:
         mask &= (qpos[..., None] - kpos[None, None, :]) < window
+    if prefix_len:
+        mask |= (kpos < prefix_len)[None, None, :]
     s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(torch.float32),
@@ -108,19 +143,45 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
-def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
-              window: Optional[int], cache: Optional[kvc.PagedKVCache] = None,
-              cache_index: Optional[torch.Tensor] = None,
-              block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal self-attention sublayer over x (B, S, d); returns (B, S, d).
+def _write_dense(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                 index: torch.Tensor) -> None:
+    """k, v (B, S, Hkv, D) into the cache at positions index .. index + S -
+    1, in place; the start clamps to [0, S_max - S], as the reference's
+    `dynamic_update_slice` clamps it.  `index` is read on the device."""
+    S, S_max = k.shape[1], cache.k.shape[1]
+    start = torch.clamp(torch.as_tensor(index, device=k.device).reshape(1).long(),
+                        0, S_max - S)
+    pos = start + torch.arange(S, device=k.device)
+    cache.k.index_copy_(1, pos, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, pos, v.to(cache.v.dtype))
 
-    cache None: attend over x itself (prefill / `forward`).  A paged pool:
-    x sits at per-slot first positions `cache_index` (B,) and the pools
-    update in place.  Cross-attention and the dense `KVCache` decode are
-    not ported."""
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    if cache is None:
-        out = blockwise_attention(q, k, v, causal=True, window=window,
+
+def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None,
+              prefix_len: int = 0, kv_src: Optional[torch.Tensor] = None,
+              cache=None, cache_index: Optional[torch.Tensor] = None,
+              block_tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The attention sublayer over x (B, S, d); returns (B, S, d).
+
+    Self-attention (kv_src None): with no cache over x itself, causal or
+    not, bidirectional over the first `prefix_len` keys (the VLM prefix);
+    over a dense `KVCache`, x sits at the scalar position `cache_index` (a
+    device tensor) and the cache updates in place; over a paged pool, x
+    sits at per-slot first positions `cache_index` (B,) and the pools
+    update in place.
+
+    Cross-attention (kv_src given, as `apply_block` passes it): no RoPE,
+    non-causal; with `cache` None over kv_src (the encoder's output), with
+    a `KVCache` over that cache (the encoder's K/V, computed once)."""
+    cross = kv_src is not None
+    cached_cross = cross and cache is not None
+    q, k, v = _project_qkv(x, None if cached_cross else (kv_src if cross else x),
+                           p, cfg, positions, rope=not cross)
+    if cross or cache is None:
+        if cached_cross:
+            k, v = cache.k, cache.v
+        out = blockwise_attention(q, k, v, causal=causal and not cross,
+                                  window=window, prefix_len=prefix_len,
                                   softcap=cfg.logit_softcap)
     elif isinstance(cache, kvc.PagedKVCache):
         if block_tables is None:
@@ -128,10 +189,13 @@ def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         kvc.write_kv(cache, block_tables, k, v, cache_index)
         out = fd.paged_decode_attention(q, cache, block_tables, cache_index,
                                         window=window)
+    elif isinstance(cache, KVCache):
+        _write_dense(cache, k, v, cache_index)
+        out = decode_attention(q, cache.k, cache.v, index=cache_index,
+                               window=window, prefix_len=prefix_len)
     else:
-        raise NotImplementedError(
-            f"attention over a {type(cache).__name__} (the dense decode cache) "
-            "is not ported; the port serves through the paged pool")
+        raise TypeError(f"attention over a {type(cache).__name__}: neither a "
+                        f"KVCache nor a paged pool")
     B, S = x.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return layers.dense(out, p["wo"])

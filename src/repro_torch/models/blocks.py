@@ -1,9 +1,10 @@
 """Blocks: one mixer (attention, global or sliding-window | Mamba | mLSTM |
-sLSTM) plus its FFN (the SwiGLU or GELU MLP, or MoE), with pre-norms and
-optional gemma-style post-norms, each an RMS norm or a LayerNorm as
-`cfg.norm` says (port of repro/models/blocks.py: `_init_norm`, `_norm`,
-`init_block`, `apply_block` over the paged cache or over the sequence
-itself, `apply_group`, `init_cache_for_kind` and
+sLSTM), whisper's cross-attention after it, and its FFN (the SwiGLU or
+GELU MLP, or MoE), with pre-norms and optional gemma-style post-norms,
+each an RMS norm or a LayerNorm as `cfg.norm` says (port of
+repro/models/blocks.py: `_init_norm`, `_norm`, `init_block`,
+`apply_block` over the sequence itself, a dense decode cache or the paged
+pool, `apply_group`, `init_cache_for_kind` and
 `init_paged_cache_for_kind`).
 
 The xLSTM kinds carry their own feed-forward (no FFN); the other kinds take
@@ -60,13 +61,17 @@ def stored(tree):
 
 
 def init_block(gen: torch.Generator, cfg, kind: str, device, *,
-               layer_idx: int = 0) -> dict:
+               layer_idx: int = 0, cross_attention: bool = False) -> dict:
     """One block of `kind`; `layer_idx` is its index inside its group,
-    which places MoE."""
+    which places MoE; `cross_attention` adds "norm_cross" and "cross"
+    (whisper's decoder layers)."""
     if kind not in _INIT_MIXER:
         raise ValueError(f"unknown block kind {kind!r}")
     p = {"norm1": _init_norm(cfg, device),
          "mixer": _INIT_MIXER[kind](gen, cfg, device)}
+    if cross_attention:
+        p["norm_cross"] = _init_norm(cfg, device)
+        p["cross"] = attn_lib.init_attention(gen, cfg, device, cross=True)
     # xLSTM blocks carry their own FFN; the others get an MLP or MoE.
     if kind in ATTENTION_KINDS + ("mamba",) and (cfg.d_ff or cfg.moe):
         p["norm2"] = _init_norm(cfg, device)
@@ -87,22 +92,27 @@ _RECURRENT = {"mamba": ssm.mamba_block, "mlstm": ssm.mlstm_block,
 
 
 def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
-                positions: torch.Tensor, cache=None,
-                cache_index: Optional[torch.Tensor] = None,
+                positions: torch.Tensor, causal: bool = True, prefix_len: int = 0,
+                cache=None, cache_index: Optional[torch.Tensor] = None,
+                encoder_out: Optional[torch.Tensor] = None,
+                cross_cache: Optional[attn_lib.KVCache] = None,
                 block_tables: Optional[torch.Tensor] = None,
                 collect_states: bool = False):
     """One block over the sequence itself (cache None) or over its decode
     state: returns (x, new recurrent state or None).  An attention layer's
-    paged pools update in place and it returns None; a recurrent layer
-    returns its new state (per position with `collect_states`) and leaves
-    `cache` untouched, for the caller to commit."""
+    dense cache or paged pools update in place and it returns None; a
+    recurrent layer returns its new state (per position with
+    `collect_states`) and leaves `cache` untouched, for the caller to
+    commit.  A block with "cross" attends over `encoder_out` or, at
+    decode, over `cross_cache`."""
     h = _norm(x, p["norm1"], cfg)
     new_state = None
     if kind in ATTENTION_KINDS:
         window = cfg.local_window if kind == "attn_local" else None
         h = attn_lib.attention(h, p["mixer"], cfg, positions=positions,
-                               window=window, cache=cache,
-                               cache_index=cache_index, block_tables=block_tables)
+                               causal=causal, window=window, prefix_len=prefix_len,
+                               cache=cache, cache_index=cache_index,
+                               block_tables=block_tables)
     elif kind in _RECURRENT:
         h, new_state = _RECURRENT[kind](h, p["mixer"], cfg, state=cache,
                                         collect_states=collect_states)
@@ -111,6 +121,12 @@ def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
     if cfg.post_block_norm:
         h = _norm(h, p["post_norm1"], cfg)
     x = x + h
+    if "cross" in p:
+        h = _norm(x, p["norm_cross"], cfg)
+        h = attn_lib.attention(h, p["cross"], cfg, positions=positions, causal=False,
+                               kv_src=encoder_out if cross_cache is None else h,
+                               cache=cross_cache)
+        x = x + h
     if "ffn" in p:
         h = _norm(x, p["norm2"], cfg)
         if "router" in p["ffn"]:
@@ -124,7 +140,8 @@ def apply_block(x: torch.Tensor, p: dict, cfg, kind: str, *,
 
 
 def apply_group(x: torch.Tensor, group_layers: Sequence[dict], cfg, *,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, prefix_len: int = 0,
+                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One group of `cfg.group_size` blocks over the sequence itself:
     `group_layers` is layers g * group_size .. + group_size - 1 of the flat
     `params["layers"]` list (the reference's scanned group g), of kinds
@@ -133,17 +150,20 @@ def apply_group(x: torch.Tensor, group_layers: Sequence[dict], cfg, *,
     if len(group_layers) != len(kinds):
         raise ValueError(f"a group holds {len(kinds)} layers, got {len(group_layers)}")
     for p, kind in zip(group_layers, kinds):
-        x, _ = apply_block(x, p, cfg, kind, positions=positions)
+        x, _ = apply_block(x, p, cfg, kind, positions=positions,
+                           prefix_len=prefix_len, encoder_out=encoder_out)
     return x
 
 
-def init_cache_for_kind(cfg, kind: str, batch: int, device):
-    """The per-slot decode state of a recurrent block kind (the reference's
-    dense `KVCache` of the attention kinds is not ported: the port serves
-    attention through the paged pool)."""
+def init_cache_for_kind(cfg, kind: str, batch: int, max_seq: int, device):
+    """The unpaged decode state of one block: a zero dense `KVCache` (batch,
+    max_seq, Hkv, D) for the attention kinds, the per-slot recurrent state
+    at its init for the others."""
     if kind in ATTENTION_KINDS:
-        raise NotImplementedError(
-            "the dense KVCache is not ported; attention decodes through the paged pool")
+        shape = (batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return attn_lib.KVCache(
+            k=torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.torch_dtype, device=device))
     return ssm.init_state_for_kind(cfg, kind, batch, device)
 
 
@@ -157,4 +177,4 @@ def init_paged_cache_for_kind(cfg, kind: str, batch: int, num_blocks: int,
         return kvc.init_paged_kv(num_blocks, block_size, cfg.n_kv_heads,
                                  cfg.resolved_head_dim, cfg.torch_dtype, device,
                                  kv_precision=kv_precision)
-    return init_cache_for_kind(cfg, kind, batch, device)
+    return ssm.init_state_for_kind(cfg, kind, batch, device)

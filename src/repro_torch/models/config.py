@@ -8,8 +8,12 @@ heads), moe (`MoEConfig`, `moe_every`), hybrid (`attn_every`,
 `param_count()` and `active_param_count()` are copied verbatim, so the
 layer pattern and the parameter counts agree with the reference exactly,
 including its mLSTM term, which counts the q/k/v matrices as di x hd
-where the weights are di x di (xlstm-1.3b: 1.85 B counted, 3.705 B held).
-The encoder-decoder and VLM families are not ported.
+where the weights are di x di (xlstm-1.3b: 1.85 B counted, 3.705 B held),
+and its encoder term, which counts each encoder layer's attention and MLP
+and one cross-attention per encoder layer.  The encoder-decoder (whisper:
+`encoder_layers`, `encoder_seq`) and VLM (paligemma: `prefix_len`)
+families run through the unpaged decode path; the paged engine refuses
+them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +50,7 @@ class MambaConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | moe | hybrid | ssm
+    family: str                   # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -78,6 +82,13 @@ class ArchConfig:
     # ssm (xlstm): mLSTM blocks with one sLSTM per `slstm_every`
     slstm_every: int = 0
 
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0                    # frontend-stub sequence length
+
+    # vlm prefix (paligemma)
+    prefix_len: int = 0                     # image-patch prefix (stub embeds)
+
     # norms
     norm: str = "rms"                       # rms | ln (encoders)
     norm_eps: float = 1e-6
@@ -98,9 +109,6 @@ class ArchConfig:
             raise ValueError("hybrid needs attn_every and mamba config")
         if self.local_ratio and not self.local_window:
             raise ValueError("local_ratio needs local_window")
-        if self.family in ("encdec", "vlm"):
-            raise NotImplementedError(
-                f"{self.name}: the {self.family!r} family is not ported")
         if self.family not in FAMILIES:
             raise ValueError(f"{self.name}: unknown family {self.family!r}")
         if self.mlp_variant not in ("swiglu", "gelu"):
@@ -193,7 +201,10 @@ class ArchConfig:
             mixer[k] + (ffn_params(i) if k not in ("mlstm", "slstm") else 0)
             for i, k in enumerate(kinds)
         )
-        return n + self.n_groups * per_group
+        n += self.n_groups * per_group
+        if self.encoder_layers:
+            n += self.encoder_layers * (attn + ffn + attn)  # enc + cross-attn
+        return n
 
     def active_param_count(self) -> int:
         """Parameters touched per token (MoE: only top_k experts)."""

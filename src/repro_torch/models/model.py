@@ -1,8 +1,12 @@
 """Model assembly (port of repro/models/model.py: `init_model`, the unpaged
-`forward`, the paged decode state, `paged_decode_step`, `prefill_chunk`,
-`reset_slots`, the speculative `paged_verify_step`, and the sampling head:
-`_adjusted_logits`, `sample_tokens`, `paged_decode_sample_step` and
-`paged_verify_sample_step`), for the dense, moe, hybrid and ssm families.
+`forward` and `trunk`, whisper's `_run_encoder`, the unpaged decode path
+(`DecodeState`, `init_decode_state`, `decode_step`, `prefill`), the paged
+decode state, `paged_decode_step`, `prefill_chunk`, `reset_slots`, the
+speculative `paged_verify_step`, and the sampling head: `_adjusted_logits`,
+`sample_tokens`, `paged_decode_sample_step` and
+`paged_verify_sample_step`), for every family of the reference: dense,
+moe, hybrid, ssm, encdec (whisper) and vlm (paligemma).  The paged state
+refuses encdec and vlm, as the reference's does.
 
 Parameters are a plain dict: "embed" (vocab, d), "final_norm" (an RMS
 weight (d,) or LayerNorm's {"scale", "bias"}), "head" (d, vocab) for an
@@ -12,6 +16,15 @@ GeMM reads it in place at any vocab.  The reference stacks each
 group's parameters on a leading n_groups axis and scans the groups; here
 layer g * group_size + i simply has kind `cfg.layer_kinds()[i]`
 (`cfg.all_layer_kinds()`).
+
+Whisper adds "encoder_blocks" (a flat list of `encoder_layers` blocks;
+the reference stacks them on a leading axis), "encoder_norm", and a
+cross-attention ("norm_cross", "cross") in every decoder layer;
+paligemma adds "projector" (VISION_DIM x d).  The unpaged decode state
+holds a dense (B, S_max, Hkv, D) `KVCache` per attention layer, written
+in place at a device-held index, so `decode_step` is captured as one CUDA
+graph per (batch, max_seq) (`launch/steps.py`); whisper's cross caches
+are projected from the encoder's output once per batch.
 
 Under the w8a8 precision the projection matrices are `QuantTensor`s
 (quant/params.py), an untied "head" among them, and "head_q" holds the
@@ -49,6 +62,11 @@ from repro_torch.models import blocks, layers, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.serving import kv_cache as kvc
 
+VISION_DIM = 1152  # SigLIP-so400m width (paligemma's stub frontend)
+# Families the paged engine does not serve, as in the reference: they
+# decode through the unpaged `decode_step`.
+UNPAGED_FAMILIES = ("encdec", "vlm")
+
 
 def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
     """Random parameters from a seeded `torch.Generator` on `device`
@@ -61,17 +79,36 @@ def init_model(cfg: ArchConfig, *, seed: int = 0, device=None) -> dict:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
     dt = cfg.torch_dtype
+    cross = cfg.family == "encdec"
     params = {
         "embed": layers.init_embedding(gen, cfg.vocab, cfg.d_model, dt, device),
         "final_norm": blocks._init_norm(cfg, device),
-        "layers": [blocks.init_block(gen, cfg, kind, device, layer_idx=i)
+        "layers": [blocks.init_block(gen, cfg, kind, device, layer_idx=i,
+                                     cross_attention=cross)
                    for _ in range(cfg.n_groups)
                    for i, kind in enumerate(cfg.layer_kinds())],
     }
     if not cfg.tie_embeddings:
         params["head"] = gemm.aligned_rows(
             layers._init_dense(gen, cfg.d_model, cfg.vocab, dt, device))
+    if cross:
+        # Same width as the decoder; non-causal, no cross-attention.
+        params["encoder_blocks"] = [blocks.init_block(gen, cfg, "attn", device)
+                                    for _ in range(cfg.encoder_layers)]
+        params["encoder_norm"] = blocks._init_norm(cfg, device)
+    if cfg.family == "vlm":
+        params["projector"] = gemm.aligned_rows(
+            layers._init_dense(gen, VISION_DIM, cfg.d_model, dt, device))
     return params
+
+
+def check_paged_family(cfg: ArchConfig) -> None:
+    """Raise for a family the paged engine does not serve (encdec, vlm),
+    naming it, as the reference's `init_paged_decode_state` does."""
+    if cfg.family in UNPAGED_FAMILIES:
+        raise NotImplementedError(
+            f"paged serving not wired for family {cfg.family!r} ({cfg.name}); "
+            f"it decodes through the unpaged decode_step")
 
 
 @dataclasses.dataclass
@@ -89,6 +126,7 @@ class PagedDecodeState:
 def init_paged_decode_state(cfg: ArchConfig, slots: int, *, num_blocks: int,
                             block_size: int, max_blocks_per_slot: int,
                             device, kv_precision: str = "float") -> PagedDecodeState:
+    check_paged_family(cfg)
     caches = [blocks.init_paged_cache_for_kind(cfg, kind, slots, num_blocks,
                                                block_size, device, kv_precision)
               for kind in cfg.all_layer_kinds()]
@@ -130,24 +168,55 @@ def group_layers(params: dict, cfg: ArchConfig, g: int) -> list:
 
 
 def _run_groups(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, prefix_len: int = 0,
+                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     for g in range(cfg.n_groups):
         x = blocks.apply_group(x, group_layers(params, cfg, g), cfg,
-                               positions=positions)
+                               positions=positions, prefix_len=prefix_len,
+                               encoder_out=encoder_out)
     return x
+
+
+def _run_encoder(frames: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Whisper's encoder over the stub frontend's frame embeddings (B,
+    S_enc, d): non-causal blocks with RoPE at the frames' positions, then
+    "encoder_norm"."""
+    x = frames.to(cfg.torch_dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p in params["encoder_blocks"]:
+        x, _ = blocks.apply_block(x, p, cfg, "attn", positions=positions, causal=False)
+    return blocks._norm(x, params["encoder_norm"], cfg)
+
+
+def trunk(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Final hidden states (B, S, d) of batch["tokens"] (B, S) at positions
+    0..S-1, before the head: causal attention over the sequence itself,
+    recurrent layers from their init state.  encdec: the decoder
+    cross-attends to the encoder's run over batch["frames"] (B, S_enc, d).
+    vlm: batch["patches"] (B, P, VISION_DIM) projected (unscaled) form a
+    prefix before the token embeddings, attended bidirectionally
+    (prefix-LM), and dropped before the head."""
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, tokens)
+    prefix_len, encoder_out = 0, None
+    if cfg.family == "vlm":
+        prefix = layers.dense(batch["patches"].to(cfg.torch_dtype), params["projector"])
+        x = torch.cat([prefix, x], dim=1)
+        prefix_len = prefix.shape[1]
+    elif cfg.family == "encdec":
+        encoder_out = _run_encoder(batch["frames"], params, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_groups(x, params, cfg, positions=positions, prefix_len=prefix_len,
+                    encoder_out=encoder_out)
+    x = blocks._norm(x, params["final_norm"], cfg)
+    return x[:, prefix_len:]
 
 
 def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             last_only: bool = False) -> torch.Tensor:
-    """Logits (B, S, vocab) for batch["tokens"] (B, S) at positions 0..S-1,
-    or only the last position's (B, 1, vocab) when `last_only`: causal
-    attention over the sequence itself, no cache (train / prefill /
-    calibration / evaluation), recurrent layers from their init state."""
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)
-    x = _run_groups(x, params, cfg, positions=positions)
-    x = blocks._norm(x, params["final_norm"], cfg)
+    """Logits (B, S, vocab) of `trunk`, or only the last position's (B, 1,
+    vocab) when `last_only` (train / prefill / calibration / evaluation)."""
+    x = trunk(params, cfg, batch)
     if last_only:
         x = x[:, -1:]
     return _unembed(x, params, cfg)
@@ -166,19 +235,116 @@ def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
 
 def _trunk_step(params: dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, caches, cache_index: torch.Tensor,
-                block_tables: torch.Tensor, commit: Callable,
-                collect_states: bool = False) -> torch.Tensor:
+                block_tables: Optional[torch.Tensor], commit: Callable,
+                collect_states: bool = False, cross_caches=None) -> torch.Tensor:
     """Every layer over its decode state; a recurrent layer's new state goes
     to `commit(layer index, new state)` as soon as the layer ran."""
     for i, (p, kind, cache) in enumerate(zip(params["layers"],
                                              cfg.all_layer_kinds(), caches)):
-        x, new = blocks.apply_block(x, p, cfg, kind, positions=positions,
-                                    cache=cache, cache_index=cache_index,
-                                    block_tables=block_tables,
-                                    collect_states=collect_states)
+        x, new = blocks.apply_block(
+            x, p, cfg, kind, positions=positions, cache=cache,
+            cache_index=cache_index, block_tables=block_tables,
+            cross_cache=None if cross_caches is None else cross_caches[i],
+            collect_states=collect_states)
         if new is not None:
             commit(i, new)
     return x
+
+
+# ---------------------------------------------------------------------------
+# The unpaged decode path: every sequence of the batch at one position
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """Lock-step decode state: per layer a dense `KVCache` (attention
+    kinds) or a recurrent state, per decoder layer whisper's cross
+    `KVCache` over the encoder's frames (None for the other families),
+    and the position of the next token, a 0-d int32 tensor on the model's
+    device.  `decode_step` updates all of it in place."""
+
+    caches: List
+    cross_caches: Optional[List]
+    index: torch.Tensor
+
+
+def init_decode_state(params: dict, cfg: ArchConfig, batch: int, max_seq: int,
+                      encoder_out: Optional[torch.Tensor] = None) -> DecodeState:
+    """A fresh state for `batch` sequences of up to `max_seq` tokens on the
+    parameters' device; encdec needs `encoder_out` (batch, S_enc, d), whose
+    K/V each decoder layer's cross-attention projects once here."""
+    device = params["embed"].device
+    caches = [blocks.init_cache_for_kind(cfg, kind, batch, max_seq, device)
+              for kind in cfg.all_layer_kinds()]
+    cross = None
+    if cfg.family == "encdec":
+        if encoder_out is None:
+            raise ValueError(f"{cfg.name}: the encdec decode state needs encoder_out")
+        hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+        cross = [blocks.attn_lib.KVCache(
+            layers.dense(encoder_out, p["cross"]["wk"]).reshape(batch, -1, hkv, hd),
+            layers.dense(encoder_out, p["cross"]["wv"]).reshape(batch, -1, hkv, hd))
+            for p in params["layers"]]
+    return DecodeState(caches=caches, cross_caches=cross,
+                       index=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def clear_decode_state(state: DecodeState) -> DecodeState:
+    """Return `state` to `init_decode_state`'s contents in place (zero
+    caches, recurrent states at their init, index 0); the cross caches
+    stay.  Every tensor keeps its address."""
+    for cache in state.caches:
+        if isinstance(cache, blocks.attn_lib.KVCache):
+            cache.k.zero_()
+            cache.v.zero_()
+        else:
+            ssm.reset_state_(cache)
+    state.index.zero_()
+    return state
+
+
+def decode_step(params: dict, cfg: ArchConfig, state: DecodeState,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, DecodeState]:
+    """One token for every sequence at position `state.index`: tokens (B, 1)
+    -> logits (B, 1, vocab).  The caches and recurrent states update in
+    place and the index advances on the device, so the step is one CUDA
+    graph.  Returns (logits, state)."""
+    B = tokens.shape[0]
+    x = _embed_tokens(params, cfg, tokens)
+    positions = state.index + torch.zeros((B, 1), dtype=state.index.dtype,
+                                          device=tokens.device)
+
+    def commit(i, new):
+        ssm.select_into_(state.caches[i], new)
+
+    x = _trunk_step(params, cfg, x, positions, state.caches, state.index, None,
+                    commit, cross_caches=state.cross_caches)
+    x = blocks._norm(x, params["final_norm"], cfg)
+    logits = _unembed(x, params, cfg)
+    state.index.add_(1)
+    return logits, state
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            max_seq: int) -> Tuple[torch.Tensor, DecodeState]:
+    """The reference's serving prefill: (last-position logits (B, 1,
+    vocab), a DecodeState ready for `decode_step`).  The logits are
+    `forward`'s; the caches are built by feeding batch["tokens"] through
+    `decode_step` one position at a time.  As in the reference, whisper's
+    encoder runs twice (once for the cross caches, once inside `forward`),
+    and paligemma's caches hold the text tokens alone: its logits see the
+    image prefix, its later decode steps do not."""
+    tokens = batch["tokens"]
+    encoder_out = None
+    if cfg.family == "encdec":
+        encoder_out = _run_encoder(batch["frames"], params, cfg)
+    state = init_decode_state(params, cfg, tokens.shape[0], max_seq,
+                              encoder_out=encoder_out)
+    logits = forward(params, cfg, batch)
+    for t in range(tokens.shape[1]):
+        _, state = decode_step(params, cfg, state, tokens[:, t:t + 1])
+    return logits[:, -1:], state
 
 
 def paged_decode_step(params: dict, cfg: ArchConfig, state: PagedDecodeState,

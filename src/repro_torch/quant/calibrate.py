@@ -192,12 +192,16 @@ def calibrate(params, cfg, batches: Iterable, *, observer: str = "absmax",
     the parameters live on.
 
     Replays `forward` eagerly group by group with the activation tap
-    installed, in float mode.  The head site is fed to the tap directly:
+    installed, in float mode; for the decoder families only (encdec and
+    vlm raise, as in the reference).  The head site is fed to the tap directly:
     the observer reads only the head's input, so the (B * S, vocab) logits
     are never computed."""
     from repro_torch.models import blocks   # deferred: models import quant
     from repro_torch.models import model as M
 
+    if cfg.family in M.UNPAGED_FAMILIES:
+        raise NotImplementedError(
+            f"calibration not wired for family {cfg.family!r}")
     observers: Dict[str, Observer] = {}
     idmap: Dict[int, str] = {}
 

@@ -24,8 +24,9 @@ axis -2, as the reference does.
 The port keeps its layers in a flat list (the reference stacks each
 group's layers on a leading axis), so `quantized_leaf_count` counts every
 layer's matrices: (reference count - 1) * n_groups + 1, the last one the
-head ("head_q" of a tied model, "head" of an untied one).  Biases and
-norm vectors stay float.
+head ("head_q" of a tied model, "head" of an untied one); whisper's
+encoder blocks count one per block and matrix, paligemma's "projector"
+one.  Biases and norm vectors stay float.
 
 Calibrated activation scales (quant/calibrate.py, keys
 "blocks.{g}.sub{i}.mixer.wq", ..., "head") ride on `QuantTensor.act_scale`
@@ -105,12 +106,18 @@ def _leaves(tree):
 
 
 def _act_scale(table: Dict[str, float], path: tuple, cfg) -> Optional[float]:
-    """The static activation scale of the leaf at `path`, or None.
+    """The static activation scale of the leaf at `path`, or None, under
+    the reference's key for it.
 
     Layer L of the flat list is sub{L % group_size} of group
     L // group_size.  As the reference's stacked leaves are calibrated for
     all groups or none (params.py:77-90), a layer leaf takes its scale only
-    if every group has an entry for its sub{i} path."""
+    if every group has an entry for its sub{i} path.  Encoder block e is
+    slice e of the reference's "encoder_blocks" stack, which takes one
+    entry for all of them ("encoder_blocks.mixer.wq").  Any other leaf
+    ("projector", "head") is keyed by its path."""
+    if path[0] == "encoder_blocks":
+        return table.get(".".join(map(str, (path[0],) + path[2:])))
     if path[0] != "layers":
         return table.get(".".join(map(str, path)))
     gs = cfg.group_size

@@ -239,6 +239,7 @@ class Engine:
                  graphs: Optional[bool] = None, speculative=False,
                  sampling: bool = False, preempt: bool = False,
                  prefix_cache=False, verbose: bool = False):
+        M.check_paged_family(cfg)      # before any weight is made
         if precision not in quant.MODES:
             raise ValueError(f"unknown precision {precision!r}; known: {quant.MODES}")
         if kv_precision not in ("float", "int8"):

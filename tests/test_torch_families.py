@@ -32,6 +32,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import model as TM
 from repro_torch.models import ssm as TS
 from repro_torch.serving import kv_cache as tkvc
+from repro_torch.serving.engine import Engine
 
 ARCHS = ["jamba-1.5-large-398b", "xlstm-1.3b", "dbrx-132b", "arctic-480b"]
 TOL = dict(rtol=5e-5, atol=5e-5)
@@ -81,10 +82,22 @@ def test_configs_match_reference(arch):
 
 
 def test_config_refuses_unported_families():
+    """ArchConfig accepts the encdec and vlm families (they decode through
+    the unpaged path); the paged state and the engine refuse both, naming
+    the family, as the reference's do; hybrid without its config still
+    raises."""
     base = tconfigs.get_smoke("gemma3-1b")
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            dataclasses.replace(base, family=family)
+    for arch in ("whisper-medium", "paligemma-3b"):
+        cfg = tconfigs.get_smoke(arch)
+        assert dataclasses.replace(base, family=cfg.family).family == cfg.family
+        with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
+            TM.init_paged_decode_state(cfg, 2, num_blocks=5, block_size=4,
+                                       max_blocks_per_slot=2, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
+            Engine(cfg, slots=2, max_seq=16, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"family {cfg.family!r}"):
+            RM.init_paged_decode_state(rconfigs.get_smoke(arch), 2, num_blocks=5,
+                                       block_size=4, max_blocks_per_slot=2)
     with pytest.raises(ValueError, match="hybrid needs"):
         dataclasses.replace(base, family="hybrid")
 

@@ -103,8 +103,19 @@ def test_blockwise_attention_matches_reference(Sq, Skv, q_offset, window, prefix
 
 
 def test_unpaged_attention_rejects_a_dense_cache(models):
+    """The dense decode cache is a `KVCache` (the unpaged decode path): a
+    bare (k, v) pair is refused, naming its type, and a `KVCache` is
+    written at the index and attended over."""
     _, _, tcfg, tparams = models
     x = torch.zeros((1, 2, tcfg.d_model))
-    with pytest.raises(NotImplementedError, match="dense decode cache"):
+    with pytest.raises(TypeError, match="tuple"):
         tattn.attention(x, tparams["layers"][0]["mixer"], tcfg, positions=torch.arange(2),
                         window=None, cache=(x, x))
+    shape = (1, 4, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+    cache = tattn.KVCache(torch.zeros(shape), torch.zeros(shape))
+    x = torch.ones((1, 2, tcfg.d_model))
+    out = tattn.attention(x, tparams["layers"][0]["mixer"], tcfg, positions=torch.arange(2),
+                          window=None, cache=cache, cache_index=torch.tensor(1))
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert float(cache.k[:, 1:3].abs().sum()) > 0
+    assert float(cache.k[:, 0].abs().sum()) == float(cache.k[:, 3].abs().sum()) == 0

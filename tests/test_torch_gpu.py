@@ -1185,3 +1185,79 @@ def test_moe_combine_deterministic_on_card(cuda_device):
             graph.replay()
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+
+
+# -- the encoder-decoder and VLM families: K5 at Sq != Skv, the graphed unpaged step --
+
+CROSS_CASES = [  # (B, Sq, Skv, Hq, Hkv, D): non-causal, queries over other keys
+    (2, 1, 300, 4, 4, 64),        # a decode step's cross-attention
+    (2, 37, 300, 4, 4, 64),       # prefill's decoder tokens over the frames, ragged
+    (1, 1, 1500, 16, 16, 64),     # whisper-medium's heads over 1500 frames
+    (2, 70, 130, 8, 2, 128),      # GQA, both lengths ragged
+    (1, 300, 100, 4, 1, 256),     # more queries than keys
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_shapes(cuda_device, dtype):
+    """K5 at Sq != Skv, non-causal (whisper's cross-attention): the rows of
+    a query tile past Sq are neither read nor stored, every key is seen;
+    against its plain version, f32 within 1e-5, bf16 within one bf16 ulp."""
+    rng = np.random.default_rng(13)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -8)
+    tfa.reset_launches()
+    for B, Sq, Skv, Hq, Hkv, D in CROSS_CASES:
+        q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)) \
+            .to(cuda_device, dtype)
+        k, v = (torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32))
+                .to(cuda_device, dtype) for _ in range(2))
+        got = tfa.flash_attention(q, k, v, causal=False)
+        want = tfa.flash_attention_plain(q, k, v, causal=False)
+        assert got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert tfa.launches == len(CROSS_CASES)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b", "jamba-1.5-large-398b"])
+def test_graphed_unpaged_decode_step_equals_eager(cuda_device, arch):
+    """The unpaged decode step captured as a CUDA graph (the dense caches and
+    recurrent states written in place, the index advanced on the device)
+    gives the eager step's logits bit for bit, after `prefill`, in bf16 at
+    head_dim 64; its replay launches K1 per projection and the head, and
+    K5 per whisper cross-attention."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import model as TM
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), head_dim=64, dtype="bfloat16")
+    params = TM.init_model(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(5)
+    B, P = 3, 7
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, P)))
+             .to(cuda_device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(cuda_device)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.prefix_len, TM.VISION_DIM)).astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        le, se = TM.prefill(params, cfg, batch, P + 8)
+        lg, sg = TM.prefill(params, cfg, batch, P + 8)
+        graphed = steps.GraphedServeStep(cfg, params, sg, B)
+        assert int(sg.index) == P
+        assert graphed.launches.get("gemm", 0) > cfg.n_layers
+        assert graphed.launches.get("flash_attention", 0) == \
+            (cfg.n_layers if cfg.family == "encdec" else 0)
+        for _ in range(6):
+            te, tg = le[:, -1].argmax(-1), lg[:, -1].argmax(-1)
+            assert torch.equal(te, tg)
+            le, se = TM.decode_step(params, cfg, se, te[:, None])
+            lg, _ = graphed(params, sg, tg[:, None])
+            assert torch.equal(lg, le)
+    assert int(sg.index) == int(se.index) == P + 6

@@ -83,13 +83,17 @@ Phases, in order; any failure exits non-zero:
      w8a8 GeMMs as 3b, with the static scales.
   3d. phase 3's float run under the pipelined GeMM backend (depth 3): K6
      183 times per step, K1 never; its first decode step's logits near the
-     tiled backend's.
+     tiled backend's.  3c and 3d serve phase 3's first 6 requests (the
+     1100-, 800- and 513-token prompts among them), `reduced` for the time
+     limit.
   4. the same weights at full width, depth cut to 6 layers (5 local + 1
      global), float32, on the card (kernels) and on the CPU (plain
      versions): greedy tokens identical in float, in w8a8 with an int8 KV
-     pool, in calibrated w8a8 and under the pipelined backend; w8a8 logits
-     near the float logits; `forward` logits and the calibration table
-     equal across devices.
+     pool, in calibrated w8a8 and under the pipelined backend (against the
+     float run's CPU tokens: the same plain GeMM); w8a8 logits near the
+     float logits; `forward` logits and the calibration table equal across
+     devices.  Two prompts of 600 and 72 tokens, 4 new tokens each
+     (`reduced` for the time limit).
   6. quality: `quant.quality_delta` at full width, bf16, on 2 batches of
      (2, 1024) tokens: float, w8a8 and calibrated w8a8 NLLs and the worst
      layers of the weight-error table.
@@ -215,6 +219,37 @@ Phases, in order; any failure exits non-zero:
      11d. `serve --arch gemma3-1b --widths published --compare-prefill`:
      the token-by-token prefill (the unpaged step's graph) against the
      engine's chunked prefill, both times printed.
+  12. the tile autotuner and the engine's observability (no kernel
+     changed; the tuner picks their launch plans).
+     12a. gemma3-1b at published widths, bf16, 8 slots: an untuned graphed
+     engine; `Engine(autotune=True, tune_mode="wallclock", trace=True)`,
+     whose warmup times every candidate plan of each GeMM shape (K1's split
+     count and tile, by CUDA events over a captured graph, L2 cold) and
+     K2's split count on the card before it captures its graphs (per shape:
+     the winner, its time, the rule's, the candidates, the seconds; every
+     winner legal and within the margin of the rule); a second, eager
+     engine on the same cache file, which resolves every plan from it with
+     no timing launch; the tuned engine untraced.  8 requests of 100-600
+     tokens: tokens graphed == eager under the tuned plans; trace on == off
+     (tokens, replayed launches, allocator counters); token agreement tuned
+     vs untuned, with the logit margin where they diverge; one prefill
+     chunk's and one decode step's logits tuned vs untuned within phase 3d's
+     bar; one decode / chunk replay's device time tuned vs untuned, in turns.
+     12b. the same in w8a8 with an int8 KV pool (the w8a8 GeMM's split count
+     and one launch or two, K2's int8 branch), without the untraced engine.
+     12c. bit identity under the tuned plans: K1's and the w8a8 GeMM's rows
+     at M = 8 equal those at M = 40, K1's two tiles, K6's depths and the
+     w8a8 GeMM's one launch or two give the same bits, K2 at Sq = 1 equals
+     each position of Sq = 5 (float and int8 pools, global and window).
+     12d. the tuner's wall-clock sweep of K6's ring depth 2 / 3 / 4 at
+     qwen3-14b's up / gate (5120 x 17408) and down (17408 x 5120) shapes at
+     M = 8 and 64, kernels only (Fig. 5's axis): the best time per depth.
+     12e. the serve CLI at published widths with `--autotune --tune-mode
+     wallclock --trace-out --metrics-json --slo --incident-dir`: the trace
+     is Chrome-trace JSON with one flow chain per request, the metrics hold
+     per-phase utilization and MFU on the H100's peaks, a breach bundle is
+     written; the tracer's cost (per-event time x 14 events) under 2 % of
+     the card's decode tick.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -222,7 +257,9 @@ Phases, in order; any failure exits non-zero:
      the decode graph, launches per verify replay; one per phase 10a-10c
      run.
 
-The line before the card line is the kernels' JSON summary; the last line
+Every phase header carries the seconds since the script started.  The
+line before the card line is the kernels' JSON summary (with each kernel's
+launches by phase 12's tuner apart from its serving launches); the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
 """
@@ -254,6 +291,12 @@ GEMM_SHAPES = [  # (name, K, N, transposed B view) of one gemma3-1b layer + head
     ("head", 1152, 262144, True),
 ]
 L2_BYTES = 50e6
+_START = time.monotonic()
+
+
+def stamp() -> str:
+    """Seconds since the script started, for the phase headers."""
+    return f"(t+{time.monotonic() - _START:.0f}s)"
 
 
 def card_line() -> str:
@@ -832,7 +875,8 @@ def gemma_traffic(np):
 
 def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops,
                  precision="float", kv_precision="float", backend="tiled",
-                 profile=False, arch="gemma3-1b", n_layers=26, traffic=gemma_traffic):
+                 profile=False, arch="gemma3-1b", n_layers=26, traffic=gemma_traffic,
+                 reduced=None, replay_traffic=None):
     """A model at published widths (phase 3: gemma3-1b; phase 8: qwen3-14b)
     served twice on the same weights (seed 0): by the engine as it runs on
     the card, every step a replay of a CUDA graph captured at warmup, and by
@@ -846,11 +890,15 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
     engine's counted from its replays, the eager one's by the wrappers),
     no cold compile.  Prints the capture, the graph pool, the paired step
     times, the device time of a replayed decode step and 64-token chunk,
-    and with `profile` the kernels of one replayed decode step."""
+    and with `profile` the kernels of one replayed decode step.  The replays
+    are timed with the 8 slots at `replay_traffic`'s (default `traffic`'s)
+    first 8 prompt lengths plus 32."""
     from repro_torch.serving.prefill import chunk_buckets, plan_chunks
 
     cfg = configs.get(arch)
     check(cfg.dtype == "bfloat16" and cfg.n_layers == n_layers, f"{arch} full config")
+    if reduced:
+        print(f"  reduced {json.dumps(reduced)}")
     plan = per_step_plan(cfg, precision, kv_precision, backend)
     per = gemms_per_step(cfg)
     fused = mods["gemm8"].FUSED_ROWS
@@ -979,13 +1027,14 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
         check(m.cold_compiles == 0 and me.cold_compiles == 0, "warmup covered every step shape")
         if precision == "float" and backend == "tiled":
             _print_splits(torch, mods["fd"], graphed, cfg)
-        replay = _replayed_step_ms(torch, np, graphed, [int(n) + 32 for n in plens[:8]])
+        lens = [int(n) + 32 for n in (replay_traffic or traffic)(np)[0][:8]]
+        replay = _replayed_step_ms(torch, np, graphed, lens)
         print(f"  device time of one replay (CUDA events, median of 10; 8 slots live at "
-              f"{[int(n) + 32 for n in plens[:8]]} tokens): decode step "
+              f"{lens} tokens): decode step "
               f"{replay['decode']:.3f} ms, 64-token prefill chunk (slot 0) "
               f"{replay['chunk64']:.3f} ms")
         if profile:
-            summary_profile = _profile_decode(torch, graphed, [int(n) + 32 for n in plens[:8]])
+            summary_profile = _profile_decode(torch, graphed, lens)
         ops_ = _count_decode_ops(torch, M, eager, mods, quant)
         print(f"  one eager decode step dispatches {ops_['ops']} PyTorch ops ({ops_['views']} "
               f"views, {ops_['empty']} allocations) beside {ops_['kernels']} hand-kernel "
@@ -1073,6 +1122,16 @@ def _paired_medians(pairs, min_pairs: int = 10):
               f"{p['eager_ms']:.3f} ms, graphed faster in {p['graphed_faster']}"
               for k, p in paired.items()))
     return paired
+
+
+def gemma_traffic_cut(np):
+    """Phase 3's first 6 requests (the 1100-, 800- and 513-token prompts
+    among them): phases 3c and 3d, cut for the time limit."""
+    plens, max_new, rng = gemma_traffic(np)
+    return plens[:6], max_new[:6], rng
+
+
+CUT_3CD = {"requests": [12, 6]}
 
 
 def qwen3_traffic(np):
@@ -1411,6 +1470,13 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
                               for k, v in layer.items()} for layer in params["layers"]]}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (600, 300)]
+    # Cut for the time limit: the second prompt to 72 tokens (two chunks),
+    # 4 new tokens a request, and the pipelined backend's CPU run (the same
+    # plain GeMM as the float run's) is the float run's.
+    prompts[1] = prompts[1][:72]
+    max_new = 4
+    print('  reduced {"prompt tokens": [[600, 300], [600, 72]], "new tokens": [8, 4], '
+          '"CPU runs": ["float, pipelined: its own", "the float run\'s"]}')
 
     # The unpaged forward (K5 + K1 on the card) at the float bar, S = 520
     # > the 512 window, every position's logits.
@@ -1441,29 +1507,10 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
                      precision=precision, kv_precision=kv_precision, device=dev)
         eng.warmup()
         for pr in prompts:
-            eng.submit(RequestSpec(prompt=pr, max_new=8))
+            eng.submit(RequestSpec(prompt=pr, max_new=max_new))
         return eng.run()
 
-    # Tokens only: calibrated w8a8, and the float engine under the pipelined
-    # backend (K6 on the card, the same plain GeMM on the CPU).
-    for precision, kv_precision, backend in (("w8a8-calibrated", "int8", "tiled"),
-                                             ("float", "float", "pipelined")):
-        out = {}
-        ops.set_default_backend(backend)
-        try:
-            for dev, p in (("cuda", params), ("cpu", cpu_params)):
-                t0 = time.monotonic()
-                out[dev] = serve(dev, p, precision, kv_precision)
-                print(f"  precision={precision}, kv={kv_precision}, backend={backend}, "
-                      f"{dev}: {time.monotonic() - t0:.1f}s, tokens "
-                      f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
-        finally:
-            ops.set_default_backend("tiled")
-        for rid in out["cpu"]:
-            check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
-                  f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
-                  f"({precision}, {kv_precision} KV, {backend})")
-    first_step = {}
+    first_step, cpu_tokens = {}, {}
     # f32 on both sides, sums in another order.  In float the logits agree
     # within 1e-4 x max|logit| with the same top-8.  In w8a8 a reordered sum
     # moves an activation across a rounding edge of its int8 code now and
@@ -1485,6 +1532,7 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
             check(np.array_equal(out["cuda"][rid], out["cpu"][rid]),
                   f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
                   f"({precision}, {kv_precision} KV)")
+        cpu_tokens[precision] = out["cpu"]
         # Greedy tokens of random weights can be few and repetitive; the
         # logits of the long prompt's last prefill chunk and first decode
         # step must agree too.
@@ -1517,6 +1565,27 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
             print(line)
             check(ok, f"CUDA vs CPU logits, {what} ({precision}, {kv_precision} KV)")
         first_step[precision] = got[1]
+    # Tokens only: calibrated w8a8, and the float engine under the pipelined
+    # backend (K6 on the card; on the CPU the float run's plain GeMM).
+    for precision, kv_precision, backend in (("w8a8-calibrated", "int8", "tiled"),
+                                             ("float", "float", "pipelined")):
+        out = {}
+        ops.set_default_backend(backend)
+        try:
+            runs = [("cuda", params)] + ([("cpu", cpu_params)] if backend == "tiled" else [])
+            for dev, p in runs:
+                t0 = time.monotonic()
+                out[dev] = serve(dev, p, precision, kv_precision)
+                print(f"  precision={precision}, kv={kv_precision}, backend={backend}, "
+                      f"{dev}: {time.monotonic() - t0:.1f}s, tokens "
+                      f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
+        finally:
+            ops.set_default_backend("tiled")
+        want = out.get("cpu", cpu_tokens.get(precision))
+        for rid in want:
+            check(np.array_equal(out["cuda"][rid], want[rid]),
+                  f"request {rid}: CUDA tokens equal the CPU plain-version tokens "
+                  f"({precision}, {kv_precision} KV, {backend})")
     err = rel_l2(torch, first_step["w8a8"], first_step["float"])
     print(f"  w8a8 + int8 KV vs float on the card: relative L2 of the first decode "
           f"step's logits {err:.4f} (bar 0.15)")
@@ -2758,7 +2827,7 @@ def _recapture_narrow_first(torch, eng):
     eng.graph_pool = None
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    with torch.no_grad(), eng._precision_ctx():
+    with torch.no_grad(), eng._step_ctx():
         for key in order:
             eng._capture(key)
     torch.cuda.synchronize()
@@ -3438,6 +3507,439 @@ def phase11(torch, np, configs, M, mods, quant):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the tile autotuner and the engine's observability
+# ---------------------------------------------------------------------------
+
+# Phase 12's traffic: 8 requests of 100-600 tokens (two past the 512
+# window), 24-32 new tokens each, fewer than phase 3's to keep the phase
+# within its share of the time limit.
+def tune_traffic(np):
+    rng = np.random.default_rng(12)
+    plens = rng.integers(100, 601, size=8)
+    plens[:2] = (600, 513)
+    return plens, rng.integers(24, 33, size=8), rng
+
+
+QWEN3_DEPTH_SHAPES = [("up / gate", 5120, 17408), ("down", 17408, 5120)]
+
+
+def _tuned_plans(tuning, eng, label):
+    """Print one line per tuned GeMM plan of `eng` (its winner, time, the
+    rule's time, candidates, seconds) and its K2 plan; check each winner is
+    a legal candidate no slower than the rule beyond the margin."""
+    t = eng.tuner
+    w8a8 = eng.precision != "float"
+    dtype, backend = ("int8", "w8a8") if w8a8 else (eng.cfg.dtype, "tiled")
+    for shape, r in eng.tune_results:
+        kmajor = eng.cfg.tie_embeddings and shape.N == eng.cfg.vocab and not w8a8
+        legal = tuning.enumerate_tiles(shape, dtype, backend=backend, sms=t.sms,
+                                       kmajor=kmajor)
+        check(r.spec in legal, f"{label} {shape}: winner {r.spec} is a legal candidate")
+        check(r.score <= r.rule_score * (1 + tuning.autotuner.MARGIN),
+              f"{label} {shape}: winner within the margin of the rule")
+        p = r.spec
+        plan = (f"splits={p.splits} tile={16 if p.swap else 64}"
+                + (f" {'one launch' if p.fused else 'two launches'}" if w8a8 else ""))
+        rule = r.rule_spec
+        print(f"  {label} {shape.M}x{shape.K}x{shape.N}: {plan} "
+              f"{'(the rule)' if p == rule else f'(rule splits={rule.splits})'} "
+              f"{r.score * 1e6:.2f} us, rule {r.rule_score * 1e6:.2f} us "
+              f"({r.score / r.rule_score - 1:+.1%}), {r.candidates} candidates, "
+              f"{r.seconds:.2f}s [{'cache' if r.from_cache else r.source}]")
+    d = eng.decode_tune_result
+    print(f"  {label} K2 ({eng.kv_precision} pool, Sq=1, {eng.max_blocks_per_slot} columns, "
+          f"windows {[(w, n) for w, n in tuning.serving_decode_shape(eng.cfg, slots=eng.slots, block_size=eng.block_size, max_blocks=eng.max_blocks_per_slot).windows]}): "
+          f"splits={d.spec.num_splits} (rule {d.rule_spec.num_splits}) "
+          f"{d.score * 1e6:.2f} us a step, rule {d.rule_score * 1e6:.2f} us "
+          f"({d.score / d.rule_score - 1:+.1%}), {d.candidates} candidates, {d.seconds:.2f}s")
+    check(d.score <= d.rule_score * (1 + tuning.autotuner.MARGIN),
+          f"{label} K2 within the margin")
+    print(f"  {label} tuning: {t.tuning_s:.2f}s, timing launches (apart from serving) "
+          + " ".join(f"{k}={v}" for k, v in sorted(t.timing_launches.items())))
+
+
+def _replay_pairs(torch, np, a, b, lengths, rounds: int = 2):
+    """Device ms of one decode replay and one 64-token chunk replay of
+    engines a and b in turns (a, b, b, a per round), medians."""
+    got = {id(a): {"decode": [], "chunk64": []}, id(b): {"decode": [], "chunk64": []}}
+    for _ in range(rounds):
+        for eng in (a, b, b, a):
+            r = _replayed_step_ms(torch, np, eng, lengths, reps=5)
+            for k in r:
+                got[id(eng)][k].append(r[k])
+    return ({k: _median(v) for k, v in got[id(a)].items()},
+            {k: _median(v) for k, v in got[id(b)].items()})
+
+
+def _first_divergence(torch, np, M, kvc, quant, cfg, params, tuned, untuned, prompt, ut,
+                      tt, precision, kv_precision):
+    """At the first token where the tuned and untuned runs differ: the
+    untuned logits' top-2 margin and the largest logit change the tuned
+    plans make there (the prompt and the shared tokens prefilled again)."""
+    from repro_torch import tuning
+
+    i = int(np.argmax(ut != tt))
+    ctx = np.concatenate([prompt, ut[:i]])
+    out = []
+    for eng in (untuned, tuned):
+        with tuning.scope(eng.tuner, eng.decode_spec):
+            out.append(_prompt_logits(torch, M, kvc, quant, cfg, params, ctx, "cuda",
+                                      precision=precision, kv_precision=kv_precision)[0])
+    top = out[0].topk(2).values
+    return i, float(top[0] - top[1]), float((out[1] - out[0]).abs().max())
+
+
+def phase12_serve(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, tdir,
+                  precision="float", kv_precision="float"):
+    """12a / 12b: gemma3-1b at published widths served by an untuned graphed
+    engine, a wall-clock-tuned traced graphed engine, the same tuned plans
+    eager (a second engine on the same cache file) and, in float, the
+    tuned graphed engine untraced.  Checks: winners legal and within the
+    margin, the second engine tunes nothing, tuned tokens graphed == eager,
+    trace on == off, tuned vs untuned logits at phase 4's configuration and
+    bar (`phase12_logits`)."""
+    from repro_torch import tuning
+
+    label = "12a" if precision == "float" else "12b"
+    cfg = configs.get("gemma3-1b")
+    params = M.init_model(cfg, seed=0, device="cuda")
+    kw = dict(slots=8, max_seq=1200, block_size=16, max_chunk=64, precision=precision,
+              kv_precision=kv_precision, device="cuda")
+    os.environ["REPRO_TUNE_CACHE"] = str(Path(tdir) / "tunecache.json")
+    engines = {}
+    t0 = time.monotonic()
+    untuned = Engine(cfg, params, **kw)
+    untuned.warmup()
+    params = untuned.params                  # int8-resident in w8a8
+    engines["untuned"] = untuned
+    reset_counts(mods)
+    tuned = Engine(cfg, params, autotune=True, tune_mode="wallclock", trace=True, **kw)
+    t1 = time.monotonic()
+    tuned.warmup()
+    warm_s = time.monotonic() - t1
+    engines["tuned"] = tuned
+    check(all(r.source == "wallclock" and not r.from_cache for _, r in tuned.tune_results),
+          "every plan timed on the card")
+    _tuned_plans(tuning, tuned, label)
+    print(f"  {label} tuned warmup {warm_s:.2f}s (tuning {tuned.tuner.tuning_s:.2f}s, then "
+          f"{tuned.metrics.aot_steps} graphs in {tuned.metrics.capture_time_s:.2f}s); graph "
+          f"pool tuned {graph_pool_bytes(torch, tuned) / 1e6:.1f} MB, untuned "
+          f"{graph_pool_bytes(torch, untuned) / 1e6:.1f} MB")
+    # K2's split workspace, allocated in the pool, follows the split count;
+    # the tuner's operand copies (up to 100 MB) must not land there.
+    check(graph_pool_bytes(torch, tuned) <= graph_pool_bytes(torch, untuned) + 16e6,
+          "the tuner's graphs and operands stayed out of the engine's graph pool")
+    eager = Engine(cfg, params, autotune=True, tune_mode="wallclock", graphs=False, **kw)
+    eager.warmup()
+    check(all(r.from_cache for _, r in eager.tune_results)
+          and eager.decode_tune_result.from_cache and not eager.tuner.timing_launches,
+          "a second engine on the same cache file resolves every plan from it, no timing launch")
+    engines["eager"] = eager
+    if precision == "float":
+        plain = Engine(cfg, params, autotune=True, tune_mode="wallclock", **kw)
+        plain.warmup()
+        engines["untraced"] = plain
+    print(f"  {label} {len(engines)} engines warm in {time.monotonic() - t0:.1f}s; the second "
+          f"engine resolved {len(eager.tune_results)} GeMM plans and K2's from the cache")
+    plens, max_new, rng = tune_traffic(np)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in plens]
+    for p, n in zip(prompts, max_new):
+        for eng in engines.values():
+            eng.submit(RequestSpec(prompt=p, max_new=int(n)))
+    reset_counts(mods)
+    _, t_run = _run_paired(torch, tuned, eager)
+    for name in ("untuned", "untraced"):
+        if name in engines:
+            engines[name].run()
+    torch.cuda.synchronize()
+    m = tuned.metrics
+    for rid, toks in tuned.results.items():
+        check(np.array_equal(toks, eager.results[rid]),
+              f"{label} request {rid}: tuned tokens graphed == eager")
+    print(f"  {label} tuned graphed and eager in lockstep {t_run:.1f}s: the {len(prompts)} "
+          f"requests' tokens ({sum(map(len, tuned.results.values()))}) are identical graphed "
+          f"and eager; {m.prefill_chunks} chunks, {m.decode_steps} decode steps")
+    if "untraced" in engines:
+        plain = engines["untraced"]
+        check(all(np.array_equal(t, plain.results[r]) for r, t in tuned.results.items()),
+              "trace on == off: tokens")
+        check(tuned.replayed_launches() == plain.replayed_launches(),
+              "trace on == off: replayed launches")
+        check(tuned.alloc.stats() == plain.alloc.stats(), "trace on == off: allocator")
+        print(f"  {label} trace on vs off: identical tokens, replayed launches "
+              + " ".join(f"{k}={v}" for k, v in tuned.replayed_launches().items() if v)
+              + f", allocator {tuned.alloc.stats()}")
+    diverged = {r: int(np.argmax(t != untuned.results[r])) for r, t in tuned.results.items()
+                if not np.array_equal(t, untuned.results[r])}
+    n_tok = sum(map(len, tuned.results.values()))
+    agree = sum(int((untuned.results[r] == t).sum()) for r, t in tuned.results.items())
+    print(f"  {label} tokens tuned vs untuned: {agree} of {n_tok} equal; {len(diverged)} of "
+          f"{len(prompts)} requests diverge (request: first differing token {diverged})")
+    for rid in list(diverged)[:2]:
+        i, margin, delta = _first_divergence(
+            torch, np, M, kvc, quant, cfg, params, tuned, untuned, prompts[rid],
+            untuned.results[rid], tuned.results[rid], precision, kv_precision)
+        print(f"  {label} request {rid} diverges at token {i}: untuned top-2 margin "
+              f"{margin:.3e}, largest logit change under the tuned plans {delta:.3e}")
+    probe = np.random.default_rng(0).integers(0, cfg.vocab, size=300)
+    logits = {}
+    for name in ("untuned", "tuned"):
+        eng = engines[name]
+        with tuning.scope(eng.tuner, eng.decode_spec):
+            logits[name] = _prompt_logits(torch, M, kvc, quant, cfg, params, probe, "cuda",
+                                          precision=precision, kv_precision=kv_precision,
+                                          next_token=int(probe[-1]))
+    print(f"  {label} 26-layer bf16 fidelity (not checked; phase 4 holds the plans to its "
+          f"bar below): relative L2 of the logits tuned vs untuned, last prefill chunk "
+          f"{rel_l2(torch, logits['tuned'][0], logits['untuned'][0]):.3e}, decode step "
+          f"{rel_l2(torch, logits['tuned'][1], logits['untuned'][1]):.3e}")
+    phase12_logits(torch, np, configs, M, kvc, quant, tdir, label, precision, kv_precision)
+    lengths = [int(n) + 24 for n in plens]
+    rt, ru = _replay_pairs(torch, np, tuned, untuned, lengths)
+    print(f"  {label} device time of one replay, tuned vs untuned (CUDA events, in turns, "
+          f"medians): decode {rt['decode']:.3f} vs {ru['decode']:.3f} ms "
+          f"({rt['decode'] / ru['decode'] - 1:+.1%}); 64-token chunk {rt['chunk64']:.3f} vs "
+          f"{ru['chunk64']:.3f} ms ({rt['chunk64'] / ru['chunk64'] - 1:+.1%})")
+    out = {"decode_spec": tuned.decode_spec,
+           "timing_launches": dict(tuned.tuner.timing_launches),
+           "decode_tick_s": m.decode_time_s / m.decode_steps, "mfu": m.as_dict()["mfu"]}
+    del engines, tuned, untuned, eager, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12_logits(torch, np, configs, M, kvc, quant, tdir, label, precision,
+                   kv_precision):
+    """Tuned against untuned logits at phase 4's configuration and bar:
+    gemma3-1b's widths cut to 6 layers (5 local + 1 global), float32, one
+    prefill chunk's and one decode step's logits; the plans tuned by wall
+    clock for this precision (f32 GeMM shapes, or the w8a8 GeMM's) and K2's.
+    Float: max_abs_diff <= 1e-4 x max|logit|, top-8 equal (f32 sums in
+    another order); w8a8: relative L2 <= 2 x the noise floor of three 1e-6
+    perturbations of the embedding, argmax equal."""
+    from repro_torch import tuning
+    from repro_torch.serving.engine import autotune_for_serving
+    from repro_torch.serving.prefill import chunk_buckets
+
+    cfg = dataclasses.replace(configs.get("gemma3-1b"), n_layers=6, group_size=6,
+                              dtype="float32")
+    params = M.init_model(cfg, seed=1, device="cuda")    # w8a8: quantized per run
+    tuner = tuning.Autotuner(cache=tuning.TuneCache(path=str(Path(tdir) / "tunecache.json")),
+                             mode="wallclock")
+    with tuning.scope(None):
+        autotune_for_serving(cfg, slots=8, mode="wallclock", chunks=chunk_buckets(64),
+                             tuner=tuner, verbose=False,
+                             dtype="int8" if precision != "float" else "float32",
+                             backend="w8a8" if precision != "float" else "tiled")
+        dspec = tuning.tune_decode_for_serving(cfg, slots=8, block_size=16, max_blocks=75,
+                                               tuner=tuner, kv_precision=kv_precision).spec
+    probe = np.random.default_rng(1).integers(0, cfg.vocab, size=600)
+
+    def logits(p, tuned):
+        with tuning.scope(tuner if tuned else None, dspec if tuned else None):
+            return _prompt_logits(torch, M, kvc, quant, cfg, p, probe, "cuda",
+                                  precision=precision, kv_precision=kv_precision,
+                                  next_token=int(probe[-1]))
+
+    got, want = logits(params, True), logits(params, False)
+    floor = [0.0, 0.0]
+    if precision != "float":
+        for seed in range(3):
+            noisy = logits(_perturbed(torch, params, seed), False)
+            floor = [max(f, rel_l2(torch, n_, w_)) for f, n_, w_ in zip(floor, noisy, want)]
+    for i, what in enumerate(("last prefill chunk", "first decode step")):
+        g_, w_ = got[i], want[i]
+        scale, err = float(w_.abs().max()), float((g_ - w_).abs().max())
+        top_g, top_w = g_.topk(8).indices.tolist(), w_.topk(8).indices.tolist()
+        if precision == "float":
+            ok = err <= 1e-4 * scale and top_g == top_w
+            bar = "max_abs_diff <= 1e-4 x max|logit|, top-8 equal"
+        else:
+            ok = rel_l2(torch, g_, w_) <= 2 * floor[i] and top_g[0] == top_w[0]
+            bar = f"relative L2 <= 2 x {floor[i]:.3e} (noise floor), argmax equal"
+        print(f"  {label} 6-layer f32 ({precision}, {kv_precision} KV) logits after the {what}, "
+              f"tuned vs untuned plans: max_abs_diff={err:.3e} (max |logit| {scale:.3e}), "
+              f"relative L2 {rel_l2(torch, g_, w_):.3e}, top-8 "
+              f"{'equal' if top_g == top_w else 'DIFFER'}; phase 4's bar: {bar}")
+        check(ok, f"{label} tuned vs untuned logits, {what}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase12_identity(torch, tuning, gemm, gemm8, gp, fd, kvc, decode_specs):
+    """12c: bit identity under the tuned plans: K1's and the w8a8 GeMM's rows
+    at M = 8 equal their rows at M = 40; K1's swapped and 64-row tiles, K6's
+    depths and the w8a8 GeMM's one launch or two give the same bits; K2 at
+    Sq = 1 equals each position of Sq = 5, float and int8 pools."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    t = tuning.get_tuner()
+    dt = torch.bfloat16
+    for name, K, N, transposed in GEMM_SHAPES[:1] + GEMM_SHAPES[2:5] + GEMM_SHAPES[6:]:
+        shape = tuning.GemmShape(8, K, N)
+        r, r8 = (t.tune(shape, "bfloat16", backend="tiled", kmajor=transposed),
+                 t.tune(shape, "int8", backend="w8a8"))
+        check(r.from_cache and r8.from_cache, f"12c {name}: the plans 12a / 12b tuned")
+        spec, spec8 = r.spec, r8.spec
+        w = (torch.randn((N, K) if transposed else (K, N), generator=g, device=dev)
+             * K ** -0.5).to(dt)
+        w = w.t() if transposed else w
+        w_q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8).t()
+        sb = torch.rand((1, N), generator=g, device=dev) * 0.1 + 1e-3
+        a = torch.randn((40, K), generator=g, device=dev).to(dt)
+        one = gemm.gemm(a[:8], w, out_dtype=dt, spec=spec)
+        check(torch.equal(gemm.gemm(a, w, out_dtype=dt, spec=spec)[:8], one),
+              f"12c {name}: K1 rows at M=8 == M=40")
+        other = gemm.GemmLaunchSpec(splits=spec.splits, swap=not spec.swap)
+        check(torch.equal(gemm.gemm(a[:8], w, out_dtype=dt, spec=other), one),
+              f"12c {name}: K1 swapped and 64-row tiles give the same bits")
+        deep = [gp.gemm(a[:8], w, depth=d, out_dtype=dt, spec=spec) for d in (2, 3, 4)]
+        check(all(torch.equal(x, deep[0]) for x in deep), f"12c {name}: K6 depths")
+        q8 = gemm8.gemm_w8a8(a[:8], w_q, sb, out_dtype=dt, spec=spec8)
+        check(torch.equal(gemm8.gemm_w8a8(a, w_q, sb, out_dtype=dt, spec=spec8)[:8], q8),
+              f"12c {name}: w8a8 rows at M=8 == M=40")
+        flip = gemm.GemmLaunchSpec(splits=spec8.splits, fused=not spec8.fused)
+        check(torch.equal(gemm8.gemm_w8a8(a[:8], w_q, sb, out_dtype=dt, spec=flip), q8),
+              f"12c {name}: w8a8 one launch == two launches")
+        print(f"  12c {name} {K}x{N}: K1 at {spec} rows M=8 == M=40, both tiles, K6 depths "
+              f"2/3/4 equal; w8a8 at {spec8} rows M=8 == M=40, one launch == two: bitwise")
+        del w, w_q, a
+    lengths = [1100, 700, 600, 513, 300, 200, 100, 40]
+    for pool, dspec in decode_specs.items():
+        if pool == "int8":
+            cache, tables = _lived_in_pool_int8(torch, kvc, dev, g, 8, 1, 256, 16, 1200, lengths)
+        else:
+            cache, tables = _lived_in_pool(torch, kvc, dev, g, dt, 8, 1, 256, 16, 1200, lengths)
+        q = torch.randn((8, 5, 4, 256), generator=g, device=dev).to(dt)
+        idx = torch.tensor([n - 5 for n in lengths], dtype=torch.int32, device=dev)
+        with tuning.scope(None, dspec):
+            for window in (None, 512):
+                full = fd.paged_decode_attention(q, cache, tables, idx, window=window)
+                for j in range(5):
+                    one = fd.paged_decode_attention(q[:, j:j + 1].contiguous(), cache, tables,
+                                                    idx + j, window=window)
+                    check(torch.equal(one[:, 0], full[:, j]),
+                          f"12c K2 {pool} pool window={window}: Sq=1 == position {j} of Sq=5")
+        print(f"  12c K2 {pool} pool at the tuned splits={dspec.num_splits}: Sq=1 equals each "
+              f"position of Sq=5, global and window 512: bitwise")
+        del cache, tables
+    torch.cuda.empty_cache()
+
+
+def phase12_depths(torch, tuning):
+    """12d: the tuner's wall-clock sweep of K6's ring depth 2 / 3 / 4 at
+    qwen3-14b's decode and chunk shapes (Fig. 5's axis), kernels only;
+    returns the sweep's timing launches."""
+    t = tuning.Autotuner(cache=tuning.TuneCache(persistent=False), mode="wallclock")
+    for name, K, N in QWEN3_DEPTH_SHAPES:
+        for M_ in (8, 64):
+            r = t.tune(tuning.GemmShape(M_, K, N), "bfloat16", backend="pipelined", force=True)
+            best = {d: min(s for p, s in r.timings if p.depth == d) for d in (2, 3, 4)}
+            order = sorted(best, key=best.get)
+            print(f"  12d K6 {name} {K}x{N} M={M_}: best per depth "
+                  + ", ".join(f"{d}: {best[d] * 1e6:.1f} us" for d in (2, 3, 4))
+                  + f" (order {' < '.join(map(str, order))}, spread "
+                  f"{best[order[-1]] / best[order[0]] - 1:.1%}); winner {r.spec}, "
+                  f"{r.candidates} candidates, {r.seconds:.1f}s")
+    return dict(t.timing_launches)
+
+
+def phase12_cli(np, tdir):
+    """12e: the serve CLI at published widths with --autotune --tune-mode
+    wallclock and every observability flag: the trace is Chrome-trace JSON
+    with one flow chain per request, the metrics carry per-phase
+    utilization and MFU on the H100's peaks, the SLO and recorder run."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    d = Path(tdir)
+    trace, metrics, inc = d / "trace.json", d / "metrics.json", d / "incidents"
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(["--widths", "published", "--requests", "4", "--autotune",
+                          "--tune-mode", "wallclock", "--trace-out", str(trace),
+                          "--metrics-json", str(metrics), "--slo",
+                          "ttft_p95=1e-6,latency_p95=10", "--incident-dir", str(inc)])
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("autotune", "warmup", "arch=", "slo", "incidents", "trace",
+                            "metrics")):
+            print(f"  {line[:200]}")
+    check(gen.shape == (4, 16), "12e the CLI's tokens")
+    doc = json.loads(trace.read_text())
+    evs = doc["traceEvents"]
+    flows = {}
+    for e in evs:
+        if e.get("cat") == "flow":
+            flows.setdefault(e["id"], []).append(e["ph"])
+    check(len(flows) == 4 and all(c[0] == "s" and c[-1] == "f" for c in flows.values()),
+          "12e one flow chain s..f per request")
+    m = json.loads(metrics.read_text())
+    phases = m["mfu"]["phases"]
+    check(m["mfu"]["peak_flops"] == 989e12 and {"prefill", "decode"} <= set(phases)
+          and all(p["utilization"] > 0 and p["mfu"] > 0 for p in phases.values()),
+          "12e per-phase utilization and MFU on the H100's peaks")
+    check("slo: slo=breach" in text and any(inc.iterdir()), "12e SLO breach bundle written")
+    print(f"  12e {time.monotonic() - t0:.1f}s: {len(evs)} trace events, {len(flows)} flow "
+          f"chains; metrics: " + "; ".join(
+              f"{k} utilization {v['utilization']:.2%} MFU {v['mfu']:.3%}"
+              for k, v in phases.items()))
+
+
+def phase12(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant):
+    """Phases 12a-12e; returns their summaries."""
+    import tempfile
+
+    from repro_torch import tuning
+    from repro_torch.obs import Tracer
+
+    t0 = time.monotonic()
+    out = {}
+    with tempfile.TemporaryDirectory() as tdir:
+        print("[12a] gemma3-1b at published widths, float: wall-clock-tuned, traced engine "
+              "beside an untuned one")
+        out["float"] = phase12_serve(torch, np, configs, M, kvc, Engine, RequestSpec, mods,
+                                     quant, tdir)
+        print("[12b] the same in w8a8 with an int8 KV pool")
+        out["w8a8"] = phase12_serve(torch, np, configs, M, kvc, Engine, RequestSpec, mods,
+                                    quant, tdir, precision="w8a8", kv_precision="int8")
+        print("[12c] bit identity under the tuned plans (kernels)")
+        cache = tuning.TuneCache(path=str(Path(tdir) / "tunecache.json"))
+        specs = {"float": out["float"]["decode_spec"], "int8": out["w8a8"]["decode_spec"]}
+        with tuning.scope(tuning.Autotuner(cache=cache, mode="wallclock")):
+            phase12_identity(torch, tuning, mods["gemm"], mods["gemm8"], mods["gp"],
+                             mods["fd"], kvc, specs)
+        print("[12d] K6's ring depth by wall clock at qwen3-14b's shapes (Fig. 5)")
+        out["depth_launches"] = phase12_depths(torch, tuning)
+        print("[12e] observability: the serve CLI with every flag, and the tracer's cost")
+        phase12_cli(np, tdir)
+    tr = Tracer(capacity=1 << 14)
+    code = tr.intern("bench")
+    best = float("inf")
+    for _ in range(3):
+        s = time.perf_counter_ns()
+        for _ in range(5000):
+            tr.begin(code)
+            tr.end(code)
+        best = min(best, (time.perf_counter_ns() - s) / 10000)
+    tick = out["float"]["decode_tick_s"]
+    share = 14 * best * 1e-9 / tick
+    print(f"  12e tracing overhead: {best:.0f} ns an event x 14 events a decode tick = "
+          f"{share:.3%} of the card's {tick * 1e3:.3f} ms decode tick (bar 2 %)")
+    check(share < 0.02, "12e tracing overhead under 2 % of a decode tick")
+    print("  12e per-phase utilization / MFU of the tuned engine (H100 peaks: 989 TFLOP/s, "
+          "3.35 TB/s): " + "; ".join(
+              f"{prec} {p} util {v['utilization']:.2%} mfu {v['mfu']:.3%}"
+              for prec in ("float", "w8a8") for p, v in out[prec]["mfu"]["phases"].items()))
+    os.environ.pop("REPRO_TUNE_CACHE", None)
+    print(f"[12] phase 12 took {time.monotonic() - t0:.1f}s")
+    return out
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -3500,7 +4002,7 @@ def main() -> int:
                                       else f"{n} {op} (tensor-core) instructions"))
         check(n is None or n > 0, f"lib{name}.so runs its products on the tensor cores")
 
-    print("[2] kernels vs plain versions on the card")
+    print(f"[2] kernels vs plain versions on the card {stamp()}")
     worst = phase_kernels(torch, gemm, fd, kvc)
     worst.update(phase_kernels_int8(torch, gemm8, kq, fd, kvc))
     worst.update(phase_kernels_w8a8(torch, gemm8))
@@ -3513,21 +4015,24 @@ def main() -> int:
     for k, v in worst_encdec.items():
         worst[k] = max(worst[k], v)
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
-    print("[3] full-width gemma3-1b engine run (26 layers, bf16)")
+    print(f"[3] full-width gemma3-1b engine run (26 layers, bf16) {stamp()}")
     summary = phase_engine(*engine_args, profile=True)
-    print("[3b] the same run in w8a8 with an int8 KV pool")
+    print(f"[3b] the same run in w8a8 with an int8 KV pool {stamp()}")
     summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8", profile=True)
-    print("[3c] the same run in calibrated w8a8 with an int8 KV pool")
-    summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8")
-    print("[3d] phase 3's float run under the pipelined GeMM backend (depth 3)")
-    summary_pipe = phase_engine(*engine_args, backend="pipelined")
-    print("[3e] the serve CLI at published widths, w8a8 + int8 KV")
+    print(f"[3c] the same run in calibrated w8a8 with an int8 KV pool {stamp()}")
+    summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8",
+                               traffic=gemma_traffic_cut, reduced=CUT_3CD,
+                               replay_traffic=gemma_traffic)
+    print(f"[3d] phase 3's float run under the pipelined GeMM backend (depth 3) {stamp()}")
+    summary_pipe = phase_engine(*engine_args, backend="pipelined", traffic=gemma_traffic_cut,
+                                reduced=CUT_3CD, replay_traffic=gemma_traffic)
+    print(f"[3e] the serve CLI at published widths, w8a8 + int8 KV {stamp()}")
     phase_serve_cli(np)
-    print("[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions")
+    print(f"[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions {stamp()}")
     phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops)
-    print("[6] quality: forward NLL in float, w8a8 and calibrated w8a8 (26 layers, bf16)")
+    print(f"[6] quality: forward NLL in float, w8a8 and calibrated w8a8 (26 layers, bf16) {stamp()}")
     summary_q = phase_quality(torch, np, configs, M, quant, mods)
-    print("[5] kernel times at main-path shapes (bf16, CUDA events, L2 cold)")
+    print(f"[5] kernel times at main-path shapes (bf16, CUDA events, L2 cold) {stamp()}")
     rows = phase_times(torch, gemm, gp, fd, kvc)
     agg = per_step(rows)
     agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
@@ -3576,15 +4081,15 @@ def main() -> int:
     print(f"[5] one forward over (2, 1024) tokens: flash_attention "
           f"{agg['flash_attention'][0]:.3f} ms (bound {agg['flash_attention'][3]:.3f}, "
           f"sdpa {agg['flash_attention'][2]:.3f})")
-    print("[5] whisper-medium's K5 shapes and the encdec / vlm K1 shapes")
+    print(f"[5] whisper-medium's K5 shapes and the encdec / vlm K1 shapes {stamp()}")
     rows_ed = phase_times_encdec(torch, gemm, fa)
-    print("[8a] qwen3-14b at published widths (40 layers, bf16), float")
+    print(f"[8a] qwen3-14b at published widths (40 layers, bf16), float {stamp()}")
     summary_qf = phase_engine(*engine_args, arch="qwen3-14b", n_layers=40,
                               traffic=qwen3_traffic, profile=True)
-    print("[8b] qwen3-14b at published widths, w8a8 with an int8 KV pool")
+    print(f"[8b] qwen3-14b at published widths, w8a8 with an int8 KV pool {stamp()}")
     summary_q8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8",
                               arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic)
-    print("[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold)")
+    print(f"[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold) {stamp()}")
     phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa)
     print("[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
           "plain versions")
@@ -3593,14 +4098,18 @@ def main() -> int:
     print(f"[9a] speculative greedy decoding, gemma3-1b at published widths (26 layers, "
           f"bf16), k = {DRAFT_K}, float")
     summary_9a = phase_speculative(*args9)
-    print("[9b] the same in w8a8 with an int8 KV pool")
+    print(f"[9b] the same in w8a8 with an int8 KV pool {stamp()}")
     summary_9b = phase_speculative(*args9, precision="w8a8", kv_precision="int8")
-    print("[9c] sampling: temperature / top-k / top-p with seeded streams")
+    print(f"[9c] sampling: temperature / top-k / top-p with seeded streams {stamp()}")
     phase_sampling(*args9)
-    print("[9d] KV-swap preemption and the prefix cache")
+    print(f"[9d] KV-swap preemption and the prefix cache {stamp()}")
     phase_preempt_prefix(*args9)
+    print(f"[10] the recurrent, hybrid and MoE families {stamp()}")
     phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
+    print(f"[11] the encoder-decoder and VLM families {stamp()}")
     summary11 = phase11(torch, np, configs, M, mods, quant)
+    print(f"[12] the tile autotuner and the engine's observability {stamp()}")
+    summary12 = phase12(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -3635,6 +4144,11 @@ def main() -> int:
          f"{step} under the pipelined backend: 26 x (q,k,v,o,gate,up,down) + tied head, "
          f"M=8, bf16, depth 3", summary_pipe["launches"]),
     ]
+    # Launches phase 12's tuner made to time candidates (replays included),
+    # apart from the serving launches counted in "launches".
+    tuner = collections.Counter(summary12["float"]["timing_launches"])
+    tuner.update(summary12["w8a8"]["timing_launches"])
+    tuner.update(summary12["depth_launches"])
     kernels = []
     for name, src, replaces, per, launches in entries:
         t_k, t_p, t_l, bound = agg[name][:4]
@@ -3643,7 +4157,7 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": launches[name],
             "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": agg[name][4] if len(agg[name]) > 4 else "bytes",
-            "library_ms": t_l})
+            "library_ms": t_l, "tuner_launches": tuner[name]})
     # This slice's shapes of K5 and K1 (launches: each kernel's in phase 11a's
     # run, graph replays included; 11b's for the projector).
     for name, kernel, key, per, run in (
@@ -3669,9 +4183,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "per": per, "launches": run["launches"].get(kernel, 0),
             "max_abs_err": worst_encdec[kernel], "ms": t_k, "plain_ms": t_p,
-            "bound_ms": bound, "bound_by": by, "library_ms": t_l})
+            "bound_ms": bound, "bound_by": by, "library_ms": t_l, "tuner_launches": 0})
     print("kernels " + " ".join(
-        f"{k['name']}: launches={k['launches']} max_abs_err={k['max_abs_err']:.3e} "
+        f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
+        f"max_abs_err={k['max_abs_err']:.3e} "
         f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
         f"library_ms={k['library_ms']};" for k in kernels))
     for label, x in (("3 float", summary), ("3b w8a8 + int8 KV", summary8),

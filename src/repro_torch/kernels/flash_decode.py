@@ -12,7 +12,9 @@ and the kernel dequantizes each K/V element as it leaves shared memory.
 It is bound by the pool bytes it reads and by latency; the note at the top
 of the .cu file says what the design does about that.  Without an explicit
 `FlashDecodeSpec` the split count comes from `decode_splits`: enough
-splits of the table extent for about two blocks per SM.
+splits of the table extent for about two blocks per SM.  The tuner
+(repro_torch/tuning/decode.py) binds its pick with `set_decode_spec`, and
+`paged_decode_attention` then takes it for every call with no spec.
 
 Plain versions beside it: `ref_paged_decode`, the bounded online-softmax
 walk over table-column chunks (the reference's CPU default);
@@ -75,6 +77,33 @@ class FlashDecodeSpec:
         if self.cols_per_iter < 1:
             raise ValueError(
                 f"cols_per_iter must be >= 1, got {self.cols_per_iter}")
+
+    def to_json(self) -> dict:
+        return {"kind": "flash_decode", "num_splits": self.num_splits,
+                "cols_per_iter": self.cols_per_iter}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "FlashDecodeSpec":
+        return cls(num_splits=int(d["num_splits"]),
+                   cols_per_iter=int(d["cols_per_iter"]))
+
+
+_DECODE_SPEC: Optional[FlashDecodeSpec] = None
+
+
+def set_decode_spec(spec: Optional[FlashDecodeSpec]) -> None:
+    """Bind a tuned design point for calls with no spec (None unbinds).  A
+    CUDA graph keeps the split count it was captured with: the engine binds
+    its pick before warmup captures its steps."""
+    global _DECODE_SPEC
+    if spec is not None and not isinstance(spec, FlashDecodeSpec):
+        raise TypeError(f"set_decode_spec takes a FlashDecodeSpec, got "
+                        f"{type(spec).__name__}")
+    _DECODE_SPEC = spec
+
+
+def get_decode_spec() -> Optional[FlashDecodeSpec]:
+    return _DECODE_SPEC
 
 
 def _row_tile(rows: int) -> int:
@@ -358,7 +387,10 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     """Decode attention over a paged KV cache, the entry the model layer
     calls: the CUDA kernel for CUDA tensors, `ref_paged_decode` for CPU
     tensors.  Equivalent to `gather_decode` either way.  With no `spec` the
+    spec bound by `set_decode_spec` is taken, and with none bound the
     kernel's split count comes from `decode_splits`."""
+    if spec is None:
+        spec = _DECODE_SPEC
     if q.device.type == "cpu":
         return ref_paged_decode(q, cache, block_tables, index, window=window,
                                 cols_per_iter=(spec or FlashDecodeSpec()).cols_per_iter)

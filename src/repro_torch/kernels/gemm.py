@@ -10,7 +10,9 @@ gemm.cu and gemm_mma.cuh say what the design does about that).
 
 One launch per call: `gemm_plan` picks the tile and the split-K count, and
 the kernel sums the splits' partials itself, in split order, in a
-workspace allocated once per device (`splitk_scratch`).
+workspace allocated once per device (`splitk_scratch`).  A `GemmLaunchSpec`
+(the tile autotuner's pick, repro_torch/tuning) overrides the rule's split
+count and, at M <= SWAP_ROWS, its tile.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version `gemm_plain`.  No fallback on the card.
@@ -19,6 +21,7 @@ tensor runs the plain version `gemm_plain`.  No fallback on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -72,6 +75,40 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@dataclasses.dataclass(frozen=True)
+class GemmLaunchSpec:
+    """A launch plan of K1, K6 or the int8 GeMM at one (K, N), as the tile
+    autotuner picks it (repro_torch/tuning); the tile sizes are compiled
+    into csrc/gemm_mma.cuh and are no part of it.
+
+    splits  the split-K count asked for (rounded as `gemm_plan` rounds it)
+    swap    at M <= SWAP_ROWS: the swapped 16-row tile (True, the rule's) or
+            the 64-row tile (False); above SWAP_ROWS always the 64-row tile
+    depth   K6's ring depth (0: its default; the other kernels ignore it)
+    fused   the w8a8 GeMM at M <= FUSED_ROWS: one launch (True, the rule's)
+            or the row quantization then K3 (False)
+    """
+
+    splits: int
+    swap: bool = True
+    depth: int = 0
+    fused: bool = True
+
+    def __post_init__(self):
+        if self.splits < 1:
+            raise ValueError(f"splits must be >= 1, got {self.splits}")
+        if not 0 <= self.depth <= 4:
+            raise ValueError(f"depth must be in 0..4, got {self.depth}")
+
+    def to_json(self) -> dict:
+        return {"kind": "gemm", **dataclasses.asdict(self)}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "GemmLaunchSpec":
+        return cls(splits=int(d["splits"]), swap=bool(d["swap"]),
+                   depth=int(d["depth"]), fused=bool(d["fused"]))
+
+
 class GemmPlan(NamedTuple):
     """One launch of K1 or K6: tile, operand roles, K partition, grid."""
     swap: bool          # M <= 16: C^T = B^T A^T on the tensor cores (SIMT: 16-row tile)
@@ -86,7 +123,8 @@ class GemmPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=4096)
 def gemm_plan(M: int, N: int, K: int, b_kmajor: bool, sms: int,
-              elem_bytes: int = 2, splits: Optional[int] = None) -> GemmPlan:
+              elem_bytes: int = 2, splits: Optional[int] = None,
+              swap: Optional[bool] = None) -> GemmPlan:
     """The launch for a (M, K) @ (K, N) product of `elem_bytes` operands on
     a card with `sms` multiprocessors.  One split when the output tiles give
     every SM a block; else `requested_splits` asks for enough splits to get
@@ -94,11 +132,12 @@ def gemm_plan(M: int, N: int, K: int, b_kmajor: bool, sms: int,
     MAX_SPLITS[swap].  (One block per SM and not two: every split adds a
     partial tile to write, fence and read back, and on the H100 fewer,
     longer splits were faster; chip_smoke.py times both rules.)  `splits`
-    forces a count instead (the plain split version's tests).  Either way
-    the K stages are dealt ceil(k_tiles / splits) per split, and splits
-    left empty by the rounding are dropped.  Up to FULL_ROWS rows the plan
-    splits K as at M = 1, so a row's result does not depend on M."""
-    swap = M <= SWAP_ROWS
+    forces a count instead (a tuned plan; the plain split version's tests).
+    Either way the K stages are dealt ceil(k_tiles / splits) per split, and
+    splits left empty by the rounding are dropped.  Up to FULL_ROWS rows the
+    plan splits K as at M = 1, so a row's result does not depend on M.
+    `swap` False takes the 64-row tile at M <= SWAP_ROWS too."""
+    swap = M <= SWAP_ROWS and swap is not False
     bm = SWAP_ROWS if swap else FULL_ROWS
     bk = K_TILE_BYTES // elem_bytes
     tiles = -(-M // bm) * -(-N // TILE_N)
@@ -215,9 +254,11 @@ def gemm_split_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
-         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+         out_dtype: torch.dtype = torch.float32,
+         spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = A @ B for a (M, K) and b (K, N), any strides, f32 accumulation,
-    C (M, N) contiguous in `out_dtype`."""
+    C (M, N) contiguous in `out_dtype`.  `spec`: a tuned launch plan (None:
+    the rule's); the plain version ignores it."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device != b.device:
@@ -226,7 +267,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
         return gemm_plain(a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"gemm: no kernel for device {a.device}")
-    return _gemm_cuda(a, b, out_dtype)
+    return _gemm_cuda(a, b, out_dtype, spec)
 
 
 def check_launch(a: torch.Tensor, b: torch.Tensor, what: str) -> Tuple[int, int, int]:
@@ -240,22 +281,33 @@ def check_launch(a: torch.Tensor, b: torch.Tensor, what: str) -> Tuple[int, int,
     return M, N, K
 
 
+def plan_fits(plan: GemmPlan, sms: int) -> bool:
+    """Whether a plan's split-K fits the scratch of a card with `sms`
+    multiprocessors: its partials in the workspace, and an arrival counter
+    for each of its output tiles."""
+    return plan.splits == 1 or (plan.ws_elems <= workspace_elems(sms)
+                                and plan.grid[0] * plan.grid[1] <= sms)
+
+
 @functools.lru_cache(maxsize=4096)
 def launch_plan(M: int, N: int, K: int, kmajor: bool, elem_bytes: int,
-                device: torch.device):
+                device: torch.device, spec: Optional[GemmLaunchSpec] = None):
     """(plan, workspace pointer, counters pointer) of one launch on
-    `device`; cached, since the scratch is never freed."""
-    plan = gemm_plan(M, N, K, kmajor, sm_count(device), elem_bytes)
+    `device`, by the rule or by a tuned `spec`; cached (the spec is part of
+    the key), since the scratch is never freed."""
+    plan = gemm_plan(M, N, K, kmajor, sm_count(device), elem_bytes,
+                     *((None, None) if spec is None else (spec.splits, spec.swap)))
     if plan.splits == 1:
         return plan, None, None
     ws, counters = splitk_scratch(device)
-    if plan.ws_elems > ws.numel():
-        raise RuntimeError(f"split-K plan {plan} exceeds the workspace ({ws.numel()})")
+    if not plan_fits(plan, counters.numel()):
+        raise RuntimeError(f"split-K plan {plan} exceeds the workspace ({ws.numel()}) "
+                           f"or the tile counters ({counters.numel()})")
     return plan, ws.data_ptr(), counters.data_ptr()
 
 
-def _gemm_cuda(a: torch.Tensor, b: torch.Tensor,
-               out_dtype: torch.dtype) -> torch.Tensor:
+def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
+               spec: Optional[GemmLaunchSpec]) -> torch.Tensor:
     global launches
     if a.dtype != b.dtype or a.dtype not in _CODES:
         raise TypeError(f"gemm kernel takes f32/bf16 pairs, got {a.dtype}, {b.dtype}")
@@ -264,7 +316,7 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor,
     M, N, K = check_launch(a, b, "gemm")
     a, b, kmajor = operands_for_copies(a, b)
     dev = a.device
-    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev)
+    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev, spec)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws, counters,
                  M, N, K, a.stride(0), *b.stride(), _CODES[a.dtype], _CODES[out_dtype],

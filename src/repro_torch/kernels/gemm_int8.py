@@ -22,7 +22,10 @@ one of the GeMM's N / 128 column blocks would quantize the same rows again
 Integer sums are exact and the scale arithmetic's order is fixed, so each
 kernel equals its plain version bit for bit.  The launch plan, the split-K
 workspace and the tile counters are K1's (`gemm.launch_plan`), at 1-byte
-elements; a launch allocates only its output.
+elements; a launch allocates only its output.  A tuned `gemm.GemmLaunchSpec`
+overrides the split count and, for the w8a8 GeMM at M <= FUSED_ROWS, the
+choice of one launch or two (`spec.fused`); neither changes a bit of the
+result (exact integer sums, a fixed epilogue).
 
 The kernel reads B K-major: `quant.params` stores every weight as an (N, K)
 tensor and hands out its (K, N) `.t()` view.  Another layout is re-laid to
@@ -42,7 +45,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gemm import check_launch, launch_plan, rows_for_copies
+from repro_torch.kernels.gemm import GemmLaunchSpec, check_launch, launch_plan, rows_for_copies
 from repro_torch.kernels.quant import check_static_scale, quantize_rows, quantize_rows_plain
 
 # Launches of the CUDA kernel since the last reset (the plain versions never
@@ -113,8 +116,8 @@ def _check_out(out_dtype: torch.dtype) -> None:
 
 
 def dequant_gemm(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
-                 sb: torch.Tensor, *,
-                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 sb: torch.Tensor, *, out_dtype: torch.dtype = torch.float32,
+                 spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = (float(A_q @ B_q) * sa) * sb for a_q (M, K) and b_q (K, N) int8,
     any strides; sa (M, 1) row scales and sb (1, N) column scales, float32.
     C (M, N) contiguous in `out_dtype` (rounded once from the f32 value)."""
@@ -131,31 +134,34 @@ def dequant_gemm(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
         return dequant_gemm_plain(a_q, b_q, sa, sb, out_dtype)
     _check_out(out_dtype)
     global launches
-    out = _launch(a_q, b_q, sa.contiguous(), sb.contiguous(), out_dtype)
+    out = _launch(a_q, b_q, sa.contiguous(), sb.contiguous(), out_dtype, spec)
     launches += 1
     return out
 
 
-def gemm_int(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def gemm_int(a: torch.Tensor, b: torch.Tensor, *,
+             spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = A @ B for int8 a (M, K) and b (K, N), any strides: exact int32."""
     _check(a, b)
     if a.device.type == "cpu":
         return gemm_int_plain(a, b)
     global int_launches
-    out = _launch(a, b, None, None, torch.int32)
+    out = _launch(a, b, None, None, torch.int32, spec)
     int_launches += 1
     return out
 
 
 def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
               act_scale: Optional[torch.Tensor] = None, *,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              out_dtype: torch.dtype = torch.float32,
+              spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """The int8-resident-weight GeMM: float x (M, K), int8 w_q (K, N) and
     its f32 per-column scales (1, N) or (N,) -> (M, N) in `out_dtype`
     (rounded once from the f32 value).  x's rows are quantized to int8 per
     row (dynamic), or with the static per-tensor `act_scale`, a one-element
     float32 tensor on x's device (calibrated mode).  On the card: one
-    launch at M <= FUSED_ROWS, else the row quantization and K3."""
+    launch at M <= FUSED_ROWS (unless a tuned `spec` says two), else the
+    row quantization and K3."""
     if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
         raise ValueError(f"w8a8 gemm shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
     if w_q.dtype != torch.int8 or not x.is_floating_point():
@@ -177,26 +183,27 @@ def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     _check_out(out_dtype)
     if act_scale is not None:
         check_static_scale(act_scale, x.device)
-    if x.shape[0] <= FUSED_ROWS:
-        return _w8a8_fused(x, w_q, w_scale, act_scale, out_dtype)
+    if x.shape[0] <= FUSED_ROWS and (spec is None or spec.fused):
+        return _w8a8_fused(x, w_q, w_scale, act_scale, out_dtype, spec)
     x_q, sx = quantize_rows(x, act_scale)
-    return dequant_gemm(x_q, w_q, sx, w_scale.reshape(1, -1), out_dtype=out_dtype)
+    return dequant_gemm(x_q, w_q, sx, w_scale.reshape(1, -1), out_dtype=out_dtype,
+                        spec=spec)
 
 
-def _w8a8_fused(x, w_q, w_scale, act_scale, out_dtype):
+def _w8a8_fused(x, w_q, w_scale, act_scale, out_dtype, spec=None):
     """The one-launch w8a8 GeMM at any M, on operands `gemm_w8a8` checked
     (chip_smoke.py also times it above FUSED_ROWS, the rule's evidence)."""
     global w8a8_launches
-    out = _launch(x, w_q, act_scale, w_scale.contiguous(), out_dtype)
+    out = _launch(x, w_q, act_scale, w_scale.contiguous(), out_dtype, spec)
     w8a8_launches += 1
     return out
 
 
-def _launch(a, b, sa, sb, out_dtype):
+def _launch(a, b, sa, sb, out_dtype, spec):
     M, N, K = check_launch(a, b, "int8 gemm")
     a, b = rows_for_copies(a), rows_for_copies(b.t()).t()   # B K-major
     dev = a.device
-    plan, ws, counters = launch_plan(M, N, K, True, 1, dev)
+    plan, ws, counters = launch_plan(M, N, K, True, 1, dev, spec)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _lib()(a.data_ptr(), b.data_ptr(),
                  None if sa is None else sa.data_ptr(),

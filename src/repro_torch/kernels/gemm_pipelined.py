@@ -11,7 +11,8 @@ K1), or exact int32 sums for int8 operands (the reference writes the
 accumulator dtype).  Bound by B's bytes at decode batch sizes; the note at
 the top of the .cu file says what the design does about that.  One launch
 per call: the launch plan and the split-K scratch are K1's
-(`gemm.gemm_plan`, `gemm.splitk_scratch`).
+(`gemm.gemm_plan`, `gemm.splitk_scratch`), overridden, with the depth, by a
+tuned `gemm.GemmLaunchSpec`.
 
 `depth` is 2, 3 or 4 (default 3, the case study's D_stream =
 repro/core/generator.py:63); it is clamped as the reference clamps it:
@@ -25,11 +26,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.gemm import check_launch, launch_plan, operands_for_copies
+from repro_torch.kernels.gemm import (GemmLaunchSpec, check_launch, launch_plan,
+                                      operands_for_copies)
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
@@ -74,11 +77,14 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor,
     return ref.gemm_ref(a, b).to(out_dtype or _acc_dtype(a, b))
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *, depth: int = DEFAULT_DEPTH,
-         out_dtype=None) -> torch.Tensor:
+def gemm(a: torch.Tensor, b: torch.Tensor, *, depth: Optional[int] = None,
+         out_dtype=None, spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = A @ B for a (M, K) and b (K, N), any strides.  Floats accumulate
     in f32 and C is f32 unless `out_dtype` is bf16 (rounded once); int8
-    operands give exact int32."""
+    operands give exact int32.  `spec`: a tuned launch plan (None: K1's
+    rule); `depth` None takes the spec's depth, else DEFAULT_DEPTH."""
+    if depth is None:
+        depth = spec.depth if spec is not None and spec.depth else DEFAULT_DEPTH
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"pipelined gemm shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device != b.device:
@@ -92,11 +98,11 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, depth: int = DEFAULT_DEPTH,
         return gemm_plain(a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"pipelined gemm: no kernel for device {a.device}")
-    return _gemm_cuda(a, b, depth, out_dtype)
+    return _gemm_cuda(a, b, depth, out_dtype, spec)
 
 
 def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, depth: int,
-               out_dtype: torch.dtype) -> torch.Tensor:
+               out_dtype: torch.dtype, spec: Optional[GemmLaunchSpec]) -> torch.Tensor:
     global launches
     if a.dtype != b.dtype or a.dtype not in _IN_CODES:
         raise TypeError(f"pipelined gemm kernel takes f32/bf16/int8 pairs, "
@@ -106,7 +112,7 @@ def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, depth: int,
     M, N, K = check_launch(a, b, "pipelined gemm")
     a, b, kmajor = operands_for_copies(a, b)
     dev = a.device
-    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev)
+    plan, ws, counters = launch_plan(M, N, K, kmajor, a.element_size(), dev, spec)
     d = clamp_depth(depth, -(-K // plan.bk))
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(), ws, counters, M, N, K,

@@ -24,10 +24,18 @@ then K3 above; float weights under quant="int8" take K4, then K3.
 
 The kernels mask ragged edges themselves, so the reference's tile padding
 (`_pad2`) has no counterpart.
+
+A call that names no launch plan takes the hand rule's, unless the tile
+autotuner is enabled (repro_torch.tuning: `enable()`, the engine's
+`autotune=True`, or REPRO_AUTOTUNE=1): then `_dispatch_spec` asks it for
+the tuned plan of (shape, dtype, kernel).  With tuning off the default path
+stays inert: the tuning package is not even imported.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Optional, Tuple
 
 import torch
@@ -35,6 +43,7 @@ import torch
 from repro_torch.kernels import gemm_int8 as _gemm_int8
 from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref
+from repro_torch.kernels.gemm import GemmLaunchSpec
 from repro_torch.kernels.registry import make_kernel
 from repro_torch.quant import modes as _modes
 from repro_torch.quant.params import QuantTensor
@@ -72,11 +81,40 @@ def _resolve(backend: Optional[str]):
     return _DEFAULT_GEMM if backend is None else make_kernel(_check_backend(backend))
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *,
-         backend: Optional[str] = None) -> torch.Tensor:
+def _dispatch_spec(a: torch.Tensor, b: torch.Tensor, dtype, kernel: str
+                   ) -> Optional[GemmLaunchSpec]:
+    """The launch plan for a call that names none: the tuner's when tuning
+    is enabled, else None (the hand rule's).  `repro_torch.tuning` is only
+    consulted when it is already imported (someone called `enable()` or
+    built a tuning engine) or REPRO_AUTOTUNE asks for it, so a plain call
+    never pays the import."""
+    tuning = sys.modules.get("repro_torch.tuning")
+    if tuning is None:
+        # The truthiness rule of tuning.env_truthy: "0"/"false"/"" disable.
+        if os.environ.get("REPRO_AUTOTUNE", "").strip().lower() in (
+                "", "0", "false", "no", "off"):
+            return None
+        import repro_torch.tuning as tuning
+    if not tuning.is_enabled():
+        return None
+    shape = tuning.GemmShape(a.shape[0], a.shape[1], b.shape[1])
+    kmajor = b.stride(0) == 1 and b.stride(1) != 1
+    return tuning.tuned_spec(shape, dtype, backend=kernel, kmajor=kmajor)
+
+
+def _float_kernel(backend: Optional[str]) -> str:
+    return _DEFAULT_BACKEND if backend is None else _check_backend(backend)
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
+         spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = A @ B, a (M, K), b (K, N): int8 inputs accumulate to int32,
-    floats to f32, through the backend's kernel."""
-    return _resolve(backend)(a, b)
+    floats to f32, through the backend's kernel, at `spec` (None: the
+    tuner's plan when tuning is enabled, else the rule's)."""
+    fn = _resolve(backend)
+    if spec is None:
+        spec = _dispatch_spec(a, b, a.dtype, _float_kernel(backend))
+    return fn(a, b, spec=spec)
 
 
 def gemm_int8_dequant(a_q: torch.Tensor, b_q: torch.Tensor,
@@ -127,16 +165,20 @@ def linear(x: torch.Tensor, w, *, quant: Optional[str] = None,
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QuantTensor):
         act = w.act_scale if _modes.is_calibrated() else None
-        out = gemm_w8a8(x2, w.q, w.scale, act_scale=act, out_dtype=x.dtype)
+        out = _gemm_int8.gemm_w8a8(x2, w.q, w.scale, act, out_dtype=x.dtype,
+                                   spec=_dispatch_spec(x2, w.q, "int8", "w8a8"))
         return out.reshape(*lead, w.q.shape[-1])
     if quant is None:
         quant = _modes.default_quant()
     if quant == "int8":
         xq, sx = quantize(x2, axis=-1)
         wq, sw = ref.quantize_ref(w, axis=0)
-        out = gemm_int8_dequant(xq, wq, sx, sw.reshape(1, -1), out_dtype=x.dtype)
+        out = _gemm_int8.dequant_gemm(xq, wq, sx, sw.reshape(1, -1), out_dtype=x.dtype,
+                                      spec=_dispatch_spec(xq, wq, "int8", "dequant"))
     elif quant in (None, "none"):
-        out = _resolve(backend)(x2, w.to(x2.dtype), out_dtype=x.dtype)
+        w = w.to(x2.dtype)
+        out = _resolve(backend)(x2, w, out_dtype=x.dtype,
+                                spec=_dispatch_spec(x2, w, x2.dtype, _float_kernel(backend)))
     else:
         raise ValueError(f"unknown quant mode {quant!r}")
     return out.reshape(*lead, w.shape[-1])

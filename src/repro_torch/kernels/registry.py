@@ -4,13 +4,13 @@ repro/kernels/registry.py).
 Each entry maps a name to the GeMM function of one variant; `ops.gemm` and
 `ops.linear` resolve their backend through this table, so a new variant is
 one `register_kernel` call.  The reference's factories specialise a Pallas
-kernel for a `TpuGemmSpec` design point; here a variant has no design
-option on its path (the pipelined GeMM runs its default ring depth; call
-`gemm_pipelined.gemm(..., depth=)` for another), so an entry is the
-function itself.
+kernel for a `TpuGemmSpec` design point; here the design point is a launch
+plan (`gemm.GemmLaunchSpec`: split count, tile, K6's ring depth) that every
+entry takes per call as `spec=` (None: the hand rule's), so an entry is
+the function itself.
 
   "tiled"      kernels/gemm.py           K1 (the reference's "pallas")
-  "pipelined"  kernels/gemm_pipelined.py K6 at depth 3
+  "pipelined"  kernels/gemm_pipelined.py K6 (depth 3, or the spec's)
   "dequant"    kernels/gemm_int8.py      K3: int8 x int8 -> scaled float
   "w8a8"       kernels/gemm_int8.py      K4's row quantization in K3's prologue (M <= 16)
 """
@@ -48,11 +48,11 @@ def make_kernel(name: str) -> Callable:
             f"unknown kernel {name!r}; registered: {registered_kernels()}") from None
 
 
-def _tiled(a, b, *, out_dtype=None):
+def _tiled(a, b, *, out_dtype=None, spec=None):
     """K1: int8 x int8 -> int32 (its int mode), floats -> f32 or out_dtype."""
     if a.dtype == b.dtype == torch.int8:
-        return _gemm_int8.gemm_int(a, b)
-    return _gemm.gemm(a, b, out_dtype=out_dtype or torch.float32)
+        return _gemm_int8.gemm_int(a, b, spec=spec)
+    return _gemm.gemm(a, b, out_dtype=out_dtype or torch.float32, spec=spec)
 
 
 register_kernel("tiled", _tiled)

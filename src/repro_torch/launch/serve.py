@@ -10,6 +10,9 @@ single-engine path of repro/launch/serve.py).
       --preempt --priority-classes interactive=0.5,batch=0.5 --prefix-cache
 
   PYTHONPATH=src python -m repro_torch.launch.serve --widths published --compare-prefill
+  PYTHONPATH=src python -m repro_torch.launch.serve --widths published --autotune \
+      --tune-mode wallclock --trace-out trace.json --metrics-json metrics.json \
+      --slo ttft_p95=0.5,latency_p95=2.0 --incident-dir incidents
 
 `--arch` takes any arch the port registers (`configs.list_archs()`): of
 the dense family qwen3-14b, mistral-nemo-12b, qwen2.5-14b, gemma3-1b (the
@@ -43,11 +46,23 @@ runs each, and prints both times.
 KV-swap preemption and prefix cache, parsed as the reference parses them;
 the class of each request is drawn from its own generator (seed 0x5EED),
 so labelling never moves the prompt draws.
+
+`--autotune` tunes the launch plans of every GeMM shape and K2's split
+count before warmup captures the steps (`--tune-mode analytic` by the H100
+model, `wallclock` by timing the kernels on the card; the winners persist
+in REPRO_TUNE_CACHE, default ~/.cache/repro-opengemm/torch-tunecache.json).
+`--trace-out` writes a Chrome-trace / Perfetto JSON of the run (per-tick
+spans, request lifecycles and flow chains), `--metrics-json` the metrics
+snapshot (percentile histograms, per-phase utilization and MFU on the
+H100's peaks), `--slo` evaluates burn-rate targets after the run, and
+`--incident-dir` has the flight recorder write its bundles there, as the
+reference's single-engine path does.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import List
 
@@ -191,6 +206,39 @@ def compare_prefill(cfg, params, prompts: List[np.ndarray], *, slots: int,
     return t_legacy, t_chunked
 
 
+def report_observability(args, eng) -> None:
+    """The run's SLO report, incident bundles, trace and metrics files, as
+    the flags ask (the reference's single-engine path)."""
+    from repro_torch import obs
+
+    recorder = None
+    if args.incident_dir:
+        # A storm of one reason writes one bundle a second, not one per event.
+        recorder = obs.FlightRecorder(args.incident_dir, min_interval_s=1.0,
+                                      metadata={"arch": eng.cfg.name})
+        recorder.attach_engine(eng)
+    if args.slo:
+        report = obs.SloMonitor(obs.parse_slo_spec(args.slo)).observe(
+            obs.engine_snapshot(eng))
+        print(f"slo: {report.summary()}")
+        if recorder is not None:
+            recorder.record_breaches(report)
+    if recorder is not None:
+        recorder.check_engine(eng)
+        if recorder.incidents:
+            print(f"incidents: {len(recorder.incidents)} bundle(s) -> "
+                  + ", ".join(recorder.incidents))
+    if args.trace_out:
+        doc = obs.write_chrome_trace(args.trace_out, [eng.tracer],
+                                     metadata={"arch": eng.cfg.name})
+        print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out} "
+              f"(open in https://ui.perfetto.dev)")
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(eng.metrics.as_dict(), f, indent=2)
+        print(f"metrics: {args.metrics_json}")
+
+
 def main(argv=None, *, params=None):
     """Parse `argv`, serve the generated requests, return the generated
     tokens (requests x gen_len int32).  `params` (port layout) overrides
@@ -250,6 +298,24 @@ def main(argv=None, *, params=None):
     ap.add_argument("--compare-prefill", action="store_true",
                     help="also time the token-by-token prefill (the unpaged decode "
                          "step) against the engine's chunked prefill")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the GeMMs' launch plans and K2's split count before "
+                         "warmup captures the steps")
+    ap.add_argument("--tune-mode", default="analytic", choices=["analytic", "wallclock"],
+                    help="rank plans by the H100 model or by timing them on the card")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON of the run (per-request "
+                         "lifecycle spans and flow chains, per-tick phases)")
+    ap.add_argument("--metrics-json", default="",
+                    help="write the metrics snapshot (scalar gauges, percentile "
+                         "histograms, per-phase utilization and MFU) as JSON")
+    ap.add_argument("--slo", default="",
+                    help="SLO spec evaluated after the run, e.g. "
+                         "'ttft_p95=0.25,latency_p95=1.0,shed_rate=0.05,mfu_floor=1e-6'")
+    ap.add_argument("--incident-dir", default="",
+                    help="flight-recorder output directory: SLO breaches and "
+                         "allocator / speculation / preemption pressure write JSON "
+                         "incident bundles here")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch) if args.widths == "smoke" else configs.get(args.arch)
@@ -268,7 +334,8 @@ def main(argv=None, *, params=None):
                  prefix_cache=args.prefix_cache,
                  speculative=args.draft_k if args.speculative else False,
                  sampling=not sampling.is_greedy, preempt=args.preempt,
-                 verbose=True)
+                 autotune=args.autotune, tune_mode=args.tune_mode,
+                 trace=bool(args.trace_out), verbose=True)
     t0 = time.time()
     eng.warmup()
     t_warm = time.time() - t0
@@ -298,6 +365,7 @@ def main(argv=None, *, params=None):
           f"warmup {t_warm * 1e3:.0f}ms serve {t_serve * 1e3:.0f}ms")
     print(f"engine: {eng.metrics.summary()}")
     print("sample continuations:", gen[:2, :8].tolist())
+    report_observability(args, eng)
     if args.compare_prefill:
         t_legacy, t_chunked = compare_prefill(
             cfg, eng.params, prompts, slots=slots, max_seq=max_seq,

@@ -67,8 +67,31 @@ position's logits in a static buffer that `sample1` samples a sampled
 request's first token from.  Swap-in, the prefix seed and the restored
 lengths write the state in place.
 
-Not ported yet: tracing and MFU gauges, and `share_steps_from` (a graph
-reads one engine's buffers).
+Configuration pre-loading, the paper's first mechanism, is in warmup as in
+the reference: with `autotune=True` the tile autotuner (repro_torch.tuning)
+first picks the launch plan of every GeMM shape the engine runs (K1, or K6
+under the "pipelined" backend; the w8a8 GeMM in w8a8) and K2's split count
+(`tune_mode`: "analytic" by the H100 model, or "wallclock" by real
+launches on the card), and only then does warmup run and capture the
+steps, so every replay runs the tuned plans.  The engine runs every step it
+executes or captures under its own tuner and decode plan
+(`tuning.scope`): a later change of the process-wide tuner, of
+`enable()` / `disable()` or of `flash_decode.set_decode_spec` has no
+effect on it (its graphs keep the plans they were captured with, and its
+eager steps keep the same ones).  An engine without `autotune` runs under
+what was in force when it was built.
+
+Observability, as in the reference: `EngineMetrics` keeps streaming
+histograms of TTFT, latency and per-request decode tok/s beside the raw
+log (capped by `request_log`), per-phase utilization and MFU on the H100's
+peaks (`MfuMeter`), and `as_dict()` for `--metrics-json`.  `trace=True`
+records host spans (tick, sched, prefill, decode, verify, draft, reset,
+warmup), the requests' lifecycle spans and, with `trace_flow`, one flow
+chain per request in a ring buffer (repro_torch.obs).  The spans hold the
+step's read-back of its ids, so they time the device step; tracing adds
+nothing to what a graph captures.
+
+Not ported yet: `share_steps_from` (a graph reads one engine's buffers).
 """
 
 from __future__ import annotations
@@ -83,8 +106,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch import quant
+from repro_torch import tuning
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import launches, ops
 from repro_torch.models import model as M, ssm
+from repro_torch.obs import Histogram, MfuMeter, NULL_TRACER, Tracer
+from repro_torch.obs import percentile
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.prefill import chunk_buckets
 from repro_torch.serving.request import RequestSpec, priority_rank
@@ -102,6 +129,72 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# ---------------------------------------------------------------------------
+# warmup shape extraction (tile autotuning, configuration pre-loading)
+# ---------------------------------------------------------------------------
+
+def serving_gemm_shapes(cfg, *, slots: int, chunks: Optional[List[int]] = None
+                        ) -> List[tuning.GemmShape]:
+    """The per-step dense-projection GeMMs of the serving path, the shapes to
+    pre-tune: per attention layer the q / k / v and output projections, for
+    dense-FFN archs the two FFN matmuls, and the vocab head, over `slots`
+    rows (decode) and each chunk bucket's rows (prefill).  MoE experts and
+    the recurrences are not among them, as in the reference; a stack with
+    no FFN (xLSTM, d_ff 0) has no FFN shape, where the reference's list
+    raises on it."""
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    G = tuning.GemmShape
+    shapes = []
+    for m in [slots] + list(chunks or []):
+        if cfg.family != "ssm":          # archs with attention layers
+            shapes += [G(m, d, hq * hd), G(m, d, hkv * hd), G(m, hq * hd, d)]
+        if cfg.moe is None and ff:       # dense FFN (xLSTM's blocks have none)
+            shapes += [G(m, d, ff), G(m, ff, d)]
+        shapes.append(G(m, d, vocab))    # LM head
+    return list(dict.fromkeys(shapes))
+
+
+def autotune_for_serving(cfg, *, slots: int, mode: str = "analytic",
+                         chunks: Optional[List[int]] = None,
+                         dtype: Optional[str] = None, backend: str = "tiled",
+                         device=None, tuner: Optional[tuning.Autotuner] = None,
+                         verbose: bool = True) -> List[Tuple[tuning.GemmShape, tuning.TuneResult]]:
+    """Tune this model's GeMM shapes, install the tuner and enable tuned
+    dispatch (as the reference does); returns (shape, result) per distinct
+    plan key, the decode shape's first.  Up to 64 rows a plan is keyed
+    without M, so it is tuned at the decode M (`slots`) and serves every
+    chunk bucket.  `dtype` / `backend` select the candidate space: a w8a8
+    engine tunes the w8a8 GeMM ("int8", "w8a8")."""
+    tuner = tuner or tuning.Autotuner(mode=mode, device=device)
+    tuning.set_tuner(tuner)
+    dtype = dtype or cfg.dtype
+    kmajor = {tuning.GemmShape(m, cfg.d_model, cfg.vocab)
+              for m in [slots] + list(chunks or [])} if cfg.tie_embeddings else set()
+    out, seen = [], set()
+    for s in serving_gemm_shapes(cfg, slots=slots, chunks=chunks):
+        key = tuner.key(s, dtype, backend, kmajor=s in kmajor)
+        if key in seen:
+            continue
+        seen.add(key)
+        r = tuner.tune(s, dtype, backend=backend, kmajor=s in kmajor)
+        out.append((s, r))
+        if verbose:
+            p = r.spec
+            plan = (f"splits={p.splits} tile={16 if p.swap and s.M <= 16 else 64}"
+                    + (f" depth={p.depth}" if backend == "pipelined" else "")
+                    + (f" {'one launch' if p.fused else 'two launches'}"
+                       if backend == "w8a8" and s.M <= 16 else ""))
+            how = "cache" if r.from_cache else r.source
+            rule = "" if r.rule_score is None else f" (rule {r.rule_score * 1e6:.1f} us)"
+            print(f"  {s.M}x{s.K}x{s.N}: {plan} [{how}] {r.score * 1e6:.1f} us{rule}")
+    if verbose:
+        print(f"autotune[{mode}]: {len(out)} GeMM plans for {cfg.name} ({dtype}/{backend})")
+    tuning.enable()
+    return out
+
+
 def greedy_ids(logits: torch.Tensor) -> torch.Tensor:
     """Greedy token ids of the last position, on the logits' device:
     (B, S, vocab) -> (B,) int64.  `torch.argmax` returns the first maximal
@@ -117,10 +210,19 @@ class RequestMetrics:
     new_tokens: int
     ttft_s: float                 # submit -> first generated token
     latency_s: float              # submit -> finish
+    queue_steps: int = 0          # engine ticks before the first token
     cached_tokens: int = 0        # prompt tokens served from a shared prefix
     priority: str = "interactive"
     tenant: str = "default"
     preemptions: int = 0          # times this request was swapped out
+
+    @property
+    def decode_tok_s(self) -> float:
+        """Per-request decode rate: tokens after the first over the time
+        after the first (the first token falls out of the last prefill
+        chunk, so it belongs to TTFT, not decode)."""
+        span = self.latency_s - self.ttft_s
+        return (self.new_tokens - 1) / span if span > 0 else 0.0
 
 
 @dataclasses.dataclass
@@ -159,7 +261,53 @@ class EngineMetrics:
     swap_time_s: float = 0.0      # wall clock in swap-out + restore (synced)
     sampled_tokens: int = 0       # tokens emitted by the sampling head
     peak_queue_depth: int = 0     # admission-queue high-water mark
+    elapsed_s: float = 0.0        # wall clock inside run()
     requests: List[RequestMetrics] = dataclasses.field(default_factory=list)
+    # Streaming percentile sketches (repro_torch.obs.hist), fed on every
+    # finish and bounded however long the engine lives.  The raw `requests`
+    # log may be capped (Engine(request_log=N)); once entries are dropped
+    # the histograms are the percentiles' source.
+    requests_dropped: int = 0
+    ttft_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    latency_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    tok_s_hist: Histogram = dataclasses.field(default_factory=Histogram)
+    # Live utilization gauges (repro_torch.obs.mfu), installed by the engine.
+    mfu: Optional[MfuMeter] = None
+
+    def note_request(self, rm: RequestMetrics,
+                     log_limit: Optional[int] = None) -> None:
+        """Record one finished request: feed the histograms and append to
+        the raw log, trimming it to `log_limit` entries (oldest first)."""
+        self.ttft_hist.add(rm.ttft_s)
+        self.latency_hist.add(rm.latency_s)
+        self.tok_s_hist.add(rm.decode_tok_s)
+        self.requests.append(rm)
+        if log_limit is not None and len(self.requests) > log_limit:
+            drop = len(self.requests) - log_limit
+            del self.requests[:drop]
+            self.requests_dropped += drop
+
+    @property
+    def finished_requests(self) -> int:
+        """Requests finished: the raw log's length plus the trimmed ones."""
+        return len(self.requests) + self.requests_dropped
+
+    def _percentile(self, attr: str, hist: Histogram, q: float) -> float:
+        """Nearest-rank percentile: exact over the raw log while it is
+        complete, from the histogram (within its rel_error) once entries
+        were dropped."""
+        if self.requests and not self.requests_dropped:
+            return percentile([getattr(r, attr) for r in self.requests], q)
+        return hist.percentile(q)
+
+    def ttft_percentile(self, q: float) -> float:
+        return self._percentile("ttft_s", self.ttft_hist, q)
+
+    def latency_percentile(self, q: float) -> float:
+        return self._percentile("latency_s", self.latency_hist, q)
+
+    def decode_tok_s_percentile(self, q: float) -> float:
+        return self._percentile("decode_tok_s", self.tok_s_hist, q)
 
     @property
     def mean_occupancy(self) -> float:
@@ -185,14 +333,22 @@ class EngineMetrics:
         return self.decode_tokens / max(1, self.decode_steps)
 
     def summary(self) -> str:
-        ttft = np.mean([r.ttft_s for r in self.requests]) if self.requests else 0.0
-        lat = np.mean([r.latency_s for r in self.requests]) if self.requests else 0.0
+        if self.requests and not self.requests_dropped:
+            ttft = np.mean([r.ttft_s for r in self.requests])
+            lat = np.mean([r.latency_s for r in self.requests])
+        else:
+            ttft, lat = self.ttft_hist.mean, self.latency_hist.mean
         out = (
-            f"requests={len(self.requests)} prefill_chunks={self.prefill_chunks} "
+            f"requests={self.finished_requests} prefill_chunks={self.prefill_chunks} "
             f"prefill_tokens={self.prefill_tokens} "
             f"decode_steps={self.decode_steps} "
             f"decode={self.decode_tokens} tok ({self.throughput_tok_s:.1f} tok/s) "
-            f"ttft={ttft * 1e3:.0f}ms latency={lat * 1e3:.0f}ms "
+            f"ttft={ttft * 1e3:.0f}ms "
+            f"(p50={self.ttft_percentile(50) * 1e3:.0f}ms "
+            f"p95={self.ttft_percentile(95) * 1e3:.0f}ms) "
+            f"latency={lat * 1e3:.0f}ms "
+            f"req_tok_s_p50={self.decode_tok_s_percentile(50):.1f} "
+            f"p95={self.decode_tok_s_percentile(95):.1f} "
             f"kv_occupancy={self.mean_occupancy:.0%} "
             f"peak_blocks={self.peak_blocks_in_use} "
             f"warmed={self.aot_steps} cold_compiles={self.cold_compiles}"
@@ -225,7 +381,56 @@ class EngineMetrics:
                     f"weights={self.weight_bytes / 2**20:.1f}MiB ({saved:.0%} smaller)")
             if self.calib_sites:
                 out += f" calib_sites={self.calib_sites}"
+        if self.mfu is not None:
+            frag = self.mfu.summary()
+            if frag:
+                out += " " + frag
         return out
+
+    def as_dict(self) -> dict:
+        """JSON-serializable snapshot (launch/serve.py --metrics-json): the
+        reference's gauges, percentiles and per-phase utilization / MFU,
+        plus the port's capture and pool figures."""
+        return {
+            "requests": self.finished_requests,
+            "requests_dropped_from_log": self.requests_dropped,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_time_s": self.prefill_time_s,
+            "decode_steps": self.decode_steps,
+            "decode_tokens": self.decode_tokens,
+            "decode_time_s": self.decode_time_s,
+            "throughput_tok_s": self.throughput_tok_s,
+            "ttft_p50_s": self.ttft_percentile(50),
+            "ttft_p95_s": self.ttft_percentile(95),
+            "latency_p50_s": self.latency_percentile(50),
+            "latency_p95_s": self.latency_percentile(95),
+            "req_tok_s_p50": self.decode_tok_s_percentile(50),
+            "req_tok_s_p95": self.decode_tok_s_percentile(95),
+            "mean_occupancy": self.mean_occupancy,
+            "peak_blocks_in_use": self.peak_blocks_in_use,
+            "peak_queue_depth": self.peak_queue_depth,
+            "precision": self.precision,
+            "kv_precision": self.kv_precision,
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "state_bytes": self.state_bytes,
+            "prefix_hits": self.prefix_hits,
+            "prefix_lookups": self.prefix_lookups,
+            "spec_ticks": self.spec_ticks,
+            "acceptance_rate": self.acceptance_rate,
+            "preemptions": self.preemptions,
+            "swap_out_blocks": self.swap_out_blocks,
+            "swap_in_blocks": self.swap_in_blocks,
+            "swap_time_s": self.swap_time_s,
+            "sampled_tokens": self.sampled_tokens,
+            "aot_steps": self.aot_steps,
+            "cold_compiles": self.cold_compiles,
+            "capture_time_s": self.capture_time_s,
+            "ttft_hist": self.ttft_hist.to_dict(),
+            "latency_hist": self.latency_hist.to_dict(),
+            "tok_s_hist": self.tok_s_hist.to_dict(),
+            "mfu": self.mfu.as_dict() if self.mfu is not None else None,
+        }
 
 
 class Engine:
@@ -238,7 +443,9 @@ class Engine:
                  calib_batches=None, seed: int = 0, device=None,
                  graphs: Optional[bool] = None, speculative=False,
                  sampling: bool = False, preempt: bool = False,
-                 prefix_cache=False, verbose: bool = False):
+                 prefix_cache=False, autotune: bool = False,
+                 tune_mode: str = "analytic", trace=False, trace_flow: bool = True,
+                 request_log: Optional[int] = None, verbose: bool = False):
         M.check_paged_family(cfg)      # before any weight is made
         if precision not in quant.MODES:
             raise ValueError(f"unknown precision {precision!r}; known: {quant.MODES}")
@@ -269,6 +476,20 @@ class Engine:
         # No prompt can exceed max_seq, so larger buckets would never run.
         self.max_chunk = min(max_chunk, max_seq)
         self.verbose = verbose
+        # The tile autotuner (tuning/): with `autotune`, warmup tunes the
+        # launch plans before it runs or captures a step.  Until then, and
+        # without it, the steps run under what is in force now.
+        if tune_mode not in ("analytic", "wallclock"):
+            raise ValueError(f"unknown tune_mode {tune_mode!r}; known: analytic, wallclock")
+        if autotune and tune_mode == "wallclock" and self.device.type != "cuda":
+            raise ValueError(f"wall-clock tuning times the kernels on the card; the "
+                             f"engine runs on {self.device}")
+        self.autotune, self.tune_mode = bool(autotune), tune_mode
+        self.tuner: Optional[tuning.Autotuner] = (
+            tuning.get_tuner() if tuning.is_enabled() else None)
+        self.decode_spec = _fd.get_decode_spec()
+        self.tune_results: List[Tuple[tuning.GemmShape, tuning.TuneResult]] = []
+        self.decode_tune_result: Optional[tuning.TuneResult] = None
 
         # Speculative decoding: False/None off, True defaults, an int the
         # draft length k, or a SpecConfig.
@@ -309,6 +530,45 @@ class Engine:
             kv_precision=self.kv_precision)
         self.metrics = EngineMetrics(kv_precision=kv_precision)
         self._account_kv_pools()
+        # Live utilization gauges: a few float adds per step, always on.
+        self.mfu = MfuMeter(cfg)
+        self.metrics.mfu = self.mfu
+        # Raw request-log cap: None keeps every RequestMetrics; an int bounds
+        # the log and moves the percentiles onto the histograms.
+        self._request_log = request_log
+        # Span/event tracing: off by default (NULL_TRACER's calls do
+        # nothing).  True makes a ring; a Tracer aggregates several engines.
+        if isinstance(trace, Tracer):
+            self.tracer = trace
+        elif trace:
+            self.tracer = Tracer(name=f"engine[{cfg.name}]")
+        else:
+            self.tracer = NULL_TRACER
+        tc = self.tracer.intern
+        self._ev_tick = tc("tick")
+        self._ev_sched = tc("sched")
+        self._ev_prefill = tc("prefill")
+        self._ev_decode = tc("decode")
+        self._ev_verify = tc("verify")
+        self._ev_draft = tc("draft")
+        self._ev_reset = tc("reset")
+        self._ev_warmup = tc("warmup")
+        self._ev_kv_in_use = tc("kv_blocks_in_use")
+        self._ev_kv_reserved = tc("kv_blocks_reserved")
+        self._ev_queue = tc("queue_depth")
+        self._ev_req_queued = tc("queued")
+        self._ev_req_prefill = tc("req_prefill")
+        self._ev_req_decode = tc("req_decode")
+        # Request flows (cross-lane arrows and annotated instants) on top of
+        # the spans; trace_flow=False keeps the spans only.
+        self._flow = bool(trace_flow) and self.tracer.enabled
+        self._ev_submit = tc("submit")
+        self._ev_flow = tc("req")            # one flow chain per request
+        self._ev_shed = tc("shed")
+        self._ev_prefix_hit = tc("prefix_hit")
+        self._ev_evict = tc("cache_evict")
+        self._ev_preempt = tc("preempt")
+        self._ev_restore = tc("restore")
         # The steps' static inputs, filled with copy_ before each step.
         dev = self.device
         self._tokens = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
@@ -367,7 +627,12 @@ class Engine:
 
         The eager run comes first: it builds the kernel libraries, makes
         their one-time attribute calls and allocates the split-K scratch,
-        none of which may happen inside a capture."""
+        none of which may happen inside a capture.  With `autotune` the
+        launch plans are tuned before all of it (`_autotune`), so the eager
+        run and every capture take the tuned plans."""
+        self.tracer.begin(self._ev_warmup)
+        if self.autotune:
+            self._autotune()
         if self.precision != "float":
             self._quantize_weights()
         buckets = chunk_buckets(self.max_chunk)
@@ -380,7 +645,7 @@ class Engine:
                 + ([f"verify_sample{w}" for w in sorted(widths, reverse=True)]
                    if self.sampling else [])
                 + ["reset"])
-        with torch.no_grad(), self._precision_ctx():
+        with torch.no_grad(), self._step_ctx():
             for key in keys:
                 self._step_fn(key)()
                 self._warmed.add(key)
@@ -391,6 +656,7 @@ class Engine:
         M.clear_paged_decode_state(self.state)
         _sync(self.device)
         self.metrics.aot_steps = len(self.step_graphs) if self.graphs else len(self._warmed)
+        self.tracer.end(self._ev_warmup)
         if self.verbose:
             what = "captured as CUDA graphs" if self.graphs else "run"
             extra = (f" + verify {widths}" if widths else "") + (
@@ -399,13 +665,38 @@ class Engine:
                   f"(decode + chunks {buckets}{extra} + reset) on {self.device}"
                   + (f" [{self.precision}]" if self.precision != "float" else ""))
 
-    def _precision_ctx(self):
-        """The precision mode every step runs under.  PyTorch reads the mode
-        on each `ops.linear` call, so it is entered around every step, and
-        the process-wide mode is "float" again between steps."""
-        if self.precision == "float":
-            return contextlib.nullcontext()
-        return quant.precision(self.precision)
+    def _autotune(self) -> None:
+        """Configuration pre-loading: tune every GeMM shape's launch plan
+        and K2's split count, in `tune_mode`, before any step runs.  The
+        engine keeps the tuner and the decode plan and runs its steps under
+        them (`_step_ctx`); the process-wide tuner is left as it was."""
+        w8a8 = self.precision != "float"
+        tuner = tuning.Autotuner(mode=self.tune_mode, device=self.device)
+        with tuning.scope(None):
+            self.tune_results = autotune_for_serving(
+                self.cfg, slots=self.slots, mode=self.tune_mode,
+                chunks=chunk_buckets(self.max_chunk), tuner=tuner,
+                dtype="int8" if w8a8 else self.cfg.dtype,
+                backend="w8a8" if w8a8 else ops.get_default_backend(),
+                verbose=self.verbose)
+            self.decode_tune_result = tuning.tune_decode_for_serving(
+                self.cfg, slots=self.slots, block_size=self.block_size,
+                max_blocks=self.max_blocks_per_slot, tuner=tuner,
+                kv_precision=self.kv_precision, verbose=self.verbose)
+        self.tuner = tuner
+        self.decode_spec = (None if self.decode_tune_result is None
+                            else self.decode_tune_result.spec)
+
+    def _step_ctx(self):
+        """What every step runs under: the precision mode (PyTorch reads it
+        on each `ops.linear` call, so it is entered around every step) and
+        the engine's tuner and decode plan (`tuning.scope`).  Between steps
+        the process-wide state is again what it was."""
+        stack = contextlib.ExitStack()
+        if self.precision != "float":
+            stack.enter_context(quant.precision(self.precision))
+        stack.enter_context(tuning.scope(self.tuner, self.decode_spec))
+        return stack
 
     def _quantize_weights(self) -> None:
         """Calibrate (for "w8a8-calibrated") and swap the float params for
@@ -568,7 +859,7 @@ class Engine:
             graph.replay()
             self._replays[key] += 1
             return out
-        with torch.no_grad(), self._precision_ctx():
+        with torch.no_grad(), self._step_ctx():
             if key not in self._warmed:
                 self.metrics.cold_compiles += 1
                 self._warmed.add(key)
@@ -659,8 +950,20 @@ class Engine:
                 f"request needs more KV blocks than the whole pool "
                 f"({self.num_blocks - 1}); raise num_blocks")
         req = self.scheduler.submit(spec, step=self._step)
+        tr = self.tracer
         if req is not None:
+            req.trace_id = (tr.pid << 24) + req.rid
             self._submit_t[req.rid] = time.monotonic()
+            if self._flow:
+                # A flow event binds to the slice open at its timestamp, so
+                # the chain's first link sits in a tiny "submit" slice.
+                tr.begin(self._ev_submit)
+                tr.flow_start(self._ev_flow, req.trace_id)
+                tr.end(self._ev_submit)
+            tr.async_begin(self._ev_req_queued, req.trace_id)
+            tr.counter(self._ev_queue, len(self.scheduler.queue))
+        elif self._flow:
+            tr.instant(self._ev_shed, len(self.scheduler.queue))
         return req
 
     def _can_admit(self, req: Request) -> bool:
@@ -679,7 +982,10 @@ class Engine:
             kvc.fork_blocks(self.alloc, blocks)
         n_fresh = need - len(blocks)
         if not self.alloc.can_reserve(n_fresh):
-            self.prefix_cache.evict(n_fresh - self.alloc.available)
+            shortfall = n_fresh - self.alloc.available
+            if self._flow:
+                self.tracer.instant(self._ev_evict, shortfall)
+            self.prefix_cache.evict(shortfall)
             if not self.alloc.can_reserve(n_fresh):
                 if blocks:
                     self.alloc.free(blocks)     # un-fork: admission refused
@@ -705,7 +1011,12 @@ class Engine:
     def _admit_once(self) -> None:
         to_reset, seeds, restores = [], [], []
         for slot, req in self.scheduler.admit(self._can_admit):
+            # The request's queued span ends; its prefill span opens (closed
+            # by its last prompt chunk), or a restored victim's decode span
+            # reopens.
+            self.tracer.async_end(self._ev_req_queued, req.trace_id)
             if req.swapped:
+                self.tracer.async_begin(self._ev_req_decode, req.trace_id)
                 n = kvc.blocks_for(req.prompt_len + req.max_new, self.block_size)
                 if not self.alloc.reserve(n):
                     raise RuntimeError(f"reservation of {n} blocks failed post-admit")
@@ -713,6 +1024,7 @@ class Engine:
                 self._seeded[req.rid] = 0       # restored blocks are private
                 restores.append((slot, req))
             else:
+                self.tracer.async_begin(self._ev_req_prefill, req.trace_id)
                 blocks, ptoks, n_fresh = self._prefix_match.pop(req.rid, ((), 0, None))
                 n = (n_fresh if n_fresh is not None else
                      kvc.blocks_for(req.prompt_len + req.max_new, self.block_size))
@@ -725,6 +1037,8 @@ class Engine:
                     if blocks:
                         self.metrics.prefix_hits += 1
                         self.metrics.prefix_hit_tokens += ptoks
+                        if self._flow:
+                            self.tracer.instant(self._ev_prefix_hit, ptoks)
                         seeds.append((slot, list(blocks), ptoks))
             # A refilled slot needs its length zeroed and its recurrent state
             # returned to its init; a never-used slot is already fresh.
@@ -735,7 +1049,9 @@ class Engine:
             mask = np.zeros((self.slots,), bool)
             mask[to_reset] = True
             self._reset_mask.copy_(torch.from_numpy(mask))
+            self.tracer.begin(self._ev_reset)
             self._run_step("reset")
+            self.tracer.end(self._ev_reset)
         # The forked prefix goes in after the reset: the slot's table starts
         # with the shared blocks and its length at the block-aligned cached
         # count, so every later write lands past the shared boundary.
@@ -781,6 +1097,11 @@ class Engine:
         self.metrics.preemptions += 1
         self.metrics.swap_out_blocks += len(ids)
         self.metrics.swap_time_s += time.monotonic() - t0
+        tr = self.tracer
+        tr.async_end(self._ev_req_decode, victim.trace_id)
+        tr.async_begin(self._ev_req_queued, victim.trace_id)
+        if self._flow:
+            tr.instant(self._ev_preempt, victim.trace_id)
 
     def _restore(self, restores) -> None:
         """Write preempted requests' KV back into freshly allocated blocks,
@@ -797,6 +1118,8 @@ class Engine:
             self._last_token[slot] = req.out_tokens[-1]
             req.swapped = False
             self.metrics.swap_in_blocks += n_blocks
+            if self._flow:
+                self.tracer.instant(self._ev_restore, req.trace_id)
         _sync(self.device)
         self.metrics.swap_time_s += time.monotonic() - t0
 
@@ -821,13 +1144,18 @@ class Engine:
         now = time.monotonic()
         t_submit = self._submit_t.pop(req.rid)
         t_first = self._first_tok_t.pop(req.rid, now)
-        self.metrics.requests.append(RequestMetrics(
+        self.metrics.note_request(RequestMetrics(
             rid=req.rid, prompt_len=req.prompt_len,
             new_tokens=len(req.out_tokens),
             ttft_s=t_first - t_submit, latency_s=now - t_submit,
+            queue_steps=(req.first_token_step or self._step) - req.submit_step,
             cached_tokens=req.cached_tokens, priority=req.priority,
             tenant=req.tenant, preemptions=req.preemptions,
-        ))
+        ), self._request_log)
+        if self._flow:
+            # Inside the tick slice that finished the request.
+            self.tracer.flow_end(self._ev_flow, req.trace_id)
+        self.tracer.async_end(self._ev_req_decode, req.trace_id)
 
     def _sampling_args(self, reqs: List[Request]):
         """Per-slot sampling knobs of a decode or verify batch, or None when
@@ -864,10 +1192,15 @@ class Engine:
     def tick(self) -> bool:
         """Admit, then execute one scheduler action.  Returns False when no
         work remains."""
+        tr = self.tracer
+        tr.begin(self._ev_tick)
+        tr.begin(self._ev_sched)      # host scheduling: admit + pick action
         self._admit()
         self.metrics.peak_queue_depth = self.scheduler.peak_queue_depth
         action = self.scheduler.next_action()
+        tr.end(self._ev_sched)
         if action is None:
+            tr.end(self._ev_tick)
             return self.scheduler.has_work
         self._step += 1
         self._run_action(action)
@@ -875,6 +1208,9 @@ class Engine:
             self.metrics.peak_blocks_in_use, self.alloc.in_use)
         self.metrics.occupancy_sum += self.alloc.occupancy()
         self.metrics.occupancy_samples += 1
+        tr.counter(self._ev_kv_in_use, self.alloc.in_use)
+        tr.counter(self._ev_kv_reserved, self.alloc.reserved)
+        tr.end(self._ev_tick)
         return True
 
     def _run_action(self, action) -> None:
@@ -889,15 +1225,26 @@ class Engine:
     def _prefill(self, req: Request, chunk: int) -> None:
         self.tables.ensure(req.slot, req.prefilled + chunk, self.alloc)
         self._sync_tables()
+        tr = self.tracer
+        tr.begin(self._ev_prefill)
+        if self._flow:
+            tr.flow_step(self._ev_flow, req.trace_id)
         t_pre = time.monotonic()
+        # the span and the time hold the read-back of the ids: the device step
         token = self.step_prefill(
             req.prompt[req.prefilled:req.prefilled + chunk], req.slot)
-        self.metrics.prefill_time_s += time.monotonic() - t_pre
+        dt_pre = time.monotonic() - t_pre
+        tr.end(self._ev_prefill)
+        self.metrics.prefill_time_s += dt_pre
+        self.mfu.note("prefill", tokens=chunk, rows=chunk, time_s=dt_pre)
         self.scheduler.on_prefill(req, chunk, self._step)
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens += chunk
         if req.phase is not Phase.DECODE:
             return
+        # Prompt complete: the prefill span closes, the decode span opens.
+        tr.async_end(self._ev_req_prefill, req.trace_id)
+        tr.async_begin(self._ev_req_decode, req.trace_id)
         if self.prefix_cache is not None:
             # The prompt is in the pool: publish its full blocks (the cache
             # takes its own refs; the partial tail keeps receiving writes).
@@ -921,9 +1268,18 @@ class Engine:
         active = np.zeros((self.slots,), bool)
         active[[r.slot for r in reqs]] = True
         samp = self._sampling_args(reqs)
+        tr = self.tracer
         t_dec = time.monotonic()
+        tr.begin(self._ev_decode)
+        if self._flow:
+            for r in reqs:
+                tr.flow_step(self._ev_flow, r.trace_id)
         next_tok = self.step_decode(self._last_token, active, samp)
-        self.metrics.decode_time_s += time.monotonic() - t_dec
+        tr.end(self._ev_decode)
+        dt_dec = time.monotonic() - t_dec
+        self.metrics.decode_time_s += dt_dec
+        # Every slot's row runs (padding included); tokens counts commits.
+        self.mfu.note("decode", tokens=len(reqs), rows=self.slots, time_s=dt_dec)
         for r in reqs:
             self._record_token(r, int(next_tok[r.slot]))
         self.metrics.decode_steps += 1
@@ -938,6 +1294,7 @@ class Engine:
         touching nothing, when no request drafted anything (the plain
         decode step runs instead)."""
         drafts: Dict[int, np.ndarray] = {}
+        self.tracer.begin(self._ev_draft)     # host-side n-gram lookups
         for r in reqs:
             if r.remaining > 1:
                 # The bonus token always rides along, so a request can use
@@ -945,6 +1302,7 @@ class Engine:
                 d = self.drafter.draft(r.context, k=min(self.spec.k, r.remaining - 1))
                 if len(d):
                     drafts[r.rid] = d
+        self.tracer.end(self._ev_draft)
         if not drafts:
             return False
         width = bucket_for(max(len(d) for d in drafts.values()), self.spec.k)
@@ -965,8 +1323,14 @@ class Engine:
         self._sync_tables()
         samp = self._sampling_args(reqs)
         t_dec = time.monotonic()
+        self.tracer.begin(self._ev_verify)
+        if self._flow:
+            for r in reqs:
+                self.tracer.flow_step(self._ev_flow, r.trace_id)
         out, n_new = self.step_verify(tokens, active, limits, eos, samp)
-        self.metrics.decode_time_s += time.monotonic() - t_dec
+        self.tracer.end(self._ev_verify)
+        dt_verify = time.monotonic() - t_dec
+        self.metrics.decode_time_s += dt_verify
         emitted = 0
         for r in reqs:
             slot, n = r.slot, int(n_new[r.slot])
@@ -989,10 +1353,14 @@ class Engine:
         self.metrics.spec_ticks += 1
         if samp is not None:
             self.metrics.sampled_tokens += emitted
+        # Verify rows: every slot runs the widened step (padding included).
+        self.mfu.note("verify", tokens=emitted, rows=self.slots * width,
+                      time_s=dt_verify)
         return True
 
     def run(self, max_ticks: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Drive the loop until the queue and all slots drain."""
+        t0 = time.monotonic()
         ticks = 0
         while self.scheduler.has_work:
             if max_ticks is not None and ticks >= max_ticks:
@@ -1000,4 +1368,5 @@ class Engine:
             if not self.tick():
                 break
             ticks += 1
+        self.metrics.elapsed_s += time.monotonic() - t0
         return self.results

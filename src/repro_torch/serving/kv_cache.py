@@ -250,6 +250,15 @@ class BlockAllocator:
         self._free: List[int] = list(range(num_blocks - 1, 0, -1))  # pop() -> 1 first
         self._refs: Dict[int, int] = {}
         self._reserved = 0
+        # Lifetime traffic counters (repro_torch.obs): cumulative draws and
+        # returns and the high-water mark, always on.
+        self.total_allocated = 0
+        self.total_freed = 0
+        self.peak_in_use = 0
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
 
     @property
     def reserved(self) -> int:
@@ -286,6 +295,8 @@ class BlockAllocator:
             self._refs[b] = 1
         if reserved:
             self._reserved = max(0, self._reserved - n)
+        self.total_allocated += n
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
         return out
 
     def ref(self, ids: List[int]) -> None:
@@ -324,6 +335,7 @@ class BlockAllocator:
         self._reserved = max(0, self._reserved - unreserve)
         if rereserve:
             self._reserved += returned
+        self.total_freed += returned
         return returned
 
     def check(self) -> None:
@@ -338,6 +350,17 @@ class BlockAllocator:
         assert free | live == every, f"leaked blocks: {sorted(every - free - live)}"
         assert all(rc > 0 for rc in self._refs.values()), "non-positive refcount"
         assert 0 <= self._reserved <= len(self._free), "over-reserved"
+
+    def stats(self) -> dict:
+        """Counter snapshot for metrics export and trace annotation."""
+        return {
+            "in_use": self.in_use,
+            "reserved": self._reserved,
+            "free": len(self._free),
+            "total_allocated": self.total_allocated,
+            "total_freed": self.total_freed,
+            "peak_in_use": self.peak_in_use,
+        }
 
 
 def fork_blocks(alloc: BlockAllocator, ids: List[int]) -> List[int]:

@@ -50,6 +50,8 @@ class Request:
     # -- filled in by the scheduler/engine --
     phase: Phase = Phase.QUEUED
     slot: int = -1
+    trace_id: int = -1                 # trace flow id, minted by the engine
+                                       # at submit (pid-namespaced)
     prefilled: int = 0                 # prompt tokens already in the cache
     cached_tokens: int = 0             # prompt tokens covered by a shared KV
                                        # prefix at admission

@@ -4,6 +4,8 @@ Imports no JAX, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Every test here is marked `gpu` and skips without a CUDA device."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1261,3 +1263,107 @@ def test_graphed_unpaged_decode_step_equals_eager(cuda_device, arch):
             lg, _ = graphed(params, sg, tg[:, None])
             assert torch.equal(lg, le)
     assert int(sg.index) == int(se.index) == P + 6
+
+
+# -- the tile autotuner and the engine's observability ------------------------
+
+
+@pytest.mark.gpu
+def test_wallclock_tuner_times_real_launches(cuda_device):
+    """Wall-clock tuning on the card: every candidate of gemma3-1b's q
+    projection and of a K6 depth sweep launches (the launches counted apart),
+    the winner is legal and no slower than the rule beyond the margin, and
+    a K2 search over a float pool does the same."""
+    from repro_torch import tuning
+    from repro_torch.tuning.autotuner import MARGIN
+
+    t = tuning.Autotuner(cache=tuning.TuneCache(persistent=False), mode="wallclock")
+    for shape, backend in ((tuning.GemmShape(8, 1152, 1024), "tiled"),
+                           (tuning.GemmShape(8, 1152, 6912), "w8a8"),
+                           (tuning.GemmShape(8, 6912, 1152), "pipelined")):
+        dtype = "int8" if backend == "w8a8" else "bfloat16"
+        r = t.tune(shape, dtype, backend=backend)
+        assert r.source == "wallclock" and not r.from_cache
+        assert r.spec in tuning.enumerate_tiles(shape, dtype, backend=backend, sms=t.sms)
+        assert r.score <= r.rule_score * (1 + MARGIN)
+        assert len(r.timings) == r.candidates and all(s > 0 for _, s in r.timings)
+    assert t.timing_launches["gemm"] > 0 and t.timing_launches["gemm_w8a8"] > 0
+    assert t.timing_launches["gemm_pipelined"] > 0
+    shape = tuning.DecodeShape(8, 1, 4, 256, 1, 16, 20, windows=((0, 1), (128, 2)))
+    r = tuning.tune_decode(shape, "bfloat16", tuner=t)
+    assert r.source == "wallclock" and r.score <= r.rule_score * (1 + MARGIN)
+    assert t.timing_launches["flash_decode"] > 0
+
+
+@pytest.mark.gpu
+def test_tuned_plans_keep_rows_bitwise(cuda_device):
+    """Under any candidate plan K1's rows at M = 8 equal its rows at M = 40
+    bit for bit, the swapped and the 64-row tile give the same bits, K6's
+    depths the same bits, and the w8a8 GeMM in one launch or two the same
+    bits: the candidate axes never move a token."""
+    from repro_torch import tuning
+
+    rng = np.random.default_rng(500)
+    for K, N in W8A8_SHAPES[:5]:
+        a, b = _float_operands(rng, 40, K, N, False, cuda_device)
+        w_q = torch.from_numpy(rng.integers(-127, 128, size=(N, K), dtype=np.int8)) \
+            .to(cuda_device).t()
+        sb = torch.from_numpy(rng.uniform(1e-3, 1e-1, size=(1, N)).astype(np.float32)) \
+            .to(cuda_device)
+        for spec in tuning.enumerate_tiles(tuning.GemmShape(8, K, N))[:6]:
+            want = tgemm.gemm(a[:8], b, out_dtype=torch.bfloat16, spec=spec)
+            assert torch.equal(tgemm.gemm(a, b, out_dtype=torch.bfloat16, spec=spec)[:8], want)
+            other = tgemm.GemmLaunchSpec(splits=spec.splits, swap=not spec.swap)
+            assert torch.equal(tgemm.gemm(a[:8], b, out_dtype=torch.bfloat16, spec=other),
+                               want), (K, N, spec)
+            outs = [tgp.gemm(a[:8], b, depth=d, out_dtype=torch.bfloat16, spec=spec)
+                    for d in (2, 3, 4)]
+            assert all(torch.equal(o, outs[0]) for o in outs), (K, N, spec)
+        for spec in tuning.enumerate_tiles(tuning.GemmShape(8, K, N), "int8",
+                                           backend="w8a8")[:6]:
+            one = tgemm8.gemm_w8a8(a[:8], w_q, sb, out_dtype=torch.bfloat16, spec=spec)
+            two = tgemm8.gemm_w8a8(a[:8], w_q, sb, out_dtype=torch.bfloat16,
+                                   spec=tgemm.GemmLaunchSpec(splits=spec.splits,
+                                                             fused=not spec.fused))
+            assert torch.equal(one, two) and torch.equal(
+                tgemm8.gemm_w8a8(a, w_q, sb, out_dtype=torch.bfloat16, spec=spec)[:8], one)
+
+
+@pytest.mark.gpu
+def test_tuned_engine_on_card(cuda_device, tmp_path, monkeypatch):
+    """A wall-clock-tuned, traced engine (gemma3-1b smoke, head_dim 64):
+    graphed tokens equal eager ones under the tuned plans; a second engine
+    on the same cache file resolves every plan from it with no timing
+    launch; tracing changes no token, replayed launch or allocator counter;
+    and the tracer's cost stays under 2 % of the card's decode tick."""
+    from repro_torch.obs import Tracer
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tc.json"))
+    kw = dict(autotune=True, tune_mode="wallclock")
+    cfg, params, _ = _smoke_engine(cuda_device)
+    runs = {}
+    for name, extra in (("traced", dict(trace=True)), ("eager", dict(graphs=False)),
+                        ("untraced", {})):
+        eng, out = _serve_smoke(cuda_device, params, **kw, **extra)
+        runs[name] = (eng, out)
+    traced, eager, untraced = (runs[k][0] for k in ("traced", "eager", "untraced"))
+    assert traced.tuner.timing_launches and not eager.tuner.timing_launches
+    assert all(r.from_cache for _, r in eager.tune_results)
+    assert eager.decode_tune_result.from_cache
+    for rid, toks in runs["traced"][1].items():
+        np.testing.assert_array_equal(toks, runs["eager"][1][rid])
+        np.testing.assert_array_equal(toks, runs["untraced"][1][rid])
+    assert traced.replayed_launches() == untraced.replayed_launches()
+    assert traced.alloc.stats() == untraced.alloc.stats()
+    tr = Tracer(capacity=1 << 14)
+    code = tr.intern("bench")
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter_ns()
+        for _ in range(5000):
+            tr.begin(code)
+            tr.end(code)
+        best = min(best, (time.perf_counter_ns() - t0) / 10000)
+    m = traced.metrics
+    tick = m.decode_time_s / max(1, m.decode_steps)
+    assert 14 * best * 1e-9 / tick < 0.02

@@ -180,7 +180,7 @@ Phases, in order; any failure exits non-zero:
      one replayed decode step):
      10a. xlstm-1.3b (d 2048, 4 heads, vocab 50304, untied), `reduced`
      to 16 of its 48 layers (14 mLSTM + 2 sLSTM) for the time limit, 8
-     requests of 256-512 tokens, 32 new each, float then w8a8; then, whole
+     requests of 128-256 tokens, 32 new each, float then w8a8; then, whole
      (48 layers, 7.41 GB), speculative greedy decoding (k = 4,
      8 slots: 28.2 GB of per-position states in verify5) on a regeneration
      storm (16 requests over 4 prompts), tokens equal to a non-speculative
@@ -250,6 +250,41 @@ Phases, in order; any failure exits non-zero:
      per-phase utilization and MFU on the H100's peaks, a breach bundle is
      written; the tracer's cost (per-event time x 14 events) under 2 % of
      the card's decode tick.
+  13. the cluster layer (repro_torch.cluster: replica pool, router,
+     traffic, cluster metrics) at gemma3-1b's published widths, bf16, on
+     one card; every replica an engine with its own thread, CUDA stream,
+     graphs and split-K scratch, 8 slots, block 16, chunk 64 (no kernel
+     changed; the kernels' launches on this path join the kernels line as
+     `cluster_launches`, counted as replays x each graph's launches, with
+     the wrappers' counters held at 0 through every served run).
+     13a. a bare graphed engine serves `mixed_traffic(n=16, max_prompt=768,
+     max_new=(16, 48))`; a one-replica pool on the same weights under its
+     plans (`share_steps_from`), a synchronous router and `run_sync` gives
+     every request the bare engine's tokens.
+     13b. two replicas, threaded, least-loaded, the same 16 requests: the
+     two streams and the two split-K workspaces and counter arrays differ;
+     then the one-replica pool and the two-replica pool, each threaded
+     behind the async router, serve the trace in turns (one, two, two,
+     one, and one run each under torch.profiler): every request's tokens
+     equal the bare engine's in every run, both replicas serve, counters
+     back at 0, allocators clean, no cold shape.
+     13c. two replicas with the prefix cache, prefix-affinity,
+     `shared_system_prompt(n=16, prefix_len=512, suffix=(16, 64),
+     max_new=(16, 32))`: tokens equal a bare engine's without the cache,
+     prefix hits above 0.
+     13d. two replicas in w8a8 with an int8 KV pool on 13a's trace: tokens
+     equal a bare w8a8 + int8 KV engine's.
+     13e. `serve --widths published --replicas 2 --router-policy
+     prefix-affinity --max-pending 4 --tenants 2 --requests 16` with every
+     observability flag: sheds, a shed bundle, a trace with two replica
+     lanes and the router's where each accepted request's flow chain starts
+     on the router's lane and ends on a replica's under its router id, a
+     metrics file with `cluster` and two `replicas`.
+     13f. printed, not checked: 13b's runs of one replica against two
+     (wall clock, generated and decode tok/s, decode step ms per replica,
+     TTFT p50 / p95, replays per replica, launches as replays x per-graph
+     launches; in the profiled runs the card's busy share and the kernels
+     running at once), and the ratio of the unprofiled runs' means.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -259,7 +294,8 @@ Phases, in order; any failure exits non-zero:
 
 Every phase header carries the seconds since the script started.  The
 line before the card line is the kernels' JSON summary (with each kernel's
-launches by phase 12's tuner apart from its serving launches); the last line
+launches by phase 12's tuner and on phase 13's cluster path apart from its
+serving launches); the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
 """
@@ -267,6 +303,7 @@ without a CUDA device or without the port package beside this script.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -3127,11 +3164,13 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     args = (torch, np, M, Engine, RequestSpec, mods, quant)
     out = {}
     cfg, reduced = family_cfg(configs, "xlstm-1.3b")
-    xl_traffic = family_traffic(20, 256, 512)
-    # The float and w8a8 runs are cut to 2 of the 6 groups to keep the whole
-    # script inside its time limit: their eager 64-token chunks (64
-    # sequential mLSTM steps a layer) were a fifth of it.  The speculative
-    # run and the CLI keep all 48 layers.
+    xl_traffic = family_traffic(20, 128, 256)
+    # The float and w8a8 runs are cut to 2 of the 6 groups, and their prompts
+    # to 128-256 tokens, to keep the whole script inside its time limit: their
+    # eager 64-token chunks (64 sequential mLSTM steps a layer, ~0.6 s each)
+    # were a fifth of it.  A recurrent step's work does not grow with the
+    # context, so the step times stay comparable.  The speculative run and
+    # the CLI keep all 48 layers.
     cut = dataclasses.replace(cfg, n_layers=2 * cfg.group_size)
     cut_reduced = {"n_layers": [cfg.n_layers, cut.n_layers]}
     print("[10a] xlstm-1.3b at published widths (d 2048, 4 heads, vocab 50304, untied; "
@@ -3940,6 +3979,335 @@ def phase12(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the cluster layer (replica pool, router, traffic, cluster metrics)
+# ---------------------------------------------------------------------------
+
+# gemma3-1b at published widths, 8 slots a replica; 832 positions hold
+# 13a's longest request (768 + 48) and 13c's (512 + 64 + 32).
+CLUSTER_KW = dict(slots=8, max_seq=832, block_size=16, max_chunk=64, device="cuda")
+
+
+def _cluster_specs(np, RequestSpec, trace):
+    return [RequestSpec(prompt=np.asarray(it.prompt, np.int32), max_new=it.max_new)
+            for it in trace.items]
+
+
+def _bare_tokens(Engine, cfg, params, specs, **kw):
+    """A bare graphed engine's tokens for `specs`, and the engine."""
+    eng = Engine(cfg, params, **dict(CLUSTER_KW, **kw))
+    eng.warmup()
+    reqs = [eng.submit(s) for s in specs]
+    out = eng.run()
+    check(eng.metrics.cold_compiles == 0, "the bare engine compiled no cold shape")
+    eng.alloc.check()
+    return [out[r.rid] for r in reqs], eng
+
+
+def _pool_replays(pool):
+    return [dict(e._replays) for e in pool.engines]
+
+
+def _served_launches(pool, before):
+    """Launches of the pool's replays since `before` (`_pool_replays`): each
+    shape's new replays x the launches its graph captured, summed."""
+    total = collections.Counter()
+    for e, seen in zip(pool.engines, before):
+        for key, n in e._replays.items():
+            for name, per in e._graph_launches[key].items():
+                total[name] += (n - seen.get(key, 0)) * per
+    return total
+
+
+def _cluster_run(torch, cluster, mods, pool, specs, policy, launches, profile=False):
+    """Serve `specs` through the started pool behind the async router; the
+    wrappers' counters must stay at 0 (every step a replay).  Returns the
+    tokens per request and the run's figures (13f); with `profile`, also
+    the card's busy share over the run (the union of its kernels' spans
+    over the first kernel to the last, torch.profiler) and its mean
+    concurrency (kernel time over that union)."""
+    from repro_torch.obs import percentile
+
+    reset_counts(mods)
+    before = _pool_replays(pool)
+    dec = [(e.metrics.decode_steps, e.metrics.decode_time_s, e.metrics.decode_tokens)
+           for e in pool.engines]
+    prof_ctx = contextlib.nullcontext()
+    if profile:
+        from torch.profiler import ProfilerActivity
+        prof_ctx = torch.profiler.profile(activities=[ProfilerActivity.CUDA])
+    pool.start()
+    with prof_ctx as prof, cluster.Router(pool, policy=policy) as router:
+        t0 = time.monotonic()
+        handles = [router.submit(s) for s in specs]
+        check(all(h is not None for h in handles), "no request shed")
+        router.drain(timeout=600)
+        wall = time.monotonic() - t0
+    check(not any(read_counts(mods).values()),
+          f"the served run launched nothing eagerly: {read_counts(mods)}")
+    run = _served_launches(pool, before)
+    launches.update(run)
+    tokens = [h.result(timeout=0) for h in handles]
+    ttfts = [h.ttft_s for h in handles]
+    steps = [e.metrics.decode_steps - d[0] for e, d in zip(pool.engines, dec)]
+    fig = {
+        "wall_s": wall, "tok_s": sum(map(len, tokens)) / wall,
+        "decode_tok_s": sum(e.metrics.decode_tokens - d[2]
+                            for e, d in zip(pool.engines, dec)) / wall,
+        "decode_step_ms": [(e.metrics.decode_time_s - d[1]) / max(1, n) * 1e3
+                           for e, d, n in zip(pool.engines, dec, steps)],
+        "ttft_p50_s": percentile(ttfts, 50), "ttft_p95_s": percentile(ttfts, 95),
+        "per_replica": [[h.replica for h in handles].count(i) for i in range(len(pool))],
+        "replays": [sum(e._replays.values()) - sum(b.values())
+                    for e, b in zip(pool.engines, before)],
+        "launches": dict(run)}
+    if profile:
+        fig.update(_busy_share(prof))
+    return tokens, fig
+
+
+def _busy_share(prof):
+    """The card's busy time over a profiled run (the union of its kernels'
+    and copies' spans), the window from the first to the last, and the
+    device work at once (their summed time over the union); read from the
+    profiler's raw events, which parse in seconds where `events()` takes
+    minutes at ~700k kernels."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    check(bool(spans), "the profiler saw the card's kernels")
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    window = max(b for _, b in spans) - spans[0][0]
+    return {"busy_ms": busy / 1e6, "window_ms": window / 1e6, "kernels": len(spans),
+            "concurrency": sum(b - a for a, b in spans) / busy}
+
+
+def _splitk_of(torch, e):
+    """The engine's split-K (workspace, counters) on its card, () if its
+    steps never split K (the kernels key it by their tensors' device)."""
+    return e.splitk._by_device.get(torch.empty(0, device=e.device).device, ())
+
+
+def _check_pool(torch, pool, label):
+    for e in pool.engines:
+        e.alloc.check()
+        check(e.metrics.cold_compiles == 0, f"{label}: no cold shape")
+        scratch = _splitk_of(torch, e)
+        if scratch:
+            check(int(scratch[1].abs().sum()) == 0,
+                  f"{label}: every split-K tile counter back at 0")
+
+
+def _check_tokens(np, got, want, label):
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(np.array_equal(g, w), f"{label}: request {i}'s tokens equal the bare engine's")
+
+
+def phase13(torch, np, configs, M, Engine, RequestSpec, mods):
+    """Phases 13a-13f; returns the launches on the cluster path and 13f's
+    figures."""
+    from repro_torch import cluster
+
+    t_phase = time.monotonic()
+    cfg = configs.get("gemma3-1b")
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
+    params = M.init_model(cfg, seed=0, device="cuda")
+    trace = cluster.mixed_traffic(cfg.vocab, n=16, seed=0, max_prompt=768, max_new=(16, 48))
+    specs = _cluster_specs(np, RequestSpec, trace)
+    launches = collections.Counter()
+    out = {}
+
+    print(f"[13a] cluster of one against a bare engine {stamp()}")
+    want, bare = _bare_tokens(Engine, cfg, params, specs)
+    print(f"  bare engine: {len(specs)} requests ({trace.prompt_tokens} prompt tokens, "
+          f"{trace.gen_tokens} new); {bare.metrics.decode_steps} decode steps, "
+          f"{bare.metrics.prefill_chunks} prefill chunks")
+    pool = cluster.ReplicaPool(cfg, 1, params=params, **CLUSTER_KW)
+    pool.engines[0].share_steps_from(bare)
+    pool.warmup()
+    del bare
+    reset_counts(mods)
+    before = _pool_replays(pool)
+    router = cluster.Router(pool, policy="round-robin", async_dispatch=False)
+    handles = [router.submit(s) for s in specs]
+    router.dispatch_sync()
+    pool.run_sync(max_ticks=100_000)
+    check(not any(read_counts(mods).values()), "13a run_sync launched nothing eagerly")
+    launches.update(_served_launches(pool, before))
+    _check_tokens(np, [h.result(timeout=0) for h in handles], want, "13a run_sync")
+    check(router.shed == 0 and all(h.trace_id == h.crid for h in handles),
+          "13a nothing shed, router-minted trace ids")
+    _check_pool(torch, pool, "13a")
+    print(f"  one replica, run_sync behind the synchronous router: the {len(specs)} "
+          f"requests' tokens ({sum(map(len, want))}) equal the bare engine's; "
+          f"cold_compiles=0, nothing launched eagerly")
+    one = pool
+    del router, handles
+
+    print(f"[13b] two replicas, threaded, on one card, least-loaded {stamp()}")
+    two = cluster.ReplicaPool(cfg, 2, params=params, **CLUSTER_KW)
+    two.warmup(verbose=True)
+    e0, e1 = two.engines
+    check(e0.stream is not None and e0.stream != e1.stream,
+          "13b each replica on its own stream")
+    ptrs = [tuple(t.data_ptr() for t in _splitk_of(torch, e)) for e in two.engines]
+    check(all(ptrs), "13b each replica allocated its own split-K scratch in its warmup")
+    check(all(ptrs) and ptrs[0][0] != ptrs[1][0] and ptrs[0][1] != ptrs[1][1],
+          "13b the replicas' graphs hold different split-K workspaces and counters")
+    # Threaded runs behind the async router, one replica and two in turns
+    # (one, two, two, one), then one profiled run of each (13f).
+    runs = {"one": [], "two": []}
+    for label in ("one", "two", "two", "one", "one+profile", "two+profile"):
+        name = label.split("+")[0]
+        got, fig = _cluster_run(torch, cluster, mods, one if name == "one" else two, specs,
+                                "least-loaded", launches, profile="profile" in label)
+        _check_tokens(np, got, want, f"13{'a' if name == 'one' else 'b'} threaded {label}")
+        check(all(n > 0 for n in fig["per_replica"]), f"13b {label}: every replica served")
+        if name == "two" and runs["two"]:
+            check(all(np.array_equal(a, b) for a, b in zip(got, runs["two"][0][0])),
+                  f"13b {label}: the threaded runs agree")
+        runs[name].append((got, fig))
+    for pool in (one, two):
+        _check_pool(torch, pool, "13b")
+    out["runs"] = {k: [f for _, f in v] for k, v in runs.items()}
+    print(f"  streams {e0.stream} / {e1.stream}; split-K (workspace, counters) "
+          f"{[tuple(hex(p) for p in x) for x in ptrs]}; requests per replica "
+          + ", ".join(str(f["per_replica"]) for _, f in runs["two"])
+          + f"; {len(runs['two'])} threaded runs' tokens equal the bare engine's and each "
+          f"other's (and {len(runs['one'])} threaded runs of one replica)")
+    del one, two, pool, e0, e1
+
+    print(f"[13c] two replicas with the prefix cache, prefix-affinity {stamp()}")
+    shared = cluster.shared_system_prompt(cfg.vocab, n=16, prefix_len=512, suffix=(16, 64),
+                                          max_new=(16, 32))
+    sspecs = _cluster_specs(np, RequestSpec, shared)
+    swant, bare = _bare_tokens(Engine, cfg, params, sspecs)
+    del bare
+    pool = cluster.ReplicaPool(cfg, 2, params=params, prefix_cache=True, **CLUSTER_KW)
+    pool.warmup()
+    got, fig = _cluster_run(torch, cluster, mods, pool, sspecs, "prefix-affinity", launches)
+    _check_tokens(np, got, swant, "13c (bare engine without the cache)")
+    _check_pool(torch, pool, "13c")
+    hits = sum(e.metrics.prefix_hits for e in pool.engines)
+    lookups = sum(e.metrics.prefix_lookups for e in pool.engines)
+    saved = sum(e.metrics.prefix_hit_tokens for e in pool.engines)
+    check(hits > 0, "13c the prefix cache hit")
+    print(f"  {hits}/{lookups} admissions hit, {saved} prefill tokens saved; requests per "
+          f"replica {fig['per_replica']}; tokens equal a bare engine's without the cache")
+    del pool
+
+    print(f"[13d] two replicas in w8a8 with an int8 KV pool on 13a's trace {stamp()}")
+    q8 = dict(precision="w8a8", kv_precision="int8")
+    want8, bare = _bare_tokens(Engine, cfg, params, specs, **q8)
+    del bare
+    pool = cluster.ReplicaPool(cfg, 2, params=params, **dict(CLUSTER_KW, **q8))
+    pool.warmup()
+    got, fig = _cluster_run(torch, cluster, mods, pool, specs, "least-loaded", launches)
+    _check_tokens(np, got, want8, "13d w8a8 + int8 KV")
+    _check_pool(torch, pool, "13d")
+    check(all(n > 0 for n in fig["per_replica"]), "13d both replicas served")
+    print(f"  the {len(specs)} requests' tokens equal a bare w8a8 + int8 KV engine's; "
+          f"requests per replica {fig['per_replica']}; launches "
+          + " ".join(f"{k}={v}" for k, v in sorted(fig["launches"].items())))
+    del pool, params
+    torch.cuda.empty_cache()
+
+    print(f"[13e] the serve CLI with two replicas {stamp()}")
+    phase13_cli()
+
+    print("[13f] 13a's trace on one replica against two, threaded, in turns (one, two, "
+          "two, one; then one profiled run each) (printed, not checked)")
+    for name, figs in out["runs"].items():
+        for k, f in enumerate(figs):
+            prof = (f" | profiled (the profiler slows the run): the card busy "
+                    f"{f['busy_ms']:.1f} ms of a {f['window_ms']:.1f} ms window "
+                    f"({f['busy_ms'] / f['window_ms']:.1%}), {f['concurrency']:.2f} kernels "
+                    f"at once on average while busy, {f['kernels']} device events"
+                    if "busy_ms" in f else "")
+            print(f"  {name} replica{'s' if name == 'two' else ''} #{k + 1}: wall "
+                  f"{f['wall_s']:.3f} s, {f['tok_s']:.1f} generated tok/s, decode "
+                  f"{f['decode_tok_s']:.1f} tok/s, decode step ms per replica "
+                  f"{[round(x, 3) for x in f['decode_step_ms']]}, TTFT p50 "
+                  f"{f['ttft_p50_s'] * 1e3:.1f} ms p95 {f['ttft_p95_s'] * 1e3:.1f} ms, requests "
+                  f"{f['per_replica']}, replays {f['replays']}, launches (replays x "
+                  f"per-graph) " + " ".join(f"{a}={b}" for a, b in sorted(f["launches"].items()))
+                  + prof)
+    timed = {k: [f for f in v if "busy_ms" not in f] for k, v in out["runs"].items()}
+    w1, w2 = (sum(f["wall_s"] for f in timed[k]) / len(timed[k]) for k in ("one", "two"))
+    print(f"  two against one (means of the unprofiled runs): wall x{w2 / w1:.3f}, generated "
+          f"tok/s x{w1 / w2:.3f}")
+    for name in ("gemm", "flash_decode", "gemm_w8a8", "flash_decode_int8", "dequant_gemm",
+                 "quantize_rows"):
+        check(launches[name] > 0, f"phase 13 launched {name} on the cluster path")
+    print(f"[13] phase 13 took {time.monotonic() - t_phase:.1f}s; launches on the cluster "
+          f"path (replays x per-graph launches): "
+          + " ".join(f"{k}={v}" for k, v in sorted(launches.items())))
+    return {"launches": launches, **out}
+
+
+def phase13_cli():
+    """13e: the serve CLI with two replicas, a tight in-flight window and
+    every observability flag."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    with tempfile.TemporaryDirectory() as tdir:
+        d = Path(tdir)
+        trace, metrics, inc = d / "trace.json", d / "metrics.json", d / "incidents"
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            m = serve.main(["--widths", "published", "--replicas", "2", "--router-policy",
+                            "prefix-affinity", "--max-pending", "4", "--tenants", "2",
+                            "--requests", "16", "--trace-out", str(trace), "--metrics-json",
+                            str(metrics), "--slo", "shed_rate=0.01", "--incident-dir",
+                            str(inc)])
+        text = out.getvalue()
+        for line in text.splitlines():
+            if line.startswith(("warmup", "cluster", "  replica", "slo", "incidents",
+                                "trace", "metrics")):
+                print(f"  {line[:240]}")
+        accepted = m.offered - m.shed
+        check(m.offered == 16 and m.shed > 0 and m.requests == accepted,
+              f"13e some requests shed: {m.shed} of {m.offered}")
+        check(any(p.name.endswith("-shed.json") for p in inc.iterdir()),
+              "13e a shed incident bundle written")
+        evs = json.loads(trace.read_text())["traceEvents"]
+        check({e["pid"] for e in evs} == {0, 1, 2}, "13e two replica lanes and the router's")
+        flows = {}
+        for e in evs:
+            if e.get("cat") == "flow":
+                flows.setdefault(e["id"], []).append(e)
+        check(set(flows) == set(range(accepted)),
+              "13e one flow chain per accepted request, under its router id (crid)")
+        ends = set()
+        for chain in flows.values():
+            chain.sort(key=lambda e: e["ts"])
+            check(chain[0]["ph"] == "s" and chain[0]["pid"] == 2
+                  and chain[-1]["ph"] == "f" and chain[-1]["pid"] in (0, 1),
+                  "13e each flow chain crosses from the router's lane into a replica's")
+            ends.add(chain[-1]["pid"])
+        doc = json.loads(metrics.read_text())
+        check(doc["cluster"]["replicas"] == 2 and len(doc["replicas"]) == 2,
+              "13e the metrics hold `cluster` and two `replicas`")
+        check(all(r["cold_compiles"] == 0 for r in doc["replicas"]), "13e no cold shape")
+        print(f"  13e {time.monotonic() - t0:.1f}s: {m.shed} of {m.offered} shed, "
+              f"{len(flows)} flow chains router -> replicas {sorted(ends)}, "
+              f"{len(list(inc.iterdir()))} incident bundles, {len(evs)} trace events")
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -4110,6 +4478,8 @@ def main() -> int:
     summary11 = phase11(torch, np, configs, M, mods, quant)
     print(f"[12] the tile autotuner and the engine's observability {stamp()}")
     summary12 = phase12(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant)
+    print(f"[13] the cluster layer: replicas on one card {stamp()}")
+    summary13 = phase13(torch, np, configs, M, Engine, RequestSpec, mods)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -4157,7 +4527,8 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": launches[name],
             "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": agg[name][4] if len(agg[name]) > 4 else "bytes",
-            "library_ms": t_l, "tuner_launches": tuner[name]})
+            "library_ms": t_l, "tuner_launches": tuner[name],
+            "cluster_launches": summary13["launches"][name]})
     # This slice's shapes of K5 and K1 (launches: each kernel's in phase 11a's
     # run, graph replays included; 11b's for the projector).
     for name, kernel, key, per, run in (
@@ -4183,9 +4554,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "per": per, "launches": run["launches"].get(kernel, 0),
             "max_abs_err": worst_encdec[kernel], "ms": t_k, "plain_ms": t_p,
-            "bound_ms": bound, "bound_by": by, "library_ms": t_l, "tuner_launches": 0})
+            "bound_ms": bound, "bound_by": by, "library_ms": t_l, "tuner_launches": 0,
+            "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
+        f"cluster_launches={k['cluster_launches']} "
         f"max_abs_err={k['max_abs_err']:.3e} "
         f"ms={k['ms']:.3f} plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
         f"library_ms={k['library_ms']};" for k in kernels))

@@ -27,9 +27,11 @@ the kernel (or raise), CPU tensors run `ref_paged_decode`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -88,22 +90,47 @@ class FlashDecodeSpec:
                    cols_per_iter=int(d["cols_per_iter"]))
 
 
-_DECODE_SPEC: Optional[FlashDecodeSpec] = None
+_DECODE_SPEC: Optional[FlashDecodeSpec] = None   # the process-wide binding
+_scoped = threading.local()     # a thread's `bound_decode_spec` blocks, innermost last
 
 
-def set_decode_spec(spec: Optional[FlashDecodeSpec]) -> None:
-    """Bind a tuned design point for calls with no spec (None unbinds).  A
-    CUDA graph keeps the split count it was captured with: the engine binds
-    its pick before warmup captures its steps."""
-    global _DECODE_SPEC
+def _check_spec(spec) -> None:
     if spec is not None and not isinstance(spec, FlashDecodeSpec):
         raise TypeError(f"set_decode_spec takes a FlashDecodeSpec, got "
                         f"{type(spec).__name__}")
-    _DECODE_SPEC = spec
+
+
+def set_decode_spec(spec: Optional[FlashDecodeSpec]) -> None:
+    """Bind a tuned design point for calls with no spec (None unbinds):
+    process-wide, or inside a `bound_decode_spec` block that block's, for
+    its thread only.  A CUDA graph keeps the split count it was captured
+    with: the engine binds its pick before warmup captures its steps."""
+    global _DECODE_SPEC
+    _check_spec(spec)
+    stack = getattr(_scoped, "stack", None)
+    if stack:
+        stack[-1] = spec
+    else:
+        _DECODE_SPEC = spec
 
 
 def get_decode_spec() -> Optional[FlashDecodeSpec]:
-    return _DECODE_SPEC
+    """The spec a call with none takes on this thread."""
+    stack = getattr(_scoped, "stack", None)
+    return stack[-1] if stack else _DECODE_SPEC
+
+
+@contextlib.contextmanager
+def bound_decode_spec(spec: Optional[FlashDecodeSpec]):
+    """Run a block with `spec` bound for this thread only, over the
+    process-wide binding, which other threads keep seeing."""
+    _check_spec(spec)
+    stack = _scoped.__dict__.setdefault("stack", [])
+    stack.append(spec)
+    try:
+        yield
+    finally:
+        stack.pop()
 
 
 def _row_tile(rows: int) -> int:
@@ -390,7 +417,7 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     spec bound by `set_decode_spec` is taken, and with none bound the
     kernel's split count comes from `decode_splits`."""
     if spec is None:
-        spec = _DECODE_SPEC
+        spec = get_decode_spec()
     if q.device.type == "cpu":
         return ref_paged_decode(q, cache, block_tables, index, window=window,
                                 cols_per_iter=(spec or FlashDecodeSpec()).cols_per_iter)

@@ -9,8 +9,11 @@ decode batch sizes (every launch reads all of B; the notes at the top of
 gemm.cu and gemm_mma.cuh say what the design does about that).
 
 One launch per call: `gemm_plan` picks the tile and the split-K count, and
-the kernel sums the splits' partials itself, in split order, in a
-workspace allocated once per device (`splitk_scratch`).  A `GemmLaunchSpec`
+the kernel sums the splits' partials itself, in split order, in a split-K
+workspace (`splitk_scratch`): one per device, or the one of the
+`SplitKScratch` a thread has bound (`owned_scratch`; each serving engine
+binds its own, so engines replaying graphs on separate streams at once
+never share a workspace or a tile counter).  A `GemmLaunchSpec`
 (the tile autotuner's pick, repro_torch/tuning) overrides the rule's split
 count and, at M <= SWAP_ROWS, its tile.
 
@@ -20,9 +23,11 @@ tensor runs the plain version `gemm_plain`.  No fallback on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -172,24 +177,57 @@ def workspace_elems(sms: int) -> int:
     return 2 * sms * FULL_ROWS * TILE_N
 
 
-_scratch: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+class SplitKScratch:
+    """Split-K workspaces (float32; the int8 mode reads them as int32) and
+    per-tile arrival counters, one pair per device, allocated at first use.
+    The kernels leave every counter at 0.  Launches that share one are
+    ordered by the stream they go on; launches that may run at once on
+    different streams need different owners."""
+
+    def __init__(self):
+        self._by_device: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._lock = threading.Lock()        # one allocation per device
+
+    def get(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        got = self._by_device.get(device)
+        if got is not None:
+            return got
+        with self._lock:
+            got = self._by_device.get(device)
+            if got is None:
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("the GeMM's split-K scratch is allocated at its "
+                                       "first eager call; call it once before capturing "
+                                       "a graph")
+                sms = sm_count(device)
+                got = (torch.empty(workspace_elems(sms), dtype=torch.float32, device=device),
+                       torch.zeros(sms, dtype=torch.int32, device=device))
+                self._by_device[device] = got
+        return got
+
+
+_DEVICE_SCRATCH = SplitKScratch()    # for calls no owner has bound
+_bound = threading.local()
+
+
+@contextlib.contextmanager
+def owned_scratch(scratch: SplitKScratch):
+    """Run a block with `scratch` as this thread's split-K scratch: its
+    launches, and the graphs captured in it, take that owner's workspace
+    and counters."""
+    prev = getattr(_bound, "scratch", None)
+    _bound.scratch = scratch
+    try:
+        yield scratch
+    finally:
+        _bound.scratch = prev
 
 
 def splitk_scratch(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split-K workspace (float32; the int8 mode reads it as int32) and
-    the per-tile arrival counters of `device`, allocated at first use and
-    shared by K1 and K6.  The kernels leave every counter at 0.  Launches go
-    on PyTorch's current stream, which orders their uses of it."""
-    got = _scratch.get(device)
-    if got is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the GeMM's split-K scratch is allocated at its first "
-                               "eager call; call it once before capturing a graph")
-        sms = sm_count(device)
-        got = (torch.empty(workspace_elems(sms), dtype=torch.float32, device=device),
-               torch.zeros(sms, dtype=torch.int32, device=device))
-        _scratch[device] = got
-    return got
+    """The split-K workspace and tile counters a launch on `device` takes:
+    the bound owner's (`owned_scratch`), else the device's own, shared by
+    K1, K6 and the int8 GeMMs."""
+    return (getattr(_bound, "scratch", None) or _DEVICE_SCRATCH).get(device)
 
 
 def aligned_rows(t: torch.Tensor) -> torch.Tensor:
@@ -290,19 +328,26 @@ def plan_fits(plan: GemmPlan, sms: int) -> bool:
 
 
 @functools.lru_cache(maxsize=4096)
+def _fitted_plan(M: int, N: int, K: int, kmajor: bool, elem_bytes: int,
+                 device: torch.device, spec: Optional[GemmLaunchSpec]) -> GemmPlan:
+    plan = gemm_plan(M, N, K, kmajor, sm_count(device), elem_bytes,
+                     *((None, None) if spec is None else (spec.splits, spec.swap)))
+    if not plan_fits(plan, sm_count(device)):
+        raise RuntimeError(f"split-K plan {plan} exceeds the workspace "
+                           f"({workspace_elems(sm_count(device))}) or the tile counters")
+    return plan
+
+
 def launch_plan(M: int, N: int, K: int, kmajor: bool, elem_bytes: int,
                 device: torch.device, spec: Optional[GemmLaunchSpec] = None):
     """(plan, workspace pointer, counters pointer) of one launch on
-    `device`, by the rule or by a tuned `spec`; cached (the spec is part of
-    the key), since the scratch is never freed."""
-    plan = gemm_plan(M, N, K, kmajor, sm_count(device), elem_bytes,
-                     *((None, None) if spec is None else (spec.splits, spec.swap)))
+    `device`, by the rule or by a tuned `spec` (part of the plan cache's
+    key); the pointers are the calling thread's scratch (`splitk_scratch`),
+    looked up per call, so a cached plan never hands out another owner's."""
+    plan = _fitted_plan(M, N, K, kmajor, elem_bytes, device, spec)
     if plan.splits == 1:
         return plan, None, None
     ws, counters = splitk_scratch(device)
-    if not plan_fits(plan, counters.numel()):
-        raise RuntimeError(f"split-K plan {plan} exceeds the workspace ({ws.numel()}) "
-                           f"or the tile counters ({counters.numel()})")
     return plan, ws.data_ptr(), counters.data_ptr()
 
 

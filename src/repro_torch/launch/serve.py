@@ -57,6 +57,24 @@ snapshot (percentile histograms, per-phase utilization and MFU on the
 H100's peaks), `--slo` evaluates burn-rate targets after the run, and
 `--incident-dir` has the flight recorder write its bundles there, as the
 reference's single-engine path does.
+
+`--replicas N` (N > 1) serves through the cluster layer
+(repro_torch.cluster), as the reference's `serve_cluster` does: a pool of N
+engines, one thread and one CUDA stream each (pinned round-robin to the
+cards when there are several, all on one card otherwise), behind an async
+router with `--router-policy`, `--max-pending` (the in-flight bound past
+which requests are shed) and `--tenants` (synthetic tenant ids of the
+generated traffic, `cluster.mixed_traffic`).  The observability flags
+cover the cluster: one trace lane per replica plus the router's (each
+request's flow chain crosses from the router's lane into its replica's
+under the router's id), the merged SLO evaluation, a shed incident from
+the router and the engine triggers per replica, and a metrics file with
+`cluster` and `replicas`.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --widths published --replicas 2 \
+      --router-policy prefix-affinity --max-pending 4 --tenants 2 --requests 16 \
+      --trace-out trace.json --metrics-json metrics.json --slo shed_rate=0.01 \
+      --incident-dir incidents
 """
 
 from __future__ import annotations
@@ -90,6 +108,12 @@ def _parse_class_mix(spec: str):
                              f"expected one of {PRIORITIES}")
         mix.append((name, float(w) if w else 1.0))
     return tuple(mix)
+
+
+def _sampling_from_args(args) -> SamplingParams:
+    """The CLI's sampling knobs (temperature 0: greedy)."""
+    return SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed if args.seed >= 0 else None)
 
 
 def check_weights_fit(cfg, device) -> int:
@@ -206,43 +230,126 @@ def compare_prefill(cfg, params, prompts: List[np.ndarray], *, slots: int,
     return t_legacy, t_chunked
 
 
+def _build_recorder(args, *, metadata=None):
+    """The flight recorder for `--incident-dir` (None when the flag is off).
+    A storm of one reason writes one bundle a second, not one per event."""
+    if not args.incident_dir:
+        return None
+    from repro_torch import obs
+
+    return obs.FlightRecorder(args.incident_dir, min_interval_s=1.0, metadata=metadata)
+
+
+def _evaluate_slo(args, snapshot, recorder, engines) -> None:
+    """`--slo` after the run: print the burn-rate report, record breach
+    bundles, and run the engine pressure triggers on every engine."""
+    from repro_torch import obs
+
+    if args.slo:
+        report = obs.SloMonitor(obs.parse_slo_spec(args.slo)).observe(snapshot)
+        print(f"slo: {report.summary()}")
+        if recorder is not None:
+            recorder.record_breaches(report)
+    if recorder is not None:
+        for e in engines:
+            recorder.check_engine(e)
+        if recorder.incidents:
+            print(f"incidents: {len(recorder.incidents)} bundle(s) -> "
+                  + ", ".join(recorder.incidents))
+
+
+def _print_trace(args, doc) -> None:
+    print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out} "
+          f"(open in https://ui.perfetto.dev)")
+
+
 def report_observability(args, eng) -> None:
     """The run's SLO report, incident bundles, trace and metrics files, as
     the flags ask (the reference's single-engine path)."""
     from repro_torch import obs
 
-    recorder = None
-    if args.incident_dir:
-        # A storm of one reason writes one bundle a second, not one per event.
-        recorder = obs.FlightRecorder(args.incident_dir, min_interval_s=1.0,
-                                      metadata={"arch": eng.cfg.name})
-        recorder.attach_engine(eng)
-    if args.slo:
-        report = obs.SloMonitor(obs.parse_slo_spec(args.slo)).observe(
-            obs.engine_snapshot(eng))
-        print(f"slo: {report.summary()}")
-        if recorder is not None:
-            recorder.record_breaches(report)
+    recorder = _build_recorder(args, metadata={"arch": eng.cfg.name})
     if recorder is not None:
-        recorder.check_engine(eng)
-        if recorder.incidents:
-            print(f"incidents: {len(recorder.incidents)} bundle(s) -> "
-                  + ", ".join(recorder.incidents))
+        recorder.attach_engine(eng)
+    _evaluate_slo(args, obs.engine_snapshot(eng), recorder, [eng])
     if args.trace_out:
-        doc = obs.write_chrome_trace(args.trace_out, [eng.tracer],
-                                     metadata={"arch": eng.cfg.name})
-        print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out} "
-              f"(open in https://ui.perfetto.dev)")
+        _print_trace(args, obs.write_chrome_trace(args.trace_out, [eng.tracer],
+                                                  metadata={"arch": eng.cfg.name}))
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:
             json.dump(eng.metrics.as_dict(), f, indent=2)
         print(f"metrics: {args.metrics_json}")
 
 
+def serve_cluster(cfg, args, params=None):
+    """`--replicas N`: a replica pool behind a router serving generated
+    traffic (repro_torch.cluster), as the reference's `serve_cluster`;
+    returns the `ClusterMetrics`."""
+    from repro_torch import cluster, obs
+
+    max_seq = args.prompt_len + args.gen_len + 1
+    sampling = _sampling_from_args(args)
+    class_mix = _parse_class_mix(args.priority_classes)
+    pool = cluster.ReplicaPool(
+        cfg, args.replicas, device=args.device, params=params, slots=args.slots or 2,
+        max_seq=max_seq, block_size=args.block_size, num_blocks=args.kv_blocks or None,
+        max_chunk=args.chunk, autotune=args.autotune, tune_mode=args.tune_mode,
+        precision=args.precision, kv_precision=args.kv_precision,
+        prefix_cache=args.prefix_cache,
+        speculative=args.draft_k if args.speculative else False,
+        sampling=not sampling.is_greedy, preempt=args.preempt,
+        trace=bool(args.trace_out))
+    # The router's lane, above the replicas' (pid = N): admission, shed and
+    # route events, and the start of every request's flow chain.
+    router_tracer = obs.Tracer(name="router", pid=args.replicas) if args.trace_out else None
+    recorder = _build_recorder(args, metadata={"arch": cfg.name, "replicas": args.replicas})
+    if recorder is not None:
+        if router_tracer is not None:
+            recorder.add_tracer(router_tracer)
+        for i, e in enumerate(pool.engines):
+            recorder.attach_engine(e, name=f"replica{i}")
+    t0 = time.time()
+    pool.warmup(verbose=True)
+    print(f"warmup: {args.replicas} replicas in {time.time() - t0:.1f}s on "
+          f"{sorted({str(e.device) for e in pool.engines})} (plans tuned once, shared; "
+          f"graphs per replica)")
+    trace = cluster.mixed_traffic(
+        cfg.vocab, n=args.requests, seed=0, max_prompt=args.prompt_len,
+        max_new=(2, args.gen_len), class_mix=class_mix, tenants=args.tenants)
+    pool.start()
+    router = cluster.Router(pool, policy=args.router_policy,
+                            max_pending=args.max_pending or None,
+                            tracer=router_tracer, recorder=recorder)
+    try:
+        t0 = time.time()
+        cluster.replay(trace, router.submit,
+                       sampling=None if sampling.is_greedy else sampling)
+        router.drain()
+        elapsed = time.time() - t0
+    finally:
+        router.close()          # parks the replica threads before the rings are read
+    m = cluster.aggregate(pool, router, elapsed_s=elapsed)
+    print(f"cluster[{args.router_policy}]: {m.summary()}")
+    for i, e in enumerate(pool.engines):
+        print(f"  replica[{i}]: {e.metrics.summary()}")
+    _evaluate_slo(args, cluster.slo_snapshot(m), recorder, pool.engines)
+    if args.trace_out:
+        _print_trace(args, pool.export_trace(
+            args.trace_out, metadata={"arch": cfg.name, "replicas": args.replicas},
+            extra_tracers=[router_tracer]))
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump({"cluster": m.as_dict(),
+                       "replicas": [e.metrics.as_dict() for e in pool.engines]}, f, indent=2)
+        print(f"metrics: {args.metrics_json}")
+    return m
+
+
 def main(argv=None, *, params=None):
     """Parse `argv`, serve the generated requests, return the generated
-    tokens (requests x gen_len int32).  `params` (port layout) overrides
-    the seeded random weights."""
+    tokens (requests x gen_len int32), or with `--replicas` > 1 the
+    cluster's `ClusterMetrics`.  `params` (port layout) overrides the
+    seeded random weights."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-1b", choices=configs.list_archs())
     ap.add_argument("--requests", type=int, default=4)
@@ -280,6 +387,18 @@ def main(argv=None, *, params=None):
     ap.add_argument("--draft-k", type=int, default=4,
                     help="max drafted tokens per request per tick (with "
                          "--speculative)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help=">1 serves through repro_torch.cluster: a replica pool "
+                         "behind an async router")
+    ap.add_argument("--router-policy", default="round-robin",
+                    choices=["round-robin", "least-loaded", "prefix-affinity"],
+                    help="cluster load-balancing policy (with --replicas)")
+    ap.add_argument("--max-pending", type=int, default=0,
+                    help="cluster backpressure: in-flight request bound (0: "
+                         "unbounded; overflow is shed)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="spread the cluster's generated traffic over N synthetic "
+                         "tenant ids (per-tenant accounting in the router)")
     ap.add_argument("--priority-classes", default="",
                     help="class mix of the generated traffic, e.g. "
                          "'interactive=0.7,batch=0.3' (empty: all interactive)")
@@ -320,10 +439,10 @@ def main(argv=None, *, params=None):
 
     cfg = configs.get_smoke(args.arch) if args.widths == "smoke" else configs.get(args.arch)
     if params is None:
-        check_weights_fit(cfg, args.device)
-    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
-                              top_p=args.top_p,
-                              seed=args.seed if args.seed >= 0 else None)
+        check_weights_fit(cfg, args.device)    # once: the replicas share them
+    if args.replicas > 1:
+        return serve_cluster(cfg, args, params)
+    sampling = _sampling_from_args(args)
     class_mix = _parse_class_mix(args.priority_classes)
     slots = args.slots or args.requests
     max_seq = args.prompt_len + args.gen_len + 1

@@ -91,7 +91,24 @@ chain per request in a ring buffer (repro_torch.obs).  The spans hold the
 step's read-back of its ids, so they time the device step; tracing adds
 nothing to what a graph captures.
 
-Not ported yet: `share_steps_from` (a graph reads one engine's buffers).
+Several engines on one card (cluster/replica.py runs one thread per
+engine) keep apart what a graph bakes in or a step reads process-wide:
+  * each engine owns a CUDA stream (`stream`): its inputs' copies, eager
+    steps, captures, replays and read-backs all go on it, after what the
+    caller's stream queued before the call, and it waits on that stream
+    alone (the preemption swaps too), never on the device;
+  * each engine owns its split-K scratch (`splitk`, kernels/gemm.py),
+    allocated in its first eager step and bound around its steps and
+    captures, so its graphs hold its own workspace and tile counters;
+  * the tuner and decode plan bind per thread (`tuning.scope`);
+  * `share_steps_from(other)` shares what a graph does not bind to one
+    engine's buffers: the tuner, its results and the decode plan (it
+    raises on another config, slot count, precision or step shape).  Each
+    engine still captures its own graphs, which read its own buffers;
+  * `capture_cold = False` (set by `ReplicaPool.start`) runs a shape
+    warmup did not cover eagerly, counted in `cold_compiles`, and never
+    captures it: a capture in the middle of serving would stall, and fail,
+    the other engines' work on the card.
 """
 
 from __future__ import annotations
@@ -108,13 +125,14 @@ from repro_torch import resolve_device
 from repro_torch import quant
 from repro_torch import tuning
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import launches, ops
 from repro_torch.models import model as M, ssm
 from repro_torch.obs import Histogram, MfuMeter, NULL_TRACER, Tracer
 from repro_torch.obs import percentile
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving.prefill import chunk_buckets
-from repro_torch.serving.request import RequestSpec, priority_rank
+from repro_torch.serving.request import RequestSpec, as_spec, priority_rank
 from repro_torch.serving.scheduler import Phase, Request, Scheduler
 from repro_torch.serving.speculative import (NgramDrafter, bucket_for,
                                              coerce_spec, verify_buckets)
@@ -122,11 +140,6 @@ from repro_torch.serving.speculative import (NgramDrafter, bucket_for,
 
 _KNOBS = ("temperature", "top_k", "top_p", "seeds", "gen_idx")
 _NP_DTYPES = {torch.float32: np.float32, torch.int64: np.int64}
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +613,54 @@ class Engine:
         self._submit_t: Dict[int, float] = {}
         self._first_tok_t: Dict[int, float] = {}
         self.results: Dict[int, np.ndarray] = {}
+        # What the engine owns on the card so that engines on other threads
+        # never share it: its stream (which first waits for the weights,
+        # state and buffers made on the current one) and its split-K scratch.
+        self.splitk = _gemm.SplitKScratch()
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        self.capture_cold = True       # capture an uncovered shape at first use
+
+    def _on_stream(self):
+        """The engine's work goes on its own stream (a no-op on the CPU),
+        after what the caller's stream has queued so far: a write the
+        caller made there (to the state, say) lands before the step reads.
+        A caller already on the engine's stream (a replica's thread, a
+        nested entry) waits on nothing."""
+        if self.stream is not None:
+            caller = torch.cuda.current_stream(self.device)
+            if caller != self.stream:
+                self.stream.wait_stream(caller)
+        return torch.cuda.stream(self.stream)
+
+    def _sync(self) -> None:
+        """Wait for the engine's stream, never the whole device."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
+    def share_steps_from(self, other: "Engine") -> None:
+        """Serve under `other`'s launch plans: its tuner, tune results and
+        decode plan, so this engine's warmup tunes nothing.  A CUDA graph
+        reads one engine's buffers, so the graphs are not shared: each
+        engine captures its own under the same plans.  Raises unless
+        `other` is warm and the two run the same config, slot count,
+        precisions and step shapes."""
+        for name in ("cfg", "slots", "precision", "kv_precision", "max_seq",
+                     "block_size", "max_chunk"):
+            if getattr(self, name) != getattr(other, name):
+                raise ValueError(f"share_steps_from: {name} {getattr(self, name)!r} "
+                                 f"!= {getattr(other, name)!r}")
+        if self.device.type != other.device.type:
+            raise ValueError(f"share_steps_from: a {self.device.type} engine cannot "
+                             f"serve under a {other.device.type} engine's plans")
+        if not other._warmed:
+            raise RuntimeError("warm up the engine whose steps this one shares first")
+        self.tuner, self.decode_spec = other.tuner, other.decode_spec
+        self.tune_results = other.tune_results
+        self.decode_tune_result = other.decode_tune_result
+        self.autotune = False
 
     def _account_kv_pools(self) -> None:
         """Pool bytes over the attention layers (none in an attention-free
@@ -629,7 +690,12 @@ class Engine:
         their one-time attribute calls and allocates the split-K scratch,
         none of which may happen inside a capture.  With `autotune` the
         launch plans are tuned before all of it (`_autotune`), so the eager
-        run and every capture take the tuned plans."""
+        run and every capture take the tuned plans.  All of it goes on the
+        engine's stream."""
+        with self._on_stream():
+            self._warmup()
+
+    def _warmup(self) -> None:
         self.tracer.begin(self._ev_warmup)
         if self.autotune:
             self._autotune()
@@ -649,12 +715,12 @@ class Engine:
             for key in keys:
                 self._step_fn(key)()
                 self._warmed.add(key)
-            _sync(self.device)
+            self._sync()
             if self.graphs:
                 for key in keys:
                     self._capture(key)
-        M.clear_paged_decode_state(self.state)
-        _sync(self.device)
+            M.clear_paged_decode_state(self.state)
+            self._sync()
         self.metrics.aot_steps = len(self.step_graphs) if self.graphs else len(self._warmed)
         self.tracer.end(self._ev_warmup)
         if self.verbose:
@@ -688,14 +754,16 @@ class Engine:
                             else self.decode_tune_result.spec)
 
     def _step_ctx(self):
-        """What every step runs under: the precision mode (PyTorch reads it
-        on each `ops.linear` call, so it is entered around every step) and
-        the engine's tuner and decode plan (`tuning.scope`).  Between steps
-        the process-wide state is again what it was."""
+        """What every eager step and capture runs under: the precision mode
+        (PyTorch reads it on each `ops.linear` call, so it is entered around
+        every step), the engine's tuner and decode plan (`tuning.scope`) and
+        its split-K scratch, all bound for this thread only.  Between steps
+        the thread's state is again what it was."""
         stack = contextlib.ExitStack()
         if self.precision != "float":
             stack.enter_context(quant.precision(self.precision))
         stack.enter_context(tuning.scope(self.tuner, self.decode_spec))
+        stack.enter_context(_gemm.owned_scratch(self.splitk))
         return stack
 
     def _quantize_weights(self) -> None:
@@ -817,9 +885,10 @@ class Engine:
 
     def _capture(self, key: str) -> None:
         """Capture step shape `key` as a CUDA graph in the engine's memory
-        pool, under the precision mode the caller entered and the GeMM
-        backend in force (both bind here, as the reference binds them at
-        trace time), and note the hand-kernel launches the graph holds."""
+        pool, on its stream, under the precision mode, plans and split-K
+        scratch the caller entered and the GeMM backend in force (all bind
+        here, as the reference binds them at trace time), and note the
+        hand-kernel launches the graph holds."""
         backend = ops.get_default_backend()
         if self._graph_backend is None:
             self._graph_backend = backend
@@ -830,7 +899,7 @@ class Engine:
         before = launches.counts()
         t0 = time.monotonic()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.graph_pool):
+        with torch.cuda.graph(graph, pool=self.graph_pool, stream=self.stream):
             out = fn()
         self.metrics.capture_time_s += time.monotonic() - t0
         after = launches.counts()
@@ -851,9 +920,10 @@ class Engine:
         """Run step shape `key` on the filled static inputs: replay its
         graph, or run it eagerly (on the CPU, with graphs=False, and at a
         shape's first use when warmup did not cover it, which counts in
-        `cold_compiles` and, on graphs, captures it for its next use).  The
-        ids it returns live until the next step."""
-        if key in self._warmed and self.graphs:
+        `cold_compiles` and, on graphs with `capture_cold`, captures it for
+        its next use; without, the shape stays eager).  The ids it returns
+        live until the next step."""
+        if self.graphs and key in self.step_graphs:
             self._check_backend()
             graph, out = self.step_graphs[key]
             graph.replay()
@@ -864,7 +934,7 @@ class Engine:
                 self.metrics.cold_compiles += 1
                 self._warmed.add(key)
                 out = self._step_fn(key)()
-                if self.graphs:
+                if self.graphs and self.capture_cold:
                     self._capture(key)
                 return out
             return self._step_fn(key)()
@@ -880,13 +950,14 @@ class Engine:
         active mask (slots,) -> ids (slots,) on the host, greedy, or drawn
         with the per-slot knobs `samp` (temperature, top_k, top_p, seeds,
         gen_idx).  The active slots' lengths advance by one."""
-        self._tokens.copy_(torch.from_numpy(
-            np.asarray(tokens, np.int64).reshape(self.slots, 1)))
-        self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
-        if samp is None:
-            return self._run_step("decode").cpu().numpy()
-        self._fill_knobs(self._knobs, samp)
-        return self._run_step("decode_sample").cpu().numpy()
+        with self._on_stream():
+            self._tokens.copy_(torch.from_numpy(
+                np.asarray(tokens, np.int64).reshape(self.slots, 1)))
+            self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
+            if samp is None:
+                return self._run_step("decode").cpu().numpy()
+            self._fill_knobs(self._knobs, samp)
+            return self._run_step("decode_sample").cpu().numpy()
 
     def step_verify(self, tokens: np.ndarray, active: np.ndarray,
                     limits: np.ndarray, eos: np.ndarray, samp=None
@@ -895,33 +966,36 @@ class Engine:
         (slots, S), committed counts (slots,)) on the host.  The slots'
         lengths advance by their counts on the device."""
         s = tokens.shape[1]
-        self._verify_buffer(s).copy_(torch.from_numpy(np.asarray(tokens, np.int64)))
-        self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
-        self._limits.copy_(torch.from_numpy(np.asarray(limits, np.int32)))
-        self._eos.copy_(torch.from_numpy(np.asarray(eos, np.int32)))
-        if samp is None:
-            key = f"verify{s}"
-        else:
-            self._fill_knobs(self._knobs, samp)
-            key = f"verify_sample{s}"
-        res = self._run_step(key).cpu().numpy()
+        with self._on_stream():
+            self._verify_buffer(s).copy_(torch.from_numpy(np.asarray(tokens, np.int64)))
+            self._active.copy_(torch.from_numpy(np.asarray(active, bool)))
+            self._limits.copy_(torch.from_numpy(np.asarray(limits, np.int32)))
+            self._eos.copy_(torch.from_numpy(np.asarray(eos, np.int32)))
+            if samp is None:
+                key = f"verify{s}"
+            else:
+                self._fill_knobs(self._knobs, samp)
+                key = f"verify_sample{s}"
+            res = self._run_step(key).cpu().numpy()
         return res[:, :s], res[:, s]
 
     def sample_first(self, req: Request) -> int:
         """A sampled request's first token, from the last prefill chunk's
         logits (the `sample1` step)."""
         sp = req.sampling
-        self._fill_knobs(self._knobs1, ([sp.temperature], [sp.top_k], [sp.top_p],
-                                        [req.sample_seed], [len(req.out_tokens)]))
-        return int(self._run_step("sample1").cpu()[0])
+        with self._on_stream():
+            self._fill_knobs(self._knobs1, ([sp.temperature], [sp.top_k], [sp.top_p],
+                                            [req.sample_seed], [len(req.out_tokens)]))
+            return int(self._run_step("sample1").cpu()[0])
 
     def step_prefill(self, tokens: np.ndarray, slot: int) -> int:
         """One prefill chunk of `tokens` (C,) into `slot`: the greedy id of
         its last position, on the host.  The slot's length advances by C."""
         c = len(tokens)
-        self._chunk_buffer(c).copy_(torch.from_numpy(np.asarray(tokens, np.int64)[None]))
-        self._slot.fill_(slot)
-        return int(self._run_step(f"chunk{c}").cpu()[0])
+        with self._on_stream():
+            self._chunk_buffer(c).copy_(torch.from_numpy(np.asarray(tokens, np.int64)[None]))
+            self._slot.fill_(slot)
+            return int(self._run_step(f"chunk{c}").cpu()[0])
 
     def replayed_launches(self) -> Dict[str, int]:
         """Hand-kernel launches the graph replays made, per launch counter:
@@ -936,10 +1010,16 @@ class Engine:
 
     # -- request lifecycle ---------------------------------------------------
 
-    def submit(self, spec: RequestSpec) -> Optional[Request]:
-        """Queue a request; None when the admission queue is full."""
-        if not isinstance(spec, RequestSpec):
-            raise TypeError(f"submit takes a RequestSpec, got {type(spec).__name__}")
+    def submit(self, request, max_new: Optional[int] = None, *,
+               eos_token: Optional[int] = None,
+               trace_id: Optional[int] = None) -> Optional[Request]:
+        """Queue a request, a `RequestSpec` or the legacy `(prompt,
+        max_new)` form (`as_spec`); None when the admission queue is full.
+        The spec's `trace_id` (or the keyword) threads an id minted outside
+        (the cluster router's request id) into the request's flow chain and
+        lifecycle spans; without one the engine mints its own, namespaced
+        by the tracer's pid so ids never collide across replica lanes."""
+        spec = as_spec(request, max_new, eos_token=eos_token, trace_id=trace_id)
         if spec.prompt_len + spec.max_new > self.max_seq:
             raise ValueError(
                 f"prompt {spec.prompt_len} + max_new {spec.max_new} exceeds "
@@ -952,13 +1032,18 @@ class Engine:
         req = self.scheduler.submit(spec, step=self._step)
         tr = self.tracer
         if req is not None:
-            req.trace_id = (tr.pid << 24) + req.rid
+            req.trace_id = (int(spec.trace_id) if spec.trace_id is not None
+                            else (tr.pid << 24) + req.rid)
             self._submit_t[req.rid] = time.monotonic()
             if self._flow:
                 # A flow event binds to the slice open at its timestamp, so
-                # the chain's first link sits in a tiny "submit" slice.
+                # the chain's first link sits in a tiny "submit" slice (a
+                # step when the router already started the chain).
                 tr.begin(self._ev_submit)
-                tr.flow_start(self._ev_flow, req.trace_id)
+                if spec.trace_id is None:
+                    tr.flow_start(self._ev_flow, req.trace_id)
+                else:
+                    tr.flow_step(self._ev_flow, req.trace_id)
                 tr.end(self._ev_submit)
             tr.async_begin(self._ev_req_queued, req.trace_id)
             tr.counter(self._ev_queue, len(self.scheduler.queue))
@@ -1093,7 +1178,7 @@ class Engine:
         unused = max(0, self._reserved.pop(victim.rid, fresh) - fresh)
         self.scheduler.preempt(victim)
         self.tables.release(slot, self.alloc, unreserve=unused)
-        _sync(self.device)
+        self._sync()
         self.metrics.preemptions += 1
         self.metrics.swap_out_blocks += len(ids)
         self.metrics.swap_time_s += time.monotonic() - t0
@@ -1120,7 +1205,7 @@ class Engine:
             self.metrics.swap_in_blocks += n_blocks
             if self._flow:
                 self.tracer.instant(self._ev_restore, req.trace_id)
-        _sync(self.device)
+        self._sync()
         self.metrics.swap_time_s += time.monotonic() - t0
 
     def _sync_tables(self) -> None:
@@ -1190,8 +1275,12 @@ class Engine:
 
     @torch.no_grad()
     def tick(self) -> bool:
-        """Admit, then execute one scheduler action.  Returns False when no
-        work remains."""
+        """Admit, then execute one scheduler action, on the engine's stream.
+        Returns False when no work remains."""
+        with self._on_stream():
+            return self._tick()
+
+    def _tick(self) -> bool:
         tr = self.tracer
         tr.begin(self._ev_tick)
         tr.begin(self._ev_sched)      # host scheduling: admit + pick action

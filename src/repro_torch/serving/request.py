@@ -1,9 +1,11 @@
 """RequestSpec: the request-description type of every submit surface (port
-of repro/serving/request.py, without `trace_id` and the legacy `as_spec`
-shim: the port's `submit` takes only a `RequestSpec`).
+of repro/serving/request.py): `Engine.submit`, `Scheduler.submit` and
+`cluster.Router.submit`, with the legacy `(prompt, max_new)` form shimmed
+through `as_spec`.
 
 A frozen description, not state: progress lives on
-`serving.scheduler.Request`.  The prompt is normalized to a read-only int32
+`serving.scheduler.Request`.  `trace_id` carries an id minted outside the
+engine (the cluster router's request id) into the request's flow chain.  The prompt is normalized to a read-only int32
 ndarray at construction.  `SamplingParams` defaults to greedy, so a default
 spec takes the greedy steps token for token; `seed=None` derives the
 request's random stream from its id.  Priority classes are a fixed ordered
@@ -14,11 +16,12 @@ and preemption evicts only strictly lower classes.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["GREEDY", "PRIORITIES", "RequestSpec", "SamplingParams",
+__all__ = ["GREEDY", "PRIORITIES", "RequestSpec", "SamplingParams", "as_spec",
            "priority_rank"]
 
 # Admission order, best first: rank 0 preempts rank 1, never the reverse.
@@ -71,6 +74,7 @@ class RequestSpec:
     sampling: SamplingParams = GREEDY
     priority: str = "interactive"
     tenant: str = "default"
+    trace_id: Optional[int] = None
 
     def __post_init__(self):
         arr = np.ascontiguousarray(np.asarray(self.prompt, np.int32).ravel())
@@ -88,3 +92,27 @@ class RequestSpec:
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
+
+
+def as_spec(request, max_new: Optional[int] = None, *,
+            eos_token: Optional[int] = None, trace_id: Optional[int] = None
+            ) -> RequestSpec:
+    """A submit argument as a `RequestSpec`.  A spec passes through (the
+    keywords must not contradict it; a `trace_id` fills an unset one); a
+    bare token array with `max_new` (and `eos_token`) builds a greedy spec
+    and warns that the form is deprecated."""
+    if isinstance(request, RequestSpec):
+        if max_new is not None and max_new != request.max_new:
+            raise TypeError("pass max_new inside the RequestSpec, not alongside it")
+        if eos_token is not None and eos_token != request.eos_token:
+            raise TypeError("pass eos_token inside the RequestSpec, not alongside it")
+        if trace_id is not None and request.trace_id is None:
+            return dataclasses.replace(request, trace_id=trace_id)
+        return request
+    if max_new is None:
+        raise TypeError("legacy submit(prompt, max_new) form requires max_new")
+    warnings.warn("submit(prompt, max_new, ...) is deprecated; pass a "
+                  "repro_torch.serving.request.RequestSpec instead",
+                  DeprecationWarning, stacklevel=3)
+    return RequestSpec(prompt=request, max_new=int(max_new), eos_token=eos_token,
+                       trace_id=trace_id)

@@ -24,8 +24,8 @@ another source under its own key.
 
 `tuned_gemm(a, b)` is the user-facing entry; `enable()` routes every GeMM
 call that names no plan through the tuner (kernels/ops.py), and `scope`
-runs a block with one tuner and one decode plan bound (the engine runs its
-steps under its own).
+runs a block with one tuner and one decode plan bound for its thread (the
+engine runs its steps under its own).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -295,56 +296,86 @@ def env_truthy(value: Optional[str]) -> bool:
 
 
 _ENABLED = env_truthy(os.environ.get("REPRO_AUTOTUNE"))
+# A thread's `scope` blocks, innermost last: {"enabled": bool, "tuner":
+# Autotuner or None (None: the process-wide default)}.
+_scoped = threading.local()
+
+
+def _frame() -> Optional[dict]:
+    stack = getattr(_scoped, "stack", None)
+    return stack[-1] if stack else None
 
 
 def get_tuner() -> Autotuner:
-    """The default tuner: analytic, for the card when there is one."""
+    """The default tuner (inside a `scope`, that scope's): analytic, for the
+    card when there is one."""
     global _DEFAULT_TUNER
+    f = _frame()
+    if f is not None and f["tuner"] is not None:
+        return f["tuner"]
     if _DEFAULT_TUNER is None:
         _DEFAULT_TUNER = Autotuner(device="cuda" if torch.cuda.is_available() else None)
     return _DEFAULT_TUNER
 
 
 def set_tuner(tuner: Optional[Autotuner]) -> None:
+    """Install the default tuner: process-wide, or inside a `scope` for
+    the rest of that scope on this thread."""
     global _DEFAULT_TUNER
-    _DEFAULT_TUNER = tuner
+    f = _frame()
+    if f is not None:
+        f["tuner"] = tuner
+    else:
+        _DEFAULT_TUNER = tuner
 
 
 def enable() -> None:
-    """Route every GeMM call that names no plan through the tuner."""
+    """Route every GeMM call that names no plan through the tuner
+    (process-wide, or inside a `scope` for the rest of it on this thread)."""
     global _ENABLED
-    _ENABLED = True
+    f = _frame()
+    if f is not None:
+        f["enabled"] = True
+    else:
+        _ENABLED = True
 
 
 def disable() -> None:
     global _ENABLED
-    _ENABLED = False
+    f = _frame()
+    if f is not None:
+        f["enabled"] = False
+    else:
+        _ENABLED = False
 
 
 def is_enabled() -> bool:
-    return _ENABLED
+    f = _frame()
+    return f["enabled"] if f is not None else _ENABLED
 
 
 @contextlib.contextmanager
 def scope(tuner: Optional[Autotuner], decode_spec=None):
     """Run a block with `tuner` as the enabled default (None: tuning
-    disabled) and `decode_spec` bound for paged decode attention
-    (kernels/flash_decode.py), then restore what was in force.  The engine
-    runs every step it executes or captures under its own, so a later
-    change of the process-wide tuner does not reach it."""
-    global _ENABLED, _DEFAULT_TUNER
+    disabled, the outer default kept) and `decode_spec` bound for paged
+    decode attention (kernels/flash_decode.py), for this thread only: the
+    process-wide state, and what other threads see, stay as they are, and
+    `enable()`, `disable()`, `set_tuner` and `set_decode_spec` inside the
+    block change the block's binding alone.  The engine runs every step it
+    executes or captures under its own, so a later change of the
+    process-wide tuner does not reach it, and engines on several threads
+    keep theirs apart."""
     from repro_torch.kernels import flash_decode as _fd
 
-    prev = (_ENABLED, _DEFAULT_TUNER, _fd.get_decode_spec())
-    _ENABLED = tuner is not None
-    if tuner is not None:
-        _DEFAULT_TUNER = tuner
-    _fd.set_decode_spec(decode_spec)
+    outer = _frame()
+    stack = _scoped.__dict__.setdefault("stack", [])
+    stack.append({"enabled": tuner is not None,
+                  "tuner": tuner if tuner is not None else (outer and outer["tuner"])})
     try:
-        yield
+        with _fd.bound_decode_spec(decode_spec):
+            yield
     finally:
-        _ENABLED, _DEFAULT_TUNER = prev[0], prev[1]
-        _fd.set_decode_spec(prev[2])
+        stack.pop()
 
 
 def tuned_spec(shape: GemmShape, dtype="bfloat16", *, backend: str = "tiled",

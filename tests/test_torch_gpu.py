@@ -583,14 +583,19 @@ def test_w8a8_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 GRAPH_MODES = [("float", "float"), ("w8a8", "int8"), ("w8a8-calibrated", "int8")]
 
 
-def _smoke_engine(cuda_device, params=None, **kw):
+def _smoke_cfg():
     import dataclasses
 
     from repro_torch import configs
+
+    return dataclasses.replace(configs.get_smoke("gemma3-1b"), head_dim=64)
+
+
+def _smoke_engine(cuda_device, params=None, **kw):
     from repro_torch.models import model as TM
     from repro_torch.serving.engine import Engine
 
-    cfg = dataclasses.replace(configs.get_smoke("gemma3-1b"), head_dim=64)
+    cfg = _smoke_cfg()
     if params is None:
         params = TM.init_model(cfg, seed=0, device=cuda_device)
     kw = dict(dict(slots=3, max_seq=48, block_size=4, max_chunk=8), **kw)
@@ -1367,3 +1372,138 @@ def test_tuned_engine_on_card(cuda_device, tmp_path, monkeypatch):
     m = traced.metrics
     tick = m.decode_time_s / max(1, m.decode_steps)
     assert 14 * best * 1e-9 / tick < 0.02
+
+
+# -- the cluster: engines on their own streams and split-K scratch ------------------
+
+
+def _smoke_pool(cuda_device, n, params, **kw):
+    from repro_torch.cluster import ReplicaPool
+
+    kw = dict(dict(slots=3, max_seq=48, block_size=4, max_chunk=8), **kw)
+    return ReplicaPool(_smoke_cfg(), n, device=cuda_device, params=params, **kw)
+
+
+@pytest.mark.gpu
+def test_engines_own_their_streams_and_splitk_scratch(cuda_device):
+    """Two warmed engines on one card: different streams (neither the
+    current one) and different split-K workspaces and tile counters, each
+    allocated in the engine's own first eager step (the smoke config's down
+    projection splits K), with every counter back at 0."""
+    cfg, params, a = _smoke_engine(cuda_device)
+    b = _smoke_engine(cuda_device, params)[2]
+    for e in (a, b):
+        e.warmup()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    (wa, ca), (wb, cb) = a.splitk.get(dev), b.splitk.get(dev)
+    assert wa.data_ptr() != wb.data_ptr() and ca.data_ptr() != cb.data_ptr()
+    assert a.stream != b.stream
+    assert torch.cuda.current_stream(dev) not in (a.stream, b.stream)
+    for e in (a, b):
+        e.submit(_smoke_requests(cfg.vocab)[0])
+        e.run()
+        assert int(e.splitk.get(dev)[1].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_engine_step_waits_for_the_callers_stream(cuda_device):
+    """The slots' lengths written on the caller's stream behind a long
+    sleep, then one decode step on the engine's stream: the step reads the
+    written lengths and advances them by one (a step that ran before the
+    write landed would leave them as written)."""
+    eng = _smoke_engine(cuda_device)[2]
+    eng.warmup()
+    lengths = [5, 9, 13]
+    for slot, n in enumerate(lengths):
+        eng.tables.ensure(slot, n + 1, eng.alloc)
+    eng.tables.copy_to(eng.state.block_tables)
+    base = torch.tensor(lengths, dtype=torch.int32, device=eng.device)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)            # ~0.1 s on the caller's stream
+    eng.state.lengths.copy_(base)
+    eng.step_decode(np.zeros(eng.slots, np.int64), np.ones(eng.slots, bool))
+    torch.cuda.synchronize()
+    assert eng.state.lengths.tolist() == [n + 1 for n in lengths]
+
+
+def _pool_tokens(pool, specs, policy="least-loaded"):
+    from repro_torch.cluster import Router
+
+    pool.start()
+    with Router(pool, policy=policy) as router:
+        handles = [router.submit(s) for s in specs]
+        router.drain(timeout=300)
+        return [h.result(timeout=0) for h in handles]
+
+
+@pytest.mark.gpu
+def test_threaded_replicas_equal_a_bare_engine(cuda_device):
+    """Two replicas on one card, each replaying its graphs on its own stream
+    from its own thread, twice: every request's tokens equal a bare
+    engine's, both replicas serve, no cold shape, clean allocators."""
+    from repro_torch.cluster import mixed_traffic
+    from repro_torch.serving.request import RequestSpec
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    trace = mixed_traffic(cfg.vocab, n=12, seed=0, max_prompt=30, max_new=(4, 12))
+    specs = [RequestSpec(prompt=np.asarray(it.prompt, np.int32), max_new=it.max_new)
+             for it in trace.items]
+    want = _serve_specs(_smoke_engine(cuda_device, params)[2], specs)
+    pool = _smoke_pool(cuda_device, 2, params)
+    pool.warmup()
+    for _ in range(2):
+        got = _pool_tokens(pool, specs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    for e in pool.engines:
+        assert e.metrics.finished_requests > 0 and e.metrics.cold_compiles == 0
+        assert sum(e._replays.values()) > 0
+        e.alloc.check()
+
+
+@pytest.mark.gpu
+def test_started_pool_waits_for_the_callers_stream(cuda_device):
+    """The slots' lengths zeroed on the caller's stream behind a sleep just
+    before `start()`: the replica's thread (on the engine's stream) serves
+    after the write, so the tokens are a bare engine's (a write landing
+    mid-serve would cut the live slots' lengths)."""
+    from repro_torch.cluster import mixed_traffic
+    from repro_torch.serving.request import RequestSpec
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    trace = mixed_traffic(cfg.vocab, n=12, seed=1, max_prompt=30, max_new=(4, 12))
+    specs = [RequestSpec(prompt=np.asarray(it.prompt, np.int32), max_new=it.max_new)
+             for it in trace.items]
+    want = _serve_specs(_smoke_engine(cuda_device, params)[2], specs)
+    pool = _smoke_pool(cuda_device, 1, params)
+    pool.warmup()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)             # ~30 ms on the caller's stream
+    pool.engines[0].state.lengths.zero_()
+    for g, w in zip(_pool_tokens(pool, specs), want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_cold_shape_in_started_pool_runs_eagerly(cuda_device):
+    """A sampled request on replicas warmed without sampling: the started
+    pool runs `decode_sample` eagerly, counts it cold and captures nothing
+    mid-serving; its tokens equal those of a bare engine that captured the
+    shape at first use."""
+    from repro_torch.serving.request import RequestSpec, SamplingParams
+
+    cfg, params, _ = _smoke_engine(cuda_device)
+    spec = RequestSpec(prompt=np.arange(1, 12, dtype=np.int32), max_new=8,
+                       sampling=SamplingParams(temperature=0.8, top_k=50, seed=5))
+    bare = _smoke_engine(cuda_device, params)[2]
+    bare.warmup()
+    bare.submit(spec)
+    want = bare.run()[0]
+    assert "decode_sample" in bare.step_graphs and bare.metrics.cold_compiles >= 1
+    pool = _smoke_pool(cuda_device, 1, params)
+    pool.warmup()
+    got = _pool_tokens(pool, [spec])[0]
+    eng = pool.engines[0]
+    np.testing.assert_array_equal(got, want)
+    assert eng.metrics.cold_compiles >= 1
+    assert "decode_sample" not in eng.step_graphs and "decode_sample" in eng._warmed

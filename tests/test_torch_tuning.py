@@ -8,6 +8,8 @@ selection logic runs over a stand-in timer (tests/test_torch_gpu.py times
 the real kernels)."""
 
 import json
+import sys
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -471,6 +473,129 @@ def test_decode_tuning_candidates_cache_and_binding(tmp_path):
     assert tfd.get_decode_spec() is None
     with pytest.raises(TypeError):
         tfd.set_decode_spec(GemmLaunchSpec(splits=1))
+
+
+# -- thread-local scopes ------------------------------------------------------
+
+
+def _in_threads(n, fn, timeout=60):
+    errors = []
+
+    def run(i):
+        try:
+            fn(i)
+        except BaseException as e:          # reported by the test thread
+            errors.append(e)
+            raise
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    assert not any(t.is_alive() for t in threads), "a thread did not finish"
+    if errors:
+        raise errors[0]
+
+
+def test_scope_binds_per_thread_when_interleaved(tmp_path):
+    """Two threads enter and leave `tuning.scope` with their own tuners and
+    decode plans, interleaved (the first leaves while the second is still
+    inside): each sees only its own, inside `enable` / `disable` /
+    `set_tuner` / `set_decode_spec` change its own block alone, and the
+    process-wide state is what it was before and after."""
+    tuners = [_tuner(tmp_path / f"t{i}") for i in range(2)]
+    specs = [tfd.FlashDecodeSpec(num_splits=2 + i, cols_per_iter=1) for i in range(2)]
+    before = (tuning.is_enabled(), tuning.get_tuner(), tfd.get_decode_spec())
+    gates = [threading.Barrier(2, timeout=30) for _ in range(4)]
+    seen = {}
+
+    def view():
+        return tuning.is_enabled(), tuning.get_tuner(), tfd.get_decode_spec()
+
+    def worker(i):
+        gates[0].wait()
+        if i == 1:
+            gates[1].wait()                  # thread 0 is inside first
+        with tuning.scope(tuners[i], specs[i]):
+            if i == 0:
+                gates[1].wait()
+            gates[2].wait()                  # both inside
+            seen[i, "in"] = view()
+            if i == 0:
+                tuning.disable()
+                tfd.set_decode_spec(None)
+                seen[0, "changed"] = view()
+            else:
+                tuning.set_tuner(tuners[0])
+                seen[1, "changed"] = view()
+                tuning.set_tuner(tuners[1])
+            if i == 1:
+                gates[3].wait()              # thread 0 has left
+                seen[1, "after_other_left"] = view()
+        if i == 0:
+            seen[0, "out"] = view()
+            gates[3].wait()
+
+    _in_threads(2, worker)
+    for i in range(2):
+        assert seen[i, "in"] == (True, tuners[i], specs[i])
+    assert seen[0, "changed"] == (False, tuners[0], None)
+    assert seen[1, "changed"] == (True, tuners[0], specs[1])
+    assert seen[1, "after_other_left"] == (True, tuners[1], specs[1])
+    assert seen[0, "out"] == before
+    assert view() == before
+
+
+def test_scope_nesting_and_outside_meaning_unchanged(tmp_path):
+    """Outside any scope `enable` / `set_tuner` / `set_decode_spec` act
+    process-wide, as before; a scope(None) keeps the outer tuner with
+    tuning disabled; each exit restores its thread's state."""
+    t1, t2 = _tuner(tmp_path / "a"), _tuner(tmp_path / "b")
+    old = tuning.get_tuner()
+    spec = tfd.FlashDecodeSpec(num_splits=4, cols_per_iter=2)
+    try:
+        tuning.set_tuner(t1)
+        tuning.enable()
+        tfd.set_decode_spec(spec)
+        got = []
+        _in_threads(1, lambda i: got.append((tuning.is_enabled(), tuning.get_tuner(),
+                                             tfd.get_decode_spec())))
+        assert got == [(True, t1, spec)]        # process-wide: other threads see it
+        with tuning.scope(t2):
+            assert (tuning.is_enabled(), tuning.get_tuner(), tfd.get_decode_spec()) == \
+                (True, t2, None)
+            with tuning.scope(None):
+                assert (tuning.is_enabled(), tuning.get_tuner()) == (False, t2)
+            assert tuning.is_enabled() and tuning.get_tuner() is t2
+        assert (tuning.is_enabled(), tuning.get_tuner(), tfd.get_decode_spec()) == \
+            (True, t1, spec)
+    finally:
+        tuning.disable()
+        tuning.set_tuner(old)
+        tfd.set_decode_spec(None)
+
+
+def test_scope_stress_many_threads(tmp_path):
+    """More threads than cores, a short switch interval: every thread keeps
+    seeing its own tuner and plan across many scope entries."""
+    n = 16
+    tuners = [tuning.Autotuner(cache=tuning.TuneCache(persistent=False)) for _ in range(n)]
+    specs = [tfd.FlashDecodeSpec(num_splits=i + 1, cols_per_iter=1) for i in range(n)]
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def worker(i):
+            for _ in range(300):
+                with tuning.scope(tuners[i], specs[i]):
+                    assert tuning.get_tuner() is tuners[i]
+                    assert tfd.get_decode_spec() is specs[i] and tuning.is_enabled()
+                assert tfd.get_decode_spec() is None and not tuning.is_enabled()
+
+        _in_threads(n, worker)
+    finally:
+        sys.setswitchinterval(prev)
+    assert tfd.get_decode_spec() is None and not tuning.is_enabled()
 
 
 # -- kernel registry ---------------------------------------------------------

@@ -83,9 +83,9 @@ Phases, in order; any failure exits non-zero:
      w8a8 GeMMs as 3b, with the static scales.
   3d. phase 3's float run under the pipelined GeMM backend (depth 3): K6
      183 times per step, K1 never; its first decode step's logits near the
-     tiled backend's.  3c and 3d serve phase 3's first 6 requests (the
-     1100-, 800- and 513-token prompts among them), `reduced` for the time
-     limit.
+     tiled backend's.  3b, 3c and 3d serve phase 3's first 6 requests
+     (the 1100-, 800- and 513-token prompts among them), `reduced` for the
+     time limit.
   4. the same weights at full width, depth cut to 6 layers (5 local + 1
      global), float32, on the card (kernels) and on the CPU (plain
      versions): greedy tokens identical in float, in w8a8 with an int8 KV
@@ -112,7 +112,8 @@ Phases, in order; any failure exits non-zero:
   8a. qwen3-14b at published widths (40 layers, d 5120, 40 q heads over 8
      kv heads, head_dim 128, d_ff 17408, untied 151936 vocab, qk-norm),
      bf16, random weights (seed 0), served as phase 3 serves gemma3-1b (8
-     slots, 8 requests, prompts 256-1024 tokens, 32 new tokens each, chunk
+     slots, 8 requests, prompts 256-1024 tokens, 16 new tokens each (32
+     before the training phase joined the script: the time limit), chunk
      64, block 16), graphed against eager in lockstep on the same weights:
      tokens identical, paired step medians, one replay's device time,
      capture, memory, launches per replayed decode step (281 GeMMs, 40
@@ -135,7 +136,8 @@ Phases, in order; any failure exits non-zero:
      graphed engine captures `verify2`, `verify3` and `verify5` at warmup
      beside decode, the 7 chunk buckets and the reset; each verify graph
      launches 183 GeMMs and 26 K2.  Two traces: a regeneration storm (16
-     requests over 4 prompts of 256-1024 tokens, 64 new tokens each) and 8
+     requests over 4 prompts of 256-1024 tokens, 32 new tokens each; 64
+     before the training phase, cut for the time limit) and 8
      random prompts; tokens identical to a non-speculative graphed engine
      on the same weights, no cold compile, every step a replay.  Prints
      the acceptance rate, tokens per decode tick and decode tok/s with
@@ -180,13 +182,16 @@ Phases, in order; any failure exits non-zero:
      one replayed decode step):
      10a. xlstm-1.3b (d 2048, 4 heads, vocab 50304, untied), `reduced`
      to 16 of its 48 layers (14 mLSTM + 2 sLSTM) for the time limit, 8
-     requests of 128-256 tokens, 32 new each, float then w8a8; then, whole
+     requests of 100-192 tokens, 16 new each (cut from 128-256 and
+     32 for the time limit), float then w8a8; then, whole
      (48 layers, 7.41 GB), speculative greedy decoding (k = 4,
      8 slots: 28.2 GB of per-position states in verify5) on a regeneration
-     storm (16 requests over 4 prompts), tokens equal to a non-speculative
+     storm (16 requests over 4 prompts, 16 new tokens each: 32 before the
+     training phase, cut for the time limit), tokens equal to a non-speculative
      graphed engine; then the serve CLI at published widths.
      10b. dbrx-132b, `reduced` to one group of 4 layers (28.5 GB), 8
-     requests of 256-1024 tokens, float then w8a8 with an int8 KV pool.
+     requests of 256-512 tokens, 16 new each (cut from 256-1024 and 32 for
+     the time limit), float then w8a8 with an int8 KV pool.
      10c. jamba-1.5-large-398b, `reduced` to one group of 8 layers (7
      Mamba + 1 attention, MoE on layers 2/4/6/8) and 4 of its 16 experts
      (32.5 GB), the same traffic, float; then the serve CLI refuses jamba
@@ -257,10 +262,11 @@ Phases, in order; any failure exits non-zero:
      changed; the kernels' launches on this path join the kernels line as
      `cluster_launches`, counted as replays x each graph's launches, with
      the wrappers' counters held at 0 through every served run).
-     13a. a bare graphed engine serves `mixed_traffic(n=16, max_prompt=768,
-     max_new=(16, 48))`; a one-replica pool on the same weights under its
-     plans (`share_steps_from`), a synchronous router and `run_sync` gives
-     every request the bare engine's tokens.
+     13a. a bare graphed engine serves `mixed_traffic(n=16, max_prompt=512,
+     max_new=(16, 32))` (`reduced` from 768 and (16, 48)); a one-replica
+     pool on the same weights under its plans (`share_steps_from`), a
+     synchronous router and `run_sync` gives every request the bare
+     engine's tokens.
      13b. two replicas, threaded, least-loaded, the same 16 requests: the
      two streams and the two split-K workspaces and counter arrays differ;
      then the one-replica pool and the two-replica pool, each threaded
@@ -285,17 +291,44 @@ Phases, in order; any failure exits non-zero:
      TTFT p50 / p95, replays per replica, launches as replays x per-graph
      launches; in the profiled runs the card's busy share and the kernels
      running at once), and the ratio of the unprofiled runs' means.
+  14. the training path: gemma3-1b at published widths (26 layers, bf16,
+     ~1.0 B parameters, f32 AdamW moments, remat on) trained through the
+     train CLI (`repro_torch.launch.train.main`, B 4 x S 1024, 6 steps): a
+     clean run (one checkpoint, at its end), then the same run with a
+     checkpoint every 3 steps and `--fail-at 4`, restored from the step-3
+     checkpoint, whose losses must equal the
+     clean run's bit for bit at every step it ran (step 4 twice).  Each
+     step's launches, read after the step and zeroed, must be the plan's
+     (`train_plan`: K1 736 = 4 x (26 x 7 + 2 head chunks), K5 52, K5b 26,
+     nothing else): every backward GeMM and attention backward went
+     through a hand kernel.  Per-step loss and ms, the median step after
+     step 1, tokens/s and peak memory; one more step under torch.profiler
+     (hand kernels against PyTorch ops).  14b: a 2-layer full-width f32
+     step (one window-512 layer, one global, `reduced`) at B 1 x S 768:
+     loss and every gradient leaf on the card against the CPU.
+     Phase 2 adds K5b (`flash_attention_bwd`) against
+     `flash_attention_bwd_plain` at gemma3-1b's training shapes and at
+     each head dim, S 32 / 100 / 1000, bf16 and f32 (two runs bitwise
+     equal), the forward's lse (and its output unchanged by asking), and
+     K1's dX / dW at the training shapes; phase 5 times K5b per train step
+     beside SDPA's backward and its operations bound, and K1's forward /
+     dX / dW per train step beside torch.matmul.  To make room, phase 4's
+     first prompt is cut to 520 tokens, 3b serves 6 of its 12 requests,
+     10a's float / w8a8 traffic to 100-192 tokens and 16 new, its storm to
+     16 new, 10b / 10c's to 256-512 and 16 new, and
+     13's trace to prompts of at most 512 tokens and 16-32 new (`reduced`).
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
      with speculation on and off, one replay of each verify graph and of
      the decode graph, launches per verify replay; one per phase 10a-10c
-     run.
+     run; one for phase 14's train step.
 
 Every phase header carries the seconds since the script started.  The
 line before the card line is the kernels' JSON summary (with each kernel's
 launches by phase 12's tuner and on phase 13's cluster path apart from its
-serving launches); the last line
+serving launches; K5b's and K1's train-step entries count phase 14's clean
+run); the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
 """
@@ -1163,7 +1196,7 @@ def _paired_medians(pairs, min_pairs: int = 10):
 
 def gemma_traffic_cut(np):
     """Phase 3's first 6 requests (the 1100-, 800- and 513-token prompts
-    among them): phases 3c and 3d, cut for the time limit."""
+    among them): phases 3b, 3c and 3d, cut for the time limit."""
     plens, max_new, rng = gemma_traffic(np)
     return plens[:6], max_new[:6], rng
 
@@ -1173,11 +1206,15 @@ CUT_3CD = {"requests": [12, 6]}
 
 def qwen3_traffic(np):
     """Phase 8's requests: 8 prompts of 256-1024 tokens (both ends drawn),
-    32 new tokens each; the generator then draws the prompts."""
+    16 new tokens each (32 before the training phase: the time limit); the
+    generator then draws the prompts."""
     rng = np.random.default_rng(8)
     plens = rng.integers(256, 1025, size=8)
     plens[:2] = (1024, 256)
-    return plens, np.full(8, 32), rng
+    return plens, np.full(8, 16), rng
+
+
+CUT_8 = {"new tokens": [32, 16]}
 
 
 DENSE_ARCHS = ("qwen3-14b", "qwen2.5-14b", "mistral-nemo-12b", "bert-base", "vit-b-16")
@@ -1330,7 +1367,8 @@ def _replayed_step_ms(torch, np, eng, lengths, reps: int = 10):
 # Name fragments of the hand kernels in csrc/ (everything else a step runs
 # is a plain PyTorch op between them).
 HAND_KERNELS = ("gemm_kernel", "s8_kernel", "pipelined_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "quant_rows_kernel", "flash_kernel", "mma_kernel")
+                "decode_combine_kernel", "quant_rows_kernel", "flash_kernel", "mma_kernel",
+                "delta_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def _profile_decode(torch, eng, lengths, reps: int = 3):
@@ -1345,10 +1383,11 @@ def _profile_decode(torch, eng, lengths, reps: int = 3):
     return out
 
 
-def _profile_replays(torch, replay, reps: int = 3):
+def _profile_replays(torch, replay, reps: int = 3, label: str = "replayed decode step"):
     """torch.profiler over `reps` calls of `replay` (a decode step's graph
-    replay): device time per step split between the hand kernels and the
-    plain PyTorch ops between them, and the top 10 kernels by time."""
+    replay, or what `label` names): device time per step split between the
+    hand kernels and the plain PyTorch ops between them, and the top 10
+    kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1366,8 +1405,8 @@ def _profile_replays(torch, replay, reps: int = 3):
     n_hand = sum(c for k, _, c in rows if any(h in k for h in HAND_KERNELS))
     n_all = sum(c for _, _, c in rows)
     span = start.elapsed_time(end) / reps
-    print(f"  profile of one replayed decode step (torch.profiler, {reps} replays): "
-          f"{n_all} kernels, {total:.3f} ms of kernel time in a {span:.3f} ms replay "
+    print(f"  profile of one {label} (torch.profiler, {reps} runs): "
+          f"{n_all} kernels, {total:.3f} ms of kernel time in a {span:.3f} ms run "
           f"({100 * (1 - total / span):.1f} % of it between kernels); hand kernels "
           f"{n_hand} launches {hand:.3f} ms ({100 * hand / max(total, 1e-9):.1f} %), "
           f"PyTorch ops {n_all - n_hand} kernels {total - hand:.3f} ms "
@@ -1375,7 +1414,7 @@ def _profile_replays(torch, replay, reps: int = 3):
     check(total > 0, "the profiler saw the replayed kernels")
     top = sorted((r for r in rows if not any(h in r[0] for h in HAND_KERNELS)),
                  key=lambda r: -r[1])[:10]
-    print("  the 10 PyTorch-op kernels that take the most time in the step:")
+    print(f"  the 10 PyTorch-op kernels that take the most time in the {label}:")
     for k, t, c in top:
         print(f"    {t:8.4f} ms {c:5d}x {k[:120]}")
     hand_top = collections.Counter()
@@ -1507,12 +1546,13 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
                               for k, v in layer.items()} for layer in params["layers"]]}
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in (600, 300)]
-    # Cut for the time limit: the second prompt to 72 tokens (two chunks),
-    # 4 new tokens a request, and the pipelined backend's CPU run (the same
-    # plain GeMM as the float run's) is the float run's.
-    prompts[1] = prompts[1][:72]
+    # Cut for the time limit: the first prompt to 520 tokens (still past the
+    # 512 window), the second to 72 (two chunks), 4 new tokens a request,
+    # and the pipelined backend's CPU run (the same plain GeMM as the float
+    # run's) is the float run's.
+    prompts[0], prompts[1] = prompts[0][:520], prompts[1][:72]
     max_new = 4
-    print('  reduced {"prompt tokens": [[600, 300], [600, 72]], "new tokens": [8, 4], '
+    print('  reduced {"prompt tokens": [[600, 300], [520, 72]], "new tokens": [8, 4], '
           '"CPU runs": ["float, pipelined: its own", "the float run\'s"]}')
 
     # The unpaged forward (K5 + K1 on the card) at the float bar, S = 520
@@ -2242,19 +2282,21 @@ PHASE9_DEVICE = "cuda"
 
 def storm_traffic(np, vocab):
     """A regeneration storm: 16 requests over 4 distinct prompts of
-    256-1024 tokens, 64 new tokens each; repeats admitted after a copy
-    finished find its stream in the drafter's corpus."""
+    256-1024 tokens, 32 new tokens each (64 before the training phase: the
+    time limit); repeats admitted after a copy finished find its stream in
+    the drafter's corpus."""
     rng = np.random.default_rng(9)
     plens = rng.integers(256, 1025, size=4)
     plens[:2] = (1024, 256)
     prompts = [rng.integers(0, vocab, size=int(n)) for n in plens]
-    return [(prompts[i % 4], 64) for i in range(16)]
+    return [(prompts[i % 4], 32) for i in range(16)]
 
 
 def random_traffic(np, vocab):
-    """8 i.i.d. random prompts of 256-1024 tokens, 64 new tokens each."""
+    """8 i.i.d. random prompts of 256-1024 tokens, 32 new tokens each (64
+    before the training phase: the time limit)."""
     rng = np.random.default_rng(10)
-    return [(rng.integers(0, vocab, size=int(n)), 64) for n in rng.integers(256, 1025, size=8)]
+    return [(rng.integers(0, vocab, size=int(n)), 32) for n in rng.integers(256, 1025, size=8)]
 
 
 def _serve_ticks(eng, specs):
@@ -2373,7 +2415,7 @@ def phase_speculative(torch, np, configs, M, Engine, RequestSpec, mods, precisio
         for rid, (a, b) in enumerate(zip(got, want)):
             check(np.array_equal(a, b), f"{trace} request {rid}: speculative tokens equal "
                                         f"non-speculative")
-            check(len(a) == 64, f"{trace} request {rid} got its budget")
+            check(len(a) == specs[rid].max_new, f"{trace} request {rid} got its budget")
         verify_ms = {k: _median(v) for k, v in sorted(times.items()) if k.startswith("verify")}
         print(f"  {trace}: {len(specs)} requests, {d['decode_tokens']} decode tokens identical "
               f"with speculation on and off; acceptance {d['accept']:.3f} "
@@ -2827,14 +2869,15 @@ def phase_family(torch, np, M, Engine, RequestSpec, mods, quant, cfg, reduced, t
     return summary
 
 
-def family_storm(np, vocab, lo=256, hi=512):
+def family_storm(np, vocab, lo=256, hi=512, new=16):
     """A regeneration storm: 16 requests over 4 distinct prompts of `lo`-`hi`
-    tokens, 32 new tokens each; repeats admitted after a copy finished find
-    its stream in the drafter's corpus."""
+    tokens, `new` new tokens each (16; 32 before the training phase joined
+    the script: the time limit); repeats admitted after a copy finished
+    find its stream in the drafter's corpus."""
     rng = np.random.default_rng(11)
     plens = rng.integers(lo, hi + 1, size=4)
     prompts = [rng.integers(0, vocab, size=int(n)) for n in plens]
-    return [(prompts[i % 4], 32) for i in range(16)]
+    return [(prompts[i % 4], new) for i in range(16)]
 
 
 def per_position_bytes(cfg, slots, width):
@@ -2911,7 +2954,7 @@ def phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg, k, slots):
     check(sum(read_counts(mods).values()) == 0, "every step a replay")
     for rid, (a, b) in enumerate(zip(got, want)):
         check(np.array_equal(a, b), f"request {rid}: speculative tokens equal non-speculative")
-        check(len(a) == 32, f"request {rid} got its budget")
+        check(len(a) == specs[rid].max_new, f"request {rid} got its budget")
     check(d["spec_ticks"] > 0 and d["spec_accepted_tokens"] > 0,
           "the storm ran verify steps that accepted drafts")
     check(m.cold_compiles == 0 and plain.metrics.cold_compiles == 0, "no cold compile")
@@ -3164,13 +3207,14 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     args = (torch, np, M, Engine, RequestSpec, mods, quant)
     out = {}
     cfg, reduced = family_cfg(configs, "xlstm-1.3b")
-    xl_traffic = family_traffic(20, 128, 256)
-    # The float and w8a8 runs are cut to 2 of the 6 groups, and their prompts
-    # to 128-256 tokens, to keep the whole script inside its time limit: their
-    # eager 64-token chunks (64 sequential mLSTM steps a layer, ~0.6 s each)
-    # were a fifth of it.  A recurrent step's work does not grow with the
-    # context, so the step times stay comparable.  The speculative run and
-    # the CLI keep all 48 layers.
+    xl_traffic = family_traffic(20, 100, 192, new=16)
+    # The float and w8a8 runs are cut to 2 of the 6 groups, their prompts to
+    # 100-192 tokens (13 full 64-token chunks, above the 10 paired chunks
+    # the medians need) and 16 new tokens each, to keep the whole script inside
+    # its time limit: their eager 64-token chunks (64 sequential mLSTM steps
+    # a layer, ~0.6 s each) were a fifth of it.  A recurrent step's work
+    # does not grow with the context, so the step times stay comparable.
+    # The speculative run and the CLI keep all 48 layers.
     cut = dataclasses.replace(cfg, n_layers=2 * cfg.group_size)
     cut_reduced = {"n_layers": [cfg.n_layers, cut.n_layers]}
     print("[10a] xlstm-1.3b at published widths (d 2048, 4 heads, vocab 50304, untied; "
@@ -3183,7 +3227,8 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
                                         DRAFT_K, 8)
     print("[10a] the serve CLI: --arch xlstm-1.3b --widths published")
     phase_serve_cli(np, arch="xlstm-1.3b", extra=())
-    big_traffic = family_traffic(21, 256, 1024)
+    # dbrx and jamba: prompts of 256-512 tokens, 16 new each (time limit).
+    big_traffic = family_traffic(21, 256, 512, new=16)
     cfg, reduced = family_cfg(configs, "dbrx-132b")
     print("[10b] dbrx-132b at published widths (d 6144, 48 / 8 heads, 16 experts top-4, "
           "d_ff 10752; bf16), one group of 4 layers, float")
@@ -4121,7 +4166,10 @@ def phase13(torch, np, configs, M, Engine, RequestSpec, mods):
     cfg = configs.get("gemma3-1b")
     check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
     params = M.init_model(cfg, seed=0, device="cuda")
-    trace = cluster.mixed_traffic(cfg.vocab, n=16, seed=0, max_prompt=768, max_new=(16, 48))
+    # Prompts up to 512 tokens and 16-32 new (768 and 16-48 before phase 14
+    # joined the script: the time limit).
+    trace = cluster.mixed_traffic(cfg.vocab, n=16, seed=0, max_prompt=512, max_new=(16, 32))
+    print('  reduced {"max_prompt": [768, 512], "max_new": [[16, 48], [16, 32]]}')
     specs = _cluster_specs(np, RequestSpec, trace)
     launches = collections.Counter()
     out = {}
@@ -4308,6 +4356,304 @@ def phase13_cli():
               f"{len(list(inc.iterdir()))} incident bundles, {len(evs)} trace events")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the training path (loss, backward through K1 and K5b, AdamW,
+# checkpoints, the supervisor, the train CLI)
+# ---------------------------------------------------------------------------
+
+# K5b against its plain version: gemma3-1b's training shapes (B 4, S 1024,
+# 4 q heads over 1, D 256, global and window 512), then each head dim at S
+# 32 / 100 / 1000 (ragged, window 200 at 1000), GQA 4 / 2 and non-causal.
+BWD_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
+    (4, 1024, 4, 1, 256, True, None), (4, 1024, 4, 1, 256, True, 512),
+] + [(2, S, 4, 2 if D == 128 else 1, D, True, None if S < 1000 else 200)
+     for D in (64, 128, 256) for S in (32, 100, 1000)] + [(1, 100, 4, 4, 64, False, None)]
+# K5b vs plain, of each gradient's largest element: f32 sums reordered; in
+# bf16 P and dS round to bf16 in both before their products, the sums in
+# other orders, so one bf16 ulp at the largest element.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+# The train run: gemma3-1b whole, B 4 x S 1024 (the 22 local layers' window
+# of 512 cuts), the restart run's checkpoint every 3 steps, the failure at
+# step 4.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL, TRAIN_LR = 4, 1024, 6, 3, 4, 3e-4
+LOSS_CHUNK = 512          # model.loss_fn's default: 2 chunks of the tied head a step
+
+
+def train_plan(cfg, S: int = TRAIN_S):
+    """Launches per train step: each GeMM of the forward (26 x 7
+    projections + the tied head per loss chunk) runs three times under
+    remat (forward, recompute, and the forward's two backward launches
+    count as two more: 4 in all); K5 twice a layer (forward, recompute),
+    K5b once."""
+    fwd = cfg.n_layers * 7 + S // LOSS_CHUNK
+    return {"gemm": 4 * fwd, "flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+
+
+def phase_kernels_train(torch, fa, gemm, ops):
+    """K5b, the forward's lse and K1's backward products against their plain
+    versions on the card."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    worst = {"flash_attention_bwd": 0.0, "gemm_bwd": 0.0}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for B, S, Hq, Hkv, D, causal, window in BWD_SHAPES:
+            q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                           for h in (Hq, Hkv, Hkv, Hq))
+            out, lse = fa._forward(q, k, v, causal, window, True)
+            same = torch.equal(out, fa._forward(q, k, v, causal, window, False)[0])
+            _, plse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+            lse_err = float((lse - plse).abs().max())
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+            again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+            det = all(torch.equal(a, b) for a, b in zip(got, again))
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                                                window=window)
+            errs = []
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.float().abs().max())
+                err = float((a.float() - w.float()).abs().max())
+                errs.append(f"{name} {err:.2e}/{scale:.2e}")
+                worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
+                check(a.dtype == dt and bool(a.isfinite().all())
+                      and err <= BWD_TOL[dname] * scale,
+                      f"flash_attention_bwd {dname} {(B, S, Hq, Hkv, D, causal, window)} {name}")
+            check(same and det and lse_err <= 1e-5,
+                  f"flash_attention lse / determinism {(B, S, Hq, Hkv, D, causal, window)}")
+            print(f"  flash_attention_bwd {dname} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"causal={causal} window={window}: max_abs/max " + ", ".join(errs)
+                  + f" (bar {BWD_TOL[dname]:g} x max); two runs bitwise equal; lse max_abs "
+                  f"{lse_err:.1e} (bar 1e-5), out with lse bitwise equal to out without: ok")
+            del q, k, v, do, out, lse, got, again, want
+    # K1's backward products at the training shapes: dX = dY W^T, dW = X^T dY
+    # through ops.linear's Function (M = 4096 a projection, 2048 the tied
+    # head's loss chunk), bf16.
+    rtol, atol = GEMM_TOL["bfloat16"]
+    for name, K, N, transposed in GEMM_SHAPES:
+        M = TRAIN_B * (LOSS_CHUNK if name == "head" else TRAIN_S)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+        w0 = (torch.randn((N, K) if transposed else (K, N), generator=g, device=dev)
+              * K ** -0.5).to(torch.bfloat16).requires_grad_()
+        w = w0.t() if transposed else w0
+        dy = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+        before = gemm.launches
+        dx, dw0 = torch.autograd.grad(ops.linear(x, w), (x, w0), dy)
+        check(gemm.launches - before == 3, f"gemm {name}: forward, dX, dW: three launches")
+        dw = dw0.t() if transposed else dw0
+        ex, _, okx = close(dx, gemm.gemm_plain(dy, w.detach().t(), torch.bfloat16), rtol, atol)
+        ew, _, okw = close(dw, gemm.gemm_plain(x.detach().t(), dy, torch.bfloat16), rtol, atol)
+        worst["gemm_bwd"] = max(worst["gemm_bwd"], ex, ew)
+        print(f"  gemm backward bf16 {name} M={M} {K}x{N}: dX max_abs={ex:.3e}, dW "
+              f"max_abs={ew:.3e} tol=(rtol {rtol:g}, atol {atol:g}) "
+              f"{'ok' if okx and okw else 'FAIL'}")
+        check(okx and okw, f"gemm backward {name}")
+        del x, w0, w, dy, dx, dw0, dw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_times_train(torch, fa, gemm):
+    """One train step's K5b (4 global + 22 window-512 layers at (4, 1024, 4 /
+    1, 256)) beside SDPA's backward (K/V repeated to the q heads
+    beforehand, forward untimed) and its operations bound; K1's forward,
+    dX and dW products at the training shapes beside torch.matmul, per
+    step (x 26 layers, the head x 2 chunks)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(15)
+    dt, B, S, Hq, Hkv, D = torch.bfloat16, TRAIN_B, TRAIN_S, 4, 1, 256
+    rows = {}
+    pos = torch.arange(S, device=dev)
+    for window in (None, 512):
+        q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                       for h in (Hq, Hkv, Hkv, Hq))
+        out, lse = fa._forward(q, k, v, True, window, True)
+        t_k = _time_ms(torch, [lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                              window=window)], 20)
+        t_p = _time_ms(torch, [lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                                    window=window)], 3,
+                       graph=False)
+        ql, kl, vl = (t.permute(0, 2, 1, 3).repeat_interleave(Hq // t.shape[2], 1)
+                      .detach().requires_grad_() for t in (q, k, v))
+        mask = None if window is None else \
+            (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=window is None,
+                                             attn_mask=mask)
+        do_l = do.permute(0, 2, 1, 3)
+        t_l = _time_ms(torch, [lambda: torch.autograd.grad(o_l, (ql, kl, vl), do_l,
+                                                           retain_graph=True)], 10, graph=False)
+        pairs = S * (S + 1) // 2 if window is None else sum(min(i + 1, window) for i in range(S))
+        nbytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 2 * 4 * B * Hq * S
+        bound, by = _bound(nbytes, 5 * 2 * B * Hq * D * pairs, PEAK_FLOPS["bfloat16"])
+        rows[window] = (t_k, t_p, t_l, bound, by)
+        print(f"  flash_attention_bwd bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
+              f"window={window}: kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
+              f"backward {t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+              f"{bound / t_k:.1%} of bound")
+        del q, k, v, do, out, lse, ql, kl, vl, o_l
+    step = [4 * rows[None][i] + 22 * rows[512][i] for i in range(4)]
+    rows["step"] = (*step, "operations")
+    print(f"[5] K5b per train step (4 global + 22 window-512 layers): kernel {step[0]:.3f} ms, "
+          f"plain {step[1]:.3f} ms, sdpa backward {step[2]:.3f} ms, bound {step[3]:.3f} ms")
+    per = {"fwd": [0.0] * 4, "dX": [0.0] * 4, "dW": [0.0] * 4}
+    for name, K, N, transposed in GEMM_SHAPES:
+        M = B * (LOSS_CHUNK if name == "head" else S)
+        times = 2 if name == "head" else 26
+        x = torch.randn((M, K), generator=g, device=dev).to(dt)
+        w = torch.randn((N, K) if transposed else (K, N), generator=g, device=dev).to(dt)
+        w = w.t() if transposed else w
+        dy = torch.randn((M, N), generator=g, device=dev).to(dt)
+        xt, wt = x.t(), w.t()
+        for label, a, b in (("fwd", x, w), ("dX", dy, wt), ("dW", xt, dy)):
+            Mi, Ki, Ni = a.shape[0], a.shape[1], b.shape[1]
+            t_k = _time_ms(torch, [lambda a=a, b=b: gemm.gemm(a, b, out_dtype=dt)], 10)
+            t_l = _time_ms(torch, [lambda a=a, b=b: torch.matmul(a, b)], 10)
+            t_p = _time_ms(torch, [lambda a=a, b=b: gemm.gemm_plain(a, b, dt)], 2, graph=False)
+            bound, by = _bound((Mi * Ki + Ki * Ni + Mi * Ni) * 2, 2 * Mi * Ki * Ni,
+                               PEAK_FLOPS["bfloat16"])
+            rows[("gemm", label, name)] = (t_k, t_p, t_l, bound, by)
+            for i, t in enumerate((t_k, t_p, t_l, bound)):
+                per[label][i] += times * t
+            print(f"  gemm bf16 {label} {name} ({Mi}x{Ki})@({Ki}x{Ni}): kernel "
+                  f"{t_k * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, plain "
+                  f"{t_p * 1e3:.1f} us, bound {bound * 1e3:.1f} us ({by}), "
+                  f"{bound / t_k:.1%} of bound")
+        del x, w, dy, xt, wt
+    total = [2 * per["fwd"][i] + per["dX"][i] + per["dW"][i] for i in range(4)]
+    rows["gemm_step"] = (*total, "operations")
+    print(f"[5] K1 per train step (forward and remat's recompute at M = 4096, dX, dW; head "
+          f"x 2 chunks at M = 2048): kernel {total[0]:.3f} ms (forward {per['fwd'][0]:.3f} x "
+          f"2, dX {per['dX'][0]:.3f}, dW {per['dW'][0]:.3f}), torch.matmul {total[2]:.3f} ms, "
+          f"plain {total[1]:.3f} ms, bound {total[3]:.3f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _train_argv(ckpt_dir, ckpt_every, *extra):
+    return ["--arch", "gemma3-1b", "--preset", "full", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+            "--ckpt-every", str(ckpt_every), "--ckpt-dir", str(ckpt_dir), *extra]
+
+
+def phase_train(torch, np, configs, M, mods):
+    """Phase 14: gemma3-1b whole through `repro_torch.launch.train`: a clean
+    run, then the same run with `--fail-at` (restored from the step-3
+    checkpoint): per-step losses bit for bit equal; launches per step as
+    planned; per-step ms, tokens/s, peak memory; one profiled step."""
+    import tempfile
+
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+
+    cfg = configs.get("gemma3-1b")
+    plan = train_plan(cfg)
+    counters = mods["counters"]
+    summary = {}
+    with tempfile.TemporaryDirectory() as tdir:
+        # The clean run checkpoints at its end only (12 GB of state a save,
+        # ~10 s); the restart run every TRAIN_CKPT steps.
+        for label, every, extra in (("clean", TRAIN_STEPS, ()),
+                                    ("restart", TRAIN_CKPT, ("--fail-at", str(TRAIN_FAIL)))):
+            per_step = []
+
+            def on_step(step, metrics, sec, per_step=per_step):
+                per_step.append((step, float(metrics["loss"]), sec * 1e3, read_counts(mods)))
+                counters.reset()
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(mods)
+            t0 = time.monotonic()
+            out = train.main(_train_argv(Path(tdir) / label, every, *extra), on_step=on_step)
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated()
+            ms = [s[2] for s in per_step]
+            med = _median(ms[1:])
+            print(f"  [{label}] {len(per_step)} steps in {wall:.1f}s (restarts "
+                  f"{out['restarts']}); per step: " + "; ".join(
+                      f"{s} loss {l:.6f} {t:.1f} ms " + " ".join(
+                          f"{k}={n}" for k, n in c.items() if n)
+                      for s, l, t, c in per_step))
+            print(f"  [{label}] median step after step 1 {med:.1f} ms, "
+                  f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, peak memory "
+                  f"{peak / 1e9:.2f} GB")
+            for s, _, _, c in per_step:
+                got = {k: c.get(k, 0) for k in plan}
+                check(got == plan, f"{label} step {s}: launches {got}, planned {plan}")
+                check(sum(c.values()) == sum(plan.values()),
+                      f"{label} step {s}: no other hand kernel: {c}")
+            summary[label] = {"steps": per_step, "median_ms": med, "peak": peak,
+                              "wall": wall}
+            if label == "clean":
+                summary["launches"] = {k: sum(c.get(k, 0) for *_, c in per_step)
+                                       for k in counters.COUNTERS}
+                # One more step of the trained model under torch.profiler.
+                step_fn = steps_lib.make_train_step(cfg, steps_lib.optimizer_config(cfg),
+                                                    base_lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+                from repro_torch.data import SyntheticLMData, to_device
+                batch = to_device(SyntheticLMData(cfg.vocab, TRAIN_B, TRAIN_S).batch_at(99),
+                                  "cuda")
+                state = [out["params"], out["opt_state"]]
+
+                def one_step():
+                    state[0], state[1], m = step_fn(state[0], state[1], batch)
+                    float(m["loss"])
+
+                one_step()
+                summary["profile"] = _profile_replays(torch, one_step, 1,
+                                                      label="train step")
+                del state, one_step, step_fn, batch
+            del out
+            torch.cuda.empty_cache()
+    clean = {s: l for s, l, _, _ in summary["clean"]["steps"]}
+    restart = summary["restart"]["steps"]
+    check(len(restart) == TRAIN_STEPS + (TRAIN_FAIL - TRAIN_CKPT),
+          f"the restart replays steps {TRAIN_CKPT + 1}-{TRAIN_FAIL}")
+    for s, l, _, _ in restart:
+        check(l == clean[s], f"step {s}: restart loss {l!r} == clean {clean[s]!r}")
+    print(f"  the restart (failure at step {TRAIN_FAIL}, restored from the step-{TRAIN_CKPT} "
+          f"checkpoint) gives the clean run's losses bit for bit at all "
+          f"{len(restart)} steps it ran: " + ", ".join(f"{s}: {l!r}" for s, l, _, _ in restart))
+    return summary
+
+
+def phase_train_parity(torch, np, configs, M):
+    """A 2-layer full-width gemma3-1b (one window-512 and one global layer),
+    f32: loss and every gradient leaf on the card (K1, K5, K5b) against the
+    CPU (plain versions), B 1 x S 768 (past the window)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, to_device
+
+    full = configs.get("gemma3-1b")
+    cfg = dataclasses.replace(full, n_layers=2, group_size=2, local_ratio=1, dtype="float32")
+    reduced = {"n_layers": [full.n_layers, 2], "group_size": [full.group_size, 2],
+               "local_ratio": [full.local_ratio, 1], "dtype": [full.dtype, "float32"]}
+    batch = SyntheticLMData(cfg.vocab, 1, 768).batch_at(0)
+    params = M.init_model(cfg, seed=0, device="cpu")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_lib.map_tree(lambda t: t.to(dev).requires_grad_(True), params)
+        leaves = tree_lib.leaves(p)
+        t0 = time.monotonic()
+        loss = M.loss_fn(p, cfg, to_device(batch, dev))
+        grads = torch.autograd.grad(loss, leaves)
+        res[dev] = (float(loss), [gr.detach().cpu() for gr in grads], time.monotonic() - t0)
+        del p, leaves, loss, grads
+    (lg, gg, tg), (lc, gc, tc) = res["cuda"], res["cpu"]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(gg, gc))
+    print(f"  gemma3-1b reduced {json.dumps(reduced)}, B 1 x S 768: loss card {lg!r} vs CPU "
+          f"{lc!r} (rel {abs(lg - lc) / abs(lc):.1e}, bar 1e-5); {len(gg)} gradient leaves, "
+          f"worst max_abs / leaf max {worst:.2e} (bar 1e-4); card {tg:.1f}s, CPU {tc:.1f}s")
+    check(abs(lg - lc) <= 1e-5 * abs(lc), "2-layer f32 loss, card vs CPU")
+    check(worst <= 1e-4, "2-layer f32 gradients, card vs CPU")
+    torch.cuda.empty_cache()
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -4382,11 +4728,15 @@ def main() -> int:
     worst_encdec = phase_kernels_encdec(torch, gemm, fa)
     for k, v in worst_encdec.items():
         worst[k] = max(worst[k], v)
+    print(f"[2] the training path's kernels: K5b, the forward's lse, K1's dX / dW {stamp()}")
+    worst.update(phase_kernels_train(torch, fa, gemm, ops))
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print(f"[3] full-width gemma3-1b engine run (26 layers, bf16) {stamp()}")
     summary = phase_engine(*engine_args, profile=True)
     print(f"[3b] the same run in w8a8 with an int8 KV pool {stamp()}")
-    summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8", profile=True)
+    summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8", profile=True,
+                            traffic=gemma_traffic_cut, reduced=CUT_3CD,
+                            replay_traffic=gemma_traffic)
     print(f"[3c] the same run in calibrated w8a8 with an int8 KV pool {stamp()}")
     summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8",
                                traffic=gemma_traffic_cut, reduced=CUT_3CD,
@@ -4451,12 +4801,15 @@ def main() -> int:
           f"sdpa {agg['flash_attention'][2]:.3f})")
     print(f"[5] whisper-medium's K5 shapes and the encdec / vlm K1 shapes {stamp()}")
     rows_ed = phase_times_encdec(torch, gemm, fa)
+    print(f"[5] the training path: K5b and K1's products per train step {stamp()}")
+    rows_tr = phase_times_train(torch, fa, gemm)
     print(f"[8a] qwen3-14b at published widths (40 layers, bf16), float {stamp()}")
     summary_qf = phase_engine(*engine_args, arch="qwen3-14b", n_layers=40,
-                              traffic=qwen3_traffic, profile=True)
+                              traffic=qwen3_traffic, profile=True, reduced=CUT_8)
     print(f"[8b] qwen3-14b at published widths, w8a8 with an int8 KV pool {stamp()}")
     summary_q8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8",
-                              arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic)
+                              arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic,
+                              reduced=CUT_8)
     print(f"[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold) {stamp()}")
     phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa)
     print("[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
@@ -4480,6 +4833,12 @@ def main() -> int:
     summary12 = phase12(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant)
     print(f"[13] the cluster layer: replicas on one card {stamp()}")
     summary13 = phase13(torch, np, configs, M, Engine, RequestSpec, mods)
+    print(f"[14] the training path: gemma3-1b at published widths through "
+          f"repro_torch.launch.train (B {TRAIN_B} x S {TRAIN_S}, {TRAIN_STEPS} steps, bf16, "
+          f"AdamW f32 moments) {stamp()}")
+    summary14 = phase_train(torch, np, configs, M, mods)
+    print(f"[14b] a 2-layer full-width gemma3-1b train step in f32: card vs CPU {stamp()}")
+    phase_train_parity(torch, np, configs, M)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -4556,6 +4915,26 @@ def main() -> int:
             "max_abs_err": worst_encdec[kernel], "ms": t_k, "plain_ms": t_p,
             "bound_ms": bound, "bound_by": by, "library_ms": t_l, "tuner_launches": 0,
             "cluster_launches": 0})
+    # The training path (phase 14): K5b per train step, and K1's products of a
+    # train step; launches are the clean train run's.
+    for name, src, replaces, per, key, err in (
+            ("flash_attention_bwd", "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:28 (differentiated by jax.value_and_grad "
+             "under jax.checkpoint, src/repro/models/attention.py:103-109; no backward kernel "
+             "of its own)",
+             "one gemma3-1b train step's attention backward: 4 global + 22 window-512 layers, "
+             "B=4, S=1024, Hq=4, Hkv=1, D=256, bf16", "step", "flash_attention_bwd"),
+            ("gemm:train_step", "gemm.cu", "src/repro/kernels/gemm.py:33",
+             "one gemma3-1b train step's GeMMs: the forward and remat's recompute (26 x "
+             "(q,k,v,o,gate,up,down) at M=4096, the tied head x 2 loss chunks at M=2048), "
+             "dX and dW of each, bf16", "gemm_step", "gemm_bwd")):
+        t_k, t_p, t_l, bound, by = rows_tr[key]
+        kernel = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": summary14["launches"][kernel],
+            "max_abs_err": worst[err], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
         f"cluster_launches={k['cluster_launches']} "
@@ -4586,6 +4965,14 @@ def main() -> int:
               + "; launches per verify replay " + "; ".join(
                   f"verify{w}: " + " ".join(f"{k}={v}" for k, v in per.items())
                   for w, per in x["launches"].items()))
+    c14 = summary14["clean"]
+    tok_s = TRAIN_B * TRAIN_S / c14["median_ms"] * 1e3
+    print(f"[7] 14 train step (gemma3-1b, B {TRAIN_B} x S {TRAIN_S}, bf16): median "
+          f"{c14['median_ms']:.1f} ms after step 1, {tok_s:.0f} tokens/s, peak memory "
+          f"{c14['peak'] / 1e9:.2f} GB; per step "
+          + " ".join(f"{k}={v}" for k, v in train_plan(configs.get('gemma3-1b')).items())
+          + f"; profiled step: hand kernels {summary14['profile']['hand_ms']:.1f} ms of "
+          f"{summary14['profile']['kernel_ms']:.1f} ms kernel time")
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -2,12 +2,13 @@
 
 The JAX package `repro` is the reference; this package mirrors its
 subpackage layout (`configs`, `models`, `kernels`, `serving`, `cluster`,
-`launch`) so each module names its counterpart.  It imports `torch` and
+`launch`, and for training `optim`, `data`, `checkpoint`, `runtime`) so
+each module names its counterpart.  It imports `torch` and
 numpy only —
 never `jax`, never `repro` — and every Pallas TPU kernel on its path is a
 hand-written CUDA kernel under `kernels/csrc/`.
 
-Entry points (`Engine`, `launch.serve`, `init_model`) run on the card by
+Entry points (`Engine`, `launch.serve`, `launch.train`, `init_model`) run on the card by
 default and raise when no CUDA device is present; pass ``device="cpu"`` to
 run the kernels' plain PyTorch versions instead.
 """

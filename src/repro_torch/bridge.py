@@ -3,7 +3,11 @@
 The reference makes parameters with `jax.random` and stacks each group's
 layers on a leading n_groups axis; a test converts that tree to numpy
 (`jax.tree_util.tree_map(np.asarray, params)`) and hands it here, so both
-packages compute on the same numbers.  This module imports no JAX.
+packages compute on the same numbers.  Any tree of the parameters'
+structure crosses the same way: the reference's gradients
+(`jax.value_and_grad(loss_fn)`) and its AdamW moments `m` / `v` (float
+or bf16 state) come out in the port's layout, which is how the training
+tests compare them leaf by leaf.  This module imports no JAX.
 """
 
 from __future__ import annotations

@@ -50,6 +50,11 @@
 // tensor cores is the reference's f32 dot up to summation order, while
 // rounding bf16(q * scale) would change q whenever the scale is not a power
 // of two).
+//
+// Training asks for one more output, each row's log-sum-exp m + log(l)
+// (B, Hq, Sq) in f32, which the backward (csrc/flash_attention_bwd.cuh)
+// recomputes the probabilities from; with a null pointer, as every serving
+// path passes, nothing more is written and the output's bits do not change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,8 +155,8 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 template <int D>
 __global__ void __launch_bounds__(NT, 1) mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-    float scale) {
+    bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+    int causal, int window, float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int GT = NT / 2;              // threads per warp group
@@ -341,6 +346,9 @@ __global__ void __launch_bounds__(NT, 1) mma_kernel(
     a0[x] = expf(m_r[x] - m);
     a1[x] = expf(m1 - m);
     l_r[x] = fmaxf(l_r[x] * a0[x] + l1 * a1[x], 1e-30f);
+    // The backward's log-sum-exp (B, Hq, Sq), when asked for.
+    if (lse != nullptr && t4 == 0 && row0 + 8 * x < Sq)
+      lse[((long long)b * Hq + h) * Sq + row0 + 8 * x] = m + logf(l_r[x]);
   }
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
@@ -358,8 +366,8 @@ __global__ void __launch_bounds__(NT, 1) mma_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   auto kern = mma_kernel<D>;
   constexpr size_t smem = Tile<D>::SMEM;
   // Raise the dynamic shared-memory cap once, never per launch: launches
@@ -373,8 +381,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                   static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq,
-                                   Skv, Hq, Hkv, causal, window, scale);
+                                   static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
+                                   Sq, Skv, Hq, Hkv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,8 +405,8 @@ constexpr int BK = 32;           // keys per K/V tile
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal,
-    int window, float scale) {
+    T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+    int causal, int window, float scale) {
   constexpr int RSTEP = NT / D;
   constexpr int RPT = BQ / RSTEP;       // output rows per thread
   constexpr int SROWS = BQ * BK / NT;   // score rows per thread
@@ -498,7 +506,12 @@ __global__ void __launch_bounds__(NT) flash_kernel(
     for (int i = 0; i < RPT; ++i) acc[i] = acc[i] * alpha_s[r_own + RSTEP * i] + pv[i];
   }
 
-  if (tid < BQ) l_s[tid] = l_run;
+  if (tid < BQ) {
+    l_s[tid] = l_run;
+    // The backward's log-sum-exp (B, Hq, Sq), when asked for.
+    if (lse != nullptr && q0 + tid < Sq)
+      lse[((long long)b * Hq + h) * Sq + q0 + tid] = m_run + logf(fmaxf(l_run, 1e-30f));
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -510,8 +523,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)BQ * D + (size_t)BK * (D + 1) + (size_t)BK * D + (size_t)BQ * BK + 2 * BQ);
   auto kern = flash_kernel<float, D>;
@@ -526,22 +539,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                   static_cast<const float*>(v), static_cast<float*>(out), Sq,
-                                   Skv, Hq, Hkv, causal, window, scale);
+                                   static_cast<const float*>(v), static_cast<float*>(out), lse,
+                                   Sq, Skv, Hq, Hkv, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace simt
 
-int launch_d(int dtype_code, const void* q, const void* k, const void* v, void* out, int B,
-             int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window, float scale,
-             cudaStream_t st) {
+int launch_d(int dtype_code, const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
+             float scale, cudaStream_t st) {
 #define FLASH_CASE(DIM)                                                                   \
   case DIM:                                                                               \
     return dtype_code == 1                                                                \
-               ? mma::launch<DIM>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,     \
+               ? mma::launch<DIM>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, \
                                   scale, st)                                              \
-               : simt::launch<DIM>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, window,    \
+               : simt::launch<DIM>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,\
                                    scale, st);
   switch (D) {
     FLASH_CASE(64)
@@ -556,14 +569,17 @@ int launch_d(int dtype_code, const void* q, const void* k, const void* v, void* 
 }  // namespace
 
 // q, out (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); all contiguous and 16-byte
-// aligned, in dtype_code's dtype (0 = float32, 1 = bfloat16).  Hq a multiple
-// of Hkv; D in {64, 128, 256}; window <= 0 means no sliding window.  Returns
+// aligned, in dtype_code's dtype (0 = float32, 1 = bfloat16).  lse: null, or
+// (B, Hq, Sq) f32 that receives each row's m + log(l), the log-sum-exp the
+// backward (csrc/flash_attention_bwd.cuh) recomputes the probabilities from;
+// serving passes null and the kernel writes nothing more.  Hq a multiple of
+// Hkv; D in {64, 128, 256}; window <= 0 means no sliding window.  Returns
 // the launch's cudaError_t (0 = success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                                      int D, int causal, int window, float scale,
+                                      void* out, void* lse, int B, int Sq, int Skv, int Hq,
+                                      int Hkv, int D, int causal, int window, float scale,
                                       int dtype_code, void* stream) {
   if (dtype_code != 0 && dtype_code != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d(dtype_code, q, k, v, out, B, Sq, Skv, Hq, Hkv, D, causal, window, scale,
-                  static_cast<cudaStream_t>(stream));
+  return launch_d(dtype_code, q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
+                  causal, window, scale, static_cast<cudaStream_t>(stream));
 }

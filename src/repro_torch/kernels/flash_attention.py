@@ -16,6 +16,20 @@ PV) as an online-softmax walk over kv blocks of `block_kv` keys.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
 tensor runs the plain version.  No fallback on the card.
+
+Training: when grad mode is on and q, k or v requires a gradient,
+`flash_attention` runs through the autograd Function `_FlashAttention`.
+Its forward launches K5 with one more output, each row's log-sum-exp
+`lse` (B, Hq, Sq) f32; its backward is `flash_attention_bwd`, the hand
+kernel `csrc/flash_attention_bwd.cuh` (K5b, built as `flash_attention_bwd.cu`
+for bf16 and `flash_attention_bwd_f32.cu` for f32: Delta, then dK / dV, then dQ,
+recomputing the probabilities from `lse`, sums in a fixed order) on the
+card and `flash_attention_bwd_plain` on the CPU.  Every other call (serving,
+calibration, anything under no_grad or inference_mode) launches K5 with a
+null `lse`, as before.  The reference has no backward kernel: it
+differentiates through its Pallas kernel under `jax.checkpoint`
+(repro/models/attention.py:103-109); K5b recomputes P from `lse`, so the
+Function saves only q, k, v, out and lse.
 """
 
 from __future__ import annotations
@@ -27,9 +41,12 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# Launches of the CUDA kernel since the last reset (the plain version never
-# counts): the proof that a run went through the kernel.
+# Launches of the CUDA kernels since the last reset (the plain versions never
+# count): the proof that a run went through the kernels.  `launches` counts
+# K5, `bwd_launches` K5b (one per backward call: its three kernels on one
+# stream).
 launches = 0
+bwd_launches = 0
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)   # instantiated in csrc/flash_attention.cu
@@ -37,26 +54,84 @@ _INT_MAX = 2**31 - 1
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, bwd_launches
+    launches = bwd_launches = 0
 
 
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# K5b's bf16 (tensor-core) and f32 (SIMT) bodies build from two sources.
+_BWD_SOURCES = {torch.bfloat16: ("flash_attention_bwd", "flash_attention_bwd_launch"),
+                torch.float32: ("flash_attention_bwd_f32", "flash_attention_bwd_f32_launch")}
+
+
+def _bwd_lib(dtype: torch.dtype):
+    source, entry = _BWD_SOURCES[dtype]
+    fn = getattr(_build.load(source), entry)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          block_kv: int = 512) -> torch.Tensor:
+                          block_kv: int = 512, return_lse: bool = False):
     """The kernel's function in plain PyTorch (kv blocks of `block_kv` keys,
-    the reference kernel's default tile)."""
+    the reference kernel's default tile); with `return_lse`, (out, lse) with
+    lse (B, Hq, Sq) f32 = m + log(l) of each row, as the kernel writes it."""
     return ref.blockwise_attention_ref(q, k, v, causal=causal, window=window,
-                                       block_kv=block_kv, scale_in_f32=True)
+                                       block_kv=block_kv, scale_in_f32=True,
+                                       return_lse=return_lse)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, window: Optional[int] = None):
+    """K5b's function in plain PyTorch: (dq, dk, dv) in q's, k's and v's
+    dtypes from the forward's out and lse (B, Hq, Sq).  P = exp(S * scale -
+    lse) where the forward's mask is live, else 0; Delta = rowsum(dO * O);
+    dS = P * (dP - Delta); P is rounded to v's dtype before dV = P^T dO
+    and dS to q's before dQ = scale dS K and dK = scale dS^T Q, as the
+    kernel feeds its products.  The G q heads of a kv head sum into its
+    dK, dV."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    f32 = torch.float32
+    dev = q.device
+
+    def heads(t):    # (B, S, Hq, D) -> (B, Hkv, G, S, D) in f32
+        return t.to(f32).reshape(B, t.shape[1], Hkv, G, D).permute(0, 2, 3, 1, 4)
+
+    qf, dof, of = heads(q), heads(dout), heads(out)
+    kf, vf = (t.to(f32).permute(0, 2, 1, 3) for t in (k, v))      # (B, Hkv, Skv, D)
+    qpos, kpos = torch.arange(Sq, device=dev), torch.arange(Skv, device=dev)
+    live = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        live &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        live &= (qpos[:, None] - kpos[None, :]) < window
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * scale
+    lse = lse.to(f32).reshape(B, Hkv, G, Sq)
+    p = torch.where(live, torch.exp(s - lse[..., None]), torch.zeros((), device=dev))
+    delta = (dof * of).sum(dim=-1)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(v.dtype).to(f32), dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = (p * (dp - delta[..., None])).to(q.dtype).to(f32)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    return dq, dk.permute(0, 2, 1, 3).to(k.dtype), dv.permute(0, 2, 1, 3).to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -73,39 +148,123 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D), query and
-    key positions both from 0: out (B, Sq, Hq, D) in q's dtype."""
+    key positions both from 0: out (B, Sq, Hq, D) in q's dtype.
+    Differentiable (K5b) when grad mode is on and an input requires grad."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash attention window must be >= 1, got {window}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, False)[0]
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+    """(out, lse or None) on q's device: the kernel or the plain version."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        got = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    return_lse=with_lse)
+        return got if with_lse else (got, None)
+    _on_card(q)
+    return _flash_cuda(q, k, v, causal, window, with_lse)
+
+
+def _on_card(q: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash attention: no kernel for device {q.device}")
-    return _flash_cuda(q, k, v, causal, window)
 
 
-def _flash_cuda(q, k, v, causal: bool, window: Optional[int]) -> torch.Tensor:
-    global launches
+def _kernel_operands(what: str, q, k, v):
+    """(B, Sq, Skv, Hq, Hkv, D) of a launch, or raise on what the kernels do
+    not take."""
     if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash attention kernel takes f32/bf16 q, k, v of one "
+        raise TypeError(f"{what} kernel takes f32/bf16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     if D not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head_dim {D} not in {_HEAD_DIMS}")
+        raise ValueError(f"{what} kernel: head_dim {D} not in {_HEAD_DIMS}")
     if min(B, Sq, Skv) < 1 or max(q.numel(), k.numel()) > _INT_MAX:
-        raise ValueError(f"flash attention kernel shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{what} kernel shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)} out of range")
-    # 16-byte copies: a contiguous view that starts off a 16-byte boundary is
-    # copied (fresh allocations are aligned).
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
-        memory_format=torch.contiguous_format) for t in (q, k, v))
+    return B, Sq, Skv, Hq, Hkv, D
+
+
+def _aligned(*ts):
+    """16-byte copies: a tensor that is not contiguous, or a contiguous view
+    that starts off a 16-byte boundary, is copied (fresh allocations are
+    aligned)."""
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in ts)
+
+
+def _flash_cuda(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+    global launches
+    B, Sq, Skv, Hq, Hkv, D = _kernel_operands("flash attention", q, k, v)
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, Hq, Hkv, D, int(causal),
                  0 if window is None else int(window), D ** -0.5, _CODES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {err}")
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None):
+    """(dq, dk, dv) of `flash_attention` from its out and lse (B, Hq, Sq) f32
+    and the output's gradient dout: K5b on the card, the plain version on
+    the CPU."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (
+            q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"flash attention backward shapes out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}, lse {tuple(lse.shape)} for q "
+                         f"{tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                         window=window)
+    _on_card(q)
+    return _bwd_cuda(q, k, v, out, lse, dout, causal, window)
+
+
+def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: Optional[int]):
+    global bwd_launches
+    B, Sq, Skv, Hq, Hkv, D = _kernel_operands("flash attention backward", q, k, v)
+    if out.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError(f"flash attention backward: out {out.dtype}, lse {lse.dtype}")
+    q, k, v, out, lse, dout = _aligned(q, k, v, out, lse, dout.to(q.dtype))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    err = _bwd_lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal),
+                            0 if window is None else int(window), D ** -0.5,
+                            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash attention backward launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K5 forward with lse, K5b backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

@@ -23,6 +23,7 @@ COUNTERS = {
     "quantize_rows": (quant, "launches"),
     "flash_decode_int8": (flash_decode, "launches_int8"),
     "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention, "bwd_launches"),
     "gemm_pipelined": (gemm_pipelined, "launches"),
 }
 

@@ -25,6 +25,17 @@ then K3 above; float weights under quant="int8" take K4, then K3.
 The kernels mask ragged edges themselves, so the reference's tile padding
 (`_pad2`) has no counterpart.
 
+Training: when grad mode is on and an operand requires a gradient, the
+float path of `linear` and `gemm` runs through the autograd Function
+`_FloatGemm`, whose backward is two more launches of the same kernel (K1,
+or K6 under "pipelined"): dA = dC @ B^T (B^T is a K-major B, read in
+place) and dB = A^T @ dC (A^T is re-laid by `gemm.rows_for_copies`,
+counted in `gemm.relaid`).  The reference differentiates through its
+kernel call with `jax.value_and_grad` (launch/steps.py:36).  Every other
+call, every serving path and every captured graph, launches as before.
+The int8 paths (`QuantTensor`, quant="int8", the w8a8 GeMM) have no
+backward and raise if asked for one: the reference trains in float.
+
 A call that names no launch plan takes the hand rule's, unless the tile
 autotuner is enabled (repro_torch.tuning: `enable()`, the engine's
 `autotune=True`, or REPRO_AUTOTUNE=1): then `_dispatch_spec` asks it for
@@ -106,12 +117,54 @@ def _float_kernel(backend: Optional[str]) -> str:
     return _DEFAULT_BACKEND if backend is None else _check_backend(backend)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _no_backward(what: str) -> RuntimeError:
+    return RuntimeError(f"{what} has no backward: the port trains in float, as the "
+                        f"reference does")
+
+
+class _FloatGemm(torch.autograd.Function):
+    """C = A @ B through one float GeMM kernel `fn` (K1 or K6; the plain
+    version on the CPU), C in `out_dtype`.  Backward: dA = dC @ B^T in A's
+    dtype and dB = A^T @ dC in B's, each one more launch of `fn`, dC first
+    rounded to the operands' dtype (the kernels take one dtype for both)."""
+
+    @staticmethod
+    def forward(ctx, a, b, fn, kernel, out_dtype, spec):
+        ctx.save_for_backward(a, b)
+        ctx.fn, ctx.kernel = fn, kernel
+        if spec is None:
+            spec = _dispatch_spec(a, b, a.dtype, kernel)
+        return fn(a, b, out_dtype=out_dtype, spec=spec)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        fn, kernel = ctx.fn, ctx.kernel
+        dc = dc.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.t()
+            da = fn(dc, bt, out_dtype=a.dtype, spec=_dispatch_spec(dc, bt, dc.dtype, kernel))
+        if ctx.needs_input_grad[1]:
+            at = a.t()
+            db = fn(at, dc, out_dtype=b.dtype, spec=_dispatch_spec(at, dc, dc.dtype, kernel))
+        return da, db, None, None, None, None
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, backend: Optional[str] = None,
          spec: Optional[GemmLaunchSpec] = None) -> torch.Tensor:
     """C = A @ B, a (M, K), b (K, N): int8 inputs accumulate to int32,
     floats to f32, through the backend's kernel, at `spec` (None: the
-    tuner's plan when tuning is enabled, else the rule's)."""
+    tuner's plan when tuning is enabled, else the rule's).  Float operands
+    that need a gradient go through `_FloatGemm`."""
     fn = _resolve(backend)
+    if _needs_grad(a, b):
+        return _FloatGemm.apply(a, b, fn, _float_kernel(backend), torch.float32, spec)
     if spec is None:
         spec = _dispatch_spec(a, b, a.dtype, _float_kernel(backend))
     return fn(a, b, spec=spec)
@@ -164,6 +217,8 @@ def linear(x: torch.Tensor, w, *, quant: Optional[str] = None,
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if isinstance(w, QuantTensor):
+        if _needs_grad(x2):
+            raise _no_backward("an int8-resident weight (the w8a8 GeMM)")
         act = w.act_scale if _modes.is_calibrated() else None
         out = _gemm_int8.gemm_w8a8(x2, w.q, w.scale, act, out_dtype=x.dtype,
                                    spec=_dispatch_spec(x2, w.q, "int8", "w8a8"))
@@ -171,14 +226,20 @@ def linear(x: torch.Tensor, w, *, quant: Optional[str] = None,
     if quant is None:
         quant = _modes.default_quant()
     if quant == "int8":
+        if _needs_grad(x2, w):
+            raise _no_backward('linear(quant="int8")')
         xq, sx = quantize(x2, axis=-1)
         wq, sw = ref.quantize_ref(w, axis=0)
         out = _gemm_int8.dequant_gemm(xq, wq, sx, sw.reshape(1, -1), out_dtype=x.dtype,
                                       spec=_dispatch_spec(xq, wq, "int8", "dequant"))
     elif quant in (None, "none"):
         w = w.to(x2.dtype)
-        out = _resolve(backend)(x2, w, out_dtype=x.dtype,
-                                spec=_dispatch_spec(x2, w, x2.dtype, _float_kernel(backend)))
+        if _needs_grad(x2, w):
+            out = _FloatGemm.apply(x2, w, _resolve(backend), _float_kernel(backend),
+                                   x.dtype, None)
+        else:
+            out = _resolve(backend)(x2, w, out_dtype=x.dtype,
+                                    spec=_dispatch_spec(x2, w, x2.dtype, _float_kernel(backend)))
     else:
         raise ValueError(f"unknown quant mode {quant!r}")
     return out.reshape(*lead, w.shape[-1])

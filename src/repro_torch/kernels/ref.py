@@ -66,7 +66,7 @@ def blockwise_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
                             causal: bool, window=None, q_offset=0,
                             prefix_len: int = 0, softcap=None,
                             block_kv: int = 512,
-                            scale_in_f32: bool = True) -> torch.Tensor:
+                            scale_in_f32: bool = True, return_lse: bool = False):
     """Online-softmax attention over kv blocks of `block_kv` keys: q (B, Sq,
     Hq, D) at positions q_offset + t, k/v (B, Skv, Hkv, D) at 0..Skv-1, GQA
     groups kept explicit.  Masks: causal (bidirectional over a prefix of
@@ -77,7 +77,10 @@ def blockwise_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
     `scale_in_f32` scales q by D^-0.5 after the cast to f32, as the flash
     kernel does (kernels/flash_attention.py:41); without it q is scaled in
     its own dtype first, as the reference's XLA blockwise path does
-    (models/attention.py:143)."""
+    (models/attention.py:143).
+
+    `return_lse` returns (out, lse) with lse (B, Hq, Sq) f32 = m + log(l)
+    of each row, l clamped at 1e-30 as the division clamps it."""
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -115,5 +118,9 @@ def blockwise_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *
                           vb.to(torch.float32))
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    l = torch.clamp_min(l, 1e-30)
+    out = acc / l[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(B, Hq, Sq)
+    return out

@@ -1,5 +1,13 @@
-"""The unpaged serve step (port of repro/launch/steps.py::make_serve_step)
-and its CUDA graph.
+"""The train step (port of repro/launch/steps.py: `optimizer_config`,
+`make_train_step`), the unpaged serve step (`make_serve_step`) and its
+CUDA graph.
+
+The reference jits `make_train_step`: `jax.value_and_grad(M.loss_fn)`,
+the warmup-cosine learning rate at the optimizer's count, then AdamW.  The
+port's step runs the same three eagerly: the loss, `torch.autograd.grad`
+over every parameter leaf (through the hand kernels' Functions: K1 for
+every projection and the tied head, K5 / K5b for attention), then the
+in-place `adamw_update`.  A CUDA graph of the whole step is later work.
 
 The reference jits `make_serve_step(cfg)`; the port's counterpart on the
 card is one CUDA graph of the step over one `DecodeState`
@@ -11,13 +19,47 @@ graph serves one (batch, max_seq) and one batch of encoder frames.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import launches
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+
+
+def optimizer_config(cfg: ArchConfig) -> AdamWConfig:
+    # Sub-fp32 moments for models whose fp32 state would not fit device memory.
+    big = cfg.param_count() > 8e9
+    return AdamWConfig(state_dtype="bfloat16" if big else "float32")
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    base_lr: float = 3e-4, total_steps: int = 100_000):
+    """train_step(params, opt_state, batch) -> (params, opt_state, {"loss",
+    "lr"}): the parameters and moments update in place (optim/adamw.py),
+    `opt_state["count"]` advances.  Every parameter leaf is marked as
+    requiring a gradient at the step's first call on it; a leaf the loss
+    does not reach gets a zero gradient, as `jax.value_and_grad` gives."""
+    opt_cfg = opt_cfg or optimizer_config(cfg)
+    sched = warmup_cosine(base_lr, warmup=min(2000, total_steps // 10), total=total_steps)
+
+    def train_step(params, opt_state, batch):
+        leaves = tree_lib.leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = M.loss_fn(params, cfg, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        lr = sched(opt_state["count"])
+        params, opt_state = adamw_update(grads, opt_state, params, lr, opt_cfg)
+        return params, opt_state, {"loss": loss.detach(), "lr": lr}
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig):

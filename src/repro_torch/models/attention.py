@@ -99,9 +99,13 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Where the reference hands the whole sequence to its flash kernel (no q
     offset, no prefix, no softcap: models/attention.py:103-109) this calls
     `kernels.flash_attention`: K5 on the card, its plain version on the
-    CPU.  Otherwise it is the reference's XLA blockwise online softmax over
-    kv blocks of `block_kv` keys, in plain PyTorch (the reference has no
-    Pallas kernel there either)."""
+    CPU.  When training, that call runs through its autograd Function (K5
+    with the log-sum-exp, then the hand backward K5b); the reference wraps
+    its kernel in `jax.checkpoint`, and K5b recomputes P from the
+    log-sum-exp, so nothing more is saved.  Otherwise it is the
+    reference's XLA blockwise online softmax over kv blocks of `block_kv`
+    keys, in plain PyTorch (the reference has no Pallas kernel there
+    either; no training path of this slice reaches it)."""
     plain_offset = isinstance(q_offset, int) and q_offset == 0
     if plain_offset and not prefix_len and softcap is None:
         return fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -97,6 +97,7 @@ class ArchConfig:
 
     # numerics
     dtype: str = "bfloat16"
+    remat: bool = True                      # activation checkpointing per group (training)
 
     # layer grouping (the reference scans groups; the port keeps a flat list
     # whose layer g * group_size + i has kind layer_kinds()[i])

@@ -91,7 +91,11 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """table[tokens], through `F.embedding`: the same gather forward, and a
+    backward that sums the rows' gradients by sorting the indices (the
+    same bits run to run on the card), where indexing's backward is an
+    accumulating scatter."""
+    return F.embedding(tokens, table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

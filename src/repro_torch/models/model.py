@@ -1,5 +1,6 @@
 """Model assembly (port of repro/models/model.py: `init_model`, the unpaged
-`forward` and `trunk`, whisper's `_run_encoder`, the unpaged decode path
+`forward` and `trunk`, the training `loss_fn` (groups under activation
+checkpointing when `cfg.remat`), whisper's `_run_encoder`, the unpaged decode path
 (`DecodeState`, `init_decode_state`, `decode_step`, `prefill`), the paged
 decode state, `paged_decode_step`, `prefill_chunk`, `reset_slots`, the
 speculative `paged_verify_step`, and the sampling head: `_adjusted_logits`,
@@ -55,6 +56,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels import gemm
@@ -170,11 +172,22 @@ def group_layers(params: dict, cfg: ArchConfig, g: int) -> list:
 def _run_groups(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
                 positions: torch.Tensor, prefix_len: int = 0,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every group over x.  When training (`cfg.remat`, grad mode on and x
+    carrying a gradient) each group runs under `torch.utils.checkpoint`, as
+    the reference wraps its scanned group body in `jax.checkpoint`: the
+    backward recomputes inside a group, so activation memory stays at the
+    groups' inputs.  Serving and no_grad calls run the groups plainly."""
+    remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad
     for g in range(cfg.n_groups):
-        x = blocks.apply_group(x, group_layers(params, cfg, g), cfg,
-                               positions=positions, prefix_len=prefix_len,
-                               encoder_out=encoder_out)
+        def run(h, lg=group_layers(params, cfg, g)):
+            return blocks.apply_group(h, lg, cfg, positions=positions,
+                                      prefix_len=prefix_len, encoder_out=encoder_out)
+        x = _checkpoint(run, x) if remat else run(x)
     return x
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _run_encoder(frames: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -220,6 +233,43 @@ def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     if last_only:
         x = x[:, -1:]
     return _unembed(x, params, cfg)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy of batch["tokens"] against batch["labels"]
+    (B, S), weighted by batch["mask"] (ones by default), over sequence
+    chunks (port of the reference's `loss_fn`, models/model.py:178-212):
+    the chunk halves until it divides S; each chunk's unembedding, f32
+    log-softmax and gather run under `torch.utils.checkpoint` when grad
+    mode is on (the reference's jax.checkpoint on the chunk body), so the
+    (B, chunk, vocab) f32 logits live one chunk at a time.  Returns
+    -sum(ll * mask) / max(sum(mask), 1), the per-chunk sums added in
+    chunk order."""
+    x = trunk(params, cfg, batch)                       # (B, S, d)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+            if mask is None else mask.to(torch.float32))
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+
+    def chunk_loss(xc, lc, mc):
+        logits = _unembed(xc, params, cfg).to(torch.float32)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, lc[..., None])[..., 0]
+        return torch.sum(ll * mc), torch.sum(mc)
+
+    grad = torch.is_grad_enabled()
+    lls, ms = [], []
+    for c0 in range(0, S, chunk):
+        part = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
+        ll, m = _checkpoint(chunk_loss, *part) if grad else chunk_loss(*part)
+        lls.append(ll)
+        ms.append(m)
+    return -torch.sum(torch.stack(lls)) / torch.clamp_min(torch.sum(torch.stack(ms)), 1.0)
 
 
 def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:

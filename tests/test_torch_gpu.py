@@ -4,6 +4,7 @@ Imports no JAX, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 Every test here is marked `gpu` and skips without a CUDA device."""
 
+import dataclasses
 import time
 
 import numpy as np
@@ -1507,3 +1508,149 @@ def test_cold_shape_in_started_pool_runs_eagerly(cuda_device):
     np.testing.assert_array_equal(got, want)
     assert eng.metrics.cold_compiles >= 1
     assert "decode_sample" not in eng.step_graphs and "decode_sample" in eng._warmed
+
+
+# -- the training path: K5b, the lse output, K1's backward, a train step --------
+
+BWD_CASES = [  # (B, S, Hq, Hkv, D, causal, window): ragged S, GQA / MQA, windows
+    (1, 32, 4, 1, 64, True, None),
+    (2, 100, 4, 2, 128, True, None),
+    (1, 1000, 2, 1, 64, True, 200),
+    (2, 300, 4, 1, 256, True, None),
+    (2, 300, 4, 1, 256, True, 64),
+    (1, 100, 4, 4, 256, False, None),
+    (2, 37, 2, 1, 128, True, 16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_matches_plain(cuda_device, dtype):
+    """K5b through the autograd Function against `flash_attention_bwd_plain`
+    on the kernel's own out and lse: f32 within 1e-5 of each gradient's
+    largest element (sums reordered), bf16 within 2^-7 of it (P and dS
+    round to bf16 in both, the sums in other orders); two runs give the
+    same bits (no atomics); the lse within 1e-5 of the plain forward's, and
+    asking for it leaves the output's bits as they were."""
+    rng = np.random.default_rng(5)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    tfa.reset_launches()
+    for B, S, Hq, Hkv, D, causal, window in BWD_CASES:
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, S, h, D)).astype(np.float32))
+                   .to(cuda_device, dtype).requires_grad_(True) for h in (Hq, Hkv, Hkv))
+        do = torch.from_numpy(rng.normal(size=(B, S, Hq, D)).astype(np.float32)).to(
+            cuda_device, dtype)
+        out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        again = torch.autograd.grad(tfa.flash_attention(q, k, v, causal=causal,
+                                                        window=window), (q, k, v), do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        o, lse = tfa._forward(qd, kd, vd, causal, window, True)
+        assert torch.equal(o, tfa._forward(qd, kd, vd, causal, window, False)[0])
+        assert torch.equal(o, out.detach())
+        _, plse = tfa.flash_attention_plain(qd, kd, vd, causal=causal, window=window,
+                                            return_lse=True)
+        torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+        want = tfa.flash_attention_bwd_plain(qd, kd, vd, o, lse, do, causal=causal,
+                                             window=window)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and bool(g.isfinite().all())
+            scale = float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=rel * scale)
+    n = len(BWD_CASES)
+    assert tfa.bwd_launches == 2 * n and tfa.launches == 2 * n + 2 * n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_gradients_through_k1(cuda_device, dtype):
+    """`ops.linear` under autograd: dX = dY W^T and dW = X^T dY, each one
+    launch of K1 (three a call), against the plain products; the tied
+    head's W = table.t() view gives the table's gradient through the view.
+    f32 within 1e-5 relative, bf16 within one bf16 ulp of the rounded out."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(9)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -7)
+    tgemm.reset_launches()
+    cases = [(64, 96, 200, False), (300, 1152, 256, False), (40, 128, 1000, True)]
+    for M, K, N, tied in cases:
+        x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(cuda_device, dtype)
+        shape = (N, K) if tied else (K, N)
+        w0 = torch.from_numpy((rng.normal(size=shape) * K ** -0.5).astype(np.float32)).to(
+            cuda_device, dtype)
+        x.requires_grad_(True)
+        w0.requires_grad_(True)
+        w = w0.t() if tied else w0
+        y = ops.linear(x, w)
+        dy = torch.from_numpy(rng.normal(size=(M, N)).astype(np.float32)).to(cuda_device, dtype)
+        dx, dw0 = torch.autograd.grad(y, (x, w0), dy)
+        wd = w.detach()
+        torch.testing.assert_close(dx.float(), tgemm.gemm_plain(dy, wd.t(), dtype).float(), **tol)
+        want_w = tgemm.gemm_plain(x.detach().t(), dy, dtype)
+        torch.testing.assert_close((dw0.t() if tied else dw0).float(), want_w.float(), **tol)
+        assert dx.dtype == dw0.dtype == dtype
+    assert tgemm.launches == 3 * len(cases)
+    with torch.no_grad():                       # serving: one launch, no Function
+        tgemm.reset_launches()
+        y = ops.linear(x.detach(), w.detach())
+        assert y.grad_fn is None and tgemm.launches == 1
+
+
+def _train_cfg(dtype):
+    """qwen3-14b's smoke config at head_dim 64 (K5's smallest) with a
+    250-token vocab, whose untied head is stored row-padded."""
+    from repro_torch import configs as tconfigs
+
+    return dataclasses.replace(tconfigs.get_smoke("qwen3-14b"), head_dim=64, vocab=250,
+                               dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu_and_keeps_weights_aligned(cuda_device):
+    """f32 loss and every gradient leaf on the card (K1, K5, K5b) against the
+    CPU (plain versions) on the same weights and batch: the loss within
+    1e-5 relative, each leaf within 1e-4 of its largest element (sums
+    reordered; chip_smoke phase 14b's bar).  Then two train steps on the
+    card, each launching K1, K5 and K5b; afterwards the padded head is
+    still padded (AdamW updated it in place) and a no_grad forward re-lays
+    no weight."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw_init
+
+    cfg = _train_cfg("float32")
+    data = SyntheticLMData(cfg.vocab, 2, 80)
+    params = TM.init_model(cfg, seed=0, device="cpu")
+    card = tree_lib.map_tree(lambda t: t.to(cuda_device), params)
+    card["head"] = tgemm.aligned_rows(card["head"])    # as init_model stores it
+    grads = {}
+    for dev, p in (("cpu", params), ("cuda", card)):
+        leaves = tree_lib.leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = TM.loss_fn(p, cfg, to_device(data.batch_at(0), dev))
+        grads[dev] = (float(loss), [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    (lc, gc), (lg, gg) = grads["cpu"], grads["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+    head = card["head"]
+    opt = adamw_init(card, tsteps.optimizer_config(cfg))
+    step = tsteps.make_train_step(cfg, base_lr=1e-3, total_steps=2)
+    for i in range(2):
+        tgemm.reset_launches()
+        tfa.reset_launches()
+        card, opt, m = step(card, opt, to_device(data.batch_at(i), cuda_device))
+        assert np.isfinite(float(m["loss"]))
+        assert tgemm.launches > 0 and tfa.launches > 0 and tfa.bwd_launches > 0
+    assert card["head"] is head and tgemm.aligned_rows(head) is head
+    assert head.stride(0) > head.shape[1]
+    tgemm.reset_launches()
+    with torch.no_grad():
+        TM.forward(card, cfg, to_device(data.batch_at(5), cuda_device))
+    assert tgemm.launches > 0 and tgemm.relaid == 0

@@ -41,7 +41,10 @@ def test_engine_imports_with_jax_blocked():
             "repro_torch.kernels.gemm_pipelined, repro_torch.kernels.registry, "
             "repro_torch.quant.calibrate, repro_torch.quant.report, "
             "repro_torch.cluster.replica, repro_torch.cluster.router, "
-            "repro_torch.cluster.traffic, repro_torch.cluster.metrics; print('ok')")
+            "repro_torch.cluster.traffic, repro_torch.cluster.metrics, "
+            "repro_torch.launch.train, repro_torch.launch.steps, repro_torch.optim, "
+            "repro_torch.optim.compression, repro_torch.data, repro_torch.checkpoint, "
+            "repro_torch.runtime, repro_torch.tree; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
@@ -62,5 +65,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         TM.init_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--preset", "smoke", "--steps", "1"])
     eng = Engine(cfg, slots=1, max_seq=8, device="cpu")
     assert eng.device.type == "cpu"

@@ -308,11 +308,17 @@ Phases, in order; any failure exits non-zero:
      loss and every gradient leaf on the card against the CPU.
      Phase 2 adds K5b (`flash_attention_bwd`) against
      `flash_attention_bwd_plain` at gemma3-1b's training shapes and at
-     each head dim, S 32 / 100 / 1000, bf16 and f32 (two runs bitwise
-     equal), the forward's lse (and its output unchanged by asking), and
-     K1's dX / dW at the training shapes; phase 5 times K5b per train step
-     beside SDPA's backward and its operations bound, and K1's forward /
-     dX / dW per train step beside torch.matmul.  To make room, phase 4's
+     each head dim, S 32 / 100 / 1000, and at the wgmma body's edges (GQA
+     8 / 1, 10 / 2, 16 / 1, 12 / 1, a window of 16, D 64 and 128 at S
+     1024), bf16 and f32 (two runs bitwise equal), the forward's lse (and
+     its output unchanged by asking), and K1's dX / dW at the training
+     shapes; phase 1 counts K5b's HGMMA (wgmma) instructions; phase 5 times
+     K5b per train step beside SDPA's backward (its kernels' device time
+     from a profile, its backend named, an eager call's time apart) and its
+     operations bound, split by K5b's three kernels in a profile, with the
+     host cost of its TMA tensor maps, K5's forward with the lse per train
+     step beside SDPA's forward, and K1's forward / dX / dW per train step
+     beside torch.matmul.  To make room, phase 4's
      first prompt is cut to 520 tokens, 3b serves 6 of its 12 requests,
      10a's float / w8a8 traffic to 100-192 tokens and 16 new, its storm to
      16 new, 10b / 10c's to 256-512 and 16 new, and
@@ -327,8 +333,8 @@ Phases, in order; any failure exits non-zero:
 Every phase header carries the seconds since the script started.  The
 line before the card line is the kernels' JSON summary (with each kernel's
 launches by phase 12's tuner and on phase 13's cluster path apart from its
-serving launches; K5b's and K1's train-step entries count phase 14's clean
-run); the last line
+serving launches; K5b's, K5's and K1's train-step entries count phase 14's
+clean run); the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
 """
@@ -1368,7 +1374,7 @@ def _replayed_step_ms(torch, np, eng, lengths, reps: int = 10):
 # is a plain PyTorch op between them).
 HAND_KERNELS = ("gemm_kernel", "s8_kernel", "pipelined_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "quant_rows_kernel", "flash_kernel", "mma_kernel",
-                "delta_kernel", "dkdv_kernel", "dq_kernel")
+                "delta_kernel", "dkdv_wgmma", "dq_wgmma", "dkdv_simt", "dq_simt")
 
 
 def _profile_decode(torch, eng, lengths, reps: int = 3):
@@ -4363,11 +4369,19 @@ def phase13_cli():
 
 # K5b against its plain version: gemma3-1b's training shapes (B 4, S 1024,
 # 4 q heads over 1, D 256, global and window 512), then each head dim at S
-# 32 / 100 / 1000 (ragged, window 200 at 1000), GQA 4 / 2 and non-causal.
+# 32 / 100 / 1000 (ragged, window 200 at 1000), GQA 4 / 2 and non-causal;
+# then the bf16 body's edges: GQA 8 / 1 and 10 / 2 (one cluster of 8 and of
+# 5 blocks), 16 / 1 and 12 / 1 (clusters of 8 and 6 blocks of 2 heads, past
+# the cluster limit; the second non-causal under a window), a window of 16
+# (shorter than a tile), D 64 and 128 at S 1024.
 BWD_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
     (4, 1024, 4, 1, 256, True, None), (4, 1024, 4, 1, 256, True, 512),
 ] + [(2, S, 4, 2 if D == 128 else 1, D, True, None if S < 1000 else 200)
-     for D in (64, 128, 256) for S in (32, 100, 1000)] + [(1, 100, 4, 4, 64, False, None)]
+     for D in (64, 128, 256) for S in (32, 100, 1000)] + [(1, 100, 4, 4, 64, False, None)] + [
+    (1, 300, 8, 1, 128, True, None), (2, 200, 10, 2, 128, True, None),
+    (1, 130, 16, 1, 64, True, None), (1, 150, 12, 1, 64, False, 40),
+    (2, 1000, 4, 1, 256, True, 16), (2, 1024, 4, 1, 64, True, None),
+    (2, 1024, 4, 1, 128, True, 512)]
 # K5b vs plain, of each gradient's largest element: f32 sums reordered; in
 # bf16 P and dS round to bf16 in both before their products, the sums in
 # other orders, so one bf16 ulp at the largest element.
@@ -4455,50 +4469,196 @@ def phase_kernels_train(torch, fa, gemm, ops):
     return worst
 
 
+# K5b's three kernels by their names in a profile, and SDPA's backends by
+# fragments of theirs.
+K5B_KERNELS = ("delta_kernel", "dkdv_wgmma", "dq_wgmma")
+SDPA_BACKENDS = (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                 ("efficient", "efficient"))
+
+
+def _profile_kernels(torch, call, reps: int = 5):
+    """{kernel name: device ms per call} of `call`, from torch.profiler (as
+    `_profile_replays` reads it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    got = {ev.key: ev.self_device_time_total / 1e3 / reps for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA}
+    check(sum(got.values()) > 0, "the profiler saw the kernels")
+    return got
+
+
+def _sdpa_backend(names) -> str:
+    """The SDPA backend whose kernels a profile shows ("math" if none)."""
+    for frag, backend in SDPA_BACKENDS:
+        if any(frag in n.lower() for n in names):
+            return backend
+    return "math"
+
+
+def _encode_us(q, k, v, do) -> float:
+    """Host us to encode K5b's four TMA tensor maps (done on every call)."""
+    import ctypes
+    from repro_torch.kernels import _build
+
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_encode
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    B, S, Hq, D = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), B, S, S, Hq, k.shape[2], D)
+    check(fn(*args) == 0, "flash_attention_bwd: tensor maps encode")
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        fn(*args)
+    return (time.perf_counter() - t0) * 1e3
+
+
+PROFILE_FLAG = "--profile-train-attention"
+
+
+def _attention_inputs(torch, fa, g, window):
+    """Phase 5's inputs at gemma3-1b's training shape (B 4, S 1024, 4 / 1,
+    D 256, causal, `window`): q, k, v, dO, K5's out and lse, and SDPA's (K/V
+    repeated to the q heads beforehand, q-head-major, requiring grad), its
+    mask and output."""
+    import torch.nn.functional as F
+
+    dev, dt, B, S, Hq, Hkv, D = torch.device("cuda"), torch.bfloat16, TRAIN_B, TRAIN_S, 4, 1, 256
+    q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                   for h in (Hq, Hkv, Hkv, Hq))
+    out, lse = fa._forward(q, k, v, True, window, True)
+    ql, kl, vl = (t.permute(0, 2, 1, 3).repeat_interleave(Hq // t.shape[2], 1)
+                  .detach().requires_grad_() for t in (q, k, v))
+    pos = torch.arange(S, device=dev)
+    mask = None if window is None else \
+        (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=window is None, attn_mask=mask)
+    return dict(q=q, k=k, v=v, do=do, out=out, lse=lse, ql=ql, kl=kl, vl=vl, mask=mask,
+                o_l=o_l, do_l=do.permute(0, 2, 1, 3))
+
+
+def _sdpa_calls(torch, x, window):
+    """SDPA's backward (autograd over its retained graph) and forward (no
+    grad) on phase 5's inputs."""
+    import torch.nn.functional as F
+
+    def fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(x["ql"], x["kl"], x["vl"],
+                                                  is_causal=window is None, attn_mask=x["mask"])
+    return (lambda: torch.autograd.grad(x["o_l"], (x["ql"], x["kl"], x["vl"]), x["do_l"],
+                                        retain_graph=True)), fwd
+
+
+def profile_train_attention(torch, fa):
+    """{"global" / "512": {"k5b" / "sdpa_bwd" / "sdpa_fwd": {kernel: device
+    ms per call}}}: torch.profiler over K5b and SDPA's backward and forward
+    at the training shapes.  Run in a process of its own (`PROFILE_FLAG`):
+    in the whole script's process, after the earlier phases, the profiler
+    recorded no device events here in two runs (a fresh process's did in
+    every run)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(15)
+    got = {}
+    for window in (None, 512):
+        x = _attention_inputs(torch, fa, g, window)
+        bwd, fwd = _sdpa_calls(torch, x, window)
+        got["global" if window is None else str(window)] = {
+            "k5b": _profile_kernels(torch, lambda: fa.flash_attention_bwd(
+                x["q"], x["k"], x["v"], x["out"], x["lse"], x["do"], window=window)),
+            "sdpa_bwd": _profile_kernels(torch, bwd), "sdpa_fwd": _profile_kernels(torch, fwd)}
+        del x, bwd, fwd
+    return got
+
+
 def phase_times_train(torch, fa, gemm):
     """One train step's K5b (4 global + 22 window-512 layers at (4, 1024, 4 /
     1, 256)) beside SDPA's backward (K/V repeated to the q heads
-    beforehand, forward untimed) and its operations bound; K1's forward,
-    dX and dW products at the training shapes beside torch.matmul, per
-    step (x 26 layers, the head x 2 chunks)."""
-    import torch.nn.functional as F
-
+    beforehand, forward untimed; its kernels' device time, its backend named
+    from them) and its operations bound, split by K5b's three kernels (the
+    profiles in a process of their own); K5's forward with the lse at the
+    same shapes beside SDPA's forward; K1's forward, dX and dW products at
+    the training shapes beside torch.matmul, per step (x 26 layers, the
+    head x 2 chunks)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(15)
     dt, B, S, Hq, Hkv, D = torch.bfloat16, TRAIN_B, TRAIN_S, 4, 1, 256
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), PROFILE_FLAG],
+                           capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"the profiles' process: {child.stdout[-500:]} "
+                                 f"{child.stderr[-500:]}")
+    profiles = json.loads(child.stdout.strip().splitlines()[-1])
     rows = {}
-    pos = torch.arange(S, device=dev)
     for window in (None, 512):
-        q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
-                       for h in (Hq, Hkv, Hkv, Hq))
-        out, lse = fa._forward(q, k, v, True, window, True)
+        x = _attention_inputs(torch, fa, g, window)
+        q, k, v, do, out, lse = (x[n] for n in ("q", "k", "v", "do", "out", "lse"))
+        prof = profiles["global" if window is None else str(window)]
+        if window is None:
+            print(f"  K5b's four TMA tensor maps encoded on the host in "
+                  f"{_encode_us(q, k, v, do):.2f} us a call")
         t_k = _time_ms(torch, [lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                               window=window)], 20)
+        parts = {name: sum(ms for key, ms in prof["k5b"].items() if name in key)
+                 for name in K5B_KERNELS}
         t_p = _time_ms(torch, [lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                                     window=window)], 3,
                        graph=False)
-        ql, kl, vl = (t.permute(0, 2, 1, 3).repeat_interleave(Hq // t.shape[2], 1)
-                      .detach().requires_grad_() for t in (q, k, v))
-        mask = None if window is None else \
-            (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=window is None,
-                                             attn_mask=mask)
-        do_l = do.permute(0, 2, 1, 3)
-        t_l = _time_ms(torch, [lambda: torch.autograd.grad(o_l, (ql, kl, vl), do_l,
-                                                           retain_graph=True)], 10, graph=False)
+        # SDPA's backward as the yardstick: its kernels' device time from the
+        # profile (K5b's time is a graph replay's, so device time too); an
+        # eager autograd call's wall time, mostly the host's, is printed apart.
+        sdpa_bwd, sdpa_fwd = _sdpa_calls(torch, x, window)
+        t_le = _time_ms(torch, [sdpa_bwd], 10, graph=False)
+        t_l = sum(prof["sdpa_bwd"].values())
+        backend = _sdpa_backend(prof["sdpa_bwd"])
+        print(f"  sdpa backward's kernels (window={window}): " + "; ".join(
+            f"{name[:60]} {ms * 1e3:.1f} us" for name, ms in sorted(
+                prof["sdpa_bwd"].items(), key=lambda kv: -kv[1])[:4])
+              + f"; an eager call {t_le * 1e3:.1f} us")
         pairs = S * (S + 1) // 2 if window is None else sum(min(i + 1, window) for i in range(S))
         nbytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 2 * 4 * B * Hq * S
         bound, by = _bound(nbytes, 5 * 2 * B * Hq * D * pairs, PEAK_FLOPS["bfloat16"])
         rows[window] = (t_k, t_p, t_l, bound, by)
+        rows[("split", window)] = parts
+        rows[("sdpa_backend", window)] = backend
         print(f"  flash_attention_bwd bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
-              f"window={window}: kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa "
-              f"backward {t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+              f"window={window}: kernel {t_k * 1e3:.1f} us ("
+              + ", ".join(f"{n} {ms * 1e3:.1f} us" for n, ms in parts.items())
+              + f" in a profile), plain {t_p * 1e3:.1f} us, sdpa backward {t_l * 1e3:.1f} us "
+              f"on the device ({backend} backend), bound {bound * 1e3:.2f} us ({by}), "
               f"{bound / t_k:.1%} of bound")
-        del q, k, v, do, out, lse, ql, kl, vl, o_l
+        # K5's forward with the lse, as the train step runs it (forward and
+        # remat's recompute), beside SDPA's forward on the same inputs.
+        t_f = _time_ms(torch, [lambda: fa._forward(q, k, v, True, window, True)], 20)
+        t_fl = _time_ms(torch, [sdpa_fwd], 20)
+        t_fp = _time_ms(torch, [lambda: fa.flash_attention_plain(
+            q, k, v, window=window, return_lse=True)], 3, graph=False)
+        fbound, fby = _bound(2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S,
+                             2 * 2 * B * Hq * D * pairs, PEAK_FLOPS["bfloat16"])
+        rows[("fwd", window)] = (t_f, t_fp, t_fl, fbound, fby)
+        print(f"  flash_attention (with lse) bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
+              f"window={window}: kernel {t_f * 1e3:.1f} us, plain {t_fp * 1e3:.1f} us, sdpa "
+              f"{t_fl * 1e3:.1f} us ({_sdpa_backend(prof['sdpa_fwd'])} backend), bound "
+              f"{fbound * 1e3:.2f} us ({fby}), {fbound / t_f:.1%} of bound")
+        del x, q, k, v, do, out, lse, sdpa_bwd, sdpa_fwd
     step = [4 * rows[None][i] + 22 * rows[512][i] for i in range(4)]
     rows["step"] = (*step, "operations")
-    print(f"[5] K5b per train step (4 global + 22 window-512 layers): kernel {step[0]:.3f} ms, "
-          f"plain {step[1]:.3f} ms, sdpa backward {step[2]:.3f} ms, bound {step[3]:.3f} ms")
+    split = {n: 4 * rows[("split", None)][n] + 22 * rows[("split", 512)][n] for n in K5B_KERNELS}
+    print(f"[5] K5b per train step (4 global + 22 window-512 layers): kernel {step[0]:.3f} ms ("
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split.items())
+          + f" in a profile), plain {step[1]:.3f} ms, sdpa backward {step[2]:.3f} ms on the device "
+          f"({rows[('sdpa_backend', None)]} backend global, {rows[('sdpa_backend', 512)]} "
+          f"window), bound {step[3]:.3f} ms, {step[3] / step[0]:.1%} of bound")
+    check(step[0] < step[2], "K5b per train step below SDPA's backward")
+    fwd = [2 * (4 * rows[("fwd", None)][i] + 22 * rows[("fwd", 512)][i]) for i in range(4)]
+    rows["fwd_step"] = (*fwd, "operations")
+    print(f"[5] K5 with lse per train step (forward and recompute, 2 x (4 global + 22 "
+          f"window-512)): kernel {fwd[0]:.3f} ms, plain {fwd[1]:.3f} ms, sdpa {fwd[2]:.3f} ms, "
+          f"bound {fwd[3]:.3f} ms, {fwd[3] / fwd[0]:.1%} of bound")
     per = {"fwd": [0.0] * 4, "dX": [0.0] * 4, "dW": [0.0] * 4}
     for name, K, N, transposed in GEMM_SHAPES:
         M = B * (LOSS_CHUNK if name == "head" else S)
@@ -4675,6 +4835,10 @@ def main() -> int:
         raise SystemExit("FAIL: no CUDA device")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("FAIL: src/repro_torch is not beside chip_smoke.py")
+    if sys.argv[1:] == [PROFILE_FLAG]:   # phase 5's profiles, in a process of their own
+        from repro_torch.kernels import flash_attention as fa
+        print(json.dumps(profile_train_attention(torch, fa)))
+        return 0
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
     from repro_torch.kernels import flash_attention as fa, gemm_pipelined as gp, ops
@@ -4710,7 +4874,8 @@ def main() -> int:
               f"{spills} bytes of spill stores and loads in all")
         if name in ("gemm", "gemm_pipelined", "gemm_int8"):
             check(spills == 0, f"{name}.cu: no spills in the GeMMs")
-    for name, op in (("gemm", "HMMA"), ("gemm_pipelined", "HMMA"), ("gemm_int8", "IMMA")):
+    for name, op in (("gemm", "HMMA"), ("gemm_pipelined", "HMMA"), ("gemm_int8", "IMMA"),
+                     ("flash_attention_bwd", "HGMMA")):
         n = sass_count(_build._lib_path(name), op)
         print(f"[1] lib{name}.so: " + (f"{op} not counted (no cuobjdump)" if n is None
                                       else f"{n} {op} (tensor-core) instructions"))
@@ -4924,6 +5089,11 @@ def main() -> int:
              "of its own)",
              "one gemma3-1b train step's attention backward: 4 global + 22 window-512 layers, "
              "B=4, S=1024, Hq=4, Hkv=1, D=256, bf16", "step", "flash_attention_bwd"),
+            ("flash_attention:train_step", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28",
+             "one gemma3-1b train step's attention forward with the lse, run twice (forward "
+             "and remat's recompute): 2 x (4 global + 22 window-512 layers), B=4, S=1024, "
+             "Hq=4, Hkv=1, D=256, bf16", "fwd_step", "flash_attention"),
             ("gemm:train_step", "gemm.cu", "src/repro/kernels/gemm.py:33",
              "one gemma3-1b train step's GeMMs: the forward and remat's recompute (26 x "
              "(q,k,v,o,gate,up,down) at M=4096, the tied head x 2 loss chunks at M=2048), "

@@ -15,6 +15,6 @@ extern "C" int flash_attention_bwd_f32_launch(const void* q, const void* k, cons
                                               void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
                                               int D, int causal, int window, float scale,
                                               void* stream) {
-  return launch_bwd_d<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
+  return launch_simt_d<float>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
                              D, causal, window, scale, stream);
 }

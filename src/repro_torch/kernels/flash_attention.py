@@ -21,21 +21,27 @@ Training: when grad mode is on and q, k or v requires a gradient,
 `flash_attention` runs through the autograd Function `_FlashAttention`.
 Its forward launches K5 with one more output, each row's log-sum-exp
 `lse` (B, Hq, Sq) f32; its backward is `flash_attention_bwd`, the hand
-kernel `csrc/flash_attention_bwd.cuh` (K5b, built as `flash_attention_bwd.cu`
-for bf16 and `flash_attention_bwd_f32.cu` for f32: Delta, then dK / dV, then dQ,
-recomputing the probabilities from `lse`, sums in a fixed order) on the
-card and `flash_attention_bwd_plain` on the CPU.  Every other call (serving,
-calibration, anything under no_grad or inference_mode) launches K5 with a
-null `lse`, as before.  The reference has no backward kernel: it
-differentiates through its Pallas kernel under `jax.checkpoint`
-(repro/models/attention.py:103-109); K5b recomputes P from `lse`, so the
-Function saves only q, k, v, out and lse.
+kernel `csrc/flash_attention_bwd.cuh` (K5b: Delta, then dK / dV, then dQ,
+recomputing the probabilities from `lse`, sums in a fixed order, no
+atomics) on the card and `flash_attention_bwd_plain` on the CPU.  Its bf16
+body (`flash_attention_bwd.cu`) runs `wgmma` on 64-row tiles fed by TMA
+rings, one block per (key tile, q head) with a kv head's q heads in one
+thread-block cluster that sums their dK / dV in a fixed order, and a dQ
+block per (query tile, q head); `bwd_plan` fixes the cluster size, the
+heads a block walks and which tile order goes heaviest first, and
+`q_tiles_of_key_tile` / `key_tiles_of_q_tile` are the two walks.  Its f32
+body (`flash_attention_bwd_f32.cu`) is a SIMT walk for the card-vs-CPU
+parity runs.  Every other call (serving, calibration, anything under
+no_grad or inference_mode) launches K5 with a null `lse`, as before.  The
+reference has no backward kernel: it differentiates through its Pallas
+kernel under `jax.checkpoint` (repro/models/attention.py:103-109); K5b
+recomputes P from `lse`, so the Function saves only q, k, v, out and lse.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -67,19 +73,82 @@ def _lib():
     return fn
 
 
-# K5b's bf16 (tensor-core) and f32 (SIMT) bodies build from two sources.
-_BWD_SOURCES = {torch.bfloat16: ("flash_attention_bwd", "flash_attention_bwd_launch"),
-                torch.float32: ("flash_attention_bwd_f32", "flash_attention_bwd_f32_launch")}
+# K5b's bf16 (wgmma) and f32 (SIMT) bodies build from two sources; the bf16
+# entry takes the launch plan (`bwd_plan`) as four more ints.
+_BWD_SOURCES = {torch.bfloat16: ("flash_attention_bwd", "flash_attention_bwd_launch", 4),
+                torch.float32: ("flash_attention_bwd_f32", "flash_attention_bwd_f32_launch", 0)}
 
 
 def _bwd_lib(dtype: torch.dtype):
-    source, entry = _BWD_SOURCES[dtype]
+    source, entry, plan_ints = _BWD_SOURCES[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                       + [ctypes.c_int] * plan_ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+# K5b's bf16 schedule.  Its kernels take tiles of BWD_TILE query rows and
+# keys; the dK / dV kernel runs the G = Hq / Hkv q heads of a kv head as
+# one thread-block cluster of at most MAX_CLUSTER blocks (the portable
+# cluster size).
+BWD_TILE = 64
+MAX_CLUSTER = 8
+
+
+class BwdPlan(NamedTuple):
+    """K5b's bf16 launch plan, passed to its C entry as ints.
+
+    `cluster` blocks of one cluster share a kv head, each walking
+    `heads_per_block` of its q heads in order (head hk G + r H + j for
+    block r, j < H), and the cluster sums their dK / dV over r = 0 ..
+    cluster - 1 in order.  `kv_reverse` / `q_reverse` launch the dK / dV
+    kernel's key tiles and the dQ kernel's query tiles last to first, so the
+    heaviest go first."""
+    cluster: int
+    heads_per_block: int
+    kv_reverse: bool
+    q_reverse: bool
+
+
+def q_tiles_of_key_tile(k0: int, Sq: int, Skv: int, causal: bool,
+                        window: Optional[int]) -> range:
+    """First rows of the query tiles that hold a live entry for the key tile
+    at k0: the dK / dV kernel's walk (csrc/flash_attention_bwd.cuh::q_span
+    computes the same)."""
+    T = BWD_TILE
+    kmax = min(k0 + T - 1, Skv - 1)
+    lo = k0 if causal else 0
+    hi = Sq if window is None else min(Sq, kmax + window)
+    return range(lo, hi, T)
+
+
+def key_tiles_of_q_tile(q0: int, Sq: int, Skv: int, causal: bool,
+                        window: Optional[int]) -> range:
+    """First keys of the key tiles that hold a live entry for the query tile
+    at q0: the dQ kernel's walk (csrc/flash_attention_bwd.cuh::k_span)."""
+    T = BWD_TILE
+    hi = min(Skv, q0 + T, Sq) if causal else Skv
+    lo = 0 if window is None else max(0, q0 - window + 1)
+    if lo >= hi:
+        return range(0)
+    return range(lo // T * T, hi, T)
+
+
+def bwd_plan(Sq: int, Skv: int, Hq: int, Hkv: int, causal: bool,
+             window: Optional[int]) -> BwdPlan:
+    """The cluster is the largest divisor of G = Hq / Hkv up to MAX_CLUSTER;
+    a tile order is reversed where its last tile has more work than its
+    first."""
+    G = Hq // Hkv
+    cluster = max(c for c in range(1, min(G, MAX_CLUSTER) + 1) if G % c == 0)
+    T = BWD_TILE
+    kv = [len(q_tiles_of_key_tile(k0, Sq, Skv, causal, window))
+          for k0 in (0, (Skv - 1) // T * T)]
+    qs = [len(key_tiles_of_q_tile(q0, Sq, Skv, causal, window))
+          for q0 in (0, (Sq - 1) // T * T)]
+    return BwdPlan(cluster, G // cluster, kv[1] > kv[0], qs[1] > qs[0])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -241,10 +310,12 @@ def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: Optional[int]):
     q, k, v, out, lse, dout = _aligned(q, k, v, out, lse, dout.to(q.dtype))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    plan = (map(int, bwd_plan(Sq, Skv, Hq, Hkv, causal, window))
+            if q.dtype == torch.bfloat16 else ())
     err = _bwd_lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal),
-                            0 if window is None else int(window), D ** -0.5,
+                            0 if window is None else int(window), D ** -0.5, *plan,
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention backward launch failed: cudaError_t {err}")

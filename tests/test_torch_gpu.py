@@ -1520,6 +1520,15 @@ BWD_CASES = [  # (B, S, Hq, Hkv, D, causal, window): ragged S, GQA / MQA, window
     (2, 300, 4, 1, 256, True, 64),
     (1, 100, 4, 4, 256, False, None),
     (2, 37, 2, 1, 128, True, 16),
+    # the bf16 body's edges: GQA 8 / 1 and 10 / 2 (one cluster of 8 and of
+    # 5 blocks), 16 / 1 (8 blocks of 2 heads: past the cluster limit), a
+    # window shorter than a tile, D 64 and 128 at S 1024
+    (1, 300, 8, 1, 128, True, None),
+    (2, 200, 10, 2, 128, True, None),
+    (1, 130, 16, 1, 64, True, None),
+    (2, 1000, 4, 1, 256, True, 16),
+    (1, 1024, 4, 1, 64, True, None),
+    (1, 1024, 4, 1, 128, True, 512),
 ]
 
 

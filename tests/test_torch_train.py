@@ -27,6 +27,7 @@ tolerance of zero (|m| > 2e-4 max |m|); the few elements inside it (m ~
 2 lr."""
 
 import dataclasses
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -219,6 +220,56 @@ def test_flash_forward_lse_is_the_log_sum_exp():
     live = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < 9)
     want = torch.logsumexp(s.masked_fill(~live, float("-inf")), dim=-1)
     torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-5)
+
+
+# K5b's bf16 launch plan: ATTN_CASES, gemma3-1b's training shape (B 4, S
+# 1024, 4 / 1, D 256, global and window 512), and the cluster rule on both
+# sides of its limit (G = 8, 5 and 16).
+PLAN_CASES = ATTN_CASES + [
+    (4, 1024, 4, 1, 256, True, None), (4, 1024, 4, 1, 256, True, 512),
+    (1, 300, 8, 1, 128, True, None), (2, 200, 10, 2, 128, True, None),
+    (1, 130, 16, 1, 64, True, None), (1, 150, 12, 1, 64, False, 40),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=str)
+def test_flash_backward_plan_visits_each_live_pair_once(case):
+    """`bwd_plan` and the two tile walks: for each q head, the dK / dV
+    kernel's blocks and the dQ kernel's blocks each visit every (query tile,
+    key tile) pair with a live entry exactly once and no other pair; every
+    q head of a kv head enters the cluster's fixed-order sum exactly once;
+    each kernel launches a heaviest tile first."""
+    _, S, Hq, Hkv, _, causal, window = case
+    T, G = tfa.BWD_TILE, Hq // Hkv
+    plan = tfa.bwd_plan(S, S, Hq, Hkv, causal, window)
+    assert 1 <= plan.cluster <= tfa.MAX_CLUSTER and plan.cluster * plan.heads_per_block == G
+    pos = np.arange(S)
+    live = np.ones((S, S), dtype=bool)
+    if causal:
+        live &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        live &= pos[:, None] - pos[None, :] < window
+    n = -(-S // T)
+    want = [(i, j) for i in range(n) for j in range(n)
+            if live[i * T:(i + 1) * T, j * T:(j + 1) * T].any()]
+
+    summed, kv_visits = Counter(), Counter()
+    for rank in range(plan.cluster):
+        heads = [rank * plan.heads_per_block + j for j in range(plan.heads_per_block)]
+        summed.update(heads)
+        for k0 in range(0, S, T):
+            for q0 in tfa.q_tiles_of_key_tile(k0, S, S, causal, window):
+                kv_visits.update((g, q0 // T, k0 // T) for g in heads)
+    assert summed == Counter(range(G))
+    assert kv_visits == Counter({(g, i, j): 1 for g in range(G) for i, j in want})
+    q_visits = Counter((q0 // T, k0 // T) for q0 in range(0, S, T)
+                       for k0 in tfa.key_tiles_of_q_tile(q0, S, S, causal, window))
+    assert q_visits == Counter(want)
+
+    kv_work = [len(tfa.q_tiles_of_key_tile(j * T, S, S, causal, window)) for j in range(n)]
+    q_work = [len(tfa.key_tiles_of_q_tile(i * T, S, S, causal, window)) for i in range(n)]
+    assert kv_work[-1 if plan.kv_reverse else 0] == max(kv_work)
+    assert q_work[-1 if plan.q_reverse else 0] == max(q_work)
 
 
 # -- the train step ----------------------------------------------------------------

@@ -190,8 +190,9 @@ Phases, in order; any failure exits non-zero:
      training phase, cut for the time limit), tokens equal to a non-speculative
      graphed engine; then the serve CLI at published widths.
      10b. dbrx-132b, `reduced` to one group of 4 layers (28.5 GB), 8
-     requests of 256-512 tokens, 16 new each (cut from 256-1024 and 32 for
-     the time limit), float then w8a8 with an int8 KV pool.
+     requests of 160-320 tokens, 16 new each (cut from 256-1024 and 32 for
+     the time limit, and from 256-512 to make room for phase 15), float
+     then w8a8 with an int8 KV pool.
      10c. jamba-1.5-large-398b, `reduced` to one group of 8 layers (7
      Mamba + 1 attention, MoE on layers 2/4/6/8) and 4 of its 16 experts
      (32.5 GB), the same traffic, float; then the serve CLI refuses jamba
@@ -323,6 +324,19 @@ Phases, in order; any failure exits non-zero:
      10a's float / w8a8 traffic to 100-192 tokens and 16 new, its storm to
      16 new, 10b / 10c's to 256-512 and 16 new, and
      13's trace to prompts of at most 512 tokens and 16-32 new (`reduced`).
+  15. the analysis layer (repro_torch.launch: dryrun, step_cost,
+     roofline, diagnose; no new kernel), in a process of its own
+     (`chip_smoke.py --analysis`, as phase 5 profiles): gemma3-1b at
+     published widths, bf16.  15a: one train step at phase 14's shape (B 4
+     x S 1024, f32 moments): torch.cuda.max_memory_allocated beside the
+     dry run's traced peak of the same step on the meta device, within 25
+     %; its hand-kernel launches, and an eager decode step's (8 slots),
+     equal to the meta trace's.  15b: a profile of each step split by
+     source (`diagnose.attribute`, top 15 rows), at least 95 % of each
+     step's kernel time in a named row (a hand kernel or a frame of
+     src/repro_torch).  15c: each step's `Roofline.row()` and MFU on the
+     989 TFLOP/s bf16 peak; a measured step faster than its roofline
+     fails.  To make room, 10b / 10c's prompts are cut to 160-320 tokens.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -357,16 +371,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM published peaks (dense): HBM bytes/s and bf16 / f32 FLOP/s, int8 OP/s.
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+try:       # the H100's published peaks and every kernel's cost, held once in the port
+    from repro_torch.core import hw
+    from repro_torch.kernels import cost as kcost
+except ImportError:        # no port beside this script (or no torch): main() fails
+    hw = kcost = None
 GEMM_SHAPES = [  # (name, K, N, transposed B view) of one gemma3-1b layer + head
     ("q", 1152, 1024, False), ("k", 1152, 256, False), ("v", 1152, 256, False),
     ("o", 1024, 1152, False), ("gate", 1152, 6912, False),
     ("up", 1152, 6912, False), ("down", 6912, 1152, False),
     ("head", 1152, 262144, True),
 ]
-L2_BYTES = 50e6
 _START = time.monotonic()
 
 
@@ -1792,7 +1807,7 @@ def _time_gemm(torch, gemm, g, M, name, K, N, transposed, rows, label=""):
     replay and eager call), its plain version, torch.matmul and the bound,
     into rows[("gemm", M, name)]; returns (a, the copies of B, iters)."""
     dev, dt = torch.device("cuda"), torch.bfloat16
-    copies = max(1, min(128, math.ceil(2 * L2_BYTES / (K * N * 2))))
+    copies = max(1, min(128, math.ceil(2 * hw.L2_BYTES / (K * N * 2))))
     a = torch.randn((M, K), generator=g, device=dev).to(dt)
     bs_ = []
     for _ in range(copies):
@@ -1805,7 +1820,7 @@ def _time_gemm(torch, gemm, g, M, name, K, N, transposed, rows, label=""):
     t_p = _time_ms(torch, [lambda b=b: gemm.gemm_plain(a, b, dt) for b in bs_[:4]],
                    max(4, iters // 10), graph=False)
     t_l = _time_ms(torch, [lambda b=b: torch.matmul(a, b) for b in bs_], iters)
-    bound, by = _bound((M * K + K * N + M * N) * 2, 2 * M * K * N, PEAK_FLOPS["bfloat16"])
+    bound, by = _bound(kcost.gemm(M, K, N))
     rows[("gemm", M, name)] = (t_k, t_p, t_l, bound)
     print(f"  {label}gemm bf16 M={M} {name} {K}x{N}: kernel {t_k * 1e3:.1f} us "
           f"(eager call {t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, torch.matmul "
@@ -1874,15 +1889,14 @@ def phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa):
         ws = [(torch.randint(-127, 128, (N, K), generator=g, device=dev,
                              dtype=torch.int8).t(),
                torch.rand((1, N), generator=g, device=dev) * 0.1)
-              for _ in range(max(1, min(128, math.ceil(2 * L2_BYTES / (K * N)))))]
+              for _ in range(max(1, min(128, math.ceil(2 * hw.L2_BYTES / (K * N)))))]
         t_f = _time_ms(torch, [lambda b=b, sb=sb: gemm8._w8a8_fused(a, b, sb, None, dt)
                                for b, sb in ws], iters)
         t_fp = _time_ms(torch, [lambda b=b, sb=sb: gemm8.gemm_w8a8_plain(a, b, sb, None, dt)
                                 for b, sb in ws[:2]], 4, graph=False)
         a_lib = torch.zeros((32, K), device=dev, dtype=torch.int8)   # cuBLASLt takes M > 16
         t_l = _time_ms(torch, [lambda b=b: torch._int_mm(a_lib, b) for b, _ in ws], iters)
-        bound, by = _bound(2 * 8 * K + K * N + 4 * N + 2 * 8 * N, 2 * 8 * K * N,
-                           PEAK_FLOPS["int8"])
+        bound, by = _bound(kcost.gemm_w8a8(8, K, N))
         rows[("gemm_w8a8", 8, name)] = (t_f, t_fp, t_l, bound)
         print(f"  qwen3-14b gemm_w8a8 bf16 -> bf16 M=8 {name} {K}x{N}: one launch "
               f"{t_f * 1e3:.1f} us, plain {t_fp * 1e3:.1f} us, torch._int_mm (M padded to "
@@ -1931,7 +1945,7 @@ def _time_flash_qwen3(torch, fa, g):
     set_bytes = 2 * B * S * D * (2 * Hq + 2 * Hkv)
     sets = [tuple(torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
                   for h in (Hq, Hkv, Hkv))
-            for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+            for _ in range(max(2, math.ceil(2 * hw.L2_BYTES / set_bytes)))]
     t_k = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v)
                            for q, k, v in sets], 40)
     t_p = _time_ms(torch, [lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v)
@@ -1940,7 +1954,8 @@ def _time_flash_qwen3(torch, fa, g):
             v.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, 1)) for q, k, v in sets]
     t_l = _time_ms(torch, [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
         q, k, v, is_causal=True) for q, k, v in lib], 40)
-    bound, by = _bound(set_bytes, 4 * B * Hq * D * (S * (S + 1) // 2), PEAK_FLOPS["bfloat16"])
+    bound, by = _bound(kcost.flash_attention(B, S, S, Hq, Hkv, D,
+                                             pairs=kcost.attention_pairs(S, S)))
     print(f"  qwen3-14b flash_attention bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal: "
           f"kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, sdpa {t_l * 1e3:.1f} us, "
           f"bound {bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
@@ -1969,7 +1984,7 @@ def _time_split_rules(torch, gemm, g):
     for name, K, N, _ in [s for s in GEMM_SHAPES if s[0] in ("gate", "down")]:
         a = torch.randn((M, K), generator=g, device=dev).to(dt)
         bs_ = [torch.randn((K, N), generator=g, device=dev).to(dt)
-               for _ in range(max(1, math.ceil(2 * L2_BYTES / (K * N * 2))))]
+               for _ in range(max(1, math.ceil(2 * hw.L2_BYTES / (K * N * 2))))]
         out = torch.empty((M, N), dtype=dt, device=dev)
         tiles, k_tiles = -(-N // gemm.TILE_N), -(-K // 64)
         times = {}
@@ -2026,18 +2041,10 @@ def _time_decode(torch, fd, kvc, pools, g, lengths, G, bs, max_seq, rows, key,
             qs = q.permute(0, 2, 1, 3)
             t_l = _time_ms(torch, [lambda k=k, v=v: F.scaled_dot_product_attention(
                 qs, k, v, attn_mask=mask[:, None]) for k, v in lib_in], 120)
-            keys, flops = 0, 0
-            for i0 in idx.tolist():
-                lo = 0 if window is None else max(0, i0 - window + 1)
-                keys += (i0 + sq) - lo
-                for t in range(sq):
-                    qp = i0 + t
-                    flops += 4 * G * D * (qp + 1 - (0 if window is None
-                                                     else max(0, qp - window + 1)))
-            row_bytes = Hkv * (D + 4) if int8 else Hkv * D * 2
-            nbytes = (2 * keys * row_bytes + 2 * 2 * q.numel() + 4 * idx.numel()
-                      + 4 * b_ * (max_seq // bs))
-            bound, by = _bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+            keys, visible = kcost.decode_work(idx.tolist(), sq, window)
+            bound, by = _bound(kcost.flash_decode(
+                b_, sq, Hkv * G, Hkv, D, keys=keys, visible=visible,
+                table_entries=b_ * (max_seq // bs), pool_int8=int8))
             rows[(key, what, window)] = (t_k, t_p, t_l, bound, by, t_s[1], t_s[4], t_e)
             pool = "int8 pool, q bf16" if int8 else "bf16"
             print(f"  {label}{key} {pool} {what} B={b_} Sq={sq} window={window}: kernel "
@@ -2063,7 +2070,7 @@ def phase_times_flash(torch, fa):
         set_bytes = 2 * B * S * D * (2 * Hq + 2 * Hkv)
         sets = [tuple(torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
                       for h in (Hq, Hkv, Hkv))
-                for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+                for _ in range(max(2, math.ceil(2 * hw.L2_BYTES / set_bytes)))]
         pos = torch.arange(S, device=dev)
         for window in (None, 512):
             kcalls = [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, window=window)
@@ -2082,10 +2089,8 @@ def phase_times_flash(torch, fa):
                 lcalls = [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask) for q, k, v in lib]
             t_l = _time_ms(torch, lcalls, 40)
-            pairs = S * (S + 1) // 2 if window is None else \
-                sum(min(i + 1, window) for i in range(S))
-            bound, by = _bound(2 * B * S * D * (2 * Hq + 2 * Hkv), 4 * B * Hq * D * pairs,
-                               PEAK_FLOPS["bfloat16"])
+            pairs = kcost.attention_pairs(S, S, True, window)
+            bound, by = _bound(kcost.flash_attention(B, S, S, Hq, Hkv, D, pairs=pairs))
             rows[("flash_attention", S, window)] = (t_k, t_p, t_l, bound, by)
             print(f"  flash_attention bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
                   f"window={window}: kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), "
@@ -2097,10 +2102,10 @@ def phase_times_flash(torch, fa):
     return rows
 
 
-def _bound(nbytes: float, ops: float, peak: float):
-    """(bound in ms, what bounds it) for `nbytes` moved and `ops` done."""
-    t_b, t_o = nbytes / HBM_BPS, ops / peak
-    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+def _bound(c):
+    """(bound in ms, what bounds it) of a kernel's cost (kcost: the cost
+    functions the kernels' meta routes report to launch/step_cost.py)."""
+    return c.bound_s * 1e3, c.bound_by
 
 
 def phase_times_int8(torch, gemm8, kq, fd, kvc):
@@ -2119,7 +2124,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
     rows = {}
     for M in (1, 8, 64):
         for name, K, N, _ in GEMM_SHAPES:
-            copies = max(1, min(128, math.ceil(2 * L2_BYTES / (K * N))))
+            copies = max(1, min(128, math.ceil(2 * hw.L2_BYTES / (K * N))))
             x = torch.randn((M, K), generator=g, device=dev).to(bf)
             act = (x.float().abs().max() / 127).reshape(())
             a, sa = kq.quantize_rows(x)
@@ -2139,8 +2144,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
             a_lib[:M] = a
             t_l = _time_ms(torch, [lambda b=b: torch._int_mm(a_lib, b) for b, _ in ws],
                            iters)
-            bound, by = _bound(M * K + K * N + 4 * (M + N) + 2 * M * N, 2 * M * K * N,
-                               PEAK_FLOPS["int8"])
+            bound, by = _bound(kcost.dequant_gemm(M, K, N))
             rows[("dequant_gemm", M, name)] = (t_k, t_p, t_l, bound, by)
             fcalls = [lambda b=b, sb=sb: gemm8._w8a8_fused(x, b, sb, None, bf)
                       for b, sb in ws]
@@ -2156,8 +2160,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
                              iters)
             t_fp = _time_ms(torch, [lambda b=b, sb=sb: gemm8.gemm_w8a8_plain(
                 x, b, sb, None, bf) for b, sb in ws[:4]], n_plain, graph=False)
-            bound_f, by_f = _bound(2 * M * K + K * N + 4 * N + 2 * M * N, 2 * M * K * N,
-                                   PEAK_FLOPS["int8"])
+            bound_f, by_f = _bound(kcost.gemm_w8a8(M, K, N))
             rows[("gemm_w8a8", M, name)] = (t_f, t_fp, t_l, bound_f, by_f, t_fs, t_two, t_fe)
             print(f"  gemm_w8a8 bf16 -> bf16 M={M} {name} {K}x{N}: one launch {t_f * 1e3:.1f} us "
                   f"(eager call {t_fe * 1e3:.1f} us), static scale {t_fs * 1e3:.1f} us, "
@@ -2179,7 +2182,7 @@ def phase_times_int8(torch, gemm8, kq, fd, kvc):
         t_e = _time_ms(torch, kcalls, 256, graph=False)
         t_p = _time_ms(torch, [lambda x=x: kq.quantize_rows_plain(x) for x in xs],
                        64, graph=False)
-        bound, by = _bound(M * K * 2 + M * K + 4 * M, 3 * M * K, PEAK_FLOPS["float32"])
+        bound, by = _bound(kcost.quantize_rows(M, K))
         rows[("quantize_rows", M, K)] = (t_k, t_p, None, bound, by)
         print(f"  quantize_rows bf16 M={M} K={K}: kernel {t_k * 1e3:.2f} us (eager call "
               f"{t_e * 1e3:.1f} us), plain {t_p * 1e3:.1f} us, library: none, bound "
@@ -3233,9 +3236,13 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
                                         DRAFT_K, 8)
     print("[10a] the serve CLI: --arch xlstm-1.3b --widths published")
     phase_serve_cli(np, arch="xlstm-1.3b", extra=())
-    # dbrx and jamba: prompts of 256-512 tokens, 16 new each (time limit).
-    big_traffic = family_traffic(21, 256, 512, new=16)
+    # dbrx and jamba: prompts of 160-320 tokens, 16 new each (time limit:
+    # cut from 256-512 to make room for phase 15; 4-5 chunks a prompt keep
+    # the paired chunk medians above their 10 pairs).
+    big_traffic = family_traffic(21, 160, 320, new=16)
+    traffic_cut = {"prompt tokens": [[256, 1024], [160, 320]], "new tokens": [32, 16]}
     cfg, reduced = family_cfg(configs, "dbrx-132b")
+    reduced = {**reduced, **traffic_cut}
     print("[10b] dbrx-132b at published widths (d 6144, 48 / 8 heads, 16 experts top-4, "
           "d_ff 10752; bf16), one group of 4 layers, float")
     out["10b float"] = phase_family(*args, cfg, reduced, big_traffic)
@@ -3243,6 +3250,7 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     out["10b w8a8"] = phase_family(*args, cfg, reduced, big_traffic, precision="w8a8",
                                    kv_precision="int8")
     cfg, reduced = family_cfg(configs, "jamba-1.5-large-398b")
+    reduced = {**reduced, **traffic_cut}
     print("[10c] jamba-1.5-large-398b at published widths (d 8192, 64 / 8 heads, Mamba "
           "d_state 16, MoE top-2 on alternate layers, d_ff 24576; bf16), one group of 8 "
           "layers (7 Mamba + 1 attention), 4 of 16 experts, float")
@@ -3347,7 +3355,7 @@ def phase_times_encdec(torch, gemm, fa):
         sets = [(torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt),
                  torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt),
                  torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt))
-                for _ in range(max(2, math.ceil(2 * L2_BYTES / set_bytes)))]
+                for _ in range(max(2, math.ceil(2 * hw.L2_BYTES / set_bytes)))]
         kcalls = [lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=False)
                   for q, k, v in sets]
         t_k = _time_ms(torch, kcalls, 40)
@@ -3357,7 +3365,8 @@ def phase_times_encdec(torch, gemm, fa):
         lib = [tuple(t.permute(0, 2, 1, 3) for t in s) for s in sets]
         t_l = _time_ms(torch, [lambda q=q, k=k, v=v: F.scaled_dot_product_attention(q, k, v)
                                for q, k, v in lib], 40)
-        bound, by = _bound(set_bytes, 4 * B * H * Sq * Skv * D, PEAK_FLOPS["bfloat16"])
+        bound, by = _bound(kcost.flash_attention(
+            B, Sq, Skv, H, H, D, pairs=kcost.attention_pairs(Sq, Skv, False)))
         rows[("flash_attention", key)] = (t_k, t_p, t_l, bound, by)
         print(f"  flash_attention bf16 {key}: B={B} Sq={Sq} Skv={Skv} Hq=Hkv={H} D={D} "
               f"non-causal: kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f} us), plain "
@@ -3368,8 +3377,7 @@ def phase_times_encdec(torch, gemm, fa):
         _time_gemm(torch, gemm, g, M_, label, K, N, False, rows, label="")
         t_k, t_p, t_l, bound = rows[("gemm", M_, label)]
         rows[("gemm", M_, label)] = (t_k, t_p, t_l, bound,
-                                     _bound((M_ * K + K * N + M_ * N) * 2, 2 * M_ * K * N,
-                                            PEAK_FLOPS["bfloat16"])[1])
+                                     _bound(kcost.gemm(M_, K, N))[1])
     torch.cuda.empty_cache()
     return rows
 
@@ -3970,7 +3978,7 @@ def phase12_cli(np, tdir):
           "12e one flow chain s..f per request")
     m = json.loads(metrics.read_text())
     phases = m["mfu"]["phases"]
-    check(m["mfu"]["peak_flops"] == 989e12 and {"prefill", "decode"} <= set(phases)
+    check(m["mfu"]["peak_flops"] == hw.PEAK_FLOPS_BF16 and {"prefill", "decode"} <= set(phases)
           and all(p["utilization"] > 0 and p["mfu"] > 0 for p in phases.values()),
           "12e per-phase utilization and MFU on the H100's peaks")
     check("slo: slo=breach" in text and any(inc.iterdir()), "12e SLO breach bundle written")
@@ -4619,9 +4627,8 @@ def phase_times_train(torch, fa, gemm):
             f"{name[:60]} {ms * 1e3:.1f} us" for name, ms in sorted(
                 prof["sdpa_bwd"].items(), key=lambda kv: -kv[1])[:4])
               + f"; an eager call {t_le * 1e3:.1f} us")
-        pairs = S * (S + 1) // 2 if window is None else sum(min(i + 1, window) for i in range(S))
-        nbytes = 2 * B * S * D * (4 * Hq + 4 * Hkv) + 2 * 4 * B * Hq * S
-        bound, by = _bound(nbytes, 5 * 2 * B * Hq * D * pairs, PEAK_FLOPS["bfloat16"])
+        pairs = kcost.attention_pairs(S, S, True, window)
+        bound, by = _bound(kcost.flash_attention_bwd(B, S, S, Hq, Hkv, D, pairs=pairs))
         rows[window] = (t_k, t_p, t_l, bound, by)
         rows[("split", window)] = parts
         rows[("sdpa_backend", window)] = backend
@@ -4637,8 +4644,7 @@ def phase_times_train(torch, fa, gemm):
         t_fl = _time_ms(torch, [sdpa_fwd], 20)
         t_fp = _time_ms(torch, [lambda: fa.flash_attention_plain(
             q, k, v, window=window, return_lse=True)], 3, graph=False)
-        fbound, fby = _bound(2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S,
-                             2 * 2 * B * Hq * D * pairs, PEAK_FLOPS["bfloat16"])
+        fbound, fby = _bound(kcost.flash_attention(B, S, S, Hq, Hkv, D, pairs=pairs, lse=True))
         rows[("fwd", window)] = (t_f, t_fp, t_fl, fbound, fby)
         print(f"  flash_attention (with lse) bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
               f"window={window}: kernel {t_f * 1e3:.1f} us, plain {t_fp * 1e3:.1f} us, sdpa "
@@ -4673,8 +4679,7 @@ def phase_times_train(torch, fa, gemm):
             t_k = _time_ms(torch, [lambda a=a, b=b: gemm.gemm(a, b, out_dtype=dt)], 10)
             t_l = _time_ms(torch, [lambda a=a, b=b: torch.matmul(a, b)], 10)
             t_p = _time_ms(torch, [lambda a=a, b=b: gemm.gemm_plain(a, b, dt)], 2, graph=False)
-            bound, by = _bound((Mi * Ki + Ki * Ni + Mi * Ni) * 2, 2 * Mi * Ki * Ni,
-                               PEAK_FLOPS["bfloat16"])
+            bound, by = _bound(kcost.gemm(Mi, Ki, Ni))
             rows[("gemm", label, name)] = (t_k, t_p, t_l, bound, by)
             for i, t in enumerate((t_k, t_p, t_l, bound)):
                 per[label][i] += times * t
@@ -4814,6 +4819,177 @@ def phase_train_parity(torch, np, configs, M):
     torch.cuda.empty_cache()
 
 
+ANALYSIS_FLAG = "--analysis"
+DECODE_LIVE = [1100, 1024, 950, 700, 513, 260, 128, 64]   # phase 5's eight live slots
+MEMORY_BAR = 0.25          # traced peak against torch.cuda.max_memory_allocated
+ATTRIBUTED_BAR = 0.95      # share of a profiled step's kernel time a source names
+
+
+def _wall_ms(torch, fn, reps: int):
+    """Median host ms of fn() (synchronized), after one untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def analysis_child(torch, np):
+    """Phase 15 in a process of its own (torch.profiler saw no device
+    events after the whole script's earlier phases, phase 5's finding):
+    gemma3-1b at published widths, bf16, as phase 14 trains it (B 4 x S
+    1024, f32 moments) and as phase 3 decodes (8 slots live at
+    DECODE_LIVE, an eager engine).  For each step in turn: a profile
+    first (`diagnose.profile_step`: each op under a record_function naming
+    its source), split by `diagnose.attribute`; then its launches, its
+    median time and, for the train step (before the engine allocates its
+    pool), torch.cuda.max_memory_allocated.  Last, each step counted on the
+    meta device (`dryrun.trace_cell`, `step_cost.analyze`): the launches
+    against the card's, the dry run's traced peak, and each step's roofline
+    (`launch/roofline.py`).  Returns the summary the parent checks."""
+    from repro_torch import configs
+    from repro_torch.kernels import launches
+    from repro_torch.launch import diagnose, dryrun, roofline, step_cost, steps
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    t_start = time.monotonic()
+    cfg, dev = configs.get("gemma3-1b"), torch.device("cuda")
+    step, params, opt, data = diagnose._train_inputs(cfg, dev, TRAIN_B, TRAIN_S)
+    out = {}
+    prof = diagnose.profile_step(step, params, opt, data)
+    out["train_attr"] = diagnose.attribute(prof, 15)
+    del prof
+    t_prof = time.monotonic() - t_start
+    launches.reset()
+    step(params, opt, data)
+    torch.cuda.synchronize()
+    out["train_launches"] = {k: v for k, v in launches.counts().items() if v}
+    # the peak of the train step alone, before the engine holds its pool
+    torch.cuda.reset_peak_memory_stats()
+    out["train_ms"] = _wall_ms(torch, lambda: step(params, opt, data)[2]["loss"].item(), 3)
+    out["measured_peak"] = torch.cuda.max_memory_allocated()
+
+    t0 = time.monotonic()
+    eng = Engine(cfg, params, slots=8, max_seq=1280, block_size=16, max_chunk=64,
+                 graphs=False, device=dev)
+    base = _live_slots(torch, eng, DECODE_LIVE)
+    ids, live = np.zeros(eng.slots, np.int64), np.ones(eng.slots, bool)
+
+    def decode():
+        eng.state.lengths.copy_(base)
+        return eng.step_decode(ids, live)
+
+    prof = diagnose.profile_step(decode)
+    out["decode_attr"] = diagnose.attribute(prof, 15)
+    del prof
+    t_prof += time.monotonic() - t0
+    launches.reset()
+    decode()
+    out["decode_launches"] = {k: v for k, v in launches.counts().items() if v}
+    out["decode_ms"] = _wall_ms(torch, decode, 10)
+
+    t0 = time.monotonic()
+    shape = dict(kind="train", seq_len=TRAIN_S, global_batch=TRAIN_B)
+    cost_t, held = dryrun.trace_cell(cfg, shape)
+    out["traced_peak"] = sum(held.values()) + cost_t.peak_live_bytes
+    out["held"], out["activations"] = held, cost_t.peak_live_bytes
+    out["traced_launches"] = dict(cost_t.launches)
+    out["train_roof"] = roofline.analyze(
+        arch=cfg.name, shape_name=f"train B{TRAIN_B} S{TRAIN_S}", shape=shape, cfg=cfg,
+        cost=cost_t, peak_memory_bytes=out["traced_peak"],
+        measured_s=out["train_ms"] / 1e3).row()
+    p_meta = steps.params_struct(cfg)
+    st = M.init_paged_decode_state(cfg, eng.slots, num_blocks=eng.num_blocks,
+                                   block_size=16, max_blocks_per_slot=eng.max_blocks_per_slot,
+                                   device="meta")
+    tok = torch.zeros((eng.slots, 1), dtype=torch.long, device="meta")
+    act = torch.ones((eng.slots,), dtype=torch.bool, device="meta")
+    with torch.no_grad():
+        cost_d = step_cost.analyze(M.paged_decode_step, p_meta, cfg, st, tok, act)
+    out["traced_decode_launches"] = dict(cost_d.launches)
+    out["decode_roof"] = roofline.analyze(
+        arch=cfg.name, shape_name="paged decode, 8 slots",
+        shape=dict(kind="decode", seq_len=eng.max_seq, global_batch=eng.slots), cfg=cfg,
+        cost=cost_d, measured_s=out["decode_ms"] / 1e3).row()
+    out["decode_count_bytes"] = {k: v for k, v in sorted(
+        cost_d.bytes_by_source.items(), key=lambda kv: -kv[1])[:6]}
+    out["trace_s"], out["profile_s"] = time.monotonic() - t0, t_prof
+    for key in ("train_attr", "decode_attr"):
+        a = out[key]
+        print(f"[15b] {key.split('_')[0]} step's kernel time by source (top 15 of "
+              f"{len(a.by_source)}; {a.kernels} kernels, {a.total:.3f} ms):")
+        print(a.table())
+        out[key] = {"total_ms": a.total, "unattributed": a.unattributed, "kernels": a.kernels,
+                    "metric": a.metric, "rows": a.rows}
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def phase15(torch):
+    """Phase 15, the analysis layer: `analysis_child` in a process of its
+    own; its tables printed, its numbers checked (module docstring)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), ANALYSIS_FLAG],
+                           capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(child.returncode == 0 and lines, f"phase 15's process: {child.stdout[-1500:]} "
+                                           f"{child.stderr[-2500:]}")
+    x = json.loads(lines[-1])
+    card = card_line()
+    m, t = x["measured_peak"], x["traced_peak"]
+    print(f"[15a] gemma3-1b train step (B {TRAIN_B} x S {TRAIN_S}, bf16, f32 moments) on {card}: "
+          f"torch.cuda.max_memory_allocated {m / 1e9:.3f} GB; dry run's traced peak "
+          f"{t / 1e9:.3f} GB (weights {x['held']['weights'] / 1e9:.3f}, optimizer state "
+          f"{x['held']['opt_state'] / 1e9:.3f}, inputs {x['held']['inputs'] / 1e6:.3f} MB, "
+          f"the step's own storages {x['activations'] / 1e9:.3f}); traced / measured "
+          f"{t / m:.3f} (bar {1 - MEMORY_BAR:.2f}-{1 + MEMORY_BAR:.2f})")
+    check(abs(t / m - 1) <= MEMORY_BAR, "the traced peak within 25 % of the measured peak")
+    print(f"[15a] launches of one train step on the card {x['train_launches']}, counted on "
+          f"the meta device {x['traced_launches']}; one eager decode step "
+          f"{x['decode_launches']}, on the meta device {x['traced_decode_launches']}")
+    check(x["train_launches"] == x["traced_launches"] and
+          x["decode_launches"] == x["traced_decode_launches"],
+          "the meta trace counts the hand kernels' launches the card made")
+    for name in ("gemm", "flash_attention", "flash_attention_bwd"):
+        check(x["train_launches"].get(name, 0) > 0, f"the train step launched {name}")
+    for name in ("gemm", "flash_decode"):
+        check(x["decode_launches"].get(name, 0) > 0, f"the decode step launched {name}")
+    for key, what in (("train", f"train step (B {TRAIN_B} x S {TRAIN_S})"),
+                      ("decode", "eager float decode step (8 slots)")):
+        a = x[f"{key}_attr"]
+        print(f"[15b] {what}: {a['kernels']} kernels, {a['total_ms']:.3f} ms of kernel time, "
+              f"{1 - a['unattributed']:.2%} in a named row (bar {ATTRIBUTED_BAR:.0%}); {card}")
+        check(a["metric"] == "device_ms" and a["kernels"] > 0,
+              f"the {key} profile holds the card's kernels")
+        check(1 - a["unattributed"] >= ATTRIBUTED_BAR,
+              f"at least 95 % of the {key} step's kernel time attributed")
+        r = x[f"{key}_roof"]
+        print(f"[15c] {what} roofline on {card}: " + json.dumps(
+            {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}))
+        print(f"[15c] {what}: measured {r['measured_s'] * 1e3:.3f} ms against the roofline's "
+              f"{r['step_time_s'] * 1e3:.3f} ms ({r['bound']}-bound), MFU {r['measured_mfu']:.2%} "
+              f"on the {hw.PEAK_FLOPS_BF16 / 1e12:.0f}-TFLOP/s bf16 peak (at the roofline "
+              f"time {r['mfu']:.2%})")
+        check(r["measured_s"] >= r["step_time_s"],
+              f"the measured {key} step is no faster than its roofline")
+    print(f"[15c] the decode step's counted bytes by source (GB): " + ", ".join(
+        f"{k} {v / 1e9:.3f}" for k, v in x["decode_count_bytes"].items()))
+    print(f"[15] phase 15 took {time.monotonic() - t0:.1f}s (child {x['seconds']:.1f}s: "
+          f"profiles {x['profile_s']:.1f}s, meta traces {x['trace_s']:.1f}s)")
+    return x
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -4838,6 +5014,9 @@ def main() -> int:
     if sys.argv[1:] == [PROFILE_FLAG]:   # phase 5's profiles, in a process of their own
         from repro_torch.kernels import flash_attention as fa
         print(json.dumps(profile_train_attention(torch, fa)))
+        return 0
+    if sys.argv[1:] == [ANALYSIS_FLAG]:  # phase 15, in a process of its own
+        print(json.dumps(analysis_child(torch, np)))
         return 0
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
@@ -5004,6 +5183,9 @@ def main() -> int:
     summary14 = phase_train(torch, np, configs, M, mods)
     print(f"[14b] a 2-layer full-width gemma3-1b train step in f32: card vs CPU {stamp()}")
     phase_train_parity(torch, np, configs, M)
+    print(f"[15] the analysis layer: memory, attribution and rooflines of gemma3-1b's train "
+          f"and decode steps (a process of its own) {stamp()}")
+    phase15(torch)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)

@@ -11,7 +11,7 @@ through the unpaged decode path only.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ArchConfig
 
@@ -48,3 +48,24 @@ def get_smoke(name: str) -> ArchConfig:
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     return importlib.import_module(_ARCH_MODULES[name]).smoke_config()
+
+
+# Shape grid assigned to the LM-family architectures (the reference's
+# configs.SHAPES): the dry run's cells (launch/dryrun.py).
+SHAPES: Dict[str, dict] = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+# long_500k requires sub-quadratic sequence mixing; only the SSM/hybrid archs
+# run it.
+LONG_CONTEXT_ARCHS = {"jamba-1.5-large-398b", "xlstm-1.3b"}
+
+
+def shapes_for(name: str) -> List[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if name in LONG_CONTEXT_ARCHS:
+        out.append("long_500k")
+    return out

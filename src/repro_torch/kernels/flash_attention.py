@@ -15,7 +15,8 @@ arithmetic (q scaled in f32 before the dot, p rounded to v's dtype before
 PV) as an online-softmax walk over kv blocks of `block_kv` keys.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version.  No fallback on the card.
+tensor runs the plain version.  No fallback on the card.  A meta tensor
+reports the launch's cost (kernels/cost.py) and returns empty outputs.
 
 Training: when grad mode is on and q, k or v requires a gradient,
 `flash_attention` runs through the autograd Function `_FlashAttention`.
@@ -45,7 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 # Launches of the CUDA kernels since the last reset (the plain versions never
 # count): the proof that a run went through the kernels.  `launches` counts
@@ -233,6 +234,16 @@ def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
         got = flash_attention_plain(q, k, v, causal=causal, window=window,
                                     return_lse=with_lse)
         return got if with_lse else (got, None)
+    if q.device.type == "meta":
+        B, Sq, Hq, D = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
+        c = cost.flash_attention(B, Sq, Skv, Hq, Hkv, D,
+                                 pairs=cost.attention_pairs(Sq, Skv, causal, window),
+                                 elem_bytes=q.element_size(), lse=with_lse)
+        if not with_lse:
+            return cost.meta_launch("flash_attention", c, (tuple(q.shape), q.dtype)), None
+        return cost.meta_launch("flash_attention", c, (tuple(q.shape), q.dtype),
+                                ((B, Hq, Sq), torch.float32))
     _on_card(q)
     return _flash_cuda(q, k, v, causal, window, with_lse)
 
@@ -298,6 +309,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                          window=window)
+    if q.device.type == "meta":
+        B, Sq, Hq, D = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
+        c = cost.flash_attention_bwd(B, Sq, Skv, Hq, Hkv, D,
+                                     pairs=cost.attention_pairs(Sq, Skv, causal, window),
+                                     elem_bytes=q.element_size())
+        return cost.meta_launch("flash_attention_bwd", c, (tuple(q.shape), q.dtype),
+                                (tuple(k.shape), k.dtype), (tuple(v.shape), v.dtype))
     _on_card(q)
     return _bwd_cuda(q, k, v, out, lse, dout, causal, window)
 

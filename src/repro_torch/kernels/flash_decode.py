@@ -22,7 +22,9 @@ walk over table-column chunks (the reference's CPU default);
 `split_decode_plain`, the kernel's own split partials and merge.
 
 `paged_decode_attention` is the entry the model calls: CUDA tensors launch
-the kernel (or raise), CPU tensors run `ref_paged_decode`.
+the kernel (or raise), CPU tensors run `ref_paged_decode`, meta tensors
+report the launch's cost (kernels/cost.py: every slot's queries at the end of
+its table, since a meta tensor holds no positions).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.serving.kv_cache import NULL_BLOCK, PagedKVCache, gather_kv
 
 NEG_INF = -2.0e38
@@ -403,6 +405,20 @@ def flash_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     return out
 
 
+def _meta_decode(q: torch.Tensor, cache: PagedKVCache, block_tables: torch.Tensor,
+                 window: Optional[int]) -> torch.Tensor:
+    """K2's meta route: every slot's Sq queries end at its table's extent."""
+    B, Sq, Hq, D = q.shape
+    extent = block_tables.shape[1] * cache.k.shape[1]
+    keys, visible = cost.decode_work([max(0, extent - Sq)] * B, Sq, window)
+    int8 = cache.k.dtype == torch.int8
+    c = cost.flash_decode(B, Sq, Hq, cache.k.shape[2], D, keys=keys, visible=visible,
+                          table_entries=block_tables.numel(), q_bytes=q.element_size(),
+                          pool_int8=int8)
+    return cost.meta_launch("flash_decode_int8" if int8 else "flash_decode", c,
+                            (tuple(q.shape), q.dtype))
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
@@ -421,6 +437,8 @@ def paged_decode_attention(q: torch.Tensor, cache: PagedKVCache,
     if q.device.type == "cpu":
         return ref_paged_decode(q, cache, block_tables, index, window=window,
                                 cols_per_iter=(spec or FlashDecodeSpec()).cols_per_iter)
+    if q.device.type == "meta":
+        return _meta_decode(q, cache, block_tables, window)
     if q.device.type != "cuda":
         raise ValueError(f"paged decode: no kernel for device {q.device}")
     return flash_decode_attention(q, cache, block_tables, index, window=window,

@@ -18,7 +18,9 @@ never share a workspace or a tile counter).  A `GemmLaunchSpec`
 count and, at M <= SWAP_ROWS, its tile.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version `gemm_plain`.  No fallback on the card.
+tensor runs the plain version `gemm_plain`.  No fallback on the card.  A
+meta tensor (launch/step_cost.py) computes nothing: it reports the
+launch's cost and returns an empty C.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
@@ -303,9 +305,23 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"gemm operands on {a.device} and {b.device}")
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)
+    if a.device.type == "meta":
+        return meta_gemm("gemm", a, b, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"gemm: no kernel for device {a.device}")
     return _gemm_cuda(a, b, out_dtype, spec)
+
+
+def meta_gemm(kernel: str, a: torch.Tensor, b: torch.Tensor,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """The meta route of K1 / K6 (and K1's int mode): C's shape and dtype,
+    the launch's cost reported (kernels/cost.py)."""
+    M, K = a.shape
+    N = b.shape[1]
+    c = cost.gemm(M, K, N, a_bytes=a.element_size(), b_bytes=b.element_size(),
+                  out_bytes=torch.empty((), dtype=out_dtype).element_size(),
+                  bits=cost.bits_of(a.dtype))
+    return cost.meta_launch(kernel, c, ((M, N), out_dtype))
 
 
 def check_launch(a: torch.Tensor, b: torch.Tensor, what: str) -> Tuple[int, int, int]:

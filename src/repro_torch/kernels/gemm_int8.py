@@ -33,7 +33,8 @@ K-major first, and an A whose rows are not K-contiguous and 16-byte
 aligned is re-laid as K1's is (never on the model's path).
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version.  No fallback on the card.
+tensor runs the plain version.  No fallback on the card.  A meta tensor
+reports the launch's cost (kernels/cost.py) and returns an empty output.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 from repro_torch.kernels.gemm import GemmLaunchSpec, check_launch, launch_plan, rows_for_copies
 from repro_torch.kernels.quant import check_static_scale, quantize_rows, quantize_rows_plain
 
@@ -106,8 +107,12 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise TypeError(f"int8 gemm takes int8 operands, got {a.dtype}, {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"int8 gemm operands on {a.device} and {b.device}")
-    if a.device.type not in ("cpu", "cuda"):
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"int8 gemm: no kernel for device {a.device}")
+
+
+def _elem(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
 def _check_out(out_dtype: torch.dtype) -> None:
@@ -133,6 +138,9 @@ def dequant_gemm(a_q: torch.Tensor, b_q: torch.Tensor, sa: torch.Tensor,
     if a_q.device.type == "cpu":
         return dequant_gemm_plain(a_q, b_q, sa, sb, out_dtype)
     _check_out(out_dtype)
+    if a_q.device.type == "meta":
+        return cost.meta_launch("dequant_gemm", cost.dequant_gemm(
+            M, a_q.shape[1], N, out_bytes=_elem(out_dtype)), ((M, N), out_dtype))
     global launches
     out = _launch(a_q, b_q, sa.contiguous(), sb.contiguous(), out_dtype, spec)
     launches += 1
@@ -145,6 +153,11 @@ def gemm_int(a: torch.Tensor, b: torch.Tensor, *,
     _check(a, b)
     if a.device.type == "cpu":
         return gemm_int_plain(a, b)
+    if a.device.type == "meta":
+        M, K = a.shape
+        return cost.meta_launch("gemm_int", cost.gemm(
+            M, K, b.shape[1], a_bytes=1, b_bytes=1, out_bytes=4, bits=8),
+            ((M, b.shape[1]), torch.int32))
     global int_launches
     out = _launch(a, b, None, None, torch.int32, spec)
     int_launches += 1
@@ -176,7 +189,7 @@ def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError(f"w8a8 gemm operands on {x.device}, {w_q.device}, {w_scale.device}")
     if x.device.type == "cpu":
         return gemm_w8a8_plain(x, w_q, w_scale, act_scale, out_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"w8a8 gemm: no kernel for device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"w8a8 gemm kernel takes f32/bf16 activations, got {x.dtype}")
@@ -184,6 +197,11 @@ def gemm_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if act_scale is not None:
         check_static_scale(act_scale, x.device)
     if x.shape[0] <= FUSED_ROWS and (spec is None or spec.fused):
+        if x.device.type == "meta":
+            M, K = x.shape
+            return cost.meta_launch("gemm_w8a8", cost.gemm_w8a8(
+                M, K, N, x_bytes=x.element_size(), out_bytes=_elem(out_dtype)),
+                ((M, N), out_dtype))
         return _w8a8_fused(x, w_q, w_scale, act_scale, out_dtype, spec)
     x_q, sx = quantize_rows(x, act_scale)
     return dequant_gemm(x_q, w_q, sx, w_scale.reshape(1, -1), out_dtype=out_dtype,

@@ -19,7 +19,8 @@ repro/core/generator.py:63); it is clamped as the reference clamps it:
 max(2, depth), then at most the K steps.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version `gemm_plain`.  No fallback on the card.
+tensor runs the plain version `gemm_plain`.  No fallback on the card.  A
+meta tensor reports the launch's cost (`gemm.meta_gemm`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.gemm import (GemmLaunchSpec, check_launch, launch_plan,
-                                      operands_for_copies)
+                                      meta_gemm, operands_for_copies)
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
@@ -94,6 +95,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, depth: Optional[int] = None,
     if acc == torch.int32 and out_dtype != torch.int32:
         raise TypeError(f"pipelined gemm writes int8 x int8 as int32, not {out_dtype}")
     clamp_depth(depth, 1)                            # validate on every device
+    if a.device.type == "meta":
+        return meta_gemm("gemm_pipelined", a, b, out_dtype)
     if a.device.type == "cpu":
         return gemm_plain(a, b, out_dtype)
     if a.device.type != "cuda":

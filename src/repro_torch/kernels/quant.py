@@ -24,7 +24,8 @@ This kernel serves `ops.quantize`, the int8 path on float weights
 w8a8 GeMM runs the same arithmetic in its own prologue, one launch.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises), a CPU
-tensor runs the plain version.  No fallback on the card.
+tensor runs the plain version.  No fallback on the card.  A meta tensor
+reports the launch's cost (kernels/cost.py).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 # Launches of the CUDA kernel since the last reset (the plain version never
 # counts): the proof that a run went through the kernel.
@@ -89,6 +90,10 @@ def quantize_rows(x: torch.Tensor, act_scale: Optional[torch.Tensor] = None
         raise ValueError(f"quantize_rows takes (M, K), got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return quantize_rows_plain(x, act_scale)
+    if x.device.type == "meta":
+        M, K = x.shape
+        return cost.meta_launch("quantize_rows", cost.quantize_rows(
+            M, K, x_bytes=x.element_size()), ((M, K), torch.int8), ((M, 1), torch.float32))
     if x.device.type != "cuda":
         raise ValueError(f"quantize_rows: no kernel for device {x.device}")
     if x.dtype not in _CODES:

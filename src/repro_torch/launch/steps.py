@@ -9,6 +9,13 @@ over every parameter leaf (through the hand kernels' Functions: K1 for
 every projection and the tied head, K5 / K5b for attention), then the
 in-place `adamw_update`.  A CUDA graph of the whole step is later work.
 
+The dry run's step builders and shape structs (`make_prefill_step`,
+`params_struct`, `opt_state_struct`, `decode_state_struct`,
+`input_specs`) build on the "meta" device, where the reference uses
+`jax.eval_shape` and `ShapeDtypeStruct`s: a cell of hundreds of billions
+of parameters allocates nothing, and the steps run on those tensors
+through the kernels' meta routes (launch/step_cost.py).
+
 The reference jits `make_serve_step(cfg)`; the port's counterpart on the
 card is one CUDA graph of the step over one `DecodeState`
 (`GraphedServeStep`): the step writes the dense caches and the recurrent
@@ -19,7 +26,7 @@ graph serves one (batch, max_seq) and one batch of encoder frames.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -27,7 +34,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.kernels import launches
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
-from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, warmup_cosine
 
 
 def optimizer_config(cfg: ArchConfig) -> AdamWConfig:
@@ -60,6 +67,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         return params, opt_state, {"loss": loss.detach(), "lr": lr}
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    def prefill_step(params, batch):
+        # Serving prefill: only the next-token logits leave the step.
+        return M.forward(params, cfg, batch, last_only=True)
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig):
@@ -101,3 +116,58 @@ class GraphedServeStep:
         self.tokens.copy_(tokens)
         self.graph.replay()
         return self.logits, state
+
+
+# ---------------------------------------------------------------------------
+# Meta-device inputs per (arch x shape) cell: shapes and dtypes, no memory.
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _batch_extras(cfg: ArchConfig, batch: int) -> Dict[str, Any]:
+    extras: Dict[str, Any] = {}
+    if cfg.family == "encdec":
+        extras["frames"] = torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                                       dtype=torch.float32, device=META)
+    if cfg.family == "vlm":
+        extras["patches"] = torch.empty((batch, cfg.prefix_len, M.VISION_DIM),
+                                        dtype=torch.float32, device=META)
+    return extras
+
+
+def params_struct(cfg: ArchConfig) -> dict:
+    """`init_model`'s tree on the meta device (no generator draws)."""
+    return M.init_model(cfg, device=META)
+
+
+def opt_state_struct(cfg: ArchConfig, p_struct: dict, opt_cfg: AdamWConfig) -> dict:
+    return adamw_init(p_struct, opt_cfg)
+
+
+def decode_state_struct(cfg: ArchConfig, p_struct: dict, batch: int, max_seq: int
+                        ) -> M.DecodeState:
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.empty((batch, cfg.encoder_seq, cfg.d_model), dtype=cfg.torch_dtype,
+                          device=META)
+    return M.init_decode_state(p_struct, cfg, batch, max_seq, encoder_out=enc)
+
+
+def input_specs(cfg: ArchConfig, shape: Dict[str, Any]) -> Dict[str, Any]:
+    """Meta tensors for one shape cell: what the step consumes.
+
+    train  -> {"batch": {tokens, labels, ...}}
+    prefill-> {"batch": {tokens, ...}}
+    decode -> {"tokens": (B,1), "max_seq": S}  (DecodeState built separately)
+    """
+    kind, S, B = shape["kind"], shape["seq_len"], shape["global_batch"]
+    tok = lambda s: torch.empty(s, dtype=torch.int32, device=META)  # noqa: E731
+    if kind == "train":
+        return {"batch": {"tokens": tok((B, S)), "labels": tok((B, S)),
+                          **_batch_extras(cfg, B)}}
+    if kind == "prefill":
+        return {"batch": {"tokens": tok((B, S)), **_batch_extras(cfg, B)}}
+    if kind == "decode":
+        return {"tokens": tok((B, 1)), "max_seq": S}
+    raise ValueError(kind)

@@ -39,11 +39,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, Optional
 
+from repro_torch.core import hw
+from repro_torch.launch.roofline import model_flops
 from repro_torch.tuning import model as tmodel
 from repro_torch.tuning.candidates import GemmShape, rule_spec
 
-PEAK_FLOPS_BF16 = tmodel.PEAK_OPS[16]     # H100 SXM, dense
-HBM_BW = tmodel.HBM_BW
+PEAK_FLOPS_BF16 = hw.PEAK_FLOPS_BF16     # H100 SXM, dense (core/hw.py)
+HBM_BW = hw.HBM_BW
 
 PHASES = ("prefill", "decode", "verify")
 
@@ -80,7 +82,9 @@ class MfuMeter:
         self.peak_flops = float(peak_flops)
         self.hbm_bw = float(hbm_bw)
         active = cfg.active_param_count()
-        self.flops_per_token = 2.0 * active
+        # one committed token: the inference formula of launch/roofline.py
+        self.flops_per_token = model_flops(
+            cfg, {"kind": "decode", "seq_len": 1, "global_batch": 1})
         self.param_bytes = active * _DTYPE_BYTES.get(cfg.dtype, 2)
         self.phases: Dict[str, PhaseStat] = {p: PhaseStat() for p in PHASES}
         self._cfg = cfg

@@ -35,12 +35,12 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional
 
+from repro_torch.core.hw import H100_SMS  # noqa: F401  (the analytic target)
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_int8 as _gemm_int8
 from repro_torch.kernels import gemm_pipelined as _pipelined
 from repro_torch.kernels.gemm import GemmLaunchSpec
 
-H100_SMS = 132          # multiprocessors of an H100 SXM: the analytic target
 DEPTHS = (2, 3, 4)      # K6's ring depths (csrc/gemm_pipelined.cu)
 # The kernel each tuning backend names: the float GeMMs K1 ("tiled") and K6
 # ("pipelined"), and the int8 GeMMs K3 ("dequant": int8 codes and scales in)

@@ -30,15 +30,13 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.core.hw import CLOCK_HZ, HBM_BW, PEAK_OPS  # predictions also read in clocks
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import gemm_int8 as _gemm_int8
 from repro_torch.kernels.gemm import GemmLaunchSpec
 from repro_torch.tuning.candidates import (H100_SMS, GemmShape, dtype_bits,
                                            elem_bytes)
 
-HBM_BW = 3.35e12                                         # bytes/s
-PEAK_OPS = {8: 1979e12, 16: 989e12, 32: 67e12}           # by operand bits
-CLOCK_HZ = 1.98e9           # SM boost clock: predictions are also read in clocks
 LAUNCH_S = 3.5e-6           # per kernel launch (graph replay), fitted
 FIXUP_S = 1.5e-6            # per split-K fix-up (the last block's read-back), fitted
 

@@ -337,6 +337,36 @@ Phases, in order; any failure exits non-zero:
      src/repro_torch).  15c: each step's `Roofline.row()` and MFU on the
      989 TFLOP/s bf16 peak; a measured step faster than its roofline
      fails.  To make room, 10b / 10c's prompts are cut to 160-320 tokens.
+  16. the families train, in a process of its own (`chip_smoke.py
+     --families`), bf16, random weights (seed 0), `SyntheticLMData`, 3
+     steps each.  16a: xlstm-1.3b (B 1 x S 1024), whisper-medium (B 4 x S
+     448, 1500 stub frames) and paligemma-3b (B 2 x S 1024, 256 patches)
+     whole through `repro_torch.launch.train.main` (on_step ends each run
+     after its last step, before the final checkpoint: phase 14 holds
+     checkpoints), then dbrx-132b at one layer (`reduced` n_layers 40 -> 1,
+     group_size 4 -> 1; all 16 experts, the whole arch's bf16 moments)
+     through `make_train_step`: each step's loss (finite), ms, hand-kernel
+     launches; the median of steps 2-3, tokens/s, peak memory beside the
+     meta device's traced peak.  Each step's launches must equal
+     `step_cost.analyze`'s count of the same step on the meta device
+     (`chip_smoke.py --families-meta`, a CPU process beside the card
+     runs); xlstm's whole step traces too slowly for the phase (458 s on a
+     CPU), so one 8-layer group is counted at S 64 and scaled by the group
+     count, the head's loss chunks at the real S (the formula is
+     printed).  16b: xlstm-1.3b, jamba, dbrx-132b, whisper-medium and
+     paligemma-3b at 2 layers holding every layer kind of the family
+     (`reduced`; jamba 2 of 16 experts, dbrx 4 of 16, for the host's
+     memory), published widths, f32, B 1 x S 128: the loss within 1e-5
+     and every gradient leaf within 1e-4 of max(its largest element, 1e-4
+     x the tree's largest) on the card against the CPU.  Phase 2 adds K5b
+     at whisper's encoder (1500 frames, non-causal) and cross-attention
+     (448 over 1500), dbrx's 48 / 8 and arctic's 56 / 8 heads (clusters
+     of 6 and 7 blocks) and 12 / 12 at D 64.  To make room, phase 4's
+     w8a8 and calibrated w8a8 token comparisons serve its 72-token prompt
+     alone.  One paligemma-3b step is
+     profiled by source after 16b: the share of its kernel time in the
+     plain blockwise attention its 256-patch prefix takes.  To make
+     room, 10a's speculative storm is cut to prompts of 128-256 tokens.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -1574,7 +1604,8 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
     prompts[0], prompts[1] = prompts[0][:520], prompts[1][:72]
     max_new = 4
     print('  reduced {"prompt tokens": [[600, 300], [520, 72]], "new tokens": [8, 4], '
-          '"CPU runs": ["float, pipelined: its own", "the float run\'s"]}')
+          '"CPU runs": ["float, pipelined: its own", "the float run\'s"], '
+          '"w8a8 and calibrated w8a8 prompts served": [2, 1]}')
 
     # The unpaged forward (K5 + K1 on the card) at the float bar, S = 520
     # > the 512 window, every position's logits.
@@ -1600,11 +1631,11 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
           f"{worst:.3e} (bar 1e-4)")
     check(worst <= 1e-4, "calibration table CUDA vs CPU")
 
-    def serve(dev, p, precision, kv_precision):
+    def serve(dev, p, precision, kv_precision, served=None):
         eng = Engine(cfg, p, slots=2, max_seq=640, block_size=16, max_chunk=64,
                      precision=precision, kv_precision=kv_precision, device=dev)
         eng.warmup()
-        for pr in prompts:
+        for pr in prompts if served is None else served:
             eng.submit(RequestSpec(prompt=pr, max_new=max_new))
         return eng.run()
 
@@ -1618,12 +1649,16 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
     # here: CUDA vs CPU must differ by no more than twice the largest change
     # that three such perturbations make on the card, in relative L2, with
     # the same argmax.
-    for precision, kv_precision, tol in (("float", "float", 1e-4), ("w8a8", "int8", None)):
+    # The w8a8 tokens are served for the 72-token prompt alone (its CPU run
+    # of the 520-token one cut for the time limit when phase 16 joined the
+    # script); its logits below still run the 520-token prompt.
+    for precision, kv_precision, tol, served in (("float", "float", 1e-4, None),
+                                                 ("w8a8", "int8", None, prompts[1:])):
         print(f"  precision={precision}, kv={kv_precision}:")
         out = {}
         for dev, p in (("cuda", params), ("cpu", cpu_params)):
             t0 = time.monotonic()
-            out[dev] = serve(dev, p, precision, kv_precision)
+            out[dev] = serve(dev, p, precision, kv_precision, served)
             print(f"    {dev}: {time.monotonic() - t0:.1f}s, tokens "
                   f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
         for rid in out["cpu"]:
@@ -1663,17 +1698,19 @@ def phase_parity(torch, np, configs, M, kvc, Engine, RequestSpec, quant, ops):
             print(line)
             check(ok, f"CUDA vs CPU logits, {what} ({precision}, {kv_precision} KV)")
         first_step[precision] = got[1]
-    # Tokens only: calibrated w8a8, and the float engine under the pipelined
-    # backend (K6 on the card; on the CPU the float run's plain GeMM).
-    for precision, kv_precision, backend in (("w8a8-calibrated", "int8", "tiled"),
-                                             ("float", "float", "pipelined")):
+    # Tokens only: calibrated w8a8 (the 72-token prompt alone, as w8a8's),
+    # and the float engine under the pipelined backend (K6 on the card; on
+    # the CPU the float run's plain GeMM).
+    for precision, kv_precision, backend, served in (
+            ("w8a8-calibrated", "int8", "tiled", prompts[1:]),
+            ("float", "float", "pipelined", None)):
         out = {}
         ops.set_default_backend(backend)
         try:
             runs = [("cuda", params)] + ([("cpu", cpu_params)] if backend == "tiled" else [])
             for dev, p in runs:
                 t0 = time.monotonic()
-                out[dev] = serve(dev, p, precision, kv_precision)
+                out[dev] = serve(dev, p, precision, kv_precision, served)
                 print(f"  precision={precision}, kv={kv_precision}, backend={backend}, "
                       f"{dev}: {time.monotonic() - t0:.1f}s, tokens "
                       f"{[out[dev][r].tolist() for r in sorted(out[dev])]}")
@@ -2956,7 +2993,11 @@ def phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg, k, slots):
     print("  launches per verify replay (as planned): " + "; ".join(
         f"verify{w}: " + " ".join(f"{k_}={v}" for k_, v in spec._graph_launches[f"verify{w}"]
                                   .items()) for w in widths))
-    specs = [RequestSpec(prompt=p, max_new=n) for p, n in family_storm(np, cfg.vocab)]
+    # The storm's prompts are cut to 128-256 tokens (from 256-512) for the
+    # time limit when phase 16 joined the script (`reduced`).
+    print('  reduced {"storm prompt tokens": [[256, 512], [128, 256]]}')
+    specs = [RequestSpec(prompt=p, max_new=n)
+             for p, n in family_storm(np, cfg.vocab, lo=128, hi=256)]
     reset_counts(mods)
     got, times, d = _serve_ticks(spec, specs)
     want, ptimes, pd = _serve_ticks(plain, specs)
@@ -4382,14 +4423,22 @@ def phase13_cli():
 # 5 blocks), 16 / 1 and 12 / 1 (clusters of 8 and 6 blocks of 2 heads, past
 # the cluster limit; the second non-causal under a window), a window of 16
 # (shorter than a tile), D 64 and 128 at S 1024.
-BWD_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window)
+BWD_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window[, Skv])
     (4, 1024, 4, 1, 256, True, None), (4, 1024, 4, 1, 256, True, 512),
 ] + [(2, S, 4, 2 if D == 128 else 1, D, True, None if S < 1000 else 200)
      for D in (64, 128, 256) for S in (32, 100, 1000)] + [(1, 100, 4, 4, 64, False, None)] + [
     (1, 300, 8, 1, 128, True, None), (2, 200, 10, 2, 128, True, None),
     (1, 130, 16, 1, 64, True, None), (1, 150, 12, 1, 64, False, 40),
     (2, 1000, 4, 1, 256, True, 16), (2, 1024, 4, 1, 64, True, None),
-    (2, 1024, 4, 1, 128, True, 512)]
+    (2, 1024, 4, 1, 128, True, 512)] + [
+    # the families' training shapes (phase 16), with Skv apart from S where
+    # it differs (the 8th field): whisper's encoder (1500 frames, not a
+    # multiple of the 64-key tile) and its cross-attention (448 tokens over
+    # them), non-causal; dbrx's and arctic's 48 / 8 and 56 / 8 heads
+    # (clusters of 6 and 7 blocks); bert-base / vit-b-16's 12 / 12 at D 64.
+    (1, 1500, 16, 16, 64, False, None), (1, 448, 16, 16, 64, False, None, 1500),
+    (1, 1024, 48, 8, 128, True, None), (1, 1024, 56, 8, 128, True, None),
+    (1, 1024, 12, 12, 64, True, None)]
 # K5b vs plain, of each gradient's largest element: f32 sums reordered; in
 # bf16 P and dS round to bf16 in both before their products, the sums in
 # other orders, so one bf16 ulp at the largest element.
@@ -4420,9 +4469,11 @@ def phase_kernels_train(torch, fa, gemm, ops):
     worst = {"flash_attention_bwd": 0.0, "gemm_bwd": 0.0}
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
-        for B, S, Hq, Hkv, D, causal, window in BWD_SHAPES:
-            q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
-                           for h in (Hq, Hkv, Hkv, Hq))
+        for shape in BWD_SHAPES:
+            B, S, Hq, Hkv, D, causal, window = shape[:7]
+            Skv = shape[7] if len(shape) > 7 else S
+            q, k, v, do = (torch.randn((B, s, h, D), generator=g, device=dev).to(dt)
+                           for s, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv), (S, Hq)))
             out, lse = fa._forward(q, k, v, causal, window, True)
             same = torch.equal(out, fa._forward(q, k, v, causal, window, False)[0])
             _, plse = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -4441,10 +4492,11 @@ def phase_kernels_train(torch, fa, gemm, ops):
                 worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], err)
                 check(a.dtype == dt and bool(a.isfinite().all())
                       and err <= BWD_TOL[dname] * scale,
-                      f"flash_attention_bwd {dname} {(B, S, Hq, Hkv, D, causal, window)} {name}")
+                      f"flash_attention_bwd {dname} {shape} {name}")
             check(same and det and lse_err <= 1e-5,
-                  f"flash_attention lse / determinism {(B, S, Hq, Hkv, D, causal, window)}")
-            print(f"  flash_attention_bwd {dname} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"flash_attention lse / determinism {shape}")
+            print(f"  flash_attention_bwd {dname} B={B} S={S}"
+                  + (f" Skv={Skv}" if Skv != S else "") + f" Hq={Hq} Hkv={Hkv} D={D} "
                   f"causal={causal} window={window}: max_abs/max " + ", ".join(errs)
                   + f" (bar {BWD_TOL[dname]:g} x max); two runs bitwise equal; lse max_abs "
                   f"{lse_err:.1e} (bar 1e-5), out with lse bitwise equal to out without: ok")
@@ -4990,6 +5042,523 @@ def phase15(torch):
     return x
 
 
+# -- phase 16: the families train --------------------------------------------------
+
+FAMILIES_FLAG = "--families"
+FAMILIES_META_FLAG = "--families-meta"
+FAMILY_STEPS, FAMILY_LR = 3, 3e-4
+# 16a: (arch, B, S) trained whole through the train CLI at published widths,
+# then dbrx-132b cut to one layer (all 16 experts) through make_train_step
+# with the whole arch's optimizer config (bf16 moments).
+FAMILY_CLI = (("xlstm-1.3b", 1, 1024), ("whisper-medium", 4, 448), ("paligemma-3b", 2, 1024))
+FAMILY_DBRX = ("dbrx-132b", 1, 1024)
+# xlstm's whole step is counted on the meta device one 8-layer group at a
+# short S (the GeMM count does not depend on S but through the loss's
+# chunks), scaled by the group count, the head's chunks at the real S.
+META_GROUP_S = 64
+# 16b: f32 at published widths, card against CPU, B 1 x S 128; each arch at
+# 2 layers holding every layer kind of its family.
+PARITY_S = 128
+PARITY_FLOOR = 1e-4        # of the tree's largest |gradient element| (xlstm's b_i)
+DEVICE_BYTES = 80e9
+
+
+def dbrx_train_cfg(configs):
+    full = configs.get(FAMILY_DBRX[0])
+    cfg = dataclasses.replace(full, n_layers=1, group_size=1)
+    return cfg, full, {"n_layers": [full.n_layers, 1], "group_size": [full.group_size, 1]}
+
+
+def family_parity_cfg(configs, arch):
+    """16b's 2-layer f32 config of `arch` and its cuts."""
+    full = configs.get(arch)
+    kw = dict(n_layers=2, group_size=2, dtype="float32")
+    if arch == "xlstm-1.3b":
+        kw["slstm_every"] = 2                       # mLSTM, then sLSTM
+    if arch == "jamba-1.5-large-398b":
+        kw.update(attn_every=2, moe_every=2,        # Mamba + MLP, attention + MoE
+                  moe=dataclasses.replace(full.moe, num_experts=2))
+    if arch == "dbrx-132b":
+        kw["moe"] = dataclasses.replace(full.moe, num_experts=4)
+    if arch == "whisper-medium":
+        kw["encoder_layers"] = 2
+    reduced = {k: [getattr(full, k), v] for k, v in kw.items() if k != "moe"}
+    if "moe" in kw:
+        reduced["num_experts"] = [full.moe.num_experts, kw["moe"].num_experts]
+    return dataclasses.replace(full, **kw), reduced
+
+
+PARITY_ARCHS = ("xlstm-1.3b", "jamba-1.5-large-398b", "dbrx-132b", "whisper-medium",
+                "paligemma-3b")
+
+
+def _family_extras(cfg, M):
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = (cfg.encoder_seq, cfg.d_model)
+    if cfg.family == "vlm":
+        extras["patches"] = (cfg.prefix_len, M.VISION_DIM)
+    return extras
+
+
+def families_meta(torch):
+    """Phase 16's meta traces (a CPU process of its own, beside the card
+    runs): each 16a step counted by `step_cost.analyze` on the meta device,
+    with the resident bytes beside its traced peak; xlstm by one group."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.launch import dryrun, steps
+
+    def count(cfg, opt_cfg, B, S):
+        t0 = time.monotonic()
+        c, held = dryrun.trace_cell(cfg, dict(kind="train", seq_len=S, global_batch=B), opt_cfg)
+        return {"launches": dict(c.launches), "activations": c.peak_live_bytes,
+                "weights": held["weights"], "opt_state": held["opt_state"],
+                "trace_s": time.monotonic() - t0}
+
+    t0, out = time.monotonic(), {}
+    for arch, B, S in FAMILY_CLI:
+        cfg = configs.get(arch)
+        opt_cfg = steps.optimizer_config(cfg)
+        if arch != "xlstm-1.3b":
+            out[arch] = count(cfg, opt_cfg, B, S)
+            continue
+        group = count(dataclasses.replace(cfg, n_layers=cfg.group_size), opt_cfg, B, META_GROUP_S)
+        head_s = count(dataclasses.replace(cfg, n_layers=0), opt_cfg, B, META_GROUP_S)
+        head = count(dataclasses.replace(cfg, n_layers=0), opt_cfg, B, S)
+        params = steps.params_struct(cfg)
+        launches = {k: cfg.n_groups * (n - head_s["launches"].get(k, 0))
+                    + head["launches"].get(k, 0) for k, n in group["launches"].items()}
+        out[arch] = {"launches": launches, "activations": None,
+                     "weights": dryrun.storage_bytes(tree_lib.leaves(params)),
+                     "opt_state": dryrun.storage_bytes(tree_lib.leaves(
+                         steps.opt_state_struct(cfg, params, opt_cfg))),
+                     "trace_s": group["trace_s"] + head_s["trace_s"] + head["trace_s"],
+                     "formula": " ".join(
+                         f"{k} = {cfg.n_groups} groups x ({n} of one {cfg.group_size}-layer "
+                         f"group at S {META_GROUP_S} - {head_s['launches'].get(k, 0)} of its "
+                         f"head chunk) + {head['launches'].get(k, 0)} of the head's "
+                         f"{S // LOSS_CHUNK} chunks at S {S} = {launches[k]};"
+                         for k, n in group["launches"].items())}
+    cfg, full, _ = dbrx_train_cfg(configs)
+    out[FAMILY_DBRX[0]] = count(cfg, steps.optimizer_config(full), *FAMILY_DBRX[1:])
+    return {"runs": out, "seconds": time.monotonic() - t0}
+
+
+class _StopRun(Exception):
+    """Raised from the train CLI's on_step after the last step: the run ends
+    before the supervisor's final checkpoint (phase 14 holds checkpoints;
+    xlstm's 37 GB of state would take longer to write than to train)."""
+
+
+def _train_run(torch, launches, label, run):
+    """Phase 16a's steps of `run()` (which drives on_step): per step (loss,
+    ms, launches), the peak memory."""
+    import gc
+
+    per_step = []
+
+    def on_step(step, metrics, sec):
+        per_step.append((step, float(metrics["loss"]), sec * 1e3,
+                         {k: v for k, v in launches.counts().items() if v}))
+        launches.reset()
+        if step == FAMILY_STEPS:
+            raise _StopRun
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.monotonic()
+    try:
+        run(on_step)
+    except _StopRun:
+        pass
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [16a] {label}: {len(per_step)} steps in {wall:.1f}s; per step: " + "; ".join(
+        f"{s} loss {l:.6f} {t:.1f} ms " + " ".join(f"{k}={n}" for k, n in c.items())
+        for s, l, t, c in per_step), flush=True)
+    return {"steps": per_step, "peak": peak, "wall": wall}
+
+
+def _layer_inputs_and_tail(torch, M, blocks, cfg, batch):
+    """(x_L of a decoder-only cfg's layer L from tokens, the loss of layers
+    L.. and the head from a hidden state): `loss_fn`'s arithmetic split at
+    a layer, without remat."""
+    kinds = cfg.all_layer_kinds()
+
+    def run_layers(p, x, lo, hi):
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(lo, hi):
+            x, _ = blocks.apply_block(x, p["layers"][i], cfg, kinds[i], positions=pos)
+        return x
+
+    def x_at(p, L, dev):
+        with torch.no_grad():
+            tok = torch.as_tensor(batch["tokens"]).to(dev)
+            return run_layers(p, M._embed_tokens(p, cfg, tok), 0, L)
+
+    def tail_loss(p, L, x):
+        h = blocks._norm(run_layers(p, x, L, cfg.n_layers), p["final_norm"], cfg)
+        logp = torch.log_softmax(M._unembed(h, p, cfg).to(torch.float32), dim=-1)
+        lab = torch.as_tensor(batch["labels"]).long().to(x.device)
+        return -torch.gather(logp, -1, lab[..., None]).mean()
+
+    return x_at, tail_loss
+
+
+def _parity(torch, M, tree_lib, SyntheticLMData, to_device, cfg):
+    """16b: loss and every gradient leaf of `cfg` on the card against the
+    CPU, from the same seed-0 parameters (made on the card and copied to
+    the host); the CPU's half runs in a thread beside the card's.
+
+    A leaf over the bar is held two more ways, and passes by either: to its
+    noise floor (the CPU's own answer again with every parameter moved by a
+    relative 2^-23 x N(0, 1), f32 rounding's size; the card within twice
+    that move: a gradient that cancels, xlstm's b_i), and, in a layer L >
+    0 of a decoder-only arch, to the CPU fed the card's own input to layer
+    L (the loss of layers L.. and the head from that hidden state, both
+    devices, within 1e-4): xlstm's sLSTM gates answer its input's rounding
+    (the mLSTM's output differs card vs CPU by ~3e-6) some 5000-fold."""
+    import threading
+
+    from repro_torch.models import blocks
+
+    batch = SyntheticLMData(cfg.vocab, 1, PARITY_S, extras=_family_extras(cfg, M)).batch_at(0)
+    params = M.init_model(cfg, seed=0, device="cuda")
+    res = {}
+
+    def run(key, dev, p, loss_of=None):
+        p = tree_lib.map_tree(lambda t: t.detach().requires_grad_(True), p)
+        leaves = tree_lib.leaves(p)
+        t0 = time.monotonic()
+        loss = M.loss_fn(p, cfg, to_device(batch, dev)) if loss_of is None else loss_of(p)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        res[key] = (float(loss.detach()), [None if g is None else g.detach() for g in grads],
+                    time.monotonic() - t0)
+
+    cpu_params = tree_lib.map_tree(lambda t: t.cpu(), params)
+    worker = threading.Thread(target=run, args=("cpu", "cpu", cpu_params))
+    worker.start()
+    run("cuda", "cuda", params)
+    worker.join()
+    check("cpu" in res, f"16b {cfg.name}: the CPU's half ran")
+    paths = ["/".join(map(str, path)) for path, _ in tree_lib.leaves_with_paths(params)]
+    (lg, gg, tg), (lc, gc_, tc) = res["cuda"], res["cpu"]
+    gc_ = [b.to("cuda") for b in gc_]          # compared on the card
+    floor = PARITY_FLOOR * max(float(b.abs().max()) for b in gc_)
+    scales = [max(float(b.abs().max()), floor, 1e-30) for b in gc_]
+    errs = [float((a - b).abs().max()) / sc for a, b, sc in zip(gg, gc_, scales)]
+    over = {i: {} for i, e in enumerate(errs) if e > 1e-4}
+    if over:
+        gen = torch.Generator().manual_seed(27)
+        run("noise", "cpu", tree_lib.map_tree(
+            lambda t: t * (1 + 2.0 ** -23 * torch.randn(t.shape, generator=gen)), cpu_params))
+        for i in over:
+            over[i]["noise"] = float((res["noise"][1][i].to("cuda") - gc_[i]).abs().max()) \
+                / scales[i]
+        layers = sorted({int(paths[i].split("/")[1]) for i in over
+                         if paths[i].startswith("layers/") and paths[i].split("/")[1] != "0"})
+        if cfg.family not in ("encdec", "vlm"):
+            x_at, tail_loss = _layer_inputs_and_tail(torch, M, blocks, cfg, batch)
+            for L in layers:
+                xL = x_at(params, L, "cuda")
+                run("tail_cuda", "cuda", params, lambda p: tail_loss(p, L, xL))
+                run("tail_cpu", "cpu", cpu_params, lambda p: tail_loss(p, L, xL.cpu()))
+                for i in over:
+                    if paths[i].startswith(f"layers/{L}/"):
+                        a, b = res["tail_cuda"][1][i], res["tail_cpu"][1][i].to("cuda")
+                        over[i]["same_input"] = float((a - b).abs().max()) / max(
+                            float(b.abs().max()), 1e-30)
+    del cpu_params, params, res, gg, gc_
+    worst = max(range(len(errs)), key=lambda i: errs[i])
+    torch.cuda.empty_cache()
+    return {"loss_card": lg, "loss_cpu": lc, "leaves": len(errs), "worst": errs[worst],
+            "worst_leaf": paths[worst], "card_s": tg, "cpu_s": tc,
+            "over": [dict(leaf=paths[i], err=errs[i], **v) for i, v in over.items()]}
+
+
+def _family_kernel_times(torch, fa, gemm, configs):
+    """The kernels line's phase-16 entries: K5b at whisper's cross-attention
+    (B 4, 448 tokens over 1500 frames, 16 heads, D 64, non-causal), K5 with
+    the lse at whisper's encoder (B 4, 1500 over 1500) and K1 at one dbrx
+    expert's forward (M = its capacity at B 1 x S 1024), bf16, each beside
+    its plain version, its library call (SDPA's backward and forward, eager
+    calls timed by CUDA events; torch.matmul) and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as moe_lib
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(16)
+    rows = {}
+    B, H, D = 4, 16, 64
+    for key, Sq, Skv in (("cross_bwd", 448, 1500), ("encoder_fwd", 1500, 1500)):
+        q, do = (torch.randn((B, Sq, H, D), generator=g, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((B, Skv, H, D), generator=g, device=dev).to(dt) for _ in range(2))
+        out, lse = fa._forward(q, k, v, False, None, True)
+        ql, kl, vl = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+        o_l = F.scaled_dot_product_attention(ql, kl, vl)
+        pairs = kcost.attention_pairs(Sq, Skv, False, None)
+        if key == "cross_bwd":
+            t_k = _time_ms(torch, [lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                                  causal=False)], 20)
+            t_p = _time_ms(torch, [lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, causal=False)], 2, graph=False)
+            do_l = do.permute(0, 2, 1, 3)
+            t_l = _time_ms(torch, [lambda: torch.autograd.grad(o_l, (ql, kl, vl), do_l,
+                                                               retain_graph=True)], 10,
+                           graph=False)
+            bound, by = _bound(kcost.flash_attention_bwd(B, Sq, Skv, H, H, D, pairs=pairs))
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+                fa.flash_attention_bwd(q, k, v, out, lse, do, causal=False),
+                fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False)))
+        else:
+            t_k = _time_ms(torch, [lambda: fa._forward(q, k, v, False, None, True)], 20)
+            t_p = _time_ms(torch, [lambda: fa.flash_attention_plain(
+                q, k, v, causal=False, return_lse=True)], 2, graph=False)
+
+            def sdpa():
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(ql, kl, vl)
+            t_l = _time_ms(torch, [sdpa], 10, graph=False)
+            bound, by = _bound(kcost.flash_attention(B, Sq, Skv, H, H, D, pairs=pairs, lse=True))
+            err = float((out.float() - fa.flash_attention_plain(
+                q, k, v, causal=False).float()).abs().max())
+        rows[key] = (t_k, t_p, t_l, bound, by, err)
+        print(f"  [16] {'flash_attention_bwd' if key == 'cross_bwd' else 'flash_attention (lse)'} "
+              f"bf16 B={B} Sq={Sq} Skv={Skv} H={H} D={D} non-causal: kernel {t_k * 1e3:.1f} us, "
+              f"plain {t_p * 1e3:.1f} us, sdpa {'backward' if key == 'cross_bwd' else 'forward'} "
+              f"(eager) {t_l * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), "
+              f"{bound / t_k:.1%} of bound; max_abs against the plain version {err:.3e}")
+        del q, k, v, do, out, lse, ql, kl, vl, o_l
+    cfg, _, _ = dbrx_train_cfg(configs)
+    Mr, K, N = moe_lib._capacity(FAMILY_DBRX[1] * FAMILY_DBRX[2], cfg), cfg.d_model, \
+        cfg.moe.d_ff_expert
+    a = torch.randn((Mr, K), generator=g, device=dev).to(dt)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+    t_k = _time_ms(torch, [lambda: gemm.gemm(a, w, out_dtype=torch.float32)], 20)
+    t_l = _time_ms(torch, [lambda: torch.matmul(a, w)], 20)
+    t_p = _time_ms(torch, [lambda: gemm.gemm_plain(a, w, torch.float32)], 2, graph=False)
+    bound, by = _bound(kcost.gemm(Mr, K, N))
+    err = float((gemm.gemm(a, w, out_dtype=torch.float32)
+                 - gemm.gemm_plain(a, w, torch.float32)).abs().max())
+    rows["expert_gemm"] = (t_k, t_p, t_l, bound, by, err)
+    print(f"  [16] gemm bf16 -> f32 dbrx expert w_gate ({Mr}x{K})@({K}x{N}): kernel "
+          f"{t_k * 1e3:.1f} us, torch.matmul {t_l * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, "
+          f"bound {bound * 1e3:.1f} us ({by}), {bound / t_k:.1%} of bound; max_abs against "
+          f"the plain version {err:.3e}")
+    del a, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _profile_paligemma(torch, configs):
+    """One paligemma-3b train step at 16a's shape (B 2 x S 1024, 256
+    patches), profiled by source (`diagnose.profile_step`, `attribute`):
+    the share of its kernel time in the plain blockwise attention its
+    prefix takes (the reference's XLA path, not K5).  After 16a and 16b:
+    a train step after a profile ran ~1.7x slower in the same process;
+    before any CUDA graph (`_family_kernel_times`), as phase 5 found the
+    profiler blind after earlier work."""
+    import gc
+
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import diagnose
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    arch, B, S = FAMILY_CLI[2]
+    cfg = configs.get(arch)
+    opt_cfg = steps_lib.optimizer_config(cfg)
+    params = M.init_model(cfg, seed=0, device="cuda")
+    opt = adamw_init(params, opt_cfg)
+    step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=FAMILY_LR, total_steps=FAMILY_STEPS)
+    batch = to_device(SyntheticLMData(cfg.vocab, B, S, extras=_family_extras(cfg, M))
+                      .batch_at(0), "cuda")
+    a = diagnose.attribute(diagnose.profile_step(step, params, opt, batch), 15)
+    attn = {k: v for k, v in a.by_source.items() if "models/attention.py:blockwise_attention" in k}
+    share = sum(attn.values()) / a.total if a.total else 0.0
+    print(f"  [16a] {arch} one train step by source ({a.kernels} kernels, {a.total:.3f} ms of "
+          f"kernel time, {a.metric}):")
+    print(a.table())
+    print(f"  [16a] {arch}: the plain blockwise attention of the 256-patch prefix "
+          f"(forward, remat's recompute, backward) {sum(attn.values()):.3f} ms, {share:.1%} of "
+          f"the step's kernel time: " + ", ".join(f"{k} {v:.3f}" for k, v in attn.items()),
+          flush=True)
+    del params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"attention_ms": sum(attn.values()), "share": share, "total_ms": a.total,
+            "metric": a.metric}
+
+
+def families_child(torch, np):
+    """Phase 16 in a process of its own (`FAMILIES_FLAG`).  16a: each
+    FAMILY_CLI arch whole through `repro_torch.launch.train.main` (on_step
+    reads and zeroes the launch counters after each step and ends the run
+    after step 3), then dbrx-132b at one layer through `make_train_step`,
+    bf16; the meta traces run meanwhile in a CPU process of their own
+    (`FAMILIES_META_FLAG`).  16b: `PARITY_ARCHS` at 2 layers, f32, card
+    against CPU.  Then one paligemma-3b step profiled by source, and last
+    the kernel times of the kernels line's phase-16 entries.  Returns the
+    summary the parent checks."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.kernels import flash_attention as fa, gemm, launches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    import tempfile
+
+    t_start = time.monotonic()
+    meta = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), FAMILIES_META_FLAG],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    out = {"train": {}, "parity": {}}
+    with tempfile.TemporaryDirectory() as tdir:
+        for arch, B, S in FAMILY_CLI:
+            argv = ["--arch", arch, "--preset", "full", "--steps", str(FAMILY_STEPS),
+                    "--batch", str(B), "--seq", str(S), "--lr", str(FAMILY_LR),
+                    "--ckpt-every", str(FAMILY_STEPS), "--ckpt-dir", str(Path(tdir) / arch)]
+            out["train"][arch] = _train_run(
+                torch, launches, f"{arch} whole, B {B} x S {S}, the train CLI",
+                lambda on_step, argv=argv: train.main(argv, on_step=on_step))
+    cfg, full, reduced = dbrx_train_cfg(configs)
+    arch, B, S = FAMILY_DBRX
+
+    def dbrx(on_step):
+        opt_cfg = steps_lib.optimizer_config(full)
+        params = M.init_model(cfg, seed=0, device="cuda")
+        opt = adamw_init(params, opt_cfg)
+        step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=FAMILY_LR,
+                                         total_steps=FAMILY_STEPS)
+        data = SyntheticLMData(cfg.vocab, B, S)
+        launches.reset()
+        for i in range(FAMILY_STEPS):
+            batch = to_device(data.batch_at(i), "cuda")
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            loss = float(m["loss"])
+            on_step(i + 1, {"loss": loss}, time.perf_counter() - t0)
+
+    out["train"][arch] = _train_run(
+        torch, launches, f"{arch} reduced {json.dumps(reduced)}, 16 experts, AdamW "
+        f"{steps_lib.optimizer_config(full).state_dtype} moments, B {B} x S {S}, "
+        f"make_train_step", dbrx)
+    out["dbrx_reduced"] = reduced
+    out["train_s"] = time.monotonic() - t_start
+    t0 = time.monotonic()
+    for arch in PARITY_ARCHS:
+        pcfg, preduced = family_parity_cfg(configs, arch)
+        r = _parity(torch, M, tree_lib, SyntheticLMData, to_device, pcfg)
+        r["reduced"] = preduced
+        out["parity"][arch] = r
+        print(f"  [16b] {arch} reduced {json.dumps(preduced)}, f32, B 1 x S {PARITY_S}: loss "
+              f"card {r['loss_card']!r} vs CPU {r['loss_cpu']!r}; {r['leaves']} gradient leaves, "
+              f"worst max_abs / max(leaf max, {PARITY_FLOOR:g} x tree max) {r['worst']:.2e} at "
+              f"{r['worst_leaf']}; card {r['card_s']:.1f}s, CPU {r['cpu_s']:.1f}s", flush=True)
+    out["parity_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["paligemma_profile"] = _profile_paligemma(torch, configs)
+    out["profile_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["times"] = _family_kernel_times(torch, fa, gemm, configs)
+    out["times_s"] = time.monotonic() - t0
+    stdout, stderr = meta.communicate(timeout=600)
+    if meta.returncode != 0:
+        raise RuntimeError(f"phase 16's meta traces: {stdout[-1000:]} {stderr[-2000:]}")
+    out["meta"] = json.loads(stdout.strip().splitlines()[-1])
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def phase16(torch):
+    """Phase 16, the families train: `families_child` in a process of its
+    own; its numbers printed and checked (module docstring)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), FAMILIES_FLAG],
+                           capture_output=True, text=True, timeout=900)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(child.returncode == 0 and lines, f"phase 16's process: {child.stdout[-1500:]} "
+                                           f"{child.stderr[-2500:]}")
+    x = json.loads(lines[-1])
+    card = card_line()
+    totals = collections.Counter()
+    for arch, run in x["train"].items():
+        m = x["meta"]["runs"][arch]
+        steps = run["steps"]
+        ms = [s[2] for s in steps]
+        med = _median(ms[1:])
+        B, S = next((b, s) for a, b, s in FAMILY_CLI + (FAMILY_DBRX,) if a == arch)
+        check(len(steps) == FAMILY_STEPS, f"{arch}: {FAMILY_STEPS} steps")
+        check(all(math.isfinite(s[1]) for s in steps), f"{arch}: every loss finite")
+        for s, _, _, c in steps:
+            totals.update(c)
+            check(c == m["launches"], f"{arch} step {s}: launches {c}, meta trace "
+                                      f"{m['launches']}")
+        held = m["weights"] + m["opt_state"]
+        traced = "not traced whole (one group is: the launches' formula below)" \
+            if m["activations"] is None else \
+            f"{(held + m['activations']) / 1e9:.3f} GB traced (weights " \
+            f"{m['weights'] / 1e9:.3f}, optimizer state {m['opt_state'] / 1e9:.3f}, the step's " \
+            f"own storages {m['activations'] / 1e9:.3f}; traced / measured " \
+            f"{(held + m['activations']) / run['peak']:.3f})"
+        print(f"[16a] {arch} on {card}: median of steps 2-{FAMILY_STEPS} {med:.1f} ms, "
+              f"{B * S / med * 1e3:.0f} tokens/s; losses " + ", ".join(
+                  f"{s[1]:.6f}" for s in steps) + f"; peak torch.cuda.max_memory_allocated "
+              f"{run['peak'] / 1e9:.3f} GB beside {traced}; launches each step "
+              + " ".join(f"{k}={n}" for k, n in steps[-1][3].items())
+              + f", on the meta device {m['launches']} (traced in {m['trace_s']:.1f}s)")
+        if m.get("formula"):
+            print(f"[16a] {arch} whole on the meta device: {m['formula']}")
+        check(run["peak"] < DEVICE_BYTES, f"{arch}: peak under 80 GB")
+        for name in ("gemm",) + (("flash_attention", "flash_attention_bwd")
+                                 if arch in ("whisper-medium", "dbrx-132b") else ()):
+            check(steps[-1][3].get(name, 0) > 0, f"{arch}: the train step launched {name}")
+    for arch, r in x["parity"].items():
+        rel = abs(r["loss_card"] - r["loss_cpu"]) / abs(r["loss_cpu"])
+        print(f"[16b] {arch} reduced {json.dumps(r['reduced'])}: loss rel {rel:.1e} (bar 1e-5), "
+              f"{r['leaves']} leaves, worst {r['worst']:.2e} at {r['worst_leaf']} (bar 1e-4 of "
+              f"max(the leaf's max, {PARITY_FLOOR:g} x the tree's max))")
+        check(rel <= 1e-5, f"{arch}: 2-layer f32 loss, card vs CPU")
+        for o in r["over"]:
+            same = o.get("same_input")
+            print(f"[16b] {arch} {o['leaf']}: {o['err']:.2e} over 1e-4; the CPU's own answer "
+                  f"moves {o['noise']:.2e} under a 2^-23 relative move of the parameters (bar: "
+                  f"twice that)" + ("" if same is None else
+                                    f"; fed the card's input to its layer, card vs CPU "
+                                    f"{same:.2e} of the leaf's max (bar 1e-4)"))
+            check(o["err"] <= 2 * o["noise"] or (same is not None and same <= 1e-4),
+                  f"{arch} {o['leaf']}: 2-layer f32 gradient within its noise floor or, "
+                  f"from the same input to its layer, within 1e-4")
+    pp = x["paligemma_profile"]
+    print(f"[16a] paligemma-3b's prefix attention (plain blockwise, the reference's XLA path): "
+          f"{pp['attention_ms']:.3f} of {pp['total_ms']:.3f} ms of a profiled step's kernel time "
+          f"({pp['share']:.1%}; {pp['metric']}) on {card}")
+    check(pp["metric"] == "device_ms", "the paligemma profile holds the card's kernels")
+    x["totals"] = dict(totals)
+    print(f"[16] phase 16 took {time.monotonic() - t0:.1f}s (child {x['seconds']:.1f}s: 16a "
+          f"{x['train_s']:.1f}s, 16b {x['parity_s']:.1f}s, paligemma's profile "
+          f"{x['profile_s']:.1f}s, kernel times {x['times_s']:.1f}s, "
+          f"meta traces "
+          f"{x['meta']['seconds']:.1f}s beside them); launches of 16a's "
+          f"{len(x['train']) * FAMILY_STEPS} steps " + " ".join(
+              f"{k}={n}" for k, n in totals.items()))
+    return x
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -5017,6 +5586,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [ANALYSIS_FLAG]:  # phase 15, in a process of its own
         print(json.dumps(analysis_child(torch, np)))
+        return 0
+    if sys.argv[1:] == [FAMILIES_FLAG]:  # phase 16, in a process of its own
+        print(json.dumps(families_child(torch, np)))
+        return 0
+    if sys.argv[1:] == [FAMILIES_META_FLAG]:  # phase 16's meta traces, on the CPU
+        print(json.dumps(families_meta(torch)))
         return 0
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
@@ -5186,6 +5761,10 @@ def main() -> int:
     print(f"[15] the analysis layer: memory, attribution and rooflines of gemma3-1b's train "
           f"and decode steps (a process of its own) {stamp()}")
     phase15(torch)
+    print(f"[16] the families train: xlstm-1.3b, whisper-medium, paligemma-3b whole and "
+          f"dbrx-132b at one layer, bf16, {FAMILY_STEPS} steps each; five families' 2-layer "
+          f"f32 gradients card vs CPU (a process of its own) {stamp()}")
+    summary16 = phase16(torch)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -5287,6 +5866,31 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": summary14["launches"][kernel],
             "max_abs_err": worst[err], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
+    # The families' training (phase 16): launches are 16a's four runs, 3
+    # steps each; times and errors at one shape of each kernel on that path.
+    fam = "(launches: phase 16a's train steps of xlstm-1.3b, whisper-medium, paligemma-3b " \
+        "whole and dbrx-132b at one layer, 3 each)"
+    for name, src, replaces, per, key in (
+            ("flash_attention_bwd:families", "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:28 (differentiated by jax.value_and_grad, "
+             "src/repro/models/attention.py:103-109)",
+             "K5b at whisper-medium's cross-attention in training: B=4, 448 tokens over 1500 "
+             f"frames, Hq=Hkv=16, D=64, non-causal, bf16 {fam}", "cross_bwd"),
+            ("flash_attention:families", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28",
+             "K5 with the lse at whisper-medium's encoder in training: B=4, 1500 frames over "
+             f"1500, Hq=Hkv=16, D=64, non-causal, bf16 {fam}", "encoder_fwd"),
+            ("gemm:families", "gemm.cu", "src/repro/kernels/gemm.py:33",
+             "K1 at one dbrx-132b expert's gate projection in training: M=320 (the expert's "
+             f"capacity at B 1 x S 1024), K=6144, N=10752, bf16 -> f32 {fam}",
+             "expert_gemm")):
+        t_k, t_p, t_l, bound, by, err = summary16["times"][key]
+        kernel = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": summary16["totals"].get(kernel, 0),
+            "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
         f"cluster_launches={k['cluster_launches']} "
@@ -5325,6 +5929,13 @@ def main() -> int:
           + " ".join(f"{k}={v}" for k, v in train_plan(configs.get('gemma3-1b')).items())
           + f"; profiled step: hand kernels {summary14['profile']['hand_ms']:.1f} ms of "
           f"{summary14['profile']['kernel_ms']:.1f} ms kernel time")
+    for arch, run in summary16["train"].items():
+        B, S = next((b, s) for a, b, s in FAMILY_CLI + (FAMILY_DBRX,) if a == arch)
+        med = _median([st[2] for st in run["steps"][1:]])
+        print(f"[7] 16 train step ({arch}, B {B} x S {S}, bf16): median of steps 2-"
+              f"{FAMILY_STEPS} {med:.1f} ms, {B * S / med * 1e3:.0f} tokens/s, peak memory "
+              f"{run['peak'] / 1e9:.2f} GB; per step " + " ".join(
+                  f"{k}={v}" for k, v in run["steps"][-1][3].items()))
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -197,11 +197,15 @@ def profile_step(fn, *args, reps: int = 1):
     fn(*args)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    with profile(activities=acts) as prof, sc.LabelMode():
-        for _ in range(reps):
-            fn(*args)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    label = sc.LabelMode()
+    try:
+        with profile(activities=acts) as prof, label:
+            for _ in range(reps):
+                fn(*args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        label.sources.release()
     return prof
 
 

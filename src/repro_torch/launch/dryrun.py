@@ -50,9 +50,10 @@ def storage_bytes(tensors: Iterable) -> int:
     return total
 
 
-def trace_cell(cfg, shape: dict) -> Tuple[step_cost.StepCost, Dict[str, int]]:
+def trace_cell(cfg, shape: dict, opt_cfg=None) -> Tuple[step_cost.StepCost, Dict[str, int]]:
     """Count one cell's step on the meta device: (its StepCost, the bytes
-    resident beside it: "weights", "opt_state", "decode_state", "inputs")."""
+    resident beside it: "weights", "opt_state", "decode_state", "inputs").
+    A train cell's optimizer is `opt_cfg`, by default `cfg`'s own."""
     kind, B = shape["kind"], shape["global_batch"]
     params = steps_lib.params_struct(cfg)
     specs = steps_lib.input_specs(cfg, shape)
@@ -61,7 +62,7 @@ def trace_cell(cfg, shape: dict) -> Tuple[step_cost.StepCost, Dict[str, int]]:
             "inputs": storage_bytes(tree_lib.leaves(specs.get("batch", {}))
                                     + ([specs["tokens"]] if "tokens" in specs else []))}
     if kind == "train":
-        opt_cfg = steps_lib.optimizer_config(cfg)
+        opt_cfg = opt_cfg or steps_lib.optimizer_config(cfg)
         opt = steps_lib.opt_state_struct(cfg, params, opt_cfg)
         held["opt_state"] = storage_bytes(tree_lib.leaves(opt))
         return step_cost.analyze(steps_lib.make_train_step(cfg, opt_cfg), params, opt,

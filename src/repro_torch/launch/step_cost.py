@@ -150,15 +150,28 @@ class Sources:
     (and a checkpointed group's recompute, which makes nodes of its own)
     on a thread of its own.  So the forward's nodes take their source into
     their `metadata` when the backward first reaches them, and a node made
-    in the backward is found by (thread, sequence number)."""
+    in the backward is found by (thread, sequence number).
+
+    A node that Python has touched keeps its Python object for as long as
+    it lives, and a graph of such nodes frees itself recursively, a node's
+    destructor releasing the next: a chain as deep as a 1024-step sLSTM
+    loop per layer overflowed the C stack when the step returned.  So
+    every node touched here is held (`held`) until `release()`, which
+    drops them parents first: each node then dies alone, its children
+    still held.  (A custom Function's node is held through its context
+    object, which holds the node weakly: such a node dies with its last
+    parent, its children still held.)"""
 
     def __init__(self):
         self.by_seq: Dict[Tuple[int, int], str] = {}
         self.forward_thread: Optional[int] = None
+        self.held: Dict[int, object] = {}
 
     def __call__(self, skip: int) -> str:
         node = torch._C._current_autograd_node()
         tid = threading.get_ident()
+        if node is not None:   # to the end: held in the order the backward runs them
+            self.held[id(node)] = self.held.pop(id(node), node)
         if node is None:
             self.forward_thread = tid
             src = frame_source(_python_frames(skip), False, lambda: None)
@@ -183,8 +196,18 @@ class Sources:
             n = stack.pop()
             if n is None or "repro_source" in n.metadata:
                 continue
+            self.held.setdefault(id(n), n)
             n.metadata["repro_source"] = self.by_seq.get((self.forward_thread, n._sequence_nr()))
             stack.extend(f for f, _ in n.next_functions)
+
+    def release(self) -> None:
+        """Drop the held nodes in the order the backward last touched them
+        (class docstring): the engine runs a node only after every node
+        that feeds it a gradient, so each node goes after its parents."""
+        nodes = list(self.held.values())
+        self.held.clear()
+        for i in range(len(nodes)):
+            nodes[i] = None
 
 
 @dataclasses.dataclass
@@ -329,9 +352,12 @@ def analyze(fn: Callable, *args, **kwargs) -> StepCost:
     """Run fn(*args, **kwargs) once and count it (module docstring)."""
     result = StepCost()
     mode = _CountingMode(result)
-    with kcost.recording(mode.kernel), mode:
-        out = fn(*args, **kwargs)
-    del out
+    try:
+        with kcost.recording(mode.kernel), mode:
+            out = fn(*args, **kwargs)
+        del out
+    finally:
+        mode.sources.release()
     result.flops_by_source = dict(mode.flops)
     result.bytes_by_source = dict(mode.bytes)
     result.flops = sum(mode.flops.values())

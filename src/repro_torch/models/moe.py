@@ -96,13 +96,16 @@ def moe_block(x: torch.Tensor, p: dict, cfg, *, quant: Optional[str] = None) -> 
 
     # each expert's SwiGLU: f32 gate / up / down products of the model-dtype
     # operands (module docstring)
+    # (the stacked weights split once: each expert's index read would cost
+    # the backward a zero-filled gradient of the whole stacked leaf)
     out_buf = torch.empty((E, C, d), dtype=x.dtype, device=dev)
+    w_gate, w_up, w_down = (p[k].unbind(0) for k in ("w_gate", "w_up", "w_down"))
     for e in range(E):
         be = buf[e]
-        gate = ops.gemm(be, p["w_gate"][e])
-        up = ops.gemm(be, p["w_up"][e])
+        gate = ops.gemm(be, w_gate[e])
+        up = ops.gemm(be, w_up[e])
         h = (F.silu(gate) * up).to(x.dtype)
-        out_buf[e] = ops.gemm(h, p["w_down"][e]).to(x.dtype)
+        out_buf[e] = ops.gemm(h, w_down[e]).to(x.dtype)
 
     # gather back; dropped pairs contribute zero
     out_pairs = out_buf[flat_e, torch.clamp(slot, max=C - 1)]         # (T*k, d)

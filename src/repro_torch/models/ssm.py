@@ -13,8 +13,11 @@ Each block takes x (B, S, d) and an optional carried state and returns
                          extra position axis on every leaf (B, S, ...), for
                          speculative verification's restore
 
-The reference's `jax.lax.scan` over chunks and tokens becomes a Python loop
-(nothing here needs a gradient).  Mamba's in-chunk `associative_scan` is an
+The reference's `jax.lax.scan` over chunks and tokens becomes a Python loop,
+differentiated by autograd when training, except the sLSTM's, whose
+backward through time is written by hand (`_SLSTMScan`: on the card the
+autograd graph of its 1024-token loop a layer was most of xlstm-1.3b's
+train step in host time).  Mamba's in-chunk `associative_scan` is an
 inclusive doubling (Hillis-Steele) scan of the same combine, so its sums
 run in another order and agree within the float bar, not bit for bit.
 mLSTM takes the chunkwise-parallel form when there is no state and S > 1,
@@ -337,45 +340,135 @@ def init_slstm(gen: torch.Generator, cfg, device) -> dict:
     return p
 
 
+def _slstm_steps(pre, rec, b_f, c, n, h, m, save: bool):
+    """The sLSTM recurrence over the S tokens of pre (S, H, B, 4 hd), f32:
+    per token, the four gates' recurrent products as one batched product
+    over the heads (h (H, B, hd) against rec (H, hd, 4 hd), the four
+    matrices side by side) plus the input pre-activations, then the
+    reference's arithmetic in its order.  Returns the states after every
+    token, stacked (S, H, B, ...): h, c, n, m; with `save`, also what
+    `_SLSTMScan.backward` reads: z, o, f_pre, the input gate, log f and
+    the two maxima the stabilizer compares (amax log f, amax i)."""
+    hd = rec.shape[1]
+    zero = torch.zeros((), dtype=pre.dtype, device=pre.device)
+    out = [[] for _ in range(11 if save else 4)]
+    for t in range(pre.shape[0]):
+        ti, tz, tf, to = (pre[t] + torch.bmm(h, rec)).split(hd, dim=-1)
+        f_pre = tf + b_f
+        z_t = torch.tanh(tz)
+        o_t = torch.sigmoid(to)
+        log_f = -torch.logaddexp(-f_pre, zero)                        # log sigmoid(f)
+        lf_max = torch.amax(log_f, dim=-1)
+        i_max = torch.amax(ti, dim=-1)
+        m_new = torch.maximum(lf_max + m, i_max)
+        f_sc = torch.exp(log_f + (m - m_new)[..., None])
+        i_sc = torch.exp(ti - m_new[..., None])
+        c = f_sc * c + i_sc * z_t
+        n = f_sc * n + i_sc
+        h = o_t * c / torch.clamp(n, min=1.0)
+        m = m_new
+        step = (h, c, n, m, z_t, o_t, f_pre, ti, log_f, lf_max, i_max) if save else (h, c, n, m)
+        for lst, v in zip(out, step):
+            lst.append(v)
+    return [torch.stack(lst) for lst in out]
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """`_slstm_steps` with a hand-written backward through time.  Under
+    autograd the recurrence is a chain of ~40 small ops a token, each
+    recorded and run back one at a time; on the card that host work was
+    most of xlstm-1.3b's train step.  The backward here reads the saved
+    per-token values, computes every factor that does not depend on the
+    carried gradients for all tokens at once, and runs ~25 ops a token for
+    the carried ones (dh, dc, dn, dm).  The maxima's subgradients are
+    autograd's: amax splits among ties, maximum halves at a tie."""
+
+    @staticmethod
+    def forward(ctx, pre, rec, b_f, c0, n0, h0, m0):
+        st = _slstm_steps(pre, rec, b_f, c0, n0, h0, m0, save=True)
+        ctx.save_for_backward(rec, c0, n0, h0, m0, *st)
+        return tuple(st[:4])
+
+    @staticmethod
+    def backward(ctx, dH, dC, dN, dM):
+        rec, c0, n0, h0, m0, H_, C_, N_, M_, Z, O, FP, TI, LF, LFM, IM = ctx.saved_tensors
+        S, Hh, B, hd = H_.shape
+        zero = torch.zeros((), dtype=H_.dtype, device=H_.device)
+        prev = [torch.cat([x0[None], x[:-1]]) for x0, x in ((c0, C_), (n0, N_), (h0, H_), (m0, M_))]
+        C_prev, N_prev, H_prev, M_prev = prev
+        A1 = LFM + M_prev                                              # as the forward compared
+        F_sc = torch.exp(LF + (M_prev - M_)[..., None])
+        I_sc = torch.exp(TI - M_[..., None])
+        nc = torch.clamp(N_, min=1.0)
+        K_c = O / nc                                                   # dh -> dc
+        K_o = C_ / nc * O * (1 - O)                                    # dh -> d(o's input)
+        K_n = torch.where(N_ >= 1.0, -O * C_ / (nc * nc), zero)        # dh -> dn (clamp)
+        K_z = I_sc * (1 - Z * Z)                                       # dc -> d(z's input)
+        sig_negf = torch.sigmoid(-FP)                                  # d log sigmoid(f) / df
+        tie = A1 == IM
+        W1 = torch.where(tie, 0.5, (A1 > IM).to(H_.dtype))
+        W2 = torch.where(tie, 0.5, (IM > A1).to(H_.dtype))
+        mask1 = (LF == LFM[..., None]).to(H_.dtype)
+        mask1 = mask1 / mask1.sum(-1, keepdim=True)
+        mask2 = (TI == IM[..., None]).to(H_.dtype)
+        mask2 = mask2 / mask2.sum(-1, keepdim=True)
+        recT = rec.transpose(1, 2)
+        dc, dn, dh_c = (torch.zeros_like(c0) for _ in range(3))
+        dm = torch.zeros_like(m0)
+        das = [None] * S
+        for t in range(S - 1, -1, -1):
+            dh = dH[t] + dh_c
+            dct = dC[t] + dc + dh * K_c[t]
+            dnt = dN[t] + dn + dh * K_n[t]
+            gf = (dct * C_prev[t] + dnt * N_prev[t]) * F_sc[t]        # through f_sc
+            gi = (dct * Z[t] + dnt) * I_sc[t]                         # through i_sc
+            dc, dn = dct * F_sc[t], dnt * F_sc[t]
+            sgf = gf.sum(-1)
+            dmt = dM[t] + dm - gi.sum(-1) - sgf                        # m_t
+            dA1, dA2 = dmt * W1[t], dmt * W2[t]
+            dm = dA1 + sgf                                             # m_{t-1}
+            das[t] = torch.cat([gi + dA2[..., None] * mask2[t], dct * K_z[t],
+                                (gf + dA1[..., None] * mask1[t]) * sig_negf[t],
+                                dh * K_o[t]], dim=-1)
+            dh_c = torch.bmm(das[t], recT)
+        dA = torch.stack(das)                                          # (S, H, B, 4 hd)
+        drec = torch.bmm(H_prev.permute(1, 3, 0, 2).reshape(Hh, hd, S * B),
+                         dA.permute(1, 0, 2, 3).reshape(Hh, S * B, 4 * hd))
+        db_f = dA[..., 2 * hd:3 * hd].sum(dim=(0, 2))[:, None, :]
+        return dA, drec, db_f, dc, dn, dh_c, dm
+
+
 def slstm_block(x: torch.Tensor, p: dict, cfg, *, state: Optional[SLSTMState] = None,
                 collect_states: bool = False):
     """sLSTM block: scalar-memory LSTM with a head-wise recurrence, then the
-    GLU feed-forward (proj factor 4/3)."""
+    GLU feed-forward (proj factor 4/3).  The recurrence runs one token at
+    a time (`_slstm_steps`; under autograd `_SLSTMScan`), the four input
+    pre-activations laid out (S, H, B, 4 hd) once before it."""
     B, S, d = x.shape
     H = cfg.n_heads
     hd = d // H
+    f32 = torch.float32
     # quant="none": the gate projections stay float under w8a8
-    pre = [layers.dense(x, p[f"w_{g}"], quant="none").reshape(B, S, H, hd)
-           .to(torch.float32) for g in "izfo"]
-    st = state if state is not None else init_slstm_state(cfg, B, x.device)
-    rec = {g: p[f"r_{g}"].to(torch.float32) for g in "izfo"}
-
-    def step(s: SLSTMState, t):
-        ti, tz, tf, to = t
-
-        def r(g):
-            return torch.einsum("bhj,hij->bhi", s.h, rec[g])
-
-        i_pre = ti + r("i")
-        f_pre = tf + r("f") + p["b_f"]
-        z_t = torch.tanh(tz + r("z"))
-        o_t = torch.sigmoid(to + r("o"))
-        log_f = -_softplus(-f_pre)                                   # (B, H, hd)
-        m_new = torch.maximum(torch.amax(log_f, dim=-1) + s.m,
-                              torch.amax(i_pre, dim=-1))            # (B, H)
-        f_sc = torch.exp(log_f + (s.m - m_new)[..., None])
-        i_sc = torch.exp(i_pre - m_new[..., None])
-        c = f_sc * s.c + i_sc * z_t
-        n = f_sc * s.n + i_sc
-        h = o_t * c / torch.clamp(n, min=1.0)
-        return SLSTMState(c, n, h, m_new), h
-
+    pre = torch.cat([layers.dense(x, p[f"w_{g}"], quant="none").reshape(B, S, H, hd)
+                     for g in "izfo"], dim=-1).to(f32).permute(1, 2, 0, 3)   # (S, H, B, 4hd)
+    # rec[h, j, g * hd + i] = r_g[h, i, j]: h_j -> gate g's row i
+    rec = torch.cat([p[f"r_{g}"] for g in "izfo"], dim=1).to(f32).transpose(1, 2)
+    b_f = p["b_f"][:, None, :]                                        # (H, 1, hd)
     if collect_states and state is None:
         raise ValueError("collect_states needs a carried state")
-    new_state, hs, per_pos = _scan(step, st, tuple(pre), collect_states)
-    if collect_states:
-        new_state = per_pos
-    h = hs.reshape(B, S, d).to(x.dtype)
+    st = state if state is not None else init_slstm_state(cfg, B, x.device)
+    st = [t.transpose(0, 1) for t in st]                              # (H, B, ...)
+    if torch.is_grad_enabled() and (pre.requires_grad or rec.requires_grad
+                                    or b_f.requires_grad):
+        hs, cs, ns, ms = _SLSTMScan.apply(pre, rec, b_f, *st)
+    else:
+        hs, cs, ns, ms = _slstm_steps(pre, rec, b_f, *st, save=False)
+    if collect_states:    # the state after every token, leaves (B, S, ...)
+        new_state = SLSTMState(*(t.permute(2, 0, 1, *range(3, t.dim()))
+                                 for t in (cs, ns, hs, ms)))
+    else:
+        new_state = SLSTMState(*(t[-1].transpose(0, 1) for t in (cs, ns, hs, ms)))
+    h = hs.permute(2, 0, 1, 3).reshape(B, S, d).to(x.dtype)
     up = layers.dense(h, p["w_ff_up"])
     a, b = torch.chunk(up, 2, dim=-1)
     g = F.gelu(a.to(torch.float32), approximate="tanh").to(x.dtype)

@@ -146,25 +146,46 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig) -> Tuple[Any, Any]:
     flat_p = tree_lib.leaves(params)
     flat_m, flat_v = _moments(state["m"], int8), _moments(state["v"], int8)
     for p, g, m, v, decay in zip(flat_p, flat_g, flat_m, flat_v, decayed(params)):
-        g = g.to(torch.float32) * clip
-        mf = _bq_decode(m, p.shape) if int8 else m.to(torch.float32)
-        vf = _bq_decode(v, p.shape) if int8 else v.to(torch.float32)
-        mf = cfg.b1 * mf + (1 - cfg.b1) * g
-        vf = cfg.b2 * vf + (1 - cfg.b2) * g * g
-        update = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
-        pf = p.to(torch.float32)
-        if decay:  # decoupled weight decay on what the reference decays
-            update = update + cfg.weight_decay * pf
-        p.copy_(pf - lr * update)
-        for old, new in ((m, mf), (v, vf)):
-            if int8:
-                enc = _bq_encode(new)
-                old.q.copy_(enc.q)
-                old.scale.copy_(enc.scale)
-            else:
-                old.copy_(new)
+        if int8 or p.dim() == 0:
+            _update_leaf(p, g, m, v, decay, clip, lr, b1c, b2c, cfg)
+            continue
+        # Float moments: the leaf in slices along its first axis, so the f32
+        # temporaries of a stacked expert leaf (dbrx: 16 x 6144 x 10752) stay
+        # a slice's size; the arithmetic is elementwise, so bit for bit the
+        # same as one pass.
+        rows = max(1, CHUNK_ELEMENTS // max(1, p[0].numel()))
+        for r0 in range(0, p.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            _update_leaf(p[sl], g[sl], m[sl], v[sl], decay, clip, lr, b1c, b2c, cfg)
     state["count"] = count
     return params, state
+
+
+# Elements of one slice of a leaf in `adamw_update`'s float path (f32
+# temporaries of 256 MB each).
+CHUNK_ELEMENTS = 1 << 26
+
+
+def _update_leaf(p, g, m, v, decay: bool, clip, lr, b1c, b2c, cfg: AdamWConfig) -> None:
+    """AdamW on one leaf (or a slice of one), in place on p, m and v."""
+    int8 = isinstance(m, BlockQ)
+    g = g.to(torch.float32) * clip
+    mf = _bq_decode(m, p.shape) if int8 else m.to(torch.float32)
+    vf = _bq_decode(v, p.shape) if int8 else v.to(torch.float32)
+    mf = cfg.b1 * mf + (1 - cfg.b1) * g
+    vf = cfg.b2 * vf + (1 - cfg.b2) * g * g
+    update = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+    pf = p.to(torch.float32)
+    if decay:  # decoupled weight decay on what the reference decays
+        update = update + cfg.weight_decay * pf
+    p.copy_(pf - lr * update)
+    for old, new in ((m, mf), (v, vf)):
+        if int8:
+            enc = _bq_encode(new)
+            old.q.copy_(enc.q)
+            old.scale.copy_(enc.scale)
+        else:
+            old.copy_(new)
 
 
 def warmup_cosine(base_lr: float, warmup: int, total: int, min_frac: float = 0.1

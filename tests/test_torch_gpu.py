@@ -1571,6 +1571,46 @@ def test_flash_attention_backward_kernel_matches_plain(cuda_device, dtype):
     assert tfa.bwd_launches == 2 * n and tfa.launches == 2 * n + 2 * n
 
 
+FAMILY_BWD_CASES = [  # (B, Sq, Skv, Hq, Hkv, D, causal): queries over longer keys
+    (2, 24, 40, 4, 4, 64, False),          # (non-causal), 1500 keys (not a multiple of
+    (1, 37, 100, 4, 1, 64, False),         # the 64-key tile), clusters of 6 and 7 blocks
+    (1, 448, 1500, 16, 16, 64, False),
+    (1, 1500, 1500, 16, 16, 64, False),
+    (1, 1024, 1024, 48, 8, 128, True),
+    (1, 1024, 1024, 56, 8, 128, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_BWD_CASES, ids=str)
+def test_flash_attention_backward_at_family_shapes(cuda_device, dtype, case):
+    """K5b at the families' training shapes (whisper's encoder and
+    cross-attention, dbrx's 48 / 8 and arctic's 56 / 8 heads) and at small
+    Sq != Skv cases, through the autograd Function, against
+    `flash_attention_bwd_plain` with the bars of
+    test_flash_attention_backward_kernel_matches_plain; two runs equal."""
+    B, Sq, Skv, Hq, Hkv, D, causal = case
+    rng = np.random.default_rng(Sq + Skv)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)).to(
+        cuda_device, dtype).requires_grad_(True)
+    k, v = (torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32))
+            .to(cuda_device, dtype).requires_grad_(True) for _ in range(2))
+    do = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)).to(
+        cuda_device, dtype)
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v, causal=causal), (q, k, v), do)
+    again = torch.autograd.grad(tfa.flash_attention(q, k, v, causal=causal), (q, k, v), do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = tfa._forward(qd, kd, vd, causal, None, True)
+    want = tfa.flash_attention_bwd_plain(qd, kd, vd, o, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(g.isfinite().all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=rel * float(w.float().abs().max()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_gradients_through_k1(cuda_device, dtype):

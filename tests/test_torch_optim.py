@@ -173,6 +173,38 @@ def test_adamw_converges_quadratic(state_dtype):
     assert float((params["w"] - target).abs().max()) < tol
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_in_slices_equals_one_pass_bit_for_bit(monkeypatch, state_dtype):
+    """The float path updates a leaf in slices of CHUNK_ELEMENTS along its
+    first axis (the f32 temporaries of a stacked expert leaf stay a slice's
+    size); elementwise, so the parameters and moments are those of one
+    pass, bit for bit, also for a row-padded leaf and a 0-d one."""
+    from repro_torch.optim import adamw
+
+    g = torch.Generator().manual_seed(3)
+    padded = torch.empty((6, 8))[:, :5]
+    padded.copy_(torch.randn((6, 5), generator=g))
+    shapes = {"layers": [{"w": torch.randn((5, 3, 4), generator=g)}],
+              "head": padded, "b": torch.randn((7,), generator=g), "s": torch.randn((), generator=g)}
+    cfg = AdamWConfig(state_dtype=state_dtype)
+    runs = []
+    for chunk in (1 << 26, 5):
+        monkeypatch.setattr(adamw, "CHUNK_ELEMENTS", chunk)
+        params = tree_lib.map_tree(torch.clone, shapes)
+        params["head"] = torch.empty((6, 8))[:, :5]
+        params["head"].copy_(padded)
+        state = adamw_init(params, cfg)
+        for i in range(3):
+            grads = tree_lib.map_tree(
+                lambda t: torch.randn(t.shape, generator=torch.Generator().manual_seed(i)), params)
+            adamw_update(grads, state, params, 0.01, cfg)
+        runs.append((params, state))
+    (p1, s1), (p2, s2) = runs
+    for a, b in zip(tree_lib.leaves([p1, s1["m"], s1["v"]]), tree_lib.leaves([p2, s2["m"], s2["v"]])):
+        assert torch.equal(a, b)
+    assert p2["head"].stride(0) == 8
+
+
 def test_optimizer_state_memory_sizes():
     params = {"w": torch.zeros((1024, 128), dtype=torch.bfloat16)}
 

@@ -367,18 +367,39 @@ Phases, in order; any failure exits non-zero:
      profiled by source after 16b: the share of its kernel time in the
      plain blockwise attention its 256-patch prefix takes.  To make
      room, 10a's speculative storm is cut to prompts of 128-256 tokens.
+  17. data parallelism and ZeRO-3 through a process group (no new
+     kernel).  17b, in this process: `--model-parallel 2` over a world of
+     1 raises; dbrx-132b's CLI plan at a data axis of 2 is refused
+     (`parallel.fsdp.check_plan`) before any weight is made.  17a, in a
+     process that torchrun starts at world size 1 (`python -m
+     torch.distributed.run --standalone --nproc-per-node 1 chip_smoke.py
+     --parallel`): gemma3-1b at published widths, B 4 x S 1024, bf16,
+     PARALLEL_STEPS steps, seed 0, three runs: phase 14's unsharded
+     `make_train_step`; the train CLI, which joins an NCCL group from
+     torchrun's environment and trains the dp plan (every leaf
+     replicated, every gradient all-reduced); `make_sharded_train_step`
+     under the ZeRO-3 plan in a world-1 NCCL group of its own (parameters
+     and moments in pieces, the whole parameters gathered, the gradients
+     reduce-scattered).  Per run: ms a step (median of steps 2-3),
+     tokens/s, peak GB, the collectives a step by kind (calls and bytes,
+     as planned: one all-reduce a replicated leaf, a gather and a
+     reduce-scatter a sharded one, three scalars); each step's loss equal
+     to the unsharded run's bit for bit and its K1 / K5 / K5b launches
+     equal.
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
      with speculation on and off, one replay of each verify graph and of
      the decode graph, launches per verify replay; one per phase 10a-10c
-     run; one for phase 14's train step.
+     run; one for phase 14's train step; one for each of phase 17's dp and
+     ZeRO-3 steps.
 
 Every phase header carries the seconds since the script started.  The
 line before the card line is the kernels' JSON summary (with each kernel's
 launches by phase 12's tuner and on phase 13's cluster path apart from its
 serving launches; K5b's, K5's and K1's train-step entries count phase 14's
-clean run); the last line
+clean run, their `:parallel` entries phase 17a's dp and ZeRO-3 runs); the
+last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
 """
@@ -5559,6 +5580,218 @@ def phase16(torch):
     return x
 
 
+PARALLEL_FLAG = "--parallel"
+PARALLEL_STEPS = 3          # 17a: each run's steps, phase 14's shape and lr
+
+
+def parallel_child(torch, np):
+    """Phase 17a in a process of its own, started by torchrun at world size
+    1 (`PARALLEL_FLAG`): gemma3-1b at published widths, B 4 x S 1024,
+    bf16, f32 moments, seed 0, PARALLEL_STEPS steps each run: phase 14's
+    unsharded step (`make_train_step`); the train CLI under torchrun's
+    environment (it joins an NCCL group and trains the dp plan: every leaf
+    replicated, every gradient all-reduced); `make_sharded_train_step`
+    under the ZeRO-3 plan in a world-1 NCCL group of its own (a file://
+    store).  Per step: loss, ms, hand-kernel launches, collectives (calls
+    and bytes by kind); per run the peak memory."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, rank_rows, to_device
+    from repro_torch.kernels import launches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import MeshShape, backend_for, make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import make_plan
+
+    t_start = time.monotonic()
+    cfg = configs.get("gemma3-1b")
+    opt_cfg = steps_lib.optimizer_config(cfg)
+    data = SyntheticLMData(cfg.vocab, TRAIN_B, TRAIN_S)
+    out = {"torchrun": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")},
+           "leaves": len(tree_lib.leaves(steps_lib.params_struct(cfg)))}
+
+    def run(label, body):
+        per_step = []
+
+        def on_step(step, metrics, sec):
+            per_step.append({"step": step, "loss": float(metrics["loss"]), "ms": sec * 1e3,
+                             "launches": {k: v for k, v in launches.counts().items() if v},
+                             "collectives": metrics.get("collectives", {}),
+                             "collective_bytes": metrics.get("collective_bytes", {})})
+            launches.reset()
+            if step == PARALLEL_STEPS:
+                raise _StopRun
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        t0 = time.monotonic()
+        try:
+            body(on_step)
+        except _StopRun:
+            pass
+        out[label] = {"steps": per_step, "peak": torch.cuda.max_memory_allocated(),
+                      "wall": time.monotonic() - t0}
+        print(f"  [17a] {label}: {len(per_step)} steps in {out[label]['wall']:.1f}s; " + "; ".join(
+            f"{x['step']} loss {x['loss']!r} {x['ms']:.1f} ms" for x in per_step), flush=True)
+
+    def loop(step_fn, params, opt, rows, on_step):
+        # as the supervisor times a step: the batch on the card first
+        for i in range(PARALLEL_STEPS):
+            batch = to_device(rows(data.batch_at(i)), "cuda", non_blocking=True)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            float(m["loss"])
+            on_step(i + 1, m, time.perf_counter() - t0)
+
+    def unsharded(on_step):
+        params = M.init_model(cfg, seed=0, device="cuda")
+        step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=TRAIN_LR,
+                                         total_steps=PARALLEL_STEPS)
+        loop(step, params, adamw_init(params, opt_cfg), lambda b: b, on_step)
+
+    with tempfile.TemporaryDirectory() as tdir:
+        def cli(on_step):
+            train.main(["--arch", "gemma3-1b", "--preset", "full", "--steps", str(PARALLEL_STEPS),
+                        "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--lr", str(TRAIN_LR),
+                        "--ckpt-every", str(PARALLEL_STEPS), "--ckpt-dir", str(Path(tdir) / "ck")],
+                       on_step=on_step)
+
+        def zero3(on_step):
+            dist.init_process_group(backend_for("cuda"), init_method=f"file://{tdir}/store",
+                                    rank=0, world_size=1)
+            try:
+                mesh = MeshShape.of(make_local_mesh(1, "cuda"))
+                plan = make_plan(mesh, cfg.param_count(), force_fsdp=True)
+                step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan,
+                                                         base_lr=TRAIN_LR,
+                                                         total_steps=PARALLEL_STEPS)
+                out["zero3_group"] = {"backend": dist.get_backend(),
+                                      "world": dist.get_world_size(),
+                                      "plan": dataclasses.asdict(plan),
+                                      "sharded": step.layout.sharded}
+                params = step.layout.shard(M.init_model(cfg, seed=0, device="cuda"))
+                loop(step, params, adamw_init(params, opt_cfg),
+                     lambda b: rank_rows(b, mesh, plan, dist.get_rank()), on_step)
+            finally:
+                dist.destroy_process_group()
+
+        run("unsharded", unsharded)
+        run("dp", cli)
+        run("zero3", zero3)
+    dp_mesh = MeshShape(("data", "model"), (1, 1))
+    out["dp_plan"] = dataclasses.asdict(make_plan(dp_mesh, cfg.param_count(), force_fsdp=False))
+    out["backend"] = backend_for("cuda")
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+def phase17(torch):
+    """Phase 17, data parallelism and ZeRO-3 through a process group: 17b
+    the refusals in this process (no group, no weight made); 17a
+    `parallel_child` under torchrun at world size 1, its numbers printed
+    and checked (module docstring)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import make_plan
+
+    t0 = time.monotonic()
+    try:
+        train.main(["--preset", "smoke", "--steps", "1", "--model-parallel", "2"])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"[17b] --model-parallel 2 over a world of 1: {refused}")
+    check(refused is not None, "--model-parallel 2 over a world of 1 raises")
+    dbrx = configs.get("dbrx-132b")
+    two = MeshShape(("data", "model"), (2, 1))
+    before = torch.cuda.memory_allocated()
+    try:
+        fsdp.check_plan(dbrx, two, make_plan(two, dbrx.param_count(), force_fsdp=False))
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[17b] dbrx-132b's CLI plan at a data axis of 2: {refused}")
+    check(refused is not None and "A.4b" in refused, "MoE over a data axis of 2 raises")
+    check(torch.cuda.memory_allocated() == before, "the MoE refusal made no weight")
+    gc.collect()
+    torch.cuda.empty_cache()
+    child = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         str(Path(__file__).resolve()), PARALLEL_FLAG],
+        capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line)
+    check(child.returncode == 0 and lines, f"phase 17's process: {child.stdout[-1500:]} "
+                                           f"{child.stderr[-2500:]}")
+    x = json.loads(lines[-1])
+    card = card_line()
+    check(x["torchrun"]["WORLD_SIZE"] == "1", f"torchrun's world: {x['torchrun']}")
+    n = x["leaves"]
+    base = x["unsharded"]["steps"]
+    check(len(base) == PARALLEL_STEPS, "the unsharded run's steps")
+    want_calls = {"dp": {"all_reduce": n + 3}}
+    k = x["zero3_group"]["sharded"]
+    want_calls["zero3"] = {"all_reduce": n - k + 3, "all_gather": k, "reduce_scatter": k}
+    print(f"[17a] backend {x['backend']}, world {x['zero3_group']['world']} "
+          f"({x['zero3_group']['backend']} for ZeRO-3); plans: dp {x['dp_plan']}, ZeRO-3 "
+          f"{x['zero3_group']['plan']} ({k} of {n} leaves sharded)")
+    check(x["backend"] == x["zero3_group"]["backend"] == "nccl", "NCCL on the card")
+    med = {}
+    for label in ("unsharded", "dp", "zero3"):
+        run = x[label]
+        steps = run["steps"]
+        check(len(steps) == PARALLEL_STEPS, f"{label}: {PARALLEL_STEPS} steps")
+        med[label] = _median([s["ms"] for s in steps[1:]])
+        line = (f"[17a] {label} on {card}: median of steps 2-{PARALLEL_STEPS} "
+                f"{med[label]:.1f} ms, {TRAIN_B * TRAIN_S / med[label] * 1e3:.0f} tokens/s, "
+                f"peak {run['peak'] / 1e9:.3f} GB")
+        if label != "unsharded":
+            calls, nbytes = steps[-1]["collectives"], steps[-1]["collective_bytes"]
+            line += "; collectives a step " + ", ".join(
+                f"{kind} {calls[kind]} ({nbytes[kind] / 1e9:.3f} GB)" for kind in sorted(calls))
+            for s, b in zip(steps, base):
+                check(s["loss"] == b["loss"], f"{label} step {s['step']}: loss {s['loss']!r} "
+                                              f"== unsharded {b['loss']!r}")
+                check(s["launches"] == b["launches"], f"{label} step {s['step']}: launches "
+                                                      f"{s['launches']} == {b['launches']}")
+                check(s["collectives"] == want_calls[label],
+                      f"{label} step {s['step']}: collectives {s['collectives']}, "
+                      f"planned {want_calls[label]}")
+        print(line + "; per step " + "; ".join(
+            f"{s['step']} loss {s['loss']!r} {s['ms']:.1f} ms " + " ".join(
+                f"{kk}={v}" for kk, v in s["launches"].items()) for s in steps))
+    print(f"[17a] the dp and ZeRO-3 runs' losses equal the unsharded run's bit for bit at all "
+          f"{PARALLEL_STEPS} steps, their launches a step too: " + " ".join(
+              f"{kk}={v}" for kk, v in base[-1]["launches"].items())
+          + f"; dp {med['dp'] / med['unsharded'] - 1:+.2%}, ZeRO-3 "
+          f"{med['zero3'] / med['unsharded'] - 1:+.2%} of the unsharded step; ZeRO-3's peak "
+          f"{(x['zero3']['peak'] - x['unsharded']['peak']) / 1e9:+.3f} GB")
+    totals = collections.Counter()
+    for label in ("dp", "zero3"):
+        for s in x[label]["steps"]:
+            totals.update(s["launches"])
+    x["totals"] = dict(totals)
+    print(f"[17] phase 17 took {time.monotonic() - t0:.1f}s (child {x['seconds']:.1f}s); "
+          f"launches of the dp and ZeRO-3 runs' {2 * PARALLEL_STEPS} steps " + " ".join(
+              f"{kk}={v}" for kk, v in totals.items()))
+    return x
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -5592,6 +5825,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [FAMILIES_META_FLAG]:  # phase 16's meta traces, on the CPU
         print(json.dumps(families_meta(torch)))
+        return 0
+    if sys.argv[1:] == [PARALLEL_FLAG]:  # phase 17a, under torchrun
+        print(json.dumps(parallel_child(torch, np)))
         return 0
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
@@ -5765,6 +6001,10 @@ def main() -> int:
           f"dbrx-132b at one layer, bf16, {FAMILY_STEPS} steps each; five families' 2-layer "
           f"f32 gradients card vs CPU (a process of its own) {stamp()}")
     summary16 = phase16(torch)
+    print(f"[17] data parallelism and ZeRO-3 through a process group: gemma3-1b at published "
+          f"widths, {PARALLEL_STEPS} steps a run, world size 1 (NCCL; a process under "
+          f"torchrun) {stamp()}")
+    summary17 = phase17(torch)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -5891,6 +6131,30 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": summary16["totals"].get(kernel, 0),
             "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
+    # Data parallelism and ZeRO-3 (phase 17a): launches are the dp and ZeRO-3
+    # runs' (PARALLEL_STEPS steps each, world size 1); times and errors are
+    # phase 5's at the same shapes (M = 4096 / world rows).
+    for name, src, replaces, per, key, err in (
+            ("flash_attention_bwd:parallel", "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:28 (differentiated by jax.value_and_grad "
+             "under jax.checkpoint, src/repro/models/attention.py:103-109)",
+             "gemma3-1b's train step through a world-1 NCCL group, dp and ZeRO-3: 4 global + "
+             "22 window-512 layers, B=4, S=1024, Hq=4, Hkv=1, D=256, bf16", "step",
+             "flash_attention_bwd"),
+            ("flash_attention:parallel", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28",
+             "the same steps' attention forward with the lse, twice a layer (forward and "
+             "remat's recompute), B=4, S=1024, bf16", "fwd_step", "flash_attention"),
+            ("gemm:parallel", "gemm.cu", "src/repro/kernels/gemm.py:33",
+             "the same steps' GeMMs: forward, recompute, dX and dW at M=4096, the tied head "
+             "x 2 loss chunks at M=2048, bf16", "gemm_step", "gemm_bwd")):
+        t_k, t_p, t_l, bound, by = rows_tr[key]
+        kernel = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": summary17["totals"].get(kernel, 0),
+            "max_abs_err": worst[err], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
         f"cluster_launches={k['cluster_launches']} "
@@ -5936,6 +6200,13 @@ def main() -> int:
               f"{FAMILY_STEPS} {med:.1f} ms, {B * S / med * 1e3:.0f} tokens/s, peak memory "
               f"{run['peak'] / 1e9:.2f} GB; per step " + " ".join(
                   f"{k}={v}" for k, v in run["steps"][-1][3].items()))
+    for label in ("dp", "zero3"):
+        run = summary17[label]
+        med = _median([st["ms"] for st in run["steps"][1:]])
+        print(f"[7] 17 train step ({label}, gemma3-1b, B {TRAIN_B} x S {TRAIN_S}, bf16, world 1, "
+              f"NCCL): median of steps 2-{PARALLEL_STEPS} {med:.1f} ms, "
+              f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, peak memory "
+              f"{run['peak'] / 1e9:.2f} GB")
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

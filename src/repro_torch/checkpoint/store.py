@@ -11,7 +11,9 @@
     listed in the manifest, Python numbers as int64 / float64;
   * restore builds each leaf like the template's (dtype, shape, strides:
     a row-padded `aligned_rows` matrix comes back row-padded) on the
-    template's device or the one named;
+    template's device or the one named; a rank of a sharded run restores
+    its pieces of the whole leaves, so a checkpoint moves between world
+    sizes unchanged (a sharded run saves whole leaves: runtime/supervisor.py);
   * async: `AsyncCheckpointer` copies the tree to the host at once, writes
     in a background thread, and raises a write's error at the next `wait`;
   * GC: `keep_last` prunes old steps.
@@ -101,10 +103,24 @@ def _like(a: np.ndarray, leaf, device):
     return out
 
 
-def restore_checkpoint(path: str, step: int, template: Any, device=None) -> Any:
+def _load(file: str, piece):
+    """A saved leaf, or the `(dim, index, count)` piece of it: the leaf
+    split along `dim` into `count` equal parts, part `index`."""
+    if piece is None:
+        return np.load(file)
+    dim, index, count = piece
+    a = np.load(file, mmap_mode="r")
+    n = a.shape[dim] // count
+    return np.array(a[(slice(None),) * dim + (slice(index * n, (index + 1) * n),)])
+
+
+def restore_checkpoint(path: str, step: int, template: Any, device=None,
+                       pieces: Optional[List] = None) -> Any:
     """The tree saved at `step`, in `template`'s structure, each tensor leaf
     made like the template's (dtype, shape, strides) on `device` (None: the
-    template leaf's)."""
+    template leaf's).  `pieces` (per leaf, None or `(dim, index, count)`)
+    restores a rank's pieces of sharded leaves from the whole leaves a
+    checkpoint holds, at any world size (`parallel.fsdp.Layout.pieces`)."""
     d = os.path.join(path, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -112,8 +128,9 @@ def restore_checkpoint(path: str, step: int, template: Any, device=None) -> Any:
     if manifest["num_leaves"] != len(leaves):
         raise ValueError(f"checkpoint {d} holds {manifest['num_leaves']} leaves, the "
                          f"template {len(leaves)}")
-    out = [_like(np.load(os.path.join(d, f"{i}.npy")), leaf, device)
-           for i, leaf in enumerate(leaves)]
+    pieces = pieces or [None] * len(leaves)
+    out = [_like(_load(os.path.join(d, f"{i}.npy"), piece), leaf, device)
+           for i, (leaf, piece) in enumerate(zip(leaves, pieces))]
     return tree_lib.unflatten(template, out)
 
 

@@ -5,6 +5,8 @@
 pure function of (seed, i), so its batches equal the reference's bit for
 bit and a restart from a checkpointed cursor replays the same stream.
 
+`rank_rows` is a rank's share of a batch under a `parallel` plan.
+
 `Prefetcher` is the reference's depth-D buffer filled by a producer thread.
 Where the reference stages batches with `jax.device_put`, the producer
 here copies each batch to pinned host memory and on to the device with
@@ -20,6 +22,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import batch_spec, shard_index
 
 
 class SyntheticLMData:
@@ -54,6 +58,22 @@ class SyntheticLMData:
         while True:
             yield self.batch_at(cursor)
             cursor += 1
+
+
+def rank_rows(batch: Dict[str, np.ndarray], mesh, plan, rank: int) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global batch by `batch_sharding`'s rule: each
+    leaf's leading dimension split over the largest divisor subset of the
+    plan's batch axes (`parallel.sharding.batch_spec`), or whole where no
+    batch axis divides it (every rank then computes the same rows)."""
+    from repro_torch.parallel.sharding import batch_spec, shard_index
+
+    out = {}
+    for name, a in batch.items():
+        spec = batch_spec(a.shape, mesh, plan)
+        index, count = shard_index(spec[0] if spec else None, mesh, rank)
+        rows = a.shape[0] // count if a.ndim else 0
+        out[name] = a[index * rows:(index + 1) * rows] if count > 1 else a
+    return out
 
 
 def to_device(batch: Dict[str, np.ndarray], device, *, non_blocking: bool = False

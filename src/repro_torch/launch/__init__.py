@@ -11,13 +11,13 @@ importing every launcher.
                       (the counterpart of the reference's hlo_cost.py)
   roofline, dryrun    a step's roofline on one H100; every (arch x shape) cell
   diagnose            a step's work by source, counted or profiled
-
-The reference's `mesh` waits for parallel/.
+  mesh                `MeshShape`, the local and production meshes
 """
 
 import importlib
 
-_SUBMODULES = ("diagnose", "dryrun", "roofline", "serve", "step_cost", "steps", "train")
+_SUBMODULES = ("diagnose", "dryrun", "mesh", "roofline", "serve", "step_cost", "steps",
+               "train")
 
 _LAZY = {
     "make_train_step": ("repro_torch.launch.steps", "make_train_step"),
@@ -25,6 +25,9 @@ _LAZY = {
     "make_serve_step": ("repro_torch.launch.steps", "make_serve_step"),
     "input_specs": ("repro_torch.launch.steps", "input_specs"),
     "optimizer_config": ("repro_torch.launch.steps", "optimizer_config"),
+    "make_sharded_train_step": ("repro_torch.launch.steps", "make_sharded_train_step"),
+    "make_local_mesh": ("repro_torch.launch.mesh", "make_local_mesh"),
+    "make_production_mesh": ("repro_torch.launch.mesh", "make_production_mesh"),
 }
 
 __all__ = sorted(set(_SUBMODULES) | set(_LAZY))

@@ -1,6 +1,6 @@
-"""The train step (port of repro/launch/steps.py: `optimizer_config`,
-`make_train_step`), the unpaged serve step (`make_serve_step`) and its
-CUDA graph.
+"""The train steps (port of repro/launch/steps.py: `optimizer_config`,
+`make_train_step`, and over a process group `make_sharded_train_step`),
+the unpaged serve step (`make_serve_step`) and its CUDA graph.
 
 The reference jits `make_train_step`: `jax.value_and_grad(M.loss_fn)`,
 the warmup-cosine learning rate at the optimizer's count, then AdamW.  The
@@ -8,6 +8,8 @@ port's step runs the same three eagerly: the loss, `torch.autograd.grad`
 over every parameter leaf (through the hand kernels' Functions: K1 for
 every projection and the tied head, K5 / K5b for attention), then the
 in-place `adamw_update`.  A CUDA graph of the whole step is later work.
+`make_sharded_train_step` is the same step over a process group (data
+parallelism and ZeRO-3: parallel/fsdp.py).
 
 The dry run's step builders and shape structs (`make_prefill_step`,
 `params_struct`, `opt_state_struct`, `decode_state_struct`,
@@ -67,6 +69,69 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         return params, opt_state, {"loss": loss.detach(), "lr": lr}
 
     return train_step
+
+
+class ShardedTrainStep:
+    """`make_sharded_train_step`'s step: `make_train_step`'s over a
+    rank's pieces (parallel/fsdp.py).  Call it as the unsharded step,
+    with this rank's pieces (`self.layout.shard(params)`), AdamW state
+    made on them, and this rank's rows (`data.rank_rows`); the returned
+    loss is the whole batch's, on every rank, beside the step's
+    collectives by kind (calls and bytes)."""
+
+    def __init__(self, cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
+                 base_lr: float = 3e-4, total_steps: int = 100_000):
+        from repro_torch.parallel import fsdp
+
+        self.cfg = cfg
+        self.opt_cfg = opt_cfg or optimizer_config(cfg)
+        fsdp.check_plan(cfg, mesh, plan)
+        self.layout = fsdp.Layout(params_struct(cfg), mesh, plan,
+                                  int8_moments=self.opt_cfg.state_dtype == "int8")
+        self.sched = warmup_cosine(base_lr, warmup=min(2000, total_steps // 10),
+                                   total=total_steps)
+
+    def __call__(self, params, opt_state, batch):
+        layout = self.layout
+        layout.collectives.clear()
+        layout.collective_bytes.clear()
+        whole = layout.gather(tree_lib.leaves(params))
+        labels, mask = batch["labels"], batch.get("mask")
+        count = (torch.sum(mask.to(torch.float32)) if mask is not None else
+                 torch.full((), float(labels.numel()), device=labels.device))
+        count = layout.all_reduce(count)
+        with torch.enable_grad():
+            loss = M.loss_fn(tree_lib.unflatten(params, whole), self.cfg, batch,
+                             denominator=count)
+            grads = torch.autograd.grad(loss, whole, allow_unused=True)
+        grads = layout.reduce([torch.zeros_like(p) if g is None else g
+                               for p, g in zip(whole, grads)])
+        del whole
+        lr = self.sched(opt_state["count"])
+        params, opt_state = adamw_update(grads, opt_state, params, lr, self.opt_cfg,
+                                         norm_reduce=layout.norm_reduce)
+        loss = layout.all_reduce(loss.detach())
+        return params, opt_state, {"loss": loss, "lr": lr,
+                                   "collectives": dict(layout.collectives),
+                                   "collective_bytes": dict(layout.collective_bytes)}
+
+
+def make_sharded_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
+                            base_lr: float = 3e-4, total_steps: int = 100_000
+                            ) -> ShardedTrainStep:
+    """The train step under a dp-mode `plan` over `mesh` and the running
+    process group: data parallelism, or ZeRO-3 where `plan.fsdp` (the
+    reference reaches it by jitting `make_train_step` with the plan's
+    `in_shardings`).  Each step gathers the sharded parameters, runs
+    `loss_fn` over this rank's rows with the whole batch's mask count as
+    the denominator, takes `torch.autograd.grad`, sums the gradients over
+    the ranks (reduce-scatter into the pieces, all-reduce the replicated
+    leaves), and runs AdamW on the pieces with the whole gradient's norm.
+    At world size 1 the arithmetic is `make_train_step`'s, bit for bit
+    (a 0/1 mask's count is exact).  Raises for a plan the port does not
+    execute (`parallel.fsdp.check_plan`)."""
+    return ShardedTrainStep(cfg, opt_cfg, mesh, plan, base_lr=base_lr,
+                            total_steps=total_steps)
 
 
 def make_prefill_step(cfg: ArchConfig):

@@ -1,10 +1,14 @@
 """Training launcher (port of repro/launch/train.py): the same flags, the
-same step function, the same JSON summary, on one card.
+same step function, the same JSON summary, on one card or over a process
+group.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
       --preset full --steps 8 --batch 4 --seq 1024           # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --preset smoke --steps 40 --batch 4 --seq 32 --lr 3e-3
+  PYTHONPATH=src python -m torch.distributed.run --standalone \
+      --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --preset smoke --steps 40 --batch 4 --seq 32          # two gloo ranks
 
 Parameters come from `init_model` (seed 0), batches from
 `SyntheticLMData` (the reference's numpy stream), the step from
@@ -14,13 +18,26 @@ warmup-cosine lr, in-place AdamW), and the loop from `Supervisor`
 injects one failure, after which the latest checkpoint is restored and
 the run continues, `--resume` starts from the latest checkpoint).
 
+The mesh and plan are the reference's: `make_local_mesh(--model-parallel)`
+and `make_plan(mesh, param_count, force_fsdp=False)`.  Under torchrun
+(`RANK`, `WORLD_SIZE`, `LOCAL_RANK` in the environment; the card is
+`cuda:LOCAL_RANK`) the run joins a process group, NCCL for a CUDA device
+and gloo for the CPU, and trains through `steps.make_sharded_train_step`:
+each rank takes its rows of every batch (`data.rank_rows`), the
+gradients are summed over the ranks, rank 0 writes the checkpoints and
+alone prints the summary.  Without that environment the world is 1 and
+there is no group.
+
 Runs on the CUDA device unless `--device cpu` is given, and raises without
-one.  Differences from the reference CLI: `--model-parallel` other than 1
-raises (the parallel package is not ported: ROADMAP A.4); `--quant` is
-parsed and read by nothing, as in the reference; `--resume` starts the
-loop at the restored step; the default checkpoint directory lies under
-the system's temporary directory.  `main(on_step=...)` sees every step
-(its loss, its seconds); the returned metrics hold every 10th, as the
+one.  Differences from the reference CLI: a tp-mode plan (an arch above
+4e9 parameters with `--model-parallel` > 1) and an MoE arch over a data
+axis > 1 raise (ROADMAP A.4b; `parallel.fsdp.check_plan`); the plan's
+parameters are replicated (pure data parallelism: `fsdp` is False), where
+the reference's dp-mode specs shard them all the same; `--quant` is parsed
+and read by nothing, as in the reference; `--resume` starts the loop at
+the restored step; the default checkpoint directory lies under the
+system's temporary directory.  `main(on_step=...)` sees every step (its
+loss, its seconds); the returned metrics hold every 10th, as the
 reference's do.
 """
 
@@ -33,11 +50,17 @@ import os
 import tempfile
 import time
 
+import torch
+import torch.distributed as dist
+
 from repro_torch import configs, resolve_device
-from repro_torch.data import SyntheticLMData, to_device
+from repro_torch.data import SyntheticLMData, rank_rows, to_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import MeshShape, backend_for, make_local_mesh
 from repro_torch.models import model as M
 from repro_torch.optim import adamw_init
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.sharding import make_plan
 from repro_torch.runtime import Supervisor, TrainLoopConfig
 
 
@@ -100,29 +123,55 @@ def main(argv=None, *, on_step=None):
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the parallel package "
-            f"(sharding, FSDP, pipeline) is not ported (ROADMAP A.4); train on one device")
     device = resolve_device(args.device)
+    joined = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if joined:              # torchrun's ranks: one card each
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group(backend_for(device))
+    try:
+        return _train(args, device, on_step)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, device, on_step):
     cfg = preset_config(args.arch, args.preset)
-    print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M device={device}")
+    mesh = MeshShape.of(make_local_mesh(args.model_parallel, device.type))
+    plan = make_plan(mesh, cfg.param_count(), force_fsdp=False)
+    fsdp.check_plan(cfg, mesh, plan)
+    group = dist.is_initialized()
+    rank = dist.get_rank() if group else 0
+    if rank == 0:
+        print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M device={device} "
+              f"mesh={mesh.shape}")
 
     params = M.init_model(cfg, seed=0, device=device)
     opt_cfg = steps_lib.optimizer_config(cfg)
+    layout = None
+    if group:
+        train_step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan,
+                                                       base_lr=args.lr, total_steps=args.steps)
+        layout = train_step.layout
+        params = layout.shard(params)
+    else:
+        train_step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=args.lr,
+                                               total_steps=args.steps)
     opt_state = adamw_init(params, opt_cfg)
-    train_step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=args.lr,
-                                           total_steps=args.steps)
     extras = {}
     if cfg.family == "encdec":
         extras["frames"] = (cfg.encoder_seq, cfg.d_model)
     if cfg.family == "vlm":
         extras["patches"] = (cfg.prefix_len, M.VISION_DIM)
     data = SyntheticLMData(cfg.vocab, args.batch, args.seq, extras=extras)
+    data_at = data.batch_at if not group else \
+        (lambda cursor: rank_rows(data.batch_at(cursor), mesh, plan, rank))
 
     sup = Supervisor(
         train_step,
-        data_at=data.batch_at,
+        data_at=data_at,
         loop_cfg=TrainLoopConfig(
             total_steps=args.steps, ckpt_every=args.ckpt_every,
             ckpt_dir=args.ckpt_dir,
@@ -130,25 +179,28 @@ def main(argv=None, *, on_step=None):
         put_batch=lambda b: to_device(b, device, non_blocking=True),
         simulate_failure_at=args.fail_at,
         on_step=on_step,
+        layout=layout,
     )
     start = 0
     if args.resume:
         restored = sup.restore(params, opt_state)
         if restored:
             params, opt_state, start = restored
-            print(f"resumed from step {start}")
+            if rank == 0:
+                print(f"resumed from step {start}")
     t0 = time.time()
     out = sup.run(params, opt_state, start_step=start)
     dt = time.time() - t0
 
     losses = [m["loss"] for m in out["metrics"]]
-    print(json.dumps({
-        "steps": out["step"], "restarts": out["restarts"],
-        "straggler_steps": out["straggler_steps"],
-        "first_loss": losses[0] if losses else None,
-        "last_loss": losses[-1] if losses else None,
-        "wall_s": round(dt, 1),
-    }, indent=1))
+    if rank == 0:
+        print(json.dumps({
+            "steps": out["step"], "restarts": out["restarts"],
+            "straggler_steps": out["straggler_steps"],
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "wall_s": round(dt, 1),
+        }, indent=1))
     return out
 
 

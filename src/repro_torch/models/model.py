@@ -236,7 +236,7 @@ def forward(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
-            chunk: int = 512) -> torch.Tensor:
+            chunk: int = 512, denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy of batch["tokens"] against batch["labels"]
     (B, S), weighted by batch["mask"] (ones by default), over sequence
     chunks (port of the reference's `loss_fn`, models/model.py:178-212):
@@ -244,8 +244,10 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     log-softmax and gather run under `torch.utils.checkpoint` when grad
     mode is on (the reference's jax.checkpoint on the chunk body), so the
     (B, chunk, vocab) f32 logits live one chunk at a time.  Returns
-    -sum(ll * mask) / max(sum(mask), 1), the per-chunk sums added in
-    chunk order."""
+    -sum(ll * mask) / max(denominator, 1), the per-chunk sums added in
+    chunk order; the denominator is sum(mask) unless given (a sharded
+    step passes the mask count of the whole batch over every rank:
+    `launch.steps.make_sharded_train_step`)."""
     x = trunk(params, cfg, batch)                       # (B, S, d)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -269,7 +271,8 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         ll, m = _checkpoint(chunk_loss, *part) if grad else chunk_loss(*part)
         lls.append(ll)
         ms.append(m)
-    return -torch.sum(torch.stack(lls)) / torch.clamp_min(torch.sum(torch.stack(ms)), 1.0)
+    den = torch.sum(torch.stack(ms)) if denominator is None else denominator
+    return -torch.sum(torch.stack(lls)) / torch.clamp_min(den, 1.0)
 
 
 def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:

@@ -91,10 +91,15 @@ def adamw_init(params, cfg: AdamWConfig):
     }
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves (in the tree's fixed order) of each
-    leaf's f32 sum of squares."""
+    leaf's f32 sum of squares.  Over sharded leaves `reduce` maps the
+    vector of this rank's per-leaf sums to the whole leaves' (each
+    replicated leaf once: `parallel.fsdp.Layout.norm_reduce`)."""
     leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_lib.leaves(tree)]
+    if reduce is not None:
+        leaves = list(reduce(torch.stack(leaves)).unbind())
     return torch.sqrt(sum(leaves))
 
 
@@ -126,14 +131,18 @@ def _moments(tree, int8: bool) -> list:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, lr, cfg: AdamWConfig) -> Tuple[Any, Any]:
+def adamw_update(grads, state, params, lr, cfg: AdamWConfig, *,
+                 norm_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                 ) -> Tuple[Any, Any]:
     """One AdamW step, in place on `params` and `state["m"]`, `state["v"]`;
     `state["count"]` becomes count + 1.  `grads` is a tree like `params`
     or the list of its leaves in the fixed order; `lr` a float or a 0-d
-    tensor.  Returns (params, state)."""
+    tensor.  On a rank's pieces of sharded leaves, `norm_reduce` makes the
+    clip's norm the whole gradient's (`global_norm`).  Returns (params,
+    state)."""
     count = state["count"] + 1
     flat_g = grads if isinstance(grads, (list, tuple)) else tree_lib.leaves(grads)
-    gnorm = global_norm(list(flat_g))
+    gnorm = global_norm(list(flat_g), norm_reduce)
     if cfg.clip_norm is not None:
         clip = torch.clamp(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), max=1.0)
     else:

@@ -16,6 +16,12 @@ kernels.  `on_step(step, metrics, seconds)`, a port addition, is called
 after every step with the step number just completed, so a caller can read
 per-step numbers (the launch counters, memory) without the loop logging
 them.
+
+Over a process group (`layout`, a `parallel.fsdp.Layout`) every rank runs
+the same loop: a checkpoint holds the whole leaves, gathered from the
+ranks' pieces and written by rank 0 alone, and every rank waits for the
+write at a barrier before it reads a checkpoint, so an injected failure
+restarts every rank from the same step.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ class Supervisor:
         on_straggler: Optional[Callable[[int, float, float], None]] = None,
         simulate_failure_at: Optional[int] = None,
         on_step: Optional[Callable[[int, Dict[str, Any], float], None]] = None,
+        layout=None,
     ):
         self.train_step = train_step
         self.data_at = data_at
@@ -59,6 +66,7 @@ class Supervisor:
         self.on_straggler = on_straggler
         self.on_step = on_step
         self.simulate_failure_at = simulate_failure_at
+        self.layout = layout
         self.ckpt = AsyncCheckpointer(loop_cfg.ckpt_dir, keep_last=loop_cfg.keep_last)
         self.restarts = 0
         self.straggler_steps = 0
@@ -75,9 +83,27 @@ class Supervisor:
         step = latest_step(self.cfg.ckpt_dir)
         if step is None:
             return None
+        pieces = None
+        if self.layout is not None:
+            pieces = self.layout.pieces(self.layout.state_dims(template_opt))
         tree = restore_checkpoint(self.cfg.ckpt_dir, step,
-                                  self._pack(template_params, template_opt, 0))
+                                  self._pack(template_params, template_opt, 0), pieces=pieces)
         return tree["params"], tree["opt"], int(tree["step"])
+
+    def _save(self, step: int, params, opt_state) -> None:
+        tree = self._pack(params, opt_state, step)
+        if self.layout is not None:
+            tree = self.layout.gather_to_host(tree, self.layout.state_dims(opt_state))
+        if tree is not None:
+            self.ckpt.save(step, tree)
+
+    def _wait(self) -> None:
+        """The pending write done (on every rank, behind a barrier)."""
+        try:
+            self.ckpt.wait()
+        finally:
+            if self.layout is not None:
+                self.layout.barrier()
 
     # -- the supervised loop ----------------------------------------------------
 
@@ -91,7 +117,7 @@ class Supervisor:
                 self.restarts += 1
                 if self.restarts > self.cfg.max_restarts:
                     raise RuntimeError("restart budget exhausted")
-                self.ckpt.wait()
+                self._wait()
                 restored = self.restore(params, opt_state)
                 if restored is None:
                     step = start_step
@@ -99,7 +125,7 @@ class Supervisor:
                     params, opt_state, step = restored
                 # do not re-fire the same simulated failure
                 self.simulate_failure_at = None
-        self.ckpt.wait()
+        self._wait()
         return {
             "params": params,
             "opt_state": opt_state,
@@ -131,7 +157,7 @@ class Supervisor:
             if step % self.cfg.log_every == 0:
                 self.metrics_log.append({"step": step, "loss": loss, "sec": dt})
             if step % self.cfg.ckpt_every == 0 or step == self.cfg.total_steps:
-                self.ckpt.save(step, self._pack(params, opt_state, step))
+                self._save(step, params, opt_state)
         return step, params, opt_state, ewma
 
 

@@ -224,7 +224,8 @@ def test_train_cli_defaults_to_cuda_and_refuses_what_it_lacks(tmp_path, monkeypa
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main(["--preset", "smoke", "--steps", "1", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --model-parallel must divide the world (1 without a process group)
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
         ttrain.main(["--device", "cpu", "--preset", "smoke", "--model-parallel", "2"])
     # --quant is parsed and read by nothing, as in the reference
     out = ttrain.main(["--device", "cpu", "--preset", "smoke", "--steps", "2", "--batch", "2",

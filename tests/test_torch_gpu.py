@@ -1703,3 +1703,58 @@ def test_train_step_on_card_matches_cpu_and_keeps_weights_aligned(cuda_device):
     with torch.no_grad():
         TM.forward(card, cfg, to_device(data.batch_at(5), cuda_device))
     assert tgemm.launches > 0 and tgemm.relaid == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero3", [False, True], ids=["dp", "zero3"])
+def test_sharded_train_step_in_a_world_one_nccl_group(cuda_device, tmp_path, zero3):
+    """`make_sharded_train_step` in a world-1 NCCL group (a `file://`
+    store) against `make_train_step` on the same weights and batches, bf16,
+    three steps: the losses bit for bit, the parameters equal, the same
+    K1 / K5 / K5b launches a step; ZeRO-3 gathers and reduce-scatters
+    every sharded leaf, dp all-reduces every leaf."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import MeshShape, backend_for
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = _train_cfg("bfloat16")
+    data = SyntheticLMData(cfg.vocab, 2, 80)
+    opt_cfg = tsteps.optimizer_config(cfg)
+    runs = {}
+    dist.init_process_group(backend_for(cuda_device), init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = MeshShape(("data", "model"), (1, 1))
+        plan = make_plan(mesh, cfg.param_count(), force_fsdp=zero3)
+        sharded = tsteps.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=1e-3,
+                                                 total_steps=3)
+        for label, step in (("unsharded", tsteps.make_train_step(cfg, opt_cfg, base_lr=1e-3,
+                                                                  total_steps=3)),
+                            ("sharded", sharded)):
+            params = TM.init_model(cfg, seed=0, device=cuda_device)
+            if label == "sharded":
+                params = sharded.layout.shard(params)
+            opt = adamw_init(params, opt_cfg)
+            out = []
+            for i in range(3):
+                tgemm.reset_launches()
+                tfa.reset_launches()
+                params, opt, m = step(params, opt, to_device(data.batch_at(i), cuda_device))
+                out.append((float(m["loss"]), tgemm.launches, tfa.launches, tfa.bwd_launches,
+                            m.get("collectives")))
+            runs[label] = (out, tree_lib.leaves(params))
+    finally:
+        dist.destroy_process_group()
+    (want, wp), (got, gp) = runs["unsharded"], runs["sharded"]
+    assert [x[:4] for x in got] == [x[:4] for x in want]
+    assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(gp, wp))
+    n, k = len(wp), sharded.layout.sharded
+    assert (k > 0) == zero3
+    assert got[-1][4] == {"all_reduce": n - k + 3,
+                          **({"all_gather": k, "reduce_scatter": k} if zero3 else {})}

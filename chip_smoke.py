@@ -45,7 +45,9 @@ Phases, in order; any failure exits non-zero:
      1500 frames, 16 / 16 heads, D 64), bf16 and f32; K1 (bf16) at M =
      12000 (the cross K / V projections of 8 x 1500 frames, 1024 x 1024)
      and M = 2048 (the projector over 8 x 256 patches, 1152 x 2048).
-  3. the main path at full width: gemma3-1b, 26 layers, bf16, random weights
+  3. the main path at full width: gemma3-1b, 26 layers (its repeats in
+     other modes, phases 3b-3d, 9, 12 and 13, run 6 of them since phase 18
+     joined the script: the time limit), bf16, random weights
      from a seeded torch.Generator, served by the continuous-batching
      Engine (8 slots, 12 requests, prompts 200-1100 tokens, 32-64 new
      tokens, chunk 64, block 16) as it runs on the card: warmup captures
@@ -109,7 +111,8 @@ Phases, in order; any failure exits non-zero:
      calls), at 1 and at 4 splits; K5 per shape and per forward; K5 at
      whisper's encoder shape (8 x 1500 over 1500) and its Sq = 1 cross
      shape beside SDPA; K1 at M = 12000 and 2048 beside torch.matmul.
-  8a. qwen3-14b at published widths (40 layers, d 5120, 40 q heads over 8
+  8a. qwen3-14b at published widths (cut to 20 of its 40 layers since
+     phase 18 joined the script: the time limit; d 5120, 40 q heads over 8
      kv heads, head_dim 128, d_ff 17408, untied 151936 vocab, qk-norm),
      bf16, random weights (seed 0), served as phase 3 serves gemma3-1b (8
      slots, 8 requests, prompts 256-1024 tokens, 16 new tokens each (32
@@ -131,7 +134,7 @@ Phases, in order; any failure exits non-zero:
      a prompt's last prefill chunk and first decode step within phase 4's
      bar, the engine's greedy tokens equal; no GeMM operand re-laid on the
      card (bert-base's 30522-wide head is stored with aligned rows).
-  9a. speculative decoding at full width: gemma3-1b (26 layers, bf16,
+  9a. speculative decoding at full width: gemma3-1b (6 layers, bf16,
      random weights from seed 0), 8 slots, block 16, chunk 64, k = 4.  The
      graphed engine captures `verify2`, `verify3` and `verify5` at warmup
      beside decode, the 7 chunk buckets and the reset; each verify graph
@@ -181,11 +184,12 @@ Phases, in order; any failure exits non-zero:
      seconds, graph pool / recurrent state / weight bytes, a profile of
      one replayed decode step):
      10a. xlstm-1.3b (d 2048, 4 heads, vocab 50304, untied), `reduced`
-     to 16 of its 48 layers (14 mLSTM + 2 sLSTM) for the time limit, 8
+     to 8 of its 48 layers (one group: 7 mLSTM + 1 sLSTM; 16 before
+     phase 18) for the time limit, 8
      requests of 100-192 tokens, 16 new each (cut from 128-256 and
-     32 for the time limit), float then w8a8; then, whole
-     (48 layers, 7.41 GB), speculative greedy decoding (k = 4,
-     8 slots: 28.2 GB of per-position states in verify5) on a regeneration
+     32 for the time limit), float then w8a8; then, at 16 layers (two
+     groups; whole, 48 layers, before phase 18), speculative greedy
+     decoding (k = 4, 8 slots) on a regeneration
      storm (16 requests over 4 prompts, 16 new tokens each: 32 before the
      training phase, cut for the time limit), tokens equal to a non-speculative
      graphed engine; then the serve CLI at published widths.
@@ -271,7 +275,7 @@ Phases, in order; any failure exits non-zero:
      13b. two replicas, threaded, least-loaded, the same 16 requests: the
      two streams and the two split-K workspaces and counter arrays differ;
      then the one-replica pool and the two-replica pool, each threaded
-     behind the async router, serve the trace in turns (one, two, two,
+     behind the async router, serve the trace in turns (one, two;
      one, and one run each under torch.profiler): every request's tokens
      equal the bare engine's in every run, both replicas serve, counters
      back at 0, allocators clean, no cold shape.
@@ -294,9 +298,10 @@ Phases, in order; any failure exits non-zero:
      running at once), and the ratio of the unprofiled runs' means.
   14. the training path: gemma3-1b at published widths (26 layers, bf16,
      ~1.0 B parameters, f32 AdamW moments, remat on) trained through the
-     train CLI (`repro_torch.launch.train.main`, B 4 x S 1024, 6 steps): a
+     train CLI (`repro_torch.launch.train.main`, B 4 x S 1024, 4 steps; 6
+     before phase 18): a
      clean run (one checkpoint, at its end), then the same run with a
-     checkpoint every 3 steps and `--fail-at 4`, restored from the step-3
+     checkpoint every 2 steps and `--fail-at 3`, restored from the step-2
      checkpoint, whose losses must equal the
      clean run's bit for bit at every step it ran (step 4 twice).  Each
      step's launches, read after the step and zeroed, must be the plan's
@@ -339,7 +344,8 @@ Phases, in order; any failure exits non-zero:
      fails.  To make room, 10b / 10c's prompts are cut to 160-320 tokens.
   16. the families train, in a process of its own (`chip_smoke.py
      --families`), bf16, random weights (seed 0), `SyntheticLMData`, 3
-     steps each.  16a: xlstm-1.3b (B 1 x S 1024), whisper-medium (B 4 x S
+     steps each.  16a: xlstm-1.3b (B 1 x S 512; S 1024 before phase 18),
+     whisper-medium (B 4 x S
      448, 1500 stub frames) and paligemma-3b (B 2 x S 1024, 256 patches)
      whole through `repro_torch.launch.train.main` (on_step ends each run
      after its last step, before the final checkpoint: phase 14 holds
@@ -356,7 +362,8 @@ Phases, in order; any failure exits non-zero:
      printed).  16b: xlstm-1.3b, jamba, dbrx-132b, whisper-medium and
      paligemma-3b at 2 layers holding every layer kind of the family
      (`reduced`; jamba 2 of 16 experts, dbrx 4 of 16, for the host's
-     memory), published widths, f32, B 1 x S 128: the loss within 1e-5
+     memory), published widths, f32, B 1 x S 64 (128 before phase 18):
+     the loss within 1e-5
      and every gradient leaf within 1e-4 of max(its largest element, 1e-4
      x the tree's largest) on the card against the CPU.  Phase 2 adds K5b
      at whisper's encoder (1500 frames, non-causal) and cross-attention
@@ -386,19 +393,45 @@ Phases, in order; any failure exits non-zero:
      reduce-scatter a sharded one, three scalars); each step's loss equal
      to the unsharded run's bit for bit and its K1 / K5 / K5b launches
      equal.
+  18. head-parallel tensor parallelism of the dense decoders (no new
+     kernel): qwen3-14b at published widths (d 5120, 40 / 8 heads, head
+     dim 128, d_ff 17408, vocab 151936) cut to 2 layers, B 2 x S 1024,
+     bf16, f32 moments, TP_STEPS steps a run, seed 0.  18a, in a process of
+     its own (`chip_smoke.py --tp`): `make_train_step` unsharded, then
+     `make_sharded_train_step` under the tp plan forced over (data 1,
+     model 1) in a world-1 NCCL group (the operators of
+     `parallel/tensor.py` and their collectives at a model axis of 1):
+     every step's loss within 1e-5 relative of the unsharded run's, and
+     the norm of each leaf of step 1's gradient (made whole by the clip's
+     `Layout.norm_reduce`), the K1 / K5 / K5b launches equal, the
+     collectives a step by kind.  18b,
+     two processes on the one card in a gloo group (`chip_smoke.py
+     --tp-gloo RANK STORE`) at (1, 2) without ZeRO-3: each rank holds 20
+     q / 4 kv heads, half the MLP and half the vocabulary; every step's
+     loss within 5e-4 relative of 18a's unsharded run's and the norm of
+     each leaf of step 1's gradient within 5e-3, each rank's
+     launches equal to the meta trace of its own step (`step_cost.analyze`
+     of `make_sharded_train_step(rank=)`, traced in this process while the
+     ranks run), each rank's peak.  18c, in phase 2: K5 (with its lse) and
+     K5b at a rank's shape (B 2, S 1024, 20 / 4 heads, D 128, causal and
+     a 512 window) and K1's forward, dX and dW at a rank's gate, down and
+     head shapes, against their plain versions.  To make room, 10a's float
+     and w8a8 runs hold one group of xlstm-1.3b (8 of 48 layers) and its
+     speculative run two (16 layers).
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
      with speculation on and off, one replay of each verify graph and of
      the decode graph, launches per verify replay; one per phase 10a-10c
      run; one for phase 14's train step; one for each of phase 17's dp and
-     ZeRO-3 steps.
+     ZeRO-3 steps; one for each of phase 18's runs.
 
 Every phase header carries the seconds since the script started.  The
 line before the card line is the kernels' JSON summary (with each kernel's
 launches by phase 12's tuner and on phase 13's cluster path apart from its
 serving launches; K5b's, K5's and K1's train-step entries count phase 14's
-clean run, their `:parallel` entries phase 17a's dp and ZeRO-3 runs); the
+clean run, their `:parallel` entries phase 17a's dp and ZeRO-3 runs,
+their `:tp` entries phase 18's tensor-parallel runs); the
 last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
@@ -1015,10 +1048,27 @@ def gemma_traffic(np):
     return plens, rng.integers(32, 65, size=12), rng
 
 
+# Phase 3 serves gemma3-1b whole.  Its repeats in other modes (3b-3d, 9, 12,
+# 13) run 6 of its 26 layers, one group of 5 window-512 layers and a global
+# one (phase 4's cut), since phase 18 joined the script: the time limit, on
+# hosts up to 1.5x slower than others.
+GEMMA_SERVE = {"n_layers": 6, "group_size": 6}
+GEMMA_GLOBALS = 1          # global layers of the cut (4 in the whole 26)
+GEMMA_CUT = {"n_layers": [26, 6], "group_size": [13, 6]}
+
+
+def gemma_serve_cfg(configs):
+    """gemma3-1b at published widths cut to GEMMA_SERVE, its cut printed."""
+    full = configs.get("gemma3-1b")
+    check(full.dtype == "bfloat16" and full.n_layers == 26, "gemma3-1b full config")
+    print(f"  reduced {json.dumps(GEMMA_CUT)}")
+    return dataclasses.replace(full, **GEMMA_SERVE)
+
+
 def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops,
                  precision="float", kv_precision="float", backend="tiled",
                  profile=False, arch="gemma3-1b", n_layers=26, traffic=gemma_traffic,
-                 reduced=None, replay_traffic=None):
+                 reduced=None, replay_traffic=None, cut=None):
     """A model at published widths (phase 3: gemma3-1b; phase 8: qwen3-14b)
     served twice on the same weights (seed 0): by the engine as it runs on
     the card, every step a replay of a CUDA graph captured at warmup, and by
@@ -1039,6 +1089,8 @@ def phase_engine(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, o
 
     cfg = configs.get(arch)
     check(cfg.dtype == "bfloat16" and cfg.n_layers == n_layers, f"{arch} full config")
+    if cut is not None:
+        cfg = dataclasses.replace(cfg, **cut)
     if reduced:
         print(f"  reduced {json.dumps(reduced)}")
     plan = per_step_plan(cfg, precision, kv_precision, backend)
@@ -1286,7 +1338,8 @@ def qwen3_traffic(np):
     return plens, np.full(8, 16), rng
 
 
-CUT_8 = {"new tokens": [32, 16]}
+CUT_8 = {"new tokens": [32, 16], "n_layers": [40, 20]}
+QWEN3_LAYERS = 20          # of 40 (since phase 18: the time limit)
 
 
 DENSE_ARCHS = ("qwen3-14b", "qwen2.5-14b", "mistral-nemo-12b", "bert-base", "vit-b-16")
@@ -2292,7 +2345,7 @@ def per_step_int8(rows, n_layers: int = 26, n_global: int = 4):
 
     terms = {
         "dequant_gemm": [(rows[("dequant_gemm", 64, s)], n_layers) for s in layer],
-        "quantize_rows": [(rows[("quantize_rows", 64, k)], n)
+        "quantize_rows": [(rows[("quantize_rows", 64, k)], n * n_layers // 26)
                           for k, n in QUANT_PER_CHUNK.items()],
         "flash_decode_int8": [(rows[("flash_decode_int8", "decode", None)], n_global),
                               (rows[("flash_decode_int8", "decode", 512)],
@@ -2340,8 +2393,8 @@ def per_prefill_chunk(rows, n_layers: int = 26, depth: int = 3):
             for name, key in keys.items()}
 
 
-# Phase 9: this slice's paths on gemma3-1b at published widths (26 layers,
-# bf16, random weights from seed 0), 8 slots, block 16, chunk 64, k = 4.
+# Phase 9: this slice's paths on gemma3-1b at published widths (GEMMA_SERVE's
+# 6 layers, bf16, random weights from seed 0), 8 slots, block 16, chunk 64, k = 4.
 PHASE9_KW = dict(slots=8, max_seq=1200, block_size=16, max_chunk=64)
 DRAFT_K = 4
 PHASE9_DEVICE = "cuda"
@@ -2442,11 +2495,11 @@ def phase_speculative(torch, np, configs, M, Engine, RequestSpec, mods, precisio
     graphed engine on the same weights: tokens identical; acceptance, tokens
     per decode tick, decode tok/s on and off, the median wall time of a
     verify step by width, one replay of each verify graph and of the decode
-    graph on the device, launches per verify graph (183 GeMMs, 26 K2), no
-    cold compile."""
+    graph on the device, launches per verify graph (7 GeMMs a layer and
+    the head, one K2 a layer), no cold compile."""
     from repro_torch.serving.speculative import verify_buckets
 
-    cfg = configs.get("gemma3-1b")
+    cfg = gemma_serve_cfg(configs)
     fused = mods["gemm8"].FUSED_ROWS
     params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
     kw = dict(PHASE9_KW, precision=precision, kv_precision=kv_precision, device=PHASE9_DEVICE)
@@ -2532,7 +2585,7 @@ def phase_sampling(torch, np, configs, M, Engine, RequestSpec, mods):
     softmax(_adjusted_logits), total-variation distance below 0.05."""
     from repro_torch.serving.request import GREEDY, SamplingParams
 
-    cfg = configs.get("gemma3-1b")
+    cfg = gemma_serve_cfg(configs)
     params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
     kw = dict(PHASE9_KW, device=PHASE9_DEVICE)
     rng = np.random.default_rng(11)
@@ -2635,7 +2688,7 @@ def phase_preempt_prefix(torch, np, configs, M, Engine, RequestSpec, mods):
     equal an unpreempted run's.  Then 16 requests sharing a 512-token
     prefix with the prefix cache: hit rate and prefill tokens saved, tokens
     equal a run without the cache."""
-    cfg = configs.get("gemma3-1b")
+    cfg = gemma_serve_cfg(configs)
     params = M.init_model(cfg, seed=0, device=PHASE9_DEVICE)
     kw = dict(PHASE9_KW, device=PHASE9_DEVICE)
     rng = np.random.default_rng(13)
@@ -3285,16 +3338,19 @@ def phase10(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, worst)
     # its time limit: their eager 64-token chunks (64 sequential mLSTM steps
     # a layer, ~0.6 s each) were a fifth of it.  A recurrent step's work
     # does not grow with the context, so the step times stay comparable.
-    # The speculative run and the CLI keep all 48 layers.
-    cut = dataclasses.replace(cfg, n_layers=2 * cfg.group_size)
+    # Phase 18 cut them to one group, and the speculative run from all 48
+    # layers to two groups; the CLI keeps all 48.
+    cut = dataclasses.replace(cfg, n_layers=cfg.group_size)
     cut_reduced = {"n_layers": [cfg.n_layers, cut.n_layers]}
     print("[10a] xlstm-1.3b at published widths (d 2048, 4 heads, vocab 50304, untied; "
-          "bf16), 16 of its 48 layers (14 mLSTM, 2 sLSTM), float")
+          "bf16), 8 of its 48 layers (7 mLSTM, 1 sLSTM), float")
     out["10a float"] = phase_family(*args, cut, cut_reduced, xl_traffic)
     print("[10a] the same in w8a8 (no attention layer: no KV pool)")
     out["10a w8a8"] = phase_family(*args, cut, cut_reduced, xl_traffic, precision="w8a8")
-    print(f"[10a] speculative greedy decoding, k = {DRAFT_K}, 8 slots")
-    out["10a spec"] = phase_family_spec(torch, np, M, Engine, RequestSpec, mods, cfg,
+    spec_cfg = dataclasses.replace(cfg, n_layers=2 * cfg.group_size)
+    print(f"[10a] speculative greedy decoding, k = {DRAFT_K}, 8 slots, 16 of the 48 layers "
+          f"(14 mLSTM, 2 sLSTM); reduced {json.dumps({'n_layers': [cfg.n_layers, 16]})}")
+    out["10a spec"] = phase_family_spec(torch, np, M, Engine, RequestSpec, mods, spec_cfg,
                                         DRAFT_K, 8)
     print("[10a] the serve CLI: --arch xlstm-1.3b --widths published")
     phase_serve_cli(np, arch="xlstm-1.3b", extra=())
@@ -3762,7 +3818,7 @@ def phase12_serve(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, 
     from repro_torch import tuning
 
     label = "12a" if precision == "float" else "12b"
-    cfg = configs.get("gemma3-1b")
+    cfg = gemma_serve_cfg(configs)
     params = M.init_model(cfg, seed=0, device="cuda")
     kw = dict(slots=8, max_seq=1200, block_size=16, max_chunk=64, precision=precision,
               kv_precision=kv_precision, device="cuda")
@@ -3850,7 +3906,8 @@ def phase12_serve(torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, 
             logits[name] = _prompt_logits(torch, M, kvc, quant, cfg, params, probe, "cuda",
                                           precision=precision, kv_precision=kv_precision,
                                           next_token=int(probe[-1]))
-    print(f"  {label} 26-layer bf16 fidelity (not checked; phase 4 holds the plans to its "
+    print(f"  {label} {cfg.n_layers}-layer bf16 fidelity (not checked; phase 4 holds the plans "
+          f"to its "
           f"bar below): relative L2 of the logits tuned vs untuned, last prefill chunk "
           f"{rel_l2(torch, logits['tuned'][0], logits['untuned'][0]):.3e}, decode step "
           f"{rel_l2(torch, logits['tuned'][1], logits['untuned'][1]):.3e}")
@@ -4239,8 +4296,7 @@ def phase13(torch, np, configs, M, Engine, RequestSpec, mods):
     from repro_torch import cluster
 
     t_phase = time.monotonic()
-    cfg = configs.get("gemma3-1b")
-    check(cfg.dtype == "bfloat16" and cfg.n_layers == 26, "gemma3-1b full config")
+    cfg = gemma_serve_cfg(configs)
     params = M.init_model(cfg, seed=0, device="cuda")
     # Prompts up to 512 tokens and 16-32 new (768 and 16-48 before phase 14
     # joined the script: the time limit).
@@ -4288,9 +4344,10 @@ def phase13(torch, np, configs, M, Engine, RequestSpec, mods):
     check(all(ptrs) and ptrs[0][0] != ptrs[1][0] and ptrs[0][1] != ptrs[1][1],
           "13b the replicas' graphs hold different split-K workspaces and counters")
     # Threaded runs behind the async router, one replica and two in turns
-    # (one, two, two, one), then one profiled run of each (13f).
+    # (one, two), then one profiled run of each (13f); the second unprofiled
+    # pair (two, one) was cut to make room for phase 18.
     runs = {"one": [], "two": []}
-    for label in ("one", "two", "two", "one", "one+profile", "two+profile"):
+    for label in ("one", "two", "one+profile", "two+profile"):
         name = label.split("+")[0]
         got, fig = _cluster_run(torch, cluster, mods, one if name == "one" else two, specs,
                                 "least-loaded", launches, profile="profile" in label)
@@ -4348,8 +4405,9 @@ def phase13(torch, np, configs, M, Engine, RequestSpec, mods):
     print(f"[13e] the serve CLI with two replicas {stamp()}")
     phase13_cli()
 
-    print("[13f] 13a's trace on one replica against two, threaded, in turns (one, two, "
-          "two, one; then one profiled run each) (printed, not checked)")
+    print("[13f] 13a's trace on one replica against two, threaded, in turns (one, two; "
+          "then one profiled run each) (printed, not checked); reduced "
+          '{"unprofiled runs of each": [2, 1]}')
     for name, figs in out["runs"].items():
         for k, f in enumerate(figs):
             prof = (f" | profiled (the profiler slows the run): the card busy "
@@ -4465,9 +4523,9 @@ BWD_SHAPES = [  # (B, S, Hq, Hkv, D, causal, window[, Skv])
 # other orders, so one bf16 ulp at the largest element.
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
 # The train run: gemma3-1b whole, B 4 x S 1024 (the 22 local layers' window
-# of 512 cuts), the restart run's checkpoint every 3 steps, the failure at
-# step 4.
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL, TRAIN_LR = 4, 1024, 6, 3, 4, 3e-4
+# of 512 cuts), the restart run's checkpoint every 2 steps, the failure at
+# step 3 (6, 3 and 4 before phase 18: the time limit).
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT, TRAIN_FAIL, TRAIN_LR = 4, 1024, 4, 2, 3, 3e-4
 LOSS_CHUNK = 512          # model.loss_fn's default: 2 chunks of the tied head a step
 
 
@@ -4603,14 +4661,14 @@ def _encode_us(q, k, v, do) -> float:
 PROFILE_FLAG = "--profile-train-attention"
 
 
-def _attention_inputs(torch, fa, g, window):
+def _attention_inputs(torch, fa, g, window, *, B=TRAIN_B, S=TRAIN_S, Hq=4, Hkv=1, D=256):
     """Phase 5's inputs at gemma3-1b's training shape (B 4, S 1024, 4 / 1,
-    D 256, causal, `window`): q, k, v, dO, K5's out and lse, and SDPA's (K/V
-    repeated to the q heads beforehand, q-head-major, requiring grad), its
-    mask and output."""
+    D 256, causal, `window`; phase 18 passes a rank's shape): q, k, v, dO,
+    K5's out and lse, and SDPA's (K/V repeated to the q heads beforehand,
+    q-head-major, requiring grad), its mask and output."""
     import torch.nn.functional as F
 
-    dev, dt, B, S, Hq, Hkv, D = torch.device("cuda"), torch.bfloat16, TRAIN_B, TRAIN_S, 4, 1, 256
+    dev, dt = torch.device("cuda"), torch.bfloat16
     q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
                    for h in (Hq, Hkv, Hkv, Hq))
     out, lse = fa._forward(q, k, v, True, window, True)
@@ -4779,8 +4837,8 @@ def _train_argv(ckpt_dir, ckpt_every, *extra):
 
 def phase_train(torch, np, configs, M, mods):
     """Phase 14: gemma3-1b whole through `repro_torch.launch.train`: a clean
-    run, then the same run with `--fail-at` (restored from the step-3
-    checkpoint): per-step losses bit for bit equal; launches per step as
+    run, then the same run with `--fail-at` (restored from the
+    step-TRAIN_CKPT checkpoint): per-step losses bit for bit equal; launches per step as
     planned; per-step ms, tokens/s, peak memory; one profiled step."""
     import tempfile
 
@@ -5071,15 +5129,17 @@ FAMILY_STEPS, FAMILY_LR = 3, 3e-4
 # 16a: (arch, B, S) trained whole through the train CLI at published widths,
 # then dbrx-132b cut to one layer (all 16 experts) through make_train_step
 # with the whole arch's optimizer config (bf16 moments).
-FAMILY_CLI = (("xlstm-1.3b", 1, 1024), ("whisper-medium", 4, 448), ("paligemma-3b", 2, 1024))
+# xlstm's S was 1024 before phase 18 (the time limit: its step is host-bound,
+# a Python loop a position).
+FAMILY_CLI = (("xlstm-1.3b", 1, 512), ("whisper-medium", 4, 448), ("paligemma-3b", 2, 1024))
 FAMILY_DBRX = ("dbrx-132b", 1, 1024)
 # xlstm's whole step is counted on the meta device one 8-layer group at a
 # short S (the GeMM count does not depend on S but through the loss's
 # chunks), scaled by the group count, the head's chunks at the real S.
 META_GROUP_S = 64
-# 16b: f32 at published widths, card against CPU, B 1 x S 128; each arch at
+# 16b: f32 at published widths, card against CPU, B 1 x S 64; each arch at
 # 2 layers holding every layer kind of its family.
-PARITY_S = 128
+PARITY_S = 64            # 128 before phase 18 (the time limit)
 PARITY_FLOOR = 1e-4        # of the tree's largest |gradient element| (xlstm's b_i)
 DEVICE_BYTES = 80e9
 
@@ -5725,7 +5785,7 @@ def phase17(torch):
     except NotImplementedError as e:
         refused = str(e)
     print(f"[17b] dbrx-132b's CLI plan at a data axis of 2: {refused}")
-    check(refused is not None and "A.4b" in refused, "MoE over a data axis of 2 raises")
+    check(refused is not None and "A.4c" in refused, "MoE over a data axis of 2 raises")
     check(torch.cuda.memory_allocated() == before, "the MoE refusal made no weight")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5792,6 +5852,489 @@ def phase17(torch):
     return x
 
 
+TP_FLAG = "--tp"               # 18a's process
+TP_GLOO_FLAG = "--tp-gloo"     # 18b's two processes: RANK STORE
+TP_STEPS, TP_B, TP_S, TP_LR = 3, 2, 1024, 3e-4
+# a step's loss against the unsharded run's (18b reads up to 6.2e-5)
+TP_RTOL = {"18a": 1e-5, "18b": 5e-4}
+# Step 1's gradient, whole leaf by leaf (the norm of each, relative to the
+# unsharded run's): it depends on the trunk, where the loss at random
+# weights barely does.  18b reads 1.7e-3 at its worst leaf (q_norm, bf16
+# partial sums rounded before the all-reduce) and 1.5e-5 for the whole
+# gradient.  A partial sum left unreduced moves a leaf far more (qwen3-14b's
+# smoke config at (1, 2) on the CPU: no all-reduce after wo, 126 % at
+# norm1; q_norm's partial gradients left unsummed, 40 % at q_norm, where
+# the whole gradient's norm moves 3.4e-5).
+TP_NORM_RTOL = {"18a": 1e-5, "18b": 5e-3}
+TP_KERNELS = ("gemm", "flash_attention", "flash_attention_bwd")
+# A rank's attention at (1, 2): 20 q heads, the GQA groups of its 4 kv heads.
+TP_ATTENTION = (TP_B, TP_S, 20, 4, 128)
+# (name, K, N) of a rank's K1 products at (1, 2): half the MLP's columns and
+# rows, half the head's vocabulary columns.
+TP_GEMMS = [("gate", 5120, 8704), ("down", 8704, 5120), ("head", 5120, 75968)]
+
+
+def tp_cfg(configs):
+    """qwen3-14b at its published widths, cut to 2 layers (one remat group
+    of 2): (config, the cuts as {field: [published, run]})."""
+    full = configs.get("qwen3-14b")
+    return (dataclasses.replace(full, n_layers=2, group_size=2),
+            {"n_layers": [full.n_layers, 2], "group_size": [full.group_size, 2]})
+
+
+def _tp_plan(sizes):
+    """The tp plan over (data, model) = `sizes`, forced (the 2-layer cut
+    has 2.2 B parameters, under make_plan's 4e9 threshold), no ZeRO-3."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel.sharding import make_plan
+
+    mesh = MeshShape(("data", "model"), sizes)
+    return mesh, make_plan(mesh, 10**12, force_mode="tp", force_fsdp=False)
+
+
+def _unsharded_norms(torch, cfg):
+    """norms(params, batch): the norm of each leaf's gradient of the loss,
+    in the parameters' leaf order."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models import model as M
+
+    def norms(params, batch):
+        leaves = tree_lib.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(M.loss_fn(params, cfg, batch), leaves,
+                                        allow_unused=True)
+        return [0.0 if g is None else float(torch.linalg.vector_norm(g.float()))
+                for g in grads]
+    return norms
+
+
+def _sharded_norms(torch, step):
+    """`_unsharded_norms` of a `ShardedTrainStep`: this rank's gradient
+    pieces, their sums of squares made the whole leaves' by the clip's own
+    `Layout.norm_reduce`."""
+    def norms(params, batch):
+        _, grads = step.gradients(params, batch)
+        sq = torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+        return torch.sqrt(step.layout.norm_reduce(sq)).tolist()
+    return norms
+
+
+def _tp_run(torch, cfg, step, params, data, norms, rows=lambda b: b):
+    """TP_STEPS steps of `step` from `params` with AdamW state made on them:
+    per step the loss, ms (host clock to a synchronize), the hand kernels'
+    launches and the collectives by kind; the peak memory of the steps;
+    before them `norms` of step 1's batch (not counted in its launches)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import to_device
+    from repro_torch.kernels import launches
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw_init
+
+    grad_norms = norms(params, to_device(rows(data.batch_at(0)), "cuda"))
+    leaves = ["/".join(map(str, p)) for p, _ in tree_lib.leaves_with_paths(params)]
+    opt = adamw_init(params, steps_lib.optimizer_config(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for i in range(TP_STEPS):
+        batch = to_device(rows(data.batch_at(i)), "cuda")
+        launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": {k: v for k, v in launches.counts().items() if v},
+                    "collectives": m.get("collectives", {}),
+                    "collective_bytes": m.get("collective_bytes", {})})
+    return {"steps": out, "peak": torch.cuda.max_memory_allocated(),
+            "grad_norms": dict(zip(leaves, grad_norms))}
+
+
+def tp_child(torch, np):
+    """Phase 18a in a process of its own (`TP_FLAG`): the unsharded
+    `make_train_step`, then `make_sharded_train_step` under the tp plan
+    over (1, 1) in a world-1 NCCL group (a file:// store), from the same
+    seed-0 weights on the same batches."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import backend_for
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    cfg, _ = tp_cfg(configs)
+    opt_cfg = steps_lib.optimizer_config(cfg)
+    data = SyntheticLMData(cfg.vocab, TP_B, TP_S)
+    step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=TP_LR, total_steps=TP_STEPS)
+    out = {"unsharded": _tp_run(torch, cfg, step, M.init_model(cfg, seed=0, device="cuda"),
+                                data, _unsharded_norms(torch, cfg))}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tdir:
+        dist.init_process_group(backend_for("cuda"), init_method=f"file://{tdir}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh, plan = _tp_plan((1, 1))
+            step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=TP_LR,
+                                                     total_steps=TP_STEPS)
+            params = step.layout.shard(M.init_model(cfg, seed=0, device="cuda"))
+            gc.collect()
+            out["tp"] = _tp_run(torch, cfg, step, params, data, _sharded_norms(torch, step))
+            out["group"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                            "plan": dataclasses.asdict(plan),
+                            "model_sharded": step.layout.model_sharded}
+        finally:
+            dist.destroy_process_group()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def tp_gloo_child(torch, np, rank: int, store: str):
+    """Phase 18b's rank `rank` of two on the one card (`TP_GLOO_FLAG`): a
+    gloo group over CUDA tensors (a file:// store), the tp plan at (1, 2),
+    this rank's pieces of the seed-0 weights, its rows (all of them: the
+    data axis is 1)."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, rank_rows
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import model as M
+
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    cfg, _ = tp_cfg(configs)
+    opt_cfg = steps_lib.optimizer_config(cfg)
+    data = SyntheticLMData(cfg.vocab, TP_B, TP_S)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh, plan = _tp_plan((1, 2))
+        step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=TP_LR,
+                                                 total_steps=TP_STEPS)
+        params = step.layout.shard(M.init_model(cfg, seed=0, device="cuda"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        layer = params["layers"][0]
+        out = _tp_run(torch, cfg, step, params, data, _sharded_norms(torch, step),
+                      rows=lambda b: rank_rows(b, mesh, plan, rank))
+        out.update(rank=rank, backend=dist.get_backend(), world=dist.get_world_size(),
+                   held={"q_heads": layer["mixer"]["wq"].shape[1] // cfg.resolved_head_dim,
+                         "kv_heads": layer["mixer"]["wk"].shape[1] // cfg.resolved_head_dim,
+                         "d_ff": layer["ffn"]["w_gate"].shape[1],
+                         "vocab": params["head"].shape[1]},
+                   weight_bytes=sum(x.numel() * x.element_size()
+                                    for x in tree_lib.leaves(params)))
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def _tp_meta(torch, cfg, rank: int):
+    """Rank `rank`'s 18b step traced on the meta device
+    (`make_sharded_train_step(rank=)`, `step_cost.analyze`): its hand
+    kernels' launches and its collectives, counted, not run."""
+    from repro_torch.launch import step_cost
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw_init
+
+    mesh, plan = _tp_plan((1, 2))
+    opt_cfg = steps_lib.optimizer_config(cfg)
+    step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, rank=rank)
+    params = step.layout.shard(steps_lib.params_struct(cfg))
+    batch = {k: torch.zeros((TP_B, TP_S), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    cost = step_cost.analyze(step, params, adamw_init(params, opt_cfg), batch)
+    return {"launches": {k: cost.launches.get(k, 0) for k in TP_KERNELS},
+            "collectives": dict(step.layout.collectives)}
+
+
+def _norm_gap(run, base):
+    """(the largest relative gap of `run`'s per-leaf gradient norms to
+    `base`'s, its leaf, the total norms' relative gap)."""
+    got, want = run["grad_norms"], base["grad_norms"]
+    check(list(got) == list(want), "the same leaves")
+    gaps = {k: abs(got[k] - want[k]) / want[k] for k in want}
+    worst = max(gaps, key=gaps.get)
+    total = [sum(x[k] ** 2 for k in want) ** 0.5 for x in (got, want)]
+    return max(gaps[worst], abs(total[0] - total[1]) / total[1]), worst, \
+        abs(total[0] - total[1]) / total[1]
+
+
+def _norm_text(run, base):
+    worst, leaf, total = _norm_gap(run, base)
+    norms = run["grad_norms"]
+    return (f"worst {worst:.2e} relative at {leaf} ({norms[leaf]:.6g} against "
+            f"{base['grad_norms'][leaf]:.6g}), {len(norms)} leaves, the whole gradient's norm "
+            f"{sum(v ** 2 for v in norms.values()) ** 0.5:.6g} ({total:.2e} relative)")
+
+
+def _tp_launches(st):
+    return {k: st["launches"].get(k, 0) for k in TP_KERNELS}
+
+
+def _tp_line(label, run, card):
+    steps = run["steps"]
+    med = _median([s["ms"] for s in steps[1:]])
+    calls, nbytes = steps[-1]["collectives"], steps[-1]["collective_bytes"]
+    return (f"{label} on {card}: median of steps 2-{TP_STEPS} {med:.1f} ms, "
+            f"{TP_B * TP_S / med * 1e3:.0f} tokens/s, peak {run['peak'] / 1e9:.3f} GB"
+            + ("; collectives a step " + ", ".join(
+                f"{k} {calls[k]} ({nbytes[k] / 1e9:.4f} GB)" for k in sorted(calls))
+               if calls else "")
+            + "; per step " + "; ".join(
+                f"{s_i + 1} loss {s['loss']!r} {s['ms']:.1f} ms " + " ".join(
+                    f"{k}={v}" for k, v in _tp_launches(s).items())
+                for s_i, s in enumerate(steps)))
+
+
+def phase18(torch, fa, gemm):
+    """Phase 18, head-parallel tensor parallelism (module docstring): the
+    refusals that stand (A.4c) in this process, before any weight is made;
+    18a in a process of its own, 18b in two, each rank's meta trace in
+    this process while they run; then the `:tp` entries' kernel times at a
+    rank's shapes."""
+    import gc
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.parallel.sharding import make_plan
+
+    t0 = time.monotonic()
+    card = card_line()
+    before = torch.cuda.memory_allocated()
+    for label, arch, sizes, kw in (
+            ("qwen3-14b's 8 kv heads over a model axis of 16 (attn_seq)", "qwen3-14b", (1, 16),
+             {"n_kv_heads": 8}),
+            ("dbrx-132b under a model axis of 2", "dbrx-132b", (1, 2), {}),
+            ("xlstm-1.3b under a model axis of 2", "xlstm-1.3b", (1, 2), {})):
+        mesh = MeshShape(("data", "model"), sizes)
+        try:
+            steps_lib.make_sharded_train_step(configs.get(arch), None, mesh,
+                                              make_plan(mesh, 10**12, force_mode="tp", **kw))
+            refused = None
+        except NotImplementedError as e:
+            refused = str(e)
+        print(f"[18] {label}: {refused}")
+        check(refused is not None and "A.4c" in refused, f"{label} is refused")
+    check(torch.cuda.memory_allocated() == before, "the refusals made no weight")
+    cfg, reduced = tp_cfg(configs)
+    print(f"[18] reduced {json.dumps(reduced)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), TP_FLAG],
+                           capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    check(child.returncode == 0 and lines, f"phase 18a's process: {child.stdout[-1500:]} "
+                                           f"{child.stderr[-2500:]}")
+    a = json.loads(lines[-1])
+    base, tp = a["unsharded"]["steps"], a["tp"]["steps"]
+    print(f"[18a] NCCL group: backend {a['group']['backend']}, world {a['group']['world']}, "
+          f"plan {a['group']['plan']} ({a['group']['model_sharded']} leaves held as model-axis "
+          f"pieces); {a['seconds']:.1f}s")
+    check(a["group"]["backend"] == "nccl" and a["group"]["world"] == 1, "18a: NCCL, world 1")
+    print("[18a] " + _tp_line("unsharded", a["unsharded"], card))
+    print("[18a] " + _tp_line("tp (1, 1)", a["tp"], card))
+    check(len(base) == len(tp) == TP_STEPS, "18a: every step ran")
+    for i, (s, b) in enumerate(zip(tp, base)):
+        rel = abs(s["loss"] - b["loss"]) / abs(b["loss"])
+        check(rel <= TP_RTOL["18a"], f"18a step {i + 1}: loss {s['loss']!r} against the "
+                                     f"unsharded {b['loss']!r} ({rel:.2e} relative)")
+        check(_tp_launches(s) == _tp_launches(b), f"18a step {i + 1}: launches {s['launches']} "
+                                                  f"== unsharded {b['launches']}")
+        check(s["collectives"].get("all_reduce", 0) > 0, "18a: the operators' collectives ran")
+    check(_norm_gap(a["tp"], a["unsharded"])[0] <= TP_NORM_RTOL["18a"],
+          f"18a step 1's gradient norms: {_norm_gap(a['tp'], a['unsharded'])}")
+    same = sum(s["loss"] == b["loss"] for s, b in zip(tp, base))
+    print(f"[18a] every step's loss within {TP_RTOL['18a']:g} relative of the unsharded run's "
+          f"(" + ", ".join(f"{abs(s['loss'] - b['loss']) / abs(b['loss']):.2e}"
+                           for s, b in zip(tp, base))
+          + f"; {same} of {TP_STEPS} bit for bit), launches a step equal: "
+          + " ".join(f"{k}={v}" for k, v in _tp_launches(base[-1]).items())
+          + f"; step 1's gradient norms, leaf by leaf: {_norm_text(a['tp'], a['unsharded'])} "
+          f"(bar {TP_NORM_RTOL['18a']:g})")
+    with tempfile.TemporaryDirectory() as tdir:
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), TP_GLOO_FLAG,
+                                   str(r), f"{tdir}/store"], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            t_meta = time.monotonic()
+            meta = [_tp_meta(torch, cfg, r) for r in range(2)]
+            t_meta = time.monotonic() - t_meta
+            results = [p.communicate(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+    ranks = []
+    for p, (so, se) in zip(procs, results):
+        lines = so.strip().splitlines()
+        check(p.returncode == 0 and lines, f"phase 18b's rank: {so[-1500:]} {se[-2500:]}")
+        ranks.append(json.loads(lines[-1]))
+    for r, x in enumerate(ranks):
+        check(x["backend"] == "gloo" and x["world"] == 2 and x["rank"] == r, f"18b rank {r}")
+        check(x["held"] == {"q_heads": 20, "kv_heads": 4, "d_ff": cfg.d_ff // 2,
+                            "vocab": cfg.vocab // 2}, f"18b rank {r} holds {x['held']}")
+        print(f"[18b] rank {r} (gloo, world 2, on {card}) holds {x['held']}, weights "
+              f"{x['weight_bytes'] / 1e9:.3f} GB; " + _tp_line(f"rank {r}", x, card)
+              + f"; {x['seconds']:.1f}s")
+        print(f"[18b] rank {r} on the meta device: " + " ".join(
+            f"{k}={v}" for k, v in meta[r]["launches"].items())
+              + f"; collectives {meta[r]['collectives']}")
+        for i, (s, b) in enumerate(zip(x["steps"], base)):
+            rel = abs(s["loss"] - b["loss"]) / abs(b["loss"])
+            check(rel <= TP_RTOL["18b"], f"18b rank {r} step {i + 1}: loss {s['loss']!r} "
+                                         f"against 18a's unsharded {b['loss']!r} ({rel:.2e})")
+            check(_tp_launches(s) == meta[r]["launches"],
+                  f"18b rank {r} step {i + 1}: launches {s['launches']}, meta trace "
+                  f"{meta[r]['launches']}")
+            check(s["collectives"] == meta[r]["collectives"],
+                  f"18b rank {r} step {i + 1}: collectives {s['collectives']}, meta trace "
+                  f"{meta[r]['collectives']}")
+    check([s["loss"] for s in ranks[0]["steps"]] == [s["loss"] for s in ranks[1]["steps"]],
+          "18b: both model ranks print the same loss")
+    check(ranks[0]["grad_norms"] == ranks[1]["grad_norms"],
+          "18b: both model ranks reduce the same gradient norms")
+    gap = _norm_gap(ranks[0], a["unsharded"])
+    print(f"[18b] step 1's gradient norms, leaf by leaf, against 18a's unsharded run's: "
+          f"{_norm_text(ranks[0], a['unsharded'])} (bar {TP_NORM_RTOL['18b']:g})")
+    check(gap[0] <= TP_NORM_RTOL["18b"], f"18b step 1's gradient norms: {gap}")
+    print(f"[18b] both ranks' losses against 18a's unsharded run: " + ", ".join(
+        f"{abs(s['loss'] - b['loss']) / abs(b['loss']):.2e}"
+        for s, b in zip(ranks[0]["steps"], base))
+          + f" relative (bar {TP_RTOL['18b']:g}); launches a step equal to each rank's meta "
+          f"trace (traced in {t_meta:.1f}s beside the ranks)")
+    rows = phase_times_tp(torch, fa, gemm)
+    totals = collections.Counter()
+    for run in [a["tp"]] + ranks:
+        for s in run["steps"]:
+            totals.update(_tp_launches(s))
+    print(f"[18] phase 18 took {time.monotonic() - t0:.1f}s; launches of the tensor-parallel "
+          f"runs' steps (18a's and both 18b ranks') " + " ".join(
+              f"{k}={v}" for k, v in totals.items()))
+    return {"18a": a, "18b": ranks, "meta": meta, "rows": rows, "totals": dict(totals)}
+
+
+def phase_kernels_tp(torch, fa, gemm, ops):
+    """18c: K5 (out and lse) and K5b at a rank's attention shape, causal and
+    with a 512 window, bf16 and f32, and K1's forward, dX and dW at a
+    rank's shapes in bf16, against their plain versions."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    worst = {"flash_attention:tp": 0.0, "flash_attention_bwd:tp": 0.0, "gemm:tp": 0.0}
+    B, S, Hq, Hkv, D = TP_ATTENTION
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for window in (None, 512):
+            q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
+                           for h in (Hq, Hkv, Hkv, Hq))
+            out, lse = fa._forward(q, k, v, True, window, True)
+            pout, plse = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                                  return_lse=True)
+            e_out, _, ok = close(out, pout, *FLASH_TOL[dname])
+            e_lse = float((lse - plse).abs().max())
+            worst["flash_attention:tp"] = max(worst["flash_attention:tp"], e_out)
+            check(ok and e_lse <= 1e-5, f"18c flash_attention {dname} window={window}")
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                window=window)
+            errs = []
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.float().abs().max())
+                err = float((x.float() - w.float()).abs().max())
+                errs.append(f"{name} {err:.2e}/{scale:.2e}")
+                worst["flash_attention_bwd:tp"] = max(worst["flash_attention_bwd:tp"], err)
+                check(x.dtype == dt and err <= BWD_TOL[dname] * scale,
+                      f"18c flash_attention_bwd {dname} window={window} {name}")
+            print(f"  18c flash_attention {dname} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} causal "
+                  f"window={window}: out max_abs={e_out:.3e} tol={FLASH_TOL[dname]}, lse "
+                  f"max_abs {e_lse:.1e} (bar 1e-5); flash_attention_bwd max_abs/max "
+                  + ", ".join(errs) + f" (bar {BWD_TOL[dname]:g} x max): ok")
+            del q, k, v, do, out, lse, pout, plse, got, want
+    rtol, atol = GEMM_TOL["bfloat16"]
+    for name, K, N in TP_GEMMS:
+        M = TP_B * (LOSS_CHUNK if name == "head" else TP_S)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16).requires_grad_()
+        w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(torch.bfloat16) \
+            .requires_grad_()
+        dy = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+        before = gemm.launches
+        y = ops.linear(x, w)
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        check(gemm.launches - before == 3, f"18c gemm {name}: forward, dX, dW: three launches")
+        errs = []
+        for label, got, a, b in (("fwd", y, x, w), ("dX", dx, dy, w.t()), ("dW", dw, x.t(), dy)):
+            e, _, ok = close(got, gemm.gemm_plain(a.detach(), b.detach(), torch.bfloat16),
+                             rtol, atol)
+            worst["gemm:tp"] = max(worst["gemm:tp"], e)
+            errs.append(f"{label} {e:.3e}")
+            check(ok, f"18c gemm {name} {label}")
+        print(f"  18c gemm bf16 {name} M={M} {K}x{N}: max_abs " + ", ".join(errs)
+              + f" tol=(rtol {rtol:g}, atol {atol:g}) ok")
+        del x, w, dy, y, dx, dw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_times_tp(torch, fa, gemm):
+    """The `:tp` entries' times at a rank's shapes (bf16, CUDA events): K5b
+    and K5 with the lse at TP_ATTENTION, causal, beside SDPA's backward and
+    forward (eager calls, K/V repeated to the q heads beforehand) and their
+    bounds; K1 at a rank's gate projection (M = 2048, 5120 x 8704) beside
+    torch.matmul."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    B, S, Hq, Hkv, D = TP_ATTENTION
+    x = _attention_inputs(torch, fa, g, None, B=B, S=S, Hq=Hq, Hkv=Hkv, D=D)
+    q, k, v, do, out, lse = (x[n] for n in ("q", "k", "v", "do", "out", "lse"))
+    sdpa_bwd, sdpa_fwd = _sdpa_calls(torch, x, None)
+    pairs = kcost.attention_pairs(S, S, True, None)
+    rows = {}
+    t_k = _time_ms(torch, [lambda: fa.flash_attention_bwd(q, k, v, out, lse, do)], 20)
+    t_p = _time_ms(torch, [lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do)], 3,
+                   graph=False)
+    t_l = _time_ms(torch, [sdpa_bwd], 10, graph=False)
+    rows["flash_attention_bwd:tp"] = (t_k, t_p, t_l, *_bound(kcost.flash_attention_bwd(
+        B, S, S, Hq, Hkv, D, pairs=pairs)))
+    t_k = _time_ms(torch, [lambda: fa._forward(q, k, v, True, None, True)], 20)
+    t_p = _time_ms(torch, [lambda: fa.flash_attention_plain(q, k, v, return_lse=True)], 3,
+                   graph=False)
+    t_l = _time_ms(torch, [sdpa_fwd], 20)
+    rows["flash_attention:tp"] = (t_k, t_p, t_l, *_bound(kcost.flash_attention(
+        B, S, S, Hq, Hkv, D, pairs=pairs, lse=True)))
+    del x, q, k, v, do, out, lse, sdpa_bwd, sdpa_fwd
+    M, (_, K, N) = TP_B * TP_S, TP_GEMMS[0]
+    a = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((K, N), generator=g, device=dev).to(torch.bfloat16)
+    t_k = _time_ms(torch, [lambda: gemm.gemm(a, b, out_dtype=torch.bfloat16)], 10)
+    t_l = _time_ms(torch, [lambda: torch.matmul(a, b)], 10)
+    t_p = _time_ms(torch, [lambda: gemm.gemm_plain(a, b, torch.bfloat16)], 2, graph=False)
+    rows["gemm:tp"] = (t_k, t_p, t_l, *_bound(kcost.gemm(M, K, N)))
+    del a, b
+    for name, (t_k, t_p, t_l, bound, by) in rows.items():
+        print(f"  {name} bf16 at a rank's shape: kernel {t_k * 1e3:.1f} us, plain "
+              f"{t_p * 1e3:.1f} us, library {t_l * 1e3:.1f} us (an eager call), bound "
+              f"{bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+    torch.cuda.empty_cache()
+    return rows
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -5828,6 +6371,12 @@ def main() -> int:
         return 0
     if sys.argv[1:] == [PARALLEL_FLAG]:  # phase 17a, under torchrun
         print(json.dumps(parallel_child(torch, np)))
+        return 0
+    if sys.argv[1:] == [TP_FLAG]:        # phase 18a, a process of its own
+        print(json.dumps(tp_child(torch, np)))
+        return 0
+    if sys.argv[1:2] == [TP_GLOO_FLAG]:  # phase 18b: one of its two ranks
+        print(json.dumps(tp_gloo_child(torch, np, int(sys.argv[2]), sys.argv[3])))
         return 0
     from repro_torch import configs, quant
     from repro_torch.kernels import _build, flash_decode as fd, gemm, gemm_int8 as gemm8
@@ -5885,20 +6434,24 @@ def main() -> int:
         worst[k] = max(worst[k], v)
     print(f"[2] the training path's kernels: K5b, the forward's lse, K1's dX / dW {stamp()}")
     worst.update(phase_kernels_train(torch, fa, gemm, ops))
+    print(f"[2] 18c: K5, K5b and K1 at a tensor-parallel rank's shapes (qwen3-14b over a "
+          f"model axis of 2) {stamp()}")
+    worst.update(phase_kernels_tp(torch, fa, gemm, ops))
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print(f"[3] full-width gemma3-1b engine run (26 layers, bf16) {stamp()}")
     summary = phase_engine(*engine_args, profile=True)
     print(f"[3b] the same run in w8a8 with an int8 KV pool {stamp()}")
     summary8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8", profile=True,
-                            traffic=gemma_traffic_cut, reduced=CUT_3CD,
-                            replay_traffic=gemma_traffic)
+                            traffic=gemma_traffic_cut, reduced={**CUT_3CD, **GEMMA_CUT},
+                            replay_traffic=gemma_traffic, cut=GEMMA_SERVE)
     print(f"[3c] the same run in calibrated w8a8 with an int8 KV pool {stamp()}")
     summary_cal = phase_engine(*engine_args, precision="w8a8-calibrated", kv_precision="int8",
-                               traffic=gemma_traffic_cut, reduced=CUT_3CD,
-                               replay_traffic=gemma_traffic)
+                               traffic=gemma_traffic_cut, reduced={**CUT_3CD, **GEMMA_CUT},
+                               replay_traffic=gemma_traffic, cut=GEMMA_SERVE)
     print(f"[3d] phase 3's float run under the pipelined GeMM backend (depth 3) {stamp()}")
     summary_pipe = phase_engine(*engine_args, backend="pipelined", traffic=gemma_traffic_cut,
-                                reduced=CUT_3CD, replay_traffic=gemma_traffic)
+                                reduced={**CUT_3CD, **GEMMA_CUT},
+                                replay_traffic=gemma_traffic, cut=GEMMA_SERVE)
     print(f"[3e] the serve CLI at published widths, w8a8 + int8 KV {stamp()}")
     phase_serve_cli(np)
     print(f"[4] 6-layer full-width f32: CUDA kernels vs CPU plain versions {stamp()}")
@@ -5908,21 +6461,22 @@ def main() -> int:
     print(f"[5] kernel times at main-path shapes (bf16, CUDA events, L2 cold) {stamp()}")
     rows = phase_times(torch, gemm, gp, fd, kvc)
     agg = per_step(rows)
-    agg.update(per_step_slice3({**rows, **phase_times_flash(torch, fa)}))
+    rows_s3 = {**rows, **phase_times_flash(torch, fa)}
+    agg.update(per_step_slice3(rows_s3))
     rows8 = phase_times_int8(torch, gemm8, kq, fd, kvc)
     agg.update(per_step_int8(rows8))
     w8 = per_step_w8a8(rows8, gemm8.FUSED_ROWS)
     agg["gemm_w8a8"] = [w8["decode"][k] for k in ("kernel", "plain", "int_mm", "bound")] \
         + ["bytes"]
-    print(f"[5] one float decode step: gemm {agg['gemm'][0]:.3f} ms (torch.matmul "
+    print(f"[5] one float decode step (26 layers): gemm {agg['gemm'][0]:.3f} ms (torch.matmul "
           f"{agg['gemm'][2]:.3f}, bound {agg['gemm'][3]:.3f}), flash_decode "
           f"{agg['flash_decode'][0]:.3f} ms (bound {agg['flash_decode'][3]:.3f}); engine "
-          f"decode step {summary['decode_ms']:.2f} ms")
+          f"decode step (26 layers) {summary['decode_ms']:.2f} ms")
     chunk = per_prefill_chunk(rows)
     print(f"[5] one float prefill chunk (26 x projections at M=64, head at M=1): gemm "
           f"{chunk['gemm'][0]:.3f} ms, gemm_pipelined (depth 3) "
           f"{chunk['gemm_pipelined'][0]:.3f} ms, torch.matmul {chunk['gemm'][2]:.3f} ms, "
-          f"bound {chunk['gemm'][3]:.3f} ms; engine prefill chunk "
+          f"bound {chunk['gemm'][3]:.3f} ms; engine prefill chunk (26 layers) "
           f"{summary['prefill_ms']:.2f} ms")
     for label, what in (("decode", "decode step (183 GeMMs at M=8)"),
                         ("prefill", "prefill chunk (26 x projections at M=64, head at M=1)")):
@@ -5932,18 +6486,23 @@ def main() -> int:
               f"{t['static']:.3f} ms; as two launches (quantize_rows + dequant_gemm) "
               f"{t['two_launch']:.3f} ms; torch._int_mm {t['int_mm']:.3f} ms, bound "
               f"{t['bound']:.3f} ms")
-    print(f"[5] one w8a8 + int8 KV decode step: gemm_w8a8 {agg['gemm_w8a8'][0]:.3f} ms "
-          f"(bound {agg['gemm_w8a8'][3]:.3f}), flash_decode_int8 "
-          f"{agg['flash_decode_int8'][0]:.3f} ms (bound {agg['flash_decode_int8'][3]:.3f}); "
-          f"engine decode step {summary8['decode_ms']:.2f} ms; one prefill chunk's 182 "
-          f"projections at M=64: dequant_gemm {agg['dequant_gemm'][0]:.3f} ms + "
-          f"quantize_rows {agg['quantize_rows'][0]:.3f} ms (bound "
-          f"{agg['quantize_rows'][3]:.4f}); engine prefill chunk {summary8['prefill_ms']:.2f} ms")
-    print(f"[5] one decode step under the pipelined backend: gemm_pipelined (depth 3) "
-          f"{agg['gemm_pipelined'][0]:.3f} ms (torch.matmul {agg['gemm_pipelined'][2]:.3f}, "
-          f"bound {agg['gemm_pipelined'][3]:.3f}); "
-          f"engine decode step {summary_pipe['decode_ms']:.2f} ms; calibrated w8a8 "
-          f"engine decode step {summary_cal['decode_ms']:.2f} ms")
+    # 3b-3d's engines run GEMMA_SERVE's layers: their kernel sums at that depth
+    L = GEMMA_SERVE["n_layers"]
+    cut8 = per_step_int8(rows8, n_layers=L, n_global=GEMMA_GLOBALS)
+    cut_w8 = per_step_w8a8(rows8, gemm8.FUSED_ROWS, n_layers=L)["decode"]
+    cut_pipe = per_step_slice3(rows_s3, n_layers=L, n_global=GEMMA_GLOBALS)["gemm_pipelined"]
+    print(f"[5] one w8a8 + int8 KV decode step ({L} layers): gemm_w8a8 {cut_w8['kernel']:.3f} ms "
+          f"(bound {cut_w8['bound']:.3f}), flash_decode_int8 "
+          f"{cut8['flash_decode_int8'][0]:.3f} ms (bound {cut8['flash_decode_int8'][3]:.3f}); "
+          f"engine decode step ({L} layers) {summary8['decode_ms']:.2f} ms; one prefill "
+          f"chunk's {7 * L} projections at M=64: dequant_gemm {cut8['dequant_gemm'][0]:.3f} ms + "
+          f"quantize_rows {cut8['quantize_rows'][0]:.3f} ms (bound "
+          f"{cut8['quantize_rows'][3]:.4f}); engine prefill chunk ({L} layers) "
+          f"{summary8['prefill_ms']:.2f} ms")
+    print(f"[5] one decode step under the pipelined backend ({L} layers): gemm_pipelined "
+          f"(depth 3) {cut_pipe[0]:.3f} ms (torch.matmul {cut_pipe[2]:.3f}, bound "
+          f"{cut_pipe[3]:.3f}); engine decode step ({L} layers) {summary_pipe['decode_ms']:.2f} "
+          f"ms; calibrated w8a8 engine decode step ({L} layers) {summary_cal['decode_ms']:.2f} ms")
     for key in ("flash_decode", "flash_decode_int8"):
         for label, t in per_step_decode({**rows, **rows8}, key).items():
             what = "decode step (8 slots)" if label == "decode" else \
@@ -5958,21 +6517,25 @@ def main() -> int:
     rows_ed = phase_times_encdec(torch, gemm, fa)
     print(f"[5] the training path: K5b and K1's products per train step {stamp()}")
     rows_tr = phase_times_train(torch, fa, gemm)
-    print(f"[8a] qwen3-14b at published widths (40 layers, bf16), float {stamp()}")
+    print(f"[8a] qwen3-14b at published widths ({QWEN3_LAYERS} of its 40 layers, bf16), float "
+          f"{stamp()}")
     summary_qf = phase_engine(*engine_args, arch="qwen3-14b", n_layers=40,
-                              traffic=qwen3_traffic, profile=True, reduced=CUT_8)
-    print(f"[8b] qwen3-14b at published widths, w8a8 with an int8 KV pool {stamp()}")
+                              traffic=qwen3_traffic, profile=True, reduced=CUT_8,
+                              cut={"n_layers": QWEN3_LAYERS})
+    print(f"[8b] qwen3-14b at published widths ({QWEN3_LAYERS} layers), w8a8 with an int8 KV "
+          f"pool {stamp()}")
     summary_q8 = phase_engine(*engine_args, precision="w8a8", kv_precision="int8",
                               arch="qwen3-14b", n_layers=40, traffic=qwen3_traffic,
-                              reduced=CUT_8)
+                              reduced=CUT_8, cut={"n_layers": QWEN3_LAYERS})
     print(f"[8] qwen3-14b kernel times per decode step (bf16, CUDA events, L2 cold) {stamp()}")
     phase_times_dense(torch, gemm, gemm8, fd, kvc, gp, fa)
-    print("[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
-          "plain versions")
+    print(f"[8c] the dense family at published widths, 2 layers, f32: CUDA kernels vs CPU "
+          f"plain versions {stamp()}")
     phase_parity_dense(torch, np, configs, M, kvc, Engine, RequestSpec, quant, mods)
     args9 = (torch, np, configs, M, Engine, RequestSpec, mods)
-    print(f"[9a] speculative greedy decoding, gemma3-1b at published widths (26 layers, "
-          f"bf16), k = {DRAFT_K}, float")
+    print(f"[9a] speculative greedy decoding, gemma3-1b at published widths "
+          f"({GEMMA_SERVE['n_layers']} layers, "
+          f"bf16), k = {DRAFT_K}, float {stamp()}")
     summary_9a = phase_speculative(*args9)
     print(f"[9b] the same in w8a8 with an int8 KV pool {stamp()}")
     summary_9b = phase_speculative(*args9, precision="w8a8", kv_precision="int8")
@@ -6005,6 +6568,10 @@ def main() -> int:
           f"widths, {PARALLEL_STEPS} steps a run, world size 1 (NCCL; a process under "
           f"torchrun) {stamp()}")
     summary17 = phase17(torch)
+    print(f"[18] head-parallel tensor parallelism: qwen3-14b at published widths, 2 layers, "
+          f"B {TP_B} x S {TP_S}, bf16, {TP_STEPS} steps a run; 18a world size 1 (NCCL), 18b "
+          f"two gloo ranks on the one card {stamp()}")
+    summary18 = phase18(torch, fa, gemm)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
     # on its path (the run's window; K5's are phase 6's six (2, 1024) forwards)
@@ -6155,6 +6722,26 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": summary17["totals"].get(kernel, 0),
             "max_abs_err": worst[err], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
+    # Tensor parallelism (phase 18): launches are 18a's tp run and both 18b
+    # ranks' (TP_STEPS steps each); times at a rank's shapes (phase_times_tp),
+    # errors from 18c.
+    for name, src, replaces, per in (
+            ("flash_attention_bwd:tp", "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:28 (differentiated by jax.value_and_grad "
+             "under jax.checkpoint, src/repro/models/attention.py:103-109)",
+             "K5b at a tensor-parallel rank's attention (qwen3-14b over a model axis of 2): "
+             "B=2, S=1024, Hq=20, Hkv=4, D=128, causal, bf16"),
+            ("flash_attention:tp", "flash_attention.cu", "src/repro/kernels/flash_attention.py:28",
+             "K5 with the lse at the same shape, bf16"),
+            ("gemm:tp", "gemm.cu", "src/repro/kernels/gemm.py:33",
+             "K1 at a rank's gate projection: M=2048, K=5120, N=8704, bf16")):
+        t_k, t_p, t_l, bound, by = summary18["rows"][name]
+        kernel = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": summary18["totals"].get(kernel, 0),
+            "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
         f"cluster_launches={k['cluster_launches']} "
@@ -6207,6 +6794,13 @@ def main() -> int:
               f"NCCL): median of steps 2-{PARALLEL_STEPS} {med:.1f} ms, "
               f"{TRAIN_B * TRAIN_S / med * 1e3:.0f} tokens/s, peak memory "
               f"{run['peak'] / 1e9:.2f} GB")
+    card = card_line()
+    for label, run in (("18a unsharded", summary18["18a"]["unsharded"]),
+                       ("18a tp (1, 1), NCCL", summary18["18a"]["tp"]),
+                       *((f"18b tp (1, 2), gloo, rank {x['rank']}", x)
+                         for x in summary18["18b"])):
+        print(f"[7] 18 train step ({label}, qwen3-14b 2 layers, B {TP_B} x S {TP_S}, bf16): "
+              + _tp_line(label, run, card).split(": ", 1)[1].split("; per step")[0])
     print(f"total {time.monotonic() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -104,21 +104,25 @@ def _like(a: np.ndarray, leaf, device):
 
 
 def _load(file: str, piece):
-    """A saved leaf, or the `(dim, index, count)` piece of it: the leaf
-    split along `dim` into `count` equal parts, part `index`."""
+    """A saved leaf, or a piece of it: each `(dim, index, count)` of the
+    list `piece` splits the leaf along `dim` into `count` equal parts and
+    keeps part `index`."""
     if piece is None:
         return np.load(file)
-    dim, index, count = piece
     a = np.load(file, mmap_mode="r")
-    n = a.shape[dim] // count
-    return np.array(a[(slice(None),) * dim + (slice(index * n, (index + 1) * n),)])
+    index_of = [slice(None)] * a.ndim
+    for dim, index, count in piece:
+        n = a.shape[dim] // count
+        index_of[dim] = slice(index * n, (index + 1) * n)
+    return np.array(a[tuple(index_of)])
 
 
 def restore_checkpoint(path: str, step: int, template: Any, device=None,
                        pieces: Optional[List] = None) -> Any:
     """The tree saved at `step`, in `template`'s structure, each tensor leaf
     made like the template's (dtype, shape, strides) on `device` (None: the
-    template leaf's).  `pieces` (per leaf, None or `(dim, index, count)`)
+    template leaf's).  `pieces` (per leaf, None or a list of `(dim, index,
+    count)` cuts)
     restores a rank's pieces of sharded leaves from the whole leaves a
     checkpoint holds, at any world size (`parallel.fsdp.Layout.pieces`)."""
     d = os.path.join(path, f"step_{step}")

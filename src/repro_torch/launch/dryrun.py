@@ -11,7 +11,7 @@ decode state (decode), and the traced peak of the step's own storages
 (activations, gradients, temporaries), against 80 GB, with a `fits` flag.
 The mesh is one card, unsharded ("single"); `run_cell(..., "multi")`
 raises: the multi-card dry run (the production mesh's plans over the
-cards' interconnect) is ROADMAP A.4b, so the CLI has no --mesh.
+cards' interconnect) is ROADMAP A.4c, so the CLI has no --mesh.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
@@ -86,7 +86,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", verbose: boo
     if mesh_kind != "single":
         raise NotImplementedError(
             f"mesh {mesh_kind!r}: the port's dry run is one card's; the multi-card dry "
-            f"run (the parallel plans over the cards' interconnect) is ROADMAP A.4b")
+            f"run (the parallel plans over the cards' interconnect) is ROADMAP A.4c")
     cfg = cfg or configs.get(arch)
     shape = configs.SHAPES[shape_name]
     t0 = time.time()

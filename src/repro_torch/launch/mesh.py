@@ -10,7 +10,7 @@ and `make_production_mesh` build a `torch.distributed` `DeviceMesh` over
 the running process group.  No interconnect constant lives here: the
 reference's `HBM_BW`, `ICI_BW` and `PEAK_FLOPS_BF16` are a TPU's; the
 H100's peaks are in `core/hw.py`, which has no link bandwidth yet (ROADMAP
-A.4b).
+A.4c).
 
 `backend_for(device)` is the process group's backend: NCCL for a CUDA
 device, gloo for the CPU, and nothing else.

@@ -9,7 +9,8 @@ over every parameter leaf (through the hand kernels' Functions: K1 for
 every projection and the tied head, K5 / K5b for attention), then the
 in-place `adamw_update`.  A CUDA graph of the whole step is later work.
 `make_sharded_train_step` is the same step over a process group (data
-parallelism and ZeRO-3: parallel/fsdp.py).
+parallelism, ZeRO-3 and head-parallel tensor parallelism:
+parallel/fsdp.py, parallel/tensor.py).
 
 The dry run's step builders and shape structs (`make_prefill_step`,
 `params_struct`, `opt_state_struct`, `decode_state_struct`,
@@ -77,61 +78,81 @@ class ShardedTrainStep:
     with this rank's pieces (`self.layout.shard(params)`), AdamW state
     made on them, and this rank's rows (`data.rank_rows`); the returned
     loss is the whole batch's, on every rank, beside the step's
-    collectives by kind (calls and bytes)."""
+    collectives by kind (calls and bytes).  With `rank` and no process
+    group it is that rank's step traced on the "meta" device
+    (`launch.step_cost.analyze`): its collectives are counted, not run."""
 
     def __init__(self, cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
-                 base_lr: float = 3e-4, total_steps: int = 100_000):
+                 base_lr: float = 3e-4, total_steps: int = 100_000,
+                 rank: Optional[int] = None):
+        from repro_torch.launch.mesh import MeshShape
         from repro_torch.parallel import fsdp
 
         self.cfg = cfg
         self.opt_cfg = opt_cfg or optimizer_config(cfg)
         fsdp.check_plan(cfg, mesh, plan)
-        self.layout = fsdp.Layout(params_struct(cfg), mesh, plan,
+        self.mesh, self.plan = MeshShape.of(mesh), plan
+        self.layout = fsdp.Layout(params_struct(cfg), mesh, plan, rank=rank,
                                   int8_moments=self.opt_cfg.state_dtype == "int8")
         self.sched = warmup_cosine(base_lr, warmup=min(2000, total_steps // 10),
                                    total=total_steps)
+
+    def gradients(self, params, batch):
+        """(this rank's part of the loss, the gradient of each leaf of this
+        rank's pieces, summed over the ranks: `Layout.reduce`) over this
+        rank's rows."""
+        from repro_torch.parallel import tensor
+        from repro_torch.parallel.logical import use_rules
+
+        layout = self.layout
+        whole = layout.gather(tree_lib.leaves(params))
+        labels, mask = batch["labels"], batch.get("mask")
+        count = (torch.sum(mask.to(torch.float32)) if mask is not None else
+                 torch.full((), float(labels.numel()), device=labels.device))
+        count = layout.all_reduce(count)        # over the batch axes: model ranks share rows
+        with torch.enable_grad(), use_rules(self.mesh, self.plan.activation_rules()), \
+                tensor.use_model_axis(layout.model):
+            loss = M.loss_fn(tree_lib.unflatten(params, whole), self.cfg, batch,
+                             denominator=count)
+            grads = torch.autograd.grad(loss, whole, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(whole, grads)]
+        return loss.detach(), layout.reduce(grads)
 
     def __call__(self, params, opt_state, batch):
         layout = self.layout
         layout.collectives.clear()
         layout.collective_bytes.clear()
-        whole = layout.gather(tree_lib.leaves(params))
-        labels, mask = batch["labels"], batch.get("mask")
-        count = (torch.sum(mask.to(torch.float32)) if mask is not None else
-                 torch.full((), float(labels.numel()), device=labels.device))
-        count = layout.all_reduce(count)
-        with torch.enable_grad():
-            loss = M.loss_fn(tree_lib.unflatten(params, whole), self.cfg, batch,
-                             denominator=count)
-            grads = torch.autograd.grad(loss, whole, allow_unused=True)
-        grads = layout.reduce([torch.zeros_like(p) if g is None else g
-                               for p, g in zip(whole, grads)])
-        del whole
+        loss, grads = self.gradients(params, batch)
         lr = self.sched(opt_state["count"])
         params, opt_state = adamw_update(grads, opt_state, params, lr, self.opt_cfg,
                                          norm_reduce=layout.norm_reduce)
-        loss = layout.all_reduce(loss.detach())
+        loss = layout.all_reduce(loss)
         return params, opt_state, {"loss": loss, "lr": lr,
                                    "collectives": dict(layout.collectives),
                                    "collective_bytes": dict(layout.collective_bytes)}
 
 
 def make_sharded_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
-                            base_lr: float = 3e-4, total_steps: int = 100_000
-                            ) -> ShardedTrainStep:
-    """The train step under a dp-mode `plan` over `mesh` and the running
-    process group: data parallelism, or ZeRO-3 where `plan.fsdp` (the
-    reference reaches it by jitting `make_train_step` with the plan's
-    `in_shardings`).  Each step gathers the sharded parameters, runs
-    `loss_fn` over this rank's rows with the whole batch's mask count as
-    the denominator, takes `torch.autograd.grad`, sums the gradients over
-    the ranks (reduce-scatter into the pieces, all-reduce the replicated
-    leaves), and runs AdamW on the pieces with the whole gradient's norm.
-    At world size 1 the arithmetic is `make_train_step`'s, bit for bit
-    (a 0/1 mask's count is exact).  Raises for a plan the port does not
-    execute (`parallel.fsdp.check_plan`)."""
+                            base_lr: float = 3e-4, total_steps: int = 100_000,
+                            rank: Optional[int] = None) -> ShardedTrainStep:
+    """The train step under `plan` over `mesh` and the running process
+    group: data parallelism, ZeRO-3 where `plan.fsdp`, and under a tp-mode
+    plan head-parallel tensor parallelism over the model axis (the
+    reference reaches them by jitting `make_train_step` with the plan's
+    `in_shardings`).  Each step gathers the parameters sharded over the
+    data axes, runs `loss_fn` over this rank's rows with the batch axes'
+    mask count as the denominator (on this rank's heads, MLP columns and
+    vocabulary under a model axis, through `parallel/tensor.py`'s
+    operators), takes `torch.autograd.grad`, sums the gradients over the
+    batch axes (reduce-scatter into the pieces, all-reduce the others; a
+    leaf used on model-sharded activations over every rank), and runs
+    AdamW on the pieces with the whole gradient's norm.  At world size 1
+    under a dp-mode plan the arithmetic is `make_train_step`'s, bit for
+    bit (a 0/1 mask's count is exact).  Raises for a plan the port does
+    not execute (`parallel.fsdp.check_plan`).  With `rank` and no group:
+    that rank's step on the "meta" device (`ShardedTrainStep`)."""
     return ShardedTrainStep(cfg, opt_cfg, mesh, plan, base_lr=base_lr,
-                            total_steps=total_steps)
+                            total_steps=total_steps, rank=rank)
 
 
 def make_prefill_step(cfg: ArchConfig):

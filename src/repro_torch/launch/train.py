@@ -19,7 +19,10 @@ injects one failure, after which the latest checkpoint is restored and
 the run continues, `--resume` starts from the latest checkpoint).
 
 The mesh and plan are the reference's: `make_local_mesh(--model-parallel)`
-and `make_plan(mesh, param_count, force_fsdp=False)`.  Under torchrun
+and `make_plan(mesh, param_count, force_fsdp=False)`, so an arch above
+4e9 parameters trains head-parallel tensor parallelism over a model axis
+> 1 (parallel/tensor.py) and a smaller one joins the model axis to the
+batch axes.  Under torchrun
 (`RANK`, `WORLD_SIZE`, `LOCAL_RANK` in the environment; the card is
 `cuda:LOCAL_RANK`) the run joins a process group, NCCL for a CUDA device
 and gloo for the CPU, and trains through `steps.make_sharded_train_step`:
@@ -29,11 +32,13 @@ alone prints the summary.  Without that environment the world is 1 and
 there is no group.
 
 Runs on the CUDA device unless `--device cpu` is given, and raises without
-one.  Differences from the reference CLI: a tp-mode plan (an arch above
-4e9 parameters with `--model-parallel` > 1) and an MoE arch over a data
-axis > 1 raise (ROADMAP A.4b; `parallel.fsdp.check_plan`); the plan's
-parameters are replicated (pure data parallelism: `fsdp` is False), where
-the reference's dp-mode specs shard them all the same; `--quant` is parsed
+one.  Differences from the reference CLI: before any weight is made, a
+plan the port does not execute raises (ROADMAP A.4c;
+`parallel.fsdp.check_plan`): under a model axis an MoE arch, a family
+other than the dense decoders, the GELU MLP, kv heads, d_ff or a vocab
+the axis does not divide; over a data axis > 1 an MoE arch; the plan's
+parameters are whole over the data axes (`fsdp` is False), where the
+reference's dp-mode specs shard them all the same; `--quant` is parsed
 and read by nothing, as in the reference; `--resume` starts the loop at
 the restored step; the default checkpoint directory lies under the
 system's temporary directory.  `main(on_step=...)` sees every step (its
@@ -146,7 +151,7 @@ def _train(args, device, on_step):
     rank = dist.get_rank() if group else 0
     if rank == 0:
         print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M device={device} "
-              f"mesh={mesh.shape}")
+              f"mesh={mesh.shape} mode={'dp' if plan.model_axis is None else 'tp'}")
 
     params = M.init_model(cfg, seed=0, device=device)
     opt_cfg = steps_lib.optimizer_config(cfg)

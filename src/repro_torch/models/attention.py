@@ -31,6 +31,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
 from repro_torch.models import layers
+from repro_torch.parallel import tensor
+from repro_torch.parallel.logical import shard
 from repro_torch.serving import kv_cache as kvc
 
 NEG_INF = -2.0e38
@@ -68,15 +70,18 @@ def _project_qkv(x: torch.Tensor, kv_src: Optional[torch.Tensor], p: dict, cfg,
                  positions: torch.Tensor, *, rope: bool = True):
     """q from x (B, S, d); k, v from `kv_src` (B, Skv, d), or None when
     the caller has them already (cross-attention at decode).  RoPE rotates
-    q at `positions` and k at `positions` (Skv == S) or 0..Skv-1."""
+    q at `positions` and k at `positions` (Skv == S) or 0..Skv-1.  The
+    head counts are the products' widths over head_dim: under a model axis
+    a rank's wq / wk / wv columns are its heads, (head, dim) ordered, so
+    its q heads are the GQA groups of its own kv heads."""
     B, S, _ = x.shape
-    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, hq, hd)
+    hd = cfg.resolved_head_dim
+    q = layers.dense(x, p["wq"], p.get("bq")).reshape(B, S, -1, hd)
     k = v = None
     if kv_src is not None:
         Skv = kv_src.shape[1]
-        k = layers.dense(kv_src, p["wk"], p.get("bk")).reshape(B, Skv, hkv, hd)
-        v = layers.dense(kv_src, p["wv"], p.get("bv")).reshape(B, Skv, hkv, hd)
+        k = layers.dense(kv_src, p["wk"], p.get("bk")).reshape(B, Skv, -1, hd)
+        v = layers.dense(kv_src, p["wv"], p.get("bv")).reshape(B, Skv, -1, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         if k is not None:
@@ -87,6 +92,10 @@ def _project_qkv(x: torch.Tensor, kv_src: Optional[torch.Tensor], p: dict, cfg,
             kv_pos = positions if k.shape[1] == S else torch.arange(k.shape[1],
                                                                     device=x.device)
             k = layers.apply_rope(k, kv_pos, cfg.rope_theta)
+    q = shard(q, "batch", "attn_seq", "heads", None)
+    if k is not None:
+        k = shard(k, "batch", None, "kv_heads", None)
+        v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -179,6 +188,9 @@ def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     a `KVCache` over that cache (the encoder's K/V, computed once)."""
     cross = kv_src is not None
     cached_cross = cross and cache is not None
+    # The column-parallel q / k / v products' input (a model axis runs
+    # self-attention only: `parallel.fsdp.check_plan`).
+    x = tensor.copy_to_model(x)
     q, k, v = _project_qkv(x, None if cached_cross else (kv_src if cross else x),
                            p, cfg, positions, rope=not cross)
     if cross or cache is None:
@@ -201,5 +213,8 @@ def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
         raise TypeError(f"attention over a {type(cache).__name__}: neither a "
                         f"KVCache nor a paged pool")
     B, S = x.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
-    return layers.dense(out, p["wo"])
+    out = shard(out, "batch", "attn_seq", "heads", None)
+    out = out.reshape(B, S, -1)
+    # wo: this rank's rows under a model axis, the partial outputs summed
+    out = tensor.reduce_from_model(layers.dense(out, p["wo"]))
+    return shard(out, "batch", "seq", "embed")

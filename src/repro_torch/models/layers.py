@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import tensor
+from repro_torch.parallel.logical import shard
 
 
 def _init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -94,14 +96,19 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """table[tokens], through `F.embedding`: the same gather forward, and a
     backward that sums the rows' gradients by sorting the indices (the
     same bits run to run on the card), where indexing's backward is an
-    accumulating scatter."""
-    return F.embedding(tokens, table)
+    accumulating scatter.  Under a model axis `table` is this rank's vocab
+    rows (`parallel.tensor.vocab_embed`)."""
+    axis = tensor.current()
+    x = F.embedding(tokens, table) if axis is None else tensor.vocab_embed(tokens, table, axis)
+    return shard(x, "batch", "seq", "embed")
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits = x @ table^T (tied; table is (vocab, d)).  The transpose is a
-    strided view the GeMM reads in place."""
-    return ops.linear(x, table.t().to(x.dtype))
+    strided view the GeMM reads in place.  Under a model axis the table is
+    this rank's vocab rows: a column-parallel product."""
+    logits = ops.linear(tensor.copy_to_model(x), table.t().to(x.dtype))
+    return shard(logits, "batch", "seq", "vocab")
 
 
 # -- rotary position embedding -------------------------------------------------
@@ -152,14 +159,20 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, variant: str, dtype,
 def mlp(x: torch.Tensor, p: dict, variant: str, *,
         quant: Optional[str] = None) -> torch.Tensor:
     """SwiGLU: down(silu(gate.f32).to(x.dtype) * up).  GELU: h = x @ w_up +
-    b_up, then gelu_tanh(h.f32).to(x.dtype) @ w_down + b_down."""
+    b_up, then gelu_tanh(h.f32).to(x.dtype) @ w_down + b_down.  Under a
+    model axis (SwiGLU only: `parallel.fsdp.check_plan`) w_gate / w_up are
+    this rank's columns and w_down its rows: the partial products of
+    w_down are summed over the ranks."""
     if variant == "swiglu":
+        x = tensor.copy_to_model(x)
         gate = dense(x, p["w_gate"], quant=quant)
         up = dense(x, p["w_up"], quant=quant)
         h = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-        return dense(h, p["w_down"], quant=quant)
+        h = shard(h, "batch", "seq", "mlp")
+        return tensor.reduce_from_model(dense(h, p["w_down"], quant=quant))
     if variant != "gelu":
         raise ValueError(f"unknown mlp variant {variant!r}")
     h = dense(x, p["w_up"], p["b_up"], quant=quant)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    h = shard(h, "batch", "seq", "mlp")
     return dense(h, p["w_down"], p["b_down"], quant=quant)

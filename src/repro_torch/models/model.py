@@ -62,6 +62,8 @@ from repro_torch import resolve_device
 from repro_torch.kernels import gemm
 from repro_torch.models import blocks, layers, ssm
 from repro_torch.models.config import ArchConfig
+from repro_torch.parallel import tensor
+from repro_torch.parallel.logical import shard
 from repro_torch.serving import kv_cache as kvc
 
 VISION_DIM = 1152  # SigLIP-so400m width (paligemma's stub frontend)
@@ -187,7 +189,9 @@ def _run_groups(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
 
 
 def _checkpoint(fn, *args):
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    # The recompute runs where the autograd engine runs the backward, under
+    # the model axis of the forward (parallel/tensor.py).
+    return torch.utils.checkpoint.checkpoint(tensor.bind(fn), *args, use_reentrant=False)
 
 
 def _run_encoder(frames: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -219,6 +223,7 @@ def trunk(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torc
     elif cfg.family == "encdec":
         encoder_out = _run_encoder(batch["frames"], params, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    x = shard(x, "batch", "seq", "embed")
     x = _run_groups(x, params, cfg, positions=positions, prefix_len=prefix_len,
                     encoder_out=encoder_out)
     x = blocks._norm(x, params["final_norm"], cfg)
@@ -246,8 +251,10 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     (B, chunk, vocab) f32 logits live one chunk at a time.  Returns
     -sum(ll * mask) / max(denominator, 1), the per-chunk sums added in
     chunk order; the denominator is sum(mask) unless given (a sharded
-    step passes the mask count of the whole batch over every rank:
-    `launch.steps.make_sharded_train_step`)."""
+    step passes the mask count of the whole batch over the batch axes:
+    `launch.steps.make_sharded_train_step`).  Under a model axis the
+    chunk's logits are this rank's vocab columns and its log-likelihoods
+    come from `parallel.tensor.vocab_log_likelihood`."""
     x = trunk(params, cfg, batch)                       # (B, S, d)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -260,8 +267,12 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
 
     def chunk_loss(xc, lc, mc):
         logits = _unembed(xc, params, cfg).to(torch.float32)
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, lc[..., None])[..., 0]
+        axis = tensor.current()
+        if axis is None:
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, lc[..., None])[..., 0]
+        else:
+            ll = tensor.vocab_log_likelihood(logits, lc, axis)
         return torch.sum(ll * mc), torch.sum(mc)
 
     grad = torch.is_grad_enabled()
@@ -279,11 +290,13 @@ def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
     # "head_q" is the int8 copy of the tied table that quantize_params adds:
     # without it a w8a8 step would re-quantize the (vocab x d) table.  An
     # untied "head" is a float matrix or, quantized, a QuantTensor.
+    # Under a model axis the head is this rank's vocab columns.
     if "head_q" in params:
-        return layers.dense(x, params["head_q"])
+        return shard(layers.dense(x, params["head_q"]), "batch", "seq", "vocab")
     if cfg.tie_embeddings:
         return layers.unembed(x, params["embed"])
-    return layers.dense(x, params["head"])
+    logits = layers.dense(tensor.copy_to_model(x), params["head"])
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _trunk_step(params: dict, cfg: ArchConfig, x: torch.Tensor,

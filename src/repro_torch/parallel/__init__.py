@@ -1,15 +1,16 @@
-"""Sharding plans and data-parallel / ZeRO-3 placements: the stable
-``repro_torch.parallel`` API (port of repro/parallel/__init__.py).
+"""Sharding plans, the data-parallel / ZeRO-3 / head-parallel placements
+and the tensor-parallel operators: the stable ``repro_torch.parallel`` API
+(port of repro/parallel/__init__.py).
 
 Lazy re-exports, as in the reference, so ``from repro_torch.parallel
 import shard`` does not load the plans into every model import.  The
 reference's ``gpipe`` and ``split_stages`` (pipeline parallelism) are not
-ported: looking either up raises AttributeError naming ROADMAP A.4b.
+ported: looking either up raises AttributeError naming ROADMAP A.4c.
 """
 
 import importlib
 
-_SUBMODULES = ("fsdp", "logical", "sharding")
+_SUBMODULES = ("fsdp", "logical", "sharding", "tensor")
 
 _LAZY = {
     # logical axis rules (the model layer's shard() calls resolve here)
@@ -38,7 +39,7 @@ def __getattr__(name: str):
         return importlib.import_module(f"repro_torch.parallel.{name}")
     if name in _NOT_PORTED:
         raise AttributeError(f"repro_torch.parallel.{name}: pipeline parallelism "
-                             f"(repro/parallel/pipeline.py) is not ported (ROADMAP A.4b)")
+                             f"(repro/parallel/pipeline.py) is not ported (ROADMAP A.4c)")
     raise AttributeError(f"module 'repro_torch.parallel' has no attribute {name!r}")
 
 

@@ -7,12 +7,14 @@ entries are None, a mesh axis name or a tuple of names, entry for entry
 what the reference's `PartitionSpec` holds (a mesh axis appears once; a
 later name that maps to a used axis replicates).
 
-`shard(x, *names)` is the identity outside `use_rules`.  Inside it, the
-port runs only placements in which every rank holds plain local rows of
-the batch (data parallelism and ZeRO-3, `parallel/fsdp.py`), so the
-annotation stays the identity; a tensor dimension other than the batch's
-mapped to a mesh axis of size > 1 (tensor, sequence or expert
-parallelism) raises: that is ROADMAP A.4b.
+`shard(x, *names)` is the identity, outside `use_rules` and inside it:
+every rank holds plain local tensors, its rows of the batch (data
+parallelism and ZeRO-3, `parallel/fsdp.py`) and, under a head-parallel
+plan, its heads, MLP columns and vocabulary rows, which the models' own
+widths and the operators of `parallel/tensor.py` carry.  Inside
+`use_rules` it raises where a rule puts the sequence ("seq",
+"attn_seq") on a mesh axis of size > 1 (sequence-parallel attention),
+or "expert" (expert parallelism): those are ROADMAP A.4c.
 """
 
 from __future__ import annotations
@@ -107,10 +109,15 @@ def resolve_spec(names: Sequence[Optional[str]], rules: Rules) -> Spec:
     return Spec(*axes)
 
 
+# Logical axes the port does not split over a mesh axis of size > 1.
+NOT_SPLIT = {"seq": "sequence-parallel attention", "attn_seq": "sequence-parallel attention",
+             "expert": "expert parallelism"}
+
+
 def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
-    """`x` itself: outside `use_rules`, and inside it wherever only the
-    batch dimension is sharded (each rank holds its rows).  Raises where a
-    rule puts another dimension on a mesh axis of size > 1."""
+    """`x` itself, outside `use_rules` and inside it (module docstring).
+    Raises where a rule puts a dimension of `NOT_SPLIT` on a mesh axis of
+    size > 1."""
     ctx = _current()
     if ctx is None:
         return x
@@ -122,10 +129,10 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     sizes = MeshShape.of(mesh).shape
     for name, entry in zip(names, resolve_spec(names, rules)):
         wide = [a for a in axes_of(entry) if sizes[a] > 1]
-        if wide and name != "batch":
+        if wide and name in NOT_SPLIT:
             raise NotImplementedError(
-                f"logical axis {name!r} sharded over mesh axes {wide}: tensor, sequence "
-                f"and expert parallelism are not ported (ROADMAP A.4b)")
+                f"logical axis {name!r} sharded over mesh axes {wide}: {NOT_SPLIT[name]} "
+                f"is not ported (ROADMAP A.4c)")
     return x
 
 

@@ -19,8 +19,10 @@ same dimension.  Likewise a decode-state leaf here is one layer's, the
 reference's stacked leaf without its leading group axis.
 
 The port executes the dp-mode plans (data parallelism, and ZeRO-3 where
-`fsdp`): `parallel/fsdp.py`.  The tp-mode plans are computed and checked
-against the reference, not run (ROADMAP A.4b).
+`fsdp`) and the head-parallel tp-mode plans of the dense decoders
+(`parallel/fsdp.py`, `parallel/tensor.py`); sequence-parallel attention
+(`attn_seq`), expert parallelism and the serving plans are computed and
+checked against the reference, not run (ROADMAP A.4c).
 """
 
 from __future__ import annotations

@@ -1758,3 +1758,64 @@ def test_sharded_train_step_in_a_world_one_nccl_group(cuda_device, tmp_path, zer
     assert (k > 0) == zero3
     assert got[-1][4] == {"all_reduce": n - k + 3,
                           **({"all_gather": k, "reduce_scatter": k} if zero3 else {})}
+
+
+@pytest.mark.gpu
+def test_tp_train_step_in_a_world_one_nccl_group(cuda_device, tmp_path):
+    """`make_sharded_train_step` under a tp plan forced over (data 1,
+    model 1) in a world-1 NCCL group against `make_train_step` on the same
+    2-layer smoke-width qwen3 weights and batches, bf16, three steps: the
+    operators of `parallel/tensor.py` run with their collectives; each
+    step's loss within 1e-5 relative, the same K1 / K5 / K5b launches, and
+    the collectives a step those of the same step traced on the meta
+    device."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import step_cost
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import MeshShape, backend_for
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = _train_cfg("bfloat16")
+    data = SyntheticLMData(cfg.vocab, 2, 80)
+    opt_cfg = tsteps.optimizer_config(cfg)
+    mesh = MeshShape(("data", "model"), (1, 1))
+    plan = make_plan(mesh, 10**12, force_mode="tp", force_fsdp=False)
+    assert plan.model_axis == "model" and not plan.attn_seq
+    runs = {}
+    dist.init_process_group(backend_for(cuda_device), init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        sharded = tsteps.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=1e-3,
+                                                 total_steps=3)
+        for label, step in (("unsharded", tsteps.make_train_step(cfg, opt_cfg, base_lr=1e-3,
+                                                                  total_steps=3)),
+                            ("tp", sharded)):
+            params = TM.init_model(cfg, seed=0, device=cuda_device)
+            if label == "tp":
+                params = sharded.layout.shard(params)
+            opt = adamw_init(params, opt_cfg)
+            out = []
+            for i in range(3):
+                tgemm.reset_launches()
+                tfa.reset_launches()
+                params, opt, m = step(params, opt, to_device(data.batch_at(i), cuda_device))
+                out.append((float(m["loss"]), tgemm.launches, tfa.launches, tfa.bwd_launches,
+                            m.get("collectives")))
+            runs[label] = out
+    finally:
+        dist.destroy_process_group()
+    want, got = runs["unsharded"], runs["tp"]
+    for g, w in zip(got, want):
+        assert abs(g[0] - w[0]) <= 1e-5 * abs(w[0]), (g[0], w[0])
+        assert g[1:4] == w[1:4] and g[1] > 0 and g[2] > 0 and g[3] > 0
+    meta = tsteps.make_sharded_train_step(cfg, opt_cfg, mesh, plan, rank=0)
+    pieces = meta.layout.shard(tsteps.params_struct(cfg))
+    batch = {k: torch.zeros((2, 80), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    step_cost.analyze(meta, pieces, adamw_init(pieces, opt_cfg), batch)
+    assert got[-1][4] == dict(meta.layout.collectives)
+    assert sharded.layout.model_sharded == 2 + cfg.n_layers * 7

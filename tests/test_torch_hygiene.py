@@ -46,7 +46,8 @@ def test_engine_imports_with_jax_blocked():
             "repro_torch.optim.compression, repro_torch.data, repro_torch.checkpoint, "
             "repro_torch.runtime, repro_torch.tree, repro_torch.parallel, "
             "repro_torch.parallel.logical, repro_torch.parallel.sharding, "
-            "repro_torch.parallel.fsdp, repro_torch.launch.mesh; print('ok')")
+            "repro_torch.parallel.fsdp, repro_torch.parallel.tensor, "
+            "repro_torch.launch.mesh; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)

@@ -233,6 +233,9 @@ def test_resolve_spec_reference_cases():
 
 
 def test_shard_is_the_identity_where_only_the_batch_is_sharded():
+    """`shard` is the identity under dp and head-parallel rules (heads,
+    kv_heads, mlp and vocab on the model axis); the sequence on a model
+    axis > 1 (attn_seq) and experts on an axis > 1 raise, naming A.4c."""
     import torch
 
     x = torch.zeros(4, 8, 16)
@@ -251,8 +254,18 @@ def test_shard_is_the_identity_where_only_the_batch_is_sharded():
     tp = TSH.make_plan(tp_mesh, 10**12)
     with TL.use_rules(tp_mesh, tp.activation_rules()):
         assert TL.shard(x, "batch", "seq", "embed") is x
-        with pytest.raises(NotImplementedError, match="A.4b"):
-            TL.shard(x, "batch", "seq", "heads")
+        for names in (("batch", "seq", "heads"), ("batch", "seq", "kv_heads"),
+                      ("batch", "seq", "mlp"), ("batch", "seq", "vocab")):
+            assert TL.shard(x, *names) is x
+        with pytest.raises(NotImplementedError, match="A.4c"):
+            TL.shard(x, "expert", None, None)
+    seq = TSH.make_plan(MeshShape(("data", "model"), (1, 4)), 10**12, n_kv_heads=2)
+    assert seq.attn_seq
+    with TL.use_rules(MeshShape(("data", "model"), (1, 4)), seq.activation_rules()):
+        assert TL.shard(x, "batch", None, "heads") is x
+        for names in (("batch", "seq", "embed"), ("batch", "attn_seq", "heads")):
+            with pytest.raises(NotImplementedError, match="A.4c"):
+                TL.shard(x, *names)
     assert TL.sharding_for(tp_mesh, tp.activation_rules(), "batch", "mlp").spec == \
         TL.Spec("data", "model")
 

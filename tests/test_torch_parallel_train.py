@@ -148,8 +148,9 @@ WORKER = textwrap.dedent("""
         for src in a["ckpt_sources"]:
             d = f"{src}/{label}"
             full = restore_checkpoint(d, 1, whole)
-            cut = [x if dd is None else x.narrow(dd, rank * (x.shape[dd] // a["world"]),
-                                                 x.shape[dd] // a["world"])
+            cut = [x if dd is None else
+                   x.narrow(dd.data, rank * (x.shape[dd.data] // a["world"]),
+                            x.shape[dd.data] // a["world"])
                    for x, dd in zip(tree_lib.leaves(full), tree_lib.leaves(dims))]
             got = restore_checkpoint(d, 1, local, pieces=layout.pieces(dims))
             for x, y in zip(tree_lib.leaves(got), cut):
@@ -404,24 +405,28 @@ def test_refusals():
     import repro_torch.parallel as par
 
     for name in ("gpipe", "split_stages"):
-        with pytest.raises(AttributeError, match="A.4b"):
+        with pytest.raises(AttributeError, match="A.4c"):
             getattr(par, name)
     assert par.make_plan is make_plan
     # MoE over a data axis > 1, before any weight is made; at 1 it trains.
     dbrx = tconfigs.get("dbrx-132b")
     two = MeshShape(("data", "model"), (2, 1))
-    with pytest.raises(NotImplementedError, match="A.4b"):
+    with pytest.raises(NotImplementedError, match="A.4c"):
         fsdp.check_plan(dbrx, two, make_plan(two, dbrx.param_count(), force_fsdp=False))
     one = MeshShape(("data", "model"), (1, 1))
     fsdp.check_plan(dbrx, one, make_plan(one, dbrx.param_count(), force_fsdp=False))
-    # a tp-mode plan (an arch above 4e9 parameters with a model axis > 1)
+    # the refusals of a model axis that stand (tests/test_torch_parallel_tp.py
+    # holds the plans that now train): MoE under it, sequence-parallel attention
     tp_mesh = MeshShape(("data", "model"), (1, 2))
+    with pytest.raises(NotImplementedError, match="MoE under a model axis.*A.4c"):
+        fsdp.check_plan(dbrx, tp_mesh, make_plan(tp_mesh, dbrx.param_count()))
     qwen = tconfigs.get("qwen3-14b")
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        fsdp.check_plan(qwen, tp_mesh, make_plan(tp_mesh, qwen.param_count(), force_fsdp=False))
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        tsteps.make_sharded_train_step(qwen, None, tp_mesh,
-                                       make_plan(tp_mesh, qwen.param_count()))
+    fsdp.check_plan(qwen, tp_mesh, make_plan(tp_mesh, qwen.param_count(), force_fsdp=False))
+    seq_mesh = MeshShape(("data", "model"), (1, 16))
+    with pytest.raises(NotImplementedError, match="sequence-parallel.*A.4c"):
+        tsteps.make_sharded_train_step(qwen, None, seq_mesh,
+                                       make_plan(seq_mesh, qwen.param_count(),
+                                                 n_kv_heads=qwen.n_kv_heads))
     # backends: NCCL for CUDA, gloo for the CPU, nothing else
     assert tmesh.backend_for("cuda") == "nccl" and tmesh.backend_for("cpu") == "gloo"
     assert tmesh.backend_for(torch.device("cuda", 1)) == "nccl"
@@ -438,15 +443,16 @@ def test_refusals():
 
 
 def test_train_cli_refuses_moe_over_two_ranks_before_making_weights(monkeypatch):
-    """dbrx-132b at a data axis of 2: the CLI raises before init_model
-    (the world's size read from a patched group; no process starts)."""
+    """dbrx-132b at a data axis of 2, and under a model axis of 2: the CLI
+    raises before init_model (the world's size read from a patched group;
+    no process starts)."""
     made = []
     monkeypatch.setattr(TM, "init_model", lambda *a, **k: made.append(1))
     monkeypatch.setattr(tmesh, "world", lambda: (0, 2))
     with pytest.raises(NotImplementedError, match="MoE"):
         ttrain._train(ttrain.argparse.Namespace(
             arch="dbrx-132b", preset="full", model_parallel=1), torch.device("cpu"), None)
-    with pytest.raises(NotImplementedError, match="tp-mode"):
+    with pytest.raises(NotImplementedError, match="MoE under a model axis"):
         ttrain._train(ttrain.argparse.Namespace(
-            arch="qwen3-14b", preset="full", model_parallel=2), torch.device("cpu"), None)
+            arch="dbrx-132b", preset="full", model_parallel=2), torch.device("cpu"), None)
     assert not made

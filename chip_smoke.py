@@ -344,7 +344,8 @@ Phases, in order; any failure exits non-zero:
      fails.  To make room, 10b / 10c's prompts are cut to 160-320 tokens.
   16. the families train, in a process of its own (`chip_smoke.py
      --families`), bf16, random weights (seed 0), `SyntheticLMData`, 3
-     steps each.  16a: xlstm-1.3b (B 1 x S 512; S 1024 before phase 18),
+     steps each (xlstm-1.3b 2 since phase 18d, `reduced`).  16a:
+     xlstm-1.3b (B 1 x S 512; S 1024 before phase 18),
      whisper-medium (B 4 x S
      448, 1500 stub frames) and paligemma-3b (B 2 x S 1024, 256 patches)
      whole through `repro_torch.launch.train.main` (on_step ends each run
@@ -370,10 +371,10 @@ Phases, in order; any failure exits non-zero:
      (448 over 1500), dbrx's 48 / 8 and arctic's 56 / 8 heads (clusters
      of 6 and 7 blocks) and 12 / 12 at D 64.  To make room, phase 4's
      w8a8 and calibrated w8a8 token comparisons serve its 72-token prompt
-     alone.  One paligemma-3b step is
-     profiled by source after 16b: the share of its kernel time in the
-     plain blockwise attention its 256-patch prefix takes.  To make
-     room, 10a's speculative storm is cut to prompts of 128-256 tokens.
+     alone.  To make room, 10a's speculative storm is cut to prompts of
+     128-256 tokens, and since phase 18d the profile of one paligemma-3b
+     step by source (its prefix's plain attention took 16.3 % of the
+     step's kernel time in every run from phase 16 to 18d) no longer runs.
   17. data parallelism and ZeRO-3 through a process group (no new
      kernel).  17b, in this process: `--model-parallel 2` over a world of
      1 raises; dbrx-132b's CLI plan at a data axis of 2 is refused
@@ -393,8 +394,8 @@ Phases, in order; any failure exits non-zero:
      reduce-scatter a sharded one, three scalars); each step's loss equal
      to the unsharded run's bit for bit and its K1 / K5 / K5b launches
      equal.
-  18. head-parallel tensor parallelism of the dense decoders (no new
-     kernel): qwen3-14b at published widths (d 5120, 40 / 8 heads, head
+  18. tensor parallelism of the dense decoders, head-parallel and with
+     sequence-parallel attention (attn_seq): qwen3-14b at published widths (d 5120, 40 / 8 heads, head
      dim 128, d_ff 17408, vocab 151936) cut to 2 layers, B 2 x S 1024,
      bf16, f32 moments, TP_STEPS steps a run, seed 0.  18a, in a process of
      its own (`chip_smoke.py --tp`): `make_train_step` unsharded, then
@@ -404,7 +405,10 @@ Phases, in order; any failure exits non-zero:
      every step's loss within 1e-5 relative of the unsharded run's, and
      the norm of each leaf of step 1's gradient (made whole by the clip's
      `Layout.norm_reduce`), the K1 / K5 / K5b launches equal, the
-     collectives a step by kind.  18b,
+     collectives a step by kind; then under the plan with sequence-parallel
+     attention forced over (1, 1) (the sequence operators' gathers and
+     reduce-scatters over one rank, attention at q offset 0): every step's
+     loss equal to the unsharded run's bit for bit.  18b,
      two processes on the one card in a gloo group (`chip_smoke.py
      --tp-gloo RANK STORE`) at (1, 2) without ZeRO-3: each rank holds 20
      q / 4 kv heads, half the MLP and half the vocabulary; every step's
@@ -412,12 +416,27 @@ Phases, in order; any failure exits non-zero:
      each leaf of step 1's gradient within 5e-3, each rank's
      launches equal to the meta trace of its own step (`step_cost.analyze`
      of `make_sharded_train_step(rank=)`, traced in this process while the
-     ranks run), each rank's peak.  18c, in phase 2: K5 (with its lse) and
-     K5b at a rank's shape (B 2, S 1024, 20 / 4 heads, D 128, causal and
-     a 512 window) and K1's forward, dX and dW at a rank's gate, down and
-     head shapes, against their plain versions.  To make room, 10a's float
-     and w8a8 runs hold one group of xlstm-1.3b (8 of 48 layers) and its
-     speculative run two (16 layers).
+     ranks run), each rank's peak.  18d, in 18b's two processes after its
+     steps: the plan with sequence-parallel attention forced at (1, 2):
+     each rank holds all 40 q / 8 kv heads and the attention projections
+     whole, half the MLP and half the vocabulary, and runs the residual
+     stream, the norms and attention on its 512 positions (q offset 0 and
+     512) over the whole sequence's K / V; held to 18b's bars against 18a's
+     unsharded run, each rank's launches and collectives (the sequence
+     gathers and reduce-scatters among them) equal to its meta trace, whose
+     K5 / K5b count the later chunk's larger causal share.  gloo takes the
+     CUDA tensors of the 1-D all-gather and reduce-scatter (torch 2.11)
+     and moves them through the host, as it does all-reduce's.  18c, in
+     phase 2: K5 (with its lse) and K5b at a head-parallel rank's shape (B
+     2, S 1024, 20 / 4 heads, D 128, causal and a 512 window) and K1's
+     forward, dX and dW at a rank's gate, down and head shapes, against
+     their plain versions; K5 and K5b at a sequence-parallel rank's q
+     offsets (512 queries over 1024 keys at offsets 0 and 512, 40 / 8 heads
+     and gemma3-1b's 4 / 1 at D 256, causal and with a 512 window, and 100
+     queries at offset 37), bf16 and f32, with the dK / dV of the keys no
+     query sees exactly 0.  To make room, 10a's float and w8a8 runs hold
+     one group of xlstm-1.3b (8 of 48 layers) and its speculative run two
+     (16 layers).
   7. one line per phase 3-3d and 8a-8b: the decode step and prefill chunk,
      graphed and eager, and the device time of one replay of each; one per
      phase 9a-9b: acceptance, tokens per tick and decode tok/s per trace
@@ -431,7 +450,8 @@ line before the card line is the kernels' JSON summary (with each kernel's
 launches by phase 12's tuner and on phase 13's cluster path apart from its
 serving launches; K5b's, K5's and K1's train-step entries count phase 14's
 clean run, their `:parallel` entries phase 17a's dp and ZeRO-3 runs,
-their `:tp` entries phase 18's tensor-parallel runs); the
+their `:tp` entries phase 18's head-parallel runs and their `:sp` entries
+its sequence-parallel ones); the
 last line
 is {"ok": true, "device": {...}}.  Exits non-zero, printing no result,
 without a CUDA device or without the port package beside this script.
@@ -4661,23 +4681,31 @@ def _encode_us(q, k, v, do) -> float:
 PROFILE_FLAG = "--profile-train-attention"
 
 
-def _attention_inputs(torch, fa, g, window, *, B=TRAIN_B, S=TRAIN_S, Hq=4, Hkv=1, D=256):
+def _attention_inputs(torch, fa, g, window, *, B=TRAIN_B, S=TRAIN_S, Hq=4, Hkv=1, D=256,
+                      Skv=None, q_offset=0):
     """Phase 5's inputs at gemma3-1b's training shape (B 4, S 1024, 4 / 1,
-    D 256, causal, `window`; phase 18 passes a rank's shape): q, k, v, dO,
+    D 256, causal, `window`; phase 18 passes a rank's shape, S queries at
+    `q_offset` over Skv keys for a sequence-parallel one): q, k, v, dO,
     K5's out and lse, and SDPA's (K/V repeated to the q heads beforehand,
-    q-head-major, requiring grad), its mask and output."""
+    q-head-major, requiring grad), its mask and output.  SDPA's
+    `is_causal` places queries and keys from 0, so a window or an offset
+    takes a boolean mask of the same positions."""
     import torch.nn.functional as F
 
     dev, dt = torch.device("cuda"), torch.bfloat16
-    q, k, v, do = (torch.randn((B, S, h, D), generator=g, device=dev).to(dt)
-                   for h in (Hq, Hkv, Hkv, Hq))
-    out, lse = fa._forward(q, k, v, True, window, True)
+    Skv = S if Skv is None else Skv
+    q, k, v, do = (torch.randn((B, n, h, D), generator=g, device=dev).to(dt)
+                   for n, h in ((S, Hq), (Skv, Hkv), (Skv, Hkv), (S, Hq)))
+    out, lse = fa._forward(q, k, v, True, window, True, q_offset)
     ql, kl, vl = (t.permute(0, 2, 1, 3).repeat_interleave(Hq // t.shape[2], 1)
                   .detach().requires_grad_() for t in (q, k, v))
-    pos = torch.arange(S, device=dev)
-    mask = None if window is None else \
-        (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-    o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=window is None, attn_mask=mask)
+    qpos, kpos = torch.arange(S, device=dev) + q_offset, torch.arange(Skv, device=dev)
+    mask = None
+    if window is not None or q_offset or Skv != S:
+        mask = qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            mask &= qpos[:, None] - kpos[None, :] < window
+    o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=mask is None, attn_mask=mask)
     return dict(q=q, k=k, v=v, do=do, out=out, lse=lse, ql=ql, kl=kl, vl=vl, mask=mask,
                 o_l=o_l, do_l=do.permute(0, 2, 1, 3))
 
@@ -4690,7 +4718,8 @@ def _sdpa_calls(torch, x, window):
     def fwd():
         with torch.no_grad():
             return F.scaled_dot_product_attention(x["ql"], x["kl"], x["vl"],
-                                                  is_causal=window is None, attn_mask=x["mask"])
+                                                  is_causal=x["mask"] is None,
+                                                  attn_mask=x["mask"])
     return (lambda: torch.autograd.grad(x["o_l"], (x["ql"], x["kl"], x["vl"]), x["do_l"],
                                         retain_graph=True)), fwd
 
@@ -5126,6 +5155,13 @@ def phase15(torch):
 FAMILIES_FLAG = "--families"
 FAMILIES_META_FLAG = "--families-meta"
 FAMILY_STEPS, FAMILY_LR = 3, 3e-4
+# 16a's xlstm-1.3b stops after 2 of its FAMILY_STEPS steps (since phase 18d;
+# the time limit: its third step took ~4.6 s), its schedule unchanged.
+FAMILY_CUT_STEPS = {"xlstm-1.3b": 2}
+
+
+def family_steps(arch: str) -> int:
+    return FAMILY_CUT_STEPS.get(arch, FAMILY_STEPS)
 # 16a: (arch, B, S) trained whole through the train CLI at published widths,
 # then dbrx-132b cut to one layer (all 16 experts) through make_train_step
 # with the whole arch's optimizer config (bf16 moments).
@@ -5232,9 +5268,9 @@ class _StopRun(Exception):
     xlstm's 37 GB of state would take longer to write than to train)."""
 
 
-def _train_run(torch, launches, label, run):
-    """Phase 16a's steps of `run()` (which drives on_step): per step (loss,
-    ms, launches), the peak memory."""
+def _train_run(torch, launches, label, run, n_steps: int = FAMILY_STEPS):
+    """Phase 16a's first `n_steps` steps of `run()` (which drives on_step):
+    per step (loss, ms, launches), the peak memory."""
     import gc
 
     per_step = []
@@ -5243,7 +5279,7 @@ def _train_run(torch, launches, label, run):
         per_step.append((step, float(metrics["loss"]), sec * 1e3,
                          {k: v for k, v in launches.counts().items() if v}))
         launches.reset()
-        if step == FAMILY_STEPS:
+        if step == n_steps:
             raise _StopRun
 
     gc.collect()
@@ -5437,47 +5473,6 @@ def _family_kernel_times(torch, fa, gemm, configs):
     return rows
 
 
-def _profile_paligemma(torch, configs):
-    """One paligemma-3b train step at 16a's shape (B 2 x S 1024, 256
-    patches), profiled by source (`diagnose.profile_step`, `attribute`):
-    the share of its kernel time in the plain blockwise attention its
-    prefix takes (the reference's XLA path, not K5).  After 16a and 16b:
-    a train step after a profile ran ~1.7x slower in the same process;
-    before any CUDA graph (`_family_kernel_times`), as phase 5 found the
-    profiler blind after earlier work."""
-    import gc
-
-    from repro_torch.data import SyntheticLMData, to_device
-    from repro_torch.launch import diagnose
-    from repro_torch.launch import steps as steps_lib
-    from repro_torch.models import model as M
-    from repro_torch.optim import adamw_init
-
-    arch, B, S = FAMILY_CLI[2]
-    cfg = configs.get(arch)
-    opt_cfg = steps_lib.optimizer_config(cfg)
-    params = M.init_model(cfg, seed=0, device="cuda")
-    opt = adamw_init(params, opt_cfg)
-    step = steps_lib.make_train_step(cfg, opt_cfg, base_lr=FAMILY_LR, total_steps=FAMILY_STEPS)
-    batch = to_device(SyntheticLMData(cfg.vocab, B, S, extras=_family_extras(cfg, M))
-                      .batch_at(0), "cuda")
-    a = diagnose.attribute(diagnose.profile_step(step, params, opt, batch), 15)
-    attn = {k: v for k, v in a.by_source.items() if "models/attention.py:blockwise_attention" in k}
-    share = sum(attn.values()) / a.total if a.total else 0.0
-    print(f"  [16a] {arch} one train step by source ({a.kernels} kernels, {a.total:.3f} ms of "
-          f"kernel time, {a.metric}):")
-    print(a.table())
-    print(f"  [16a] {arch}: the plain blockwise attention of the 256-patch prefix "
-          f"(forward, remat's recompute, backward) {sum(attn.values()):.3f} ms, {share:.1%} of "
-          f"the step's kernel time: " + ", ".join(f"{k} {v:.3f}" for k, v in attn.items()),
-          flush=True)
-    del params, opt, step, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"attention_ms": sum(attn.values()), "share": share, "total_ms": a.total,
-            "metric": a.metric}
-
-
 def families_child(torch, np):
     """Phase 16 in a process of its own (`FAMILIES_FLAG`).  16a: each
     FAMILY_CLI arch whole through `repro_torch.launch.train.main` (on_step
@@ -5485,9 +5480,8 @@ def families_child(torch, np):
     after step 3), then dbrx-132b at one layer through `make_train_step`,
     bf16; the meta traces run meanwhile in a CPU process of their own
     (`FAMILIES_META_FLAG`).  16b: `PARITY_ARCHS` at 2 layers, f32, card
-    against CPU.  Then one paligemma-3b step profiled by source, and last
-    the kernel times of the kernels line's phase-16 entries.  Returns the
-    summary the parent checks."""
+    against CPU.  Last the kernel times of the kernels line's phase-16
+    entries.  Returns the summary the parent checks."""
     from repro_torch import configs
     from repro_torch import tree as tree_lib
     from repro_torch.data import SyntheticLMData, to_device
@@ -5509,7 +5503,8 @@ def families_child(torch, np):
                     "--ckpt-every", str(FAMILY_STEPS), "--ckpt-dir", str(Path(tdir) / arch)]
             out["train"][arch] = _train_run(
                 torch, launches, f"{arch} whole, B {B} x S {S}, the train CLI",
-                lambda on_step, argv=argv: train.main(argv, on_step=on_step))
+                lambda on_step, argv=argv: train.main(argv, on_step=on_step),
+                family_steps(arch))
     cfg, full, reduced = dbrx_train_cfg(configs)
     arch, B, S = FAMILY_DBRX
 
@@ -5546,9 +5541,6 @@ def families_child(torch, np):
               f"{r['worst_leaf']}; card {r['card_s']:.1f}s, CPU {r['cpu_s']:.1f}s", flush=True)
     out["parity_s"] = time.monotonic() - t0
     t0 = time.monotonic()
-    out["paligemma_profile"] = _profile_paligemma(torch, configs)
-    out["profile_s"] = time.monotonic() - t0
-    t0 = time.monotonic()
     out["times"] = _family_kernel_times(torch, fa, gemm, configs)
     out["times_s"] = time.monotonic() - t0
     stdout, stderr = meta.communicate(timeout=600)
@@ -5583,7 +5575,8 @@ def phase16(torch):
         ms = [s[2] for s in steps]
         med = _median(ms[1:])
         B, S = next((b, s) for a, b, s in FAMILY_CLI + (FAMILY_DBRX,) if a == arch)
-        check(len(steps) == FAMILY_STEPS, f"{arch}: {FAMILY_STEPS} steps")
+        n = family_steps(arch)
+        check(len(steps) == n, f"{arch}: {n} steps")
         check(all(math.isfinite(s[1]) for s in steps), f"{arch}: every loss finite")
         for s, _, _, c in steps:
             totals.update(c)
@@ -5596,7 +5589,7 @@ def phase16(torch):
             f"{m['weights'] / 1e9:.3f}, optimizer state {m['opt_state'] / 1e9:.3f}, the step's " \
             f"own storages {m['activations'] / 1e9:.3f}; traced / measured " \
             f"{(held + m['activations']) / run['peak']:.3f})"
-        print(f"[16a] {arch} on {card}: median of steps 2-{FAMILY_STEPS} {med:.1f} ms, "
+        print(f"[16a] {arch} on {card}: median of steps 2-{n} {med:.1f} ms, "
               f"{B * S / med * 1e3:.0f} tokens/s; losses " + ", ".join(
                   f"{s[1]:.6f}" for s in steps) + f"; peak torch.cuda.max_memory_allocated "
               f"{run['peak'] / 1e9:.3f} GB beside {traced}; launches each step "
@@ -5624,18 +5617,14 @@ def phase16(torch):
             check(o["err"] <= 2 * o["noise"] or (same is not None and same <= 1e-4),
                   f"{arch} {o['leaf']}: 2-layer f32 gradient within its noise floor or, "
                   f"from the same input to its layer, within 1e-4")
-    pp = x["paligemma_profile"]
-    print(f"[16a] paligemma-3b's prefix attention (plain blockwise, the reference's XLA path): "
-          f"{pp['attention_ms']:.3f} of {pp['total_ms']:.3f} ms of a profiled step's kernel time "
-          f"({pp['share']:.1%}; {pp['metric']}) on {card}")
-    check(pp["metric"] == "device_ms", "the paligemma profile holds the card's kernels")
     x["totals"] = dict(totals)
     print(f"[16] phase 16 took {time.monotonic() - t0:.1f}s (child {x['seconds']:.1f}s: 16a "
-          f"{x['train_s']:.1f}s, 16b {x['parity_s']:.1f}s, paligemma's profile "
-          f"{x['profile_s']:.1f}s, kernel times {x['times_s']:.1f}s, "
+          f"{x['train_s']:.1f}s, 16b {x['parity_s']:.1f}s, kernel times {x['times_s']:.1f}s, "
           f"meta traces "
           f"{x['meta']['seconds']:.1f}s beside them); launches of 16a's "
-          f"{len(x['train']) * FAMILY_STEPS} steps " + " ".join(
+          f"{sum(len(r['steps']) for r in x['train'].values())} steps ("
+          f"reduced {json.dumps({a: [FAMILY_STEPS, n] for a, n in FAMILY_CUT_STEPS.items()})}) "
+          + " ".join(
               f"{k}={n}" for k, n in totals.items()))
     return x
 
@@ -5853,7 +5842,7 @@ def phase17(torch):
 
 
 TP_FLAG = "--tp"               # 18a's process
-TP_GLOO_FLAG = "--tp-gloo"     # 18b's two processes: RANK STORE
+TP_GLOO_FLAG = "--tp-gloo"     # 18b / 18d's two processes: RANK STORE
 TP_STEPS, TP_B, TP_S, TP_LR = 3, 2, 1024, 3e-4
 # a step's loss against the unsharded run's (18b reads up to 6.2e-5)
 TP_RTOL = {"18a": 1e-5, "18b": 5e-4}
@@ -5872,6 +5861,15 @@ TP_ATTENTION = (TP_B, TP_S, 20, 4, 128)
 # (name, K, N) of a rank's K1 products at (1, 2): half the MLP's columns and
 # rows, half the head's vocabulary columns.
 TP_GEMMS = [("gate", 5120, 8704), ("down", 8704, 5120), ("head", 5120, 75968)]
+# A sequence-parallel rank's attention at (1, 2): all 40 q / 8 kv heads,
+# its 512 queries over the 1024 keys, rank r's at q offset 512 r.
+SP_ATTENTION = (TP_B, TP_S // 2, TP_S, 40, 8, 128)
+# (B, Sq, Skv, Hq, Hkv, D, window, q_offset) of 18c's offset checks: that
+# rank's shape at offsets 0 and 512, causal and with a 512 window;
+# gemma3-1b's 4 / 1 heads at D 256 with its window; an offset that is no
+# multiple of a tile.
+SP_OFFSET_SHAPES = [(*SP_ATTENTION, w, off) for w in (None, 512) for off in (0, 512)] + [
+    (TP_B, TP_S // 2, TP_S, 4, 1, 256, 512, 512), (1, 100, 256, 4, 1, 64, None, 37)]
 
 
 def tp_cfg(configs):
@@ -5882,14 +5880,19 @@ def tp_cfg(configs):
             {"n_layers": [full.n_layers, 2], "group_size": [full.group_size, 2]})
 
 
-def _tp_plan(sizes):
+def _tp_plan(sizes, attn_seq: bool = False):
     """The tp plan over (data, model) = `sizes`, forced (the 2-layer cut
-    has 2.2 B parameters, under make_plan's 4e9 threshold), no ZeRO-3."""
+    has 2.2 B parameters, under make_plan's 4e9 threshold), no ZeRO-3;
+    head-parallel, or with sequence-parallel attention forced (qwen3-14b's
+    8 kv heads divide a model axis of 1 or 2, where make_plan's rule keeps
+    heads)."""
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.parallel.sharding import make_plan
 
     mesh = MeshShape(("data", "model"), sizes)
-    return mesh, make_plan(mesh, 10**12, force_mode="tp", force_fsdp=False)
+    plan = make_plan(mesh, 10**12, force_mode="tp", force_fsdp=False, force_attn_seq=attn_seq)
+    check(plan.attn_seq == attn_seq, f"the plan's attn_seq over {sizes}")
+    return mesh, plan
 
 
 def _unsharded_norms(torch, cfg):
@@ -5957,8 +5960,9 @@ def _tp_run(torch, cfg, step, params, data, norms, rows=lambda b: b):
 def tp_child(torch, np):
     """Phase 18a in a process of its own (`TP_FLAG`): the unsharded
     `make_train_step`, then `make_sharded_train_step` under the tp plan
-    over (1, 1) in a world-1 NCCL group (a file:// store), from the same
-    seed-0 weights on the same batches."""
+    over (1, 1) in a world-1 NCCL group (a file:// store), head-parallel,
+    then with sequence-parallel attention, from the same seed-0 weights on
+    the same batches."""
     import gc
     import tempfile
 
@@ -5992,6 +5996,17 @@ def tp_child(torch, np):
             out["group"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
                             "plan": dataclasses.asdict(plan),
                             "model_sharded": step.layout.model_sharded}
+            del params, step
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh, plan = _tp_plan((1, 1), attn_seq=True)
+            step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=TP_LR,
+                                                     total_steps=TP_STEPS, seq_len=TP_S)
+            params = step.layout.shard(M.init_model(cfg, seed=0, device="cuda"))
+            gc.collect()
+            out["sp"] = _tp_run(torch, cfg, step, params, data, _sharded_norms(torch, step))
+            out["sp_group"] = {"plan": dataclasses.asdict(plan),
+                               "model_sharded": step.layout.model_sharded}
         finally:
             dist.destroy_process_group()
     out["seconds"] = time.monotonic() - t0
@@ -6002,7 +6017,9 @@ def tp_gloo_child(torch, np, rank: int, store: str):
     """Phase 18b's rank `rank` of two on the one card (`TP_GLOO_FLAG`): a
     gloo group over CUDA tensors (a file:// store), the tp plan at (1, 2),
     this rank's pieces of the seed-0 weights, its rows (all of them: the
-    data axis is 1)."""
+    data axis is 1); then, in the same group, 18d: the plan with
+    sequence-parallel attention at (1, 2), from the same weights on the
+    same batches."""
     import datetime
     import gc
 
@@ -6021,46 +6038,60 @@ def tp_gloo_child(torch, np, rank: int, store: str):
     data = SyntheticLMData(cfg.vocab, TP_B, TP_S)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2,
                             timeout=datetime.timedelta(seconds=600))
-    try:
-        mesh, plan = _tp_plan((1, 2))
+
+    def run(attn_seq: bool):
+        mesh, plan = _tp_plan((1, 2), attn_seq)
         step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=TP_LR,
-                                                 total_steps=TP_STEPS)
+                                                 total_steps=TP_STEPS, seq_len=TP_S)
         params = step.layout.shard(M.init_model(cfg, seed=0, device="cuda"))
         gc.collect()
         torch.cuda.empty_cache()
         layer = params["layers"][0]
-        out = _tp_run(torch, cfg, step, params, data, _sharded_norms(torch, step),
+        got = _tp_run(torch, cfg, step, params, data, _sharded_norms(torch, step),
                       rows=lambda b: rank_rows(b, mesh, plan, rank))
-        out.update(rank=rank, backend=dist.get_backend(), world=dist.get_world_size(),
-                   held={"q_heads": layer["mixer"]["wq"].shape[1] // cfg.resolved_head_dim,
+        got.update(held={"q_heads": layer["mixer"]["wq"].shape[1] // cfg.resolved_head_dim,
                          "kv_heads": layer["mixer"]["wk"].shape[1] // cfg.resolved_head_dim,
                          "d_ff": layer["ffn"]["w_gate"].shape[1],
                          "vocab": params["head"].shape[1]},
                    weight_bytes=sum(x.numel() * x.element_size()
                                     for x in tree_lib.leaves(params)))
+        return got
+
+    try:
+        out = run(False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_sp = time.monotonic()
+        out["sp"] = run(True)
+        out["sp"]["seconds"] = time.monotonic() - t_sp
+        out.update(rank=rank, backend=dist.get_backend(), world=dist.get_world_size())
     finally:
         dist.destroy_process_group()
     out["seconds"] = time.monotonic() - t0
     return out
 
 
-def _tp_meta(torch, cfg, rank: int):
-    """Rank `rank`'s 18b step traced on the meta device
-    (`make_sharded_train_step(rank=)`, `step_cost.analyze`): its hand
-    kernels' launches and its collectives, counted, not run."""
+def _tp_meta(torch, cfg, rank: int, attn_seq: bool = False):
+    """Rank `rank`'s 18b (or, with `attn_seq`, 18d) step traced on the
+    meta device (`make_sharded_train_step(rank=)`, `step_cost.analyze`):
+    its hand kernels' launches and its collectives, counted, not run, and
+    the operations its K5 / K5b launches count (at its q offset)."""
     from repro_torch.launch import step_cost
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import adamw_init
 
-    mesh, plan = _tp_plan((1, 2))
+    mesh, plan = _tp_plan((1, 2), attn_seq)
     opt_cfg = steps_lib.optimizer_config(cfg)
     step = steps_lib.make_sharded_train_step(cfg, opt_cfg, mesh, plan, rank=rank)
     params = step.layout.shard(steps_lib.params_struct(cfg))
     batch = {k: torch.zeros((TP_B, TP_S), dtype=torch.int64, device="meta")
              for k in ("tokens", "labels")}
-    cost = step_cost.analyze(step, params, adamw_init(params, opt_cfg), batch)
+    ops = collections.Counter()
+    with kcost.recording(lambda kernel, c: ops.update({kernel: c.ops})):
+        cost = step_cost.analyze(step, params, adamw_init(params, opt_cfg), batch)
     return {"launches": {k: cost.launches.get(k, 0) for k in TP_KERNELS},
-            "collectives": dict(step.layout.collectives)}
+            "collectives": dict(step.layout.collectives),
+            "attention_ops": {k: ops[k] for k in TP_KERNELS[1:]}}
 
 
 def _norm_gap(run, base):
@@ -6103,11 +6134,11 @@ def _tp_line(label, run, card):
 
 
 def phase18(torch, fa, gemm):
-    """Phase 18, head-parallel tensor parallelism (module docstring): the
-    refusals that stand (A.4c) in this process, before any weight is made;
-    18a in a process of its own, 18b in two, each rank's meta trace in
-    this process while they run; then the `:tp` entries' kernel times at a
-    rank's shapes."""
+    """Phase 18, tensor parallelism (module docstring): the refusals that
+    stand (A.4c) in this process, before any weight is made; 18a in a
+    process of its own, 18b and 18d in two, each rank's meta traces in
+    this process while they run; then the `:tp` and `:sp` entries' kernel
+    times at a rank's shapes."""
     import gc
     import tempfile
 
@@ -6119,20 +6150,21 @@ def phase18(torch, fa, gemm):
     t0 = time.monotonic()
     card = card_line()
     before = torch.cuda.memory_allocated()
-    for label, arch, sizes, kw in (
-            ("qwen3-14b's 8 kv heads over a model axis of 16 (attn_seq)", "qwen3-14b", (1, 16),
-             {"n_kv_heads": 8}),
-            ("dbrx-132b under a model axis of 2", "dbrx-132b", (1, 2), {}),
-            ("xlstm-1.3b under a model axis of 2", "xlstm-1.3b", (1, 2), {})):
+    for label, arch, sizes, kw, why in (
+            ("qwen3-14b's 8 kv heads over a model axis of 16 (attn_seq) at S 1000", "qwen3-14b",
+             (1, 16), {"n_kv_heads": 8}, "does not"),
+            ("dbrx-132b under a model axis of 2", "dbrx-132b", (1, 2), {}, "A.4c"),
+            ("xlstm-1.3b under a model axis of 2", "xlstm-1.3b", (1, 2), {}, "A.4c")):
         mesh = MeshShape(("data", "model"), sizes)
         try:
             steps_lib.make_sharded_train_step(configs.get(arch), None, mesh,
-                                              make_plan(mesh, 10**12, force_mode="tp", **kw))
+                                              make_plan(mesh, 10**12, force_mode="tp", **kw),
+                                              seq_len=1000)
             refused = None
         except NotImplementedError as e:
             refused = str(e)
         print(f"[18] {label}: {refused}")
-        check(refused is not None and "A.4c" in refused, f"{label} is refused")
+        check(refused is not None and why in refused, f"{label} is refused")
     check(torch.cuda.memory_allocated() == before, "the refusals made no weight")
     cfg, reduced = tp_cfg(configs)
     print(f"[18] reduced {json.dumps(reduced)}")
@@ -6151,7 +6183,22 @@ def phase18(torch, fa, gemm):
     check(a["group"]["backend"] == "nccl" and a["group"]["world"] == 1, "18a: NCCL, world 1")
     print("[18a] " + _tp_line("unsharded", a["unsharded"], card))
     print("[18a] " + _tp_line("tp (1, 1)", a["tp"], card))
-    check(len(base) == len(tp) == TP_STEPS, "18a: every step ran")
+    print("[18a] " + _tp_line("attn_seq (1, 1)", a["sp"], card))
+    check(len(base) == len(tp) == len(a["sp"]["steps"]) == TP_STEPS, "18a: every step ran")
+    for i, (s, b) in enumerate(zip(a["sp"]["steps"], base)):
+        check(s["loss"] == b["loss"], f"18a attn_seq step {i + 1}: loss {s['loss']!r} against "
+                                      f"the unsharded {b['loss']!r}, bit for bit")
+        check(_tp_launches(s) == _tp_launches(b), f"18a attn_seq step {i + 1}: launches "
+                                                  f"{s['launches']} == unsharded {b['launches']}")
+        check(s["collectives"].get("all_gather", 0) > 0 and
+              s["collectives"].get("reduce_scatter", 0) > 0,
+              "18a attn_seq: the sequence operators' collectives ran")
+    check(_norm_gap(a["sp"], a["unsharded"])[0] <= TP_NORM_RTOL["18a"],
+          f"18a attn_seq step 1's gradient norms: {_norm_gap(a['sp'], a['unsharded'])}")
+    print(f"[18a] attn_seq over (1, 1) ({a['sp_group']['model_sharded']} leaves held as "
+          f"model-axis pieces): every step's loss equal to the unsharded run's bit for bit, "
+          f"launches a step equal; step 1's gradient norms: "
+          f"{_norm_text(a['sp'], a['unsharded'])}")
     for i, (s, b) in enumerate(zip(tp, base)):
         rel = abs(s["loss"] - b["loss"]) / abs(b["loss"])
         check(rel <= TP_RTOL["18a"], f"18a step {i + 1}: loss {s['loss']!r} against the "
@@ -6176,6 +6223,7 @@ def phase18(torch, fa, gemm):
         try:
             t_meta = time.monotonic()
             meta = [_tp_meta(torch, cfg, r) for r in range(2)]
+            meta_sp = [_tp_meta(torch, cfg, r, attn_seq=True) for r in range(2)]
             t_meta = time.monotonic() - t_meta
             results = [p.communicate(timeout=900) for p in procs]
         finally:
@@ -6218,16 +6266,63 @@ def phase18(torch, fa, gemm):
         f"{abs(s['loss'] - b['loss']) / abs(b['loss']):.2e}"
         for s, b in zip(ranks[0]["steps"], base))
           + f" relative (bar {TP_RTOL['18b']:g}); launches a step equal to each rank's meta "
-          f"trace (traced in {t_meta:.1f}s beside the ranks)")
+          f"trace (18b's and 18d's, traced in {t_meta:.1f}s beside the ranks)")
+    sp = [x["sp"] for x in ranks]
+    _, Sq, _, Hq, Hkv, _ = SP_ATTENTION
+    for r, x in enumerate(sp):
+        check(x["held"] == {"q_heads": Hq, "kv_heads": Hkv, "d_ff": cfg.d_ff // 2,
+                            "vocab": cfg.vocab // 2}, f"18d rank {r} holds {x['held']}")
+        pairs = kcost.attention_pairs(Sq, TP_S, True, None, r * Sq)
+        print(f"[18d] rank {r} (gloo, world 2, on {card}) holds {x['held']} and queries "
+              f"{r * Sq}-{(r + 1) * Sq - 1} (q offset {r * Sq}, {pairs} pairs a head), weights "
+              f"{x['weight_bytes'] / 1e9:.3f} GB; " + _tp_line(f"rank {r}", x, card)
+              + f"; {x['seconds']:.1f}s")
+        print(f"[18d] rank {r} on the meta device: " + " ".join(
+            f"{k}={v}" for k, v in meta_sp[r]["launches"].items())
+              + f"; collectives {meta_sp[r]['collectives']}; K5 / K5b operations a step "
+              + " / ".join(f"{v / 1e9:.3f}" for v in meta_sp[r]["attention_ops"].values())
+              + " G")
+        for i, (s, b) in enumerate(zip(x["steps"], base)):
+            rel = abs(s["loss"] - b["loss"]) / abs(b["loss"])
+            check(rel <= TP_RTOL["18b"], f"18d rank {r} step {i + 1}: loss {s['loss']!r} "
+                                         f"against 18a's unsharded {b['loss']!r} ({rel:.2e})")
+            check(_tp_launches(s) == meta_sp[r]["launches"],
+                  f"18d rank {r} step {i + 1}: launches {s['launches']}, meta trace "
+                  f"{meta_sp[r]['launches']}")
+            check(s["collectives"] == meta_sp[r]["collectives"],
+                  f"18d rank {r} step {i + 1}: collectives {s['collectives']}, meta trace "
+                  f"{meta_sp[r]['collectives']}")
+    check(meta_sp[0]["attention_ops"]["flash_attention"]
+          < meta_sp[1]["attention_ops"]["flash_attention"],
+          "18d: the later chunk scores more pairs (its causal share)")
+    check([s["loss"] for s in sp[0]["steps"]] == [s["loss"] for s in sp[1]["steps"]],
+          "18d: both model ranks print the same loss")
+    check(sp[0]["grad_norms"] == sp[1]["grad_norms"],
+          "18d: both model ranks reduce the same gradient norms")
+    gap = _norm_gap(sp[0], a["unsharded"])
+    print(f"[18d] step 1's gradient norms, leaf by leaf, against 18a's unsharded run's: "
+          f"{_norm_text(sp[0], a['unsharded'])} (bar {TP_NORM_RTOL['18b']:g})")
+    check(gap[0] <= TP_NORM_RTOL["18b"], f"18d step 1's gradient norms: {gap}")
+    print(f"[18d] both ranks' losses against 18a's unsharded run: " + ", ".join(
+        f"{abs(s['loss'] - b['loss']) / abs(b['loss']):.2e}" for s, b in zip(sp[0]["steps"], base))
+          + f" relative (bar {TP_RTOL['18b']:g}); launches and collectives a step equal to "
+          f"each rank's meta trace")
     rows = phase_times_tp(torch, fa, gemm)
-    totals = collections.Counter()
+    rows.update(phase_times_sp(torch, fa))
+    totals, totals_sp = collections.Counter(), collections.Counter()
     for run in [a["tp"]] + ranks:
         for s in run["steps"]:
             totals.update(_tp_launches(s))
-    print(f"[18] phase 18 took {time.monotonic() - t0:.1f}s; launches of the tensor-parallel "
+    for run in [a["sp"]] + sp:
+        for s in run["steps"]:
+            totals_sp.update(_tp_launches(s))
+    print(f"[18] phase 18 took {time.monotonic() - t0:.1f}s; launches of the head-parallel "
           f"runs' steps (18a's and both 18b ranks') " + " ".join(
-              f"{k}={v}" for k, v in totals.items()))
-    return {"18a": a, "18b": ranks, "meta": meta, "rows": rows, "totals": dict(totals)}
+              f"{k}={v}" for k, v in totals.items())
+          + "; of the sequence-parallel runs' (18a's and both 18d ranks') " + " ".join(
+              f"{k}={v}" for k, v in totals_sp.items()))
+    return {"18a": a, "18b": ranks, "18d": sp, "meta": meta, "rows": rows,
+            "totals": dict(totals), "totals_sp": dict(totals_sp)}
 
 
 def phase_kernels_tp(torch, fa, gemm, ops):
@@ -6335,6 +6430,101 @@ def phase_times_tp(torch, fa, gemm):
     return rows
 
 
+def phase_kernels_sp(torch, fa):
+    """18c's offset checks: K5 (out and lse) and K5b at SP_OFFSET_SHAPES,
+    causal, bf16 and f32, against their plain versions at the same q
+    offset; the keys past the last query's position get dK = dV = 0
+    exactly (K5b writes the key tiles no query sees over the wrapper's
+    uninitialised outputs)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst = {"flash_attention:sp": 0.0, "flash_attention_bwd:sp": 0.0}
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for B, Sq, Skv, Hq, Hkv, D, window, off in SP_OFFSET_SHAPES:
+            q, k, v, do = (torch.randn((B, n, h, D), generator=g, device=dev).to(dt)
+                           for n, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq)))
+            out, lse = fa._forward(q, k, v, True, window, True, off)
+            pout, plse = fa.flash_attention_plain(q, k, v, causal=True, window=window,
+                                                  q_offset=off, return_lse=True)
+            e_out, _, ok = close(out, pout, *FLASH_TOL[dname])
+            e_lse = float((lse - plse).abs().max())
+            worst["flash_attention:sp"] = max(worst["flash_attention:sp"], e_out)
+            label = f"{dname} B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} D={D} window={window} " \
+                f"q_offset={off}"
+            check(ok and e_lse <= 1e-5, f"18c flash_attention {label}")
+            got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window,
+                                         q_offset=off)
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                                window=window, q_offset=off)
+            errs = []
+            for name, x, w in zip(("dq", "dk", "dv"), got, want):
+                scale = float(w.float().abs().max())
+                err = float((x.float() - w.float()).abs().max())
+                errs.append(f"{name} {err:.2e}/{scale:.2e}")
+                worst["flash_attention_bwd:sp"] = max(worst["flash_attention_bwd:sp"], err)
+                check(x.dtype == dt and err <= BWD_TOL[dname] * scale,
+                      f"18c flash_attention_bwd {label} {name}")
+            unseen = Skv - min(Skv, off + Sq)
+            for x in got[1:]:
+                check(bool((x[:, Skv - unseen:] == 0).all()),
+                      f"18c flash_attention_bwd {label}: dK / dV zero past the last query")
+            print(f"  18c flash_attention {label} causal: out max_abs={e_out:.3e} tol="
+                  f"{FLASH_TOL[dname]}, lse max_abs {e_lse:.1e} (bar 1e-5); flash_attention_bwd "
+                  f"max_abs/max " + ", ".join(errs) + f" (bar {BWD_TOL[dname]:g} x max); dK / dV "
+                  f"of the {unseen} keys no query sees exactly 0: ok")
+            del q, k, v, do, out, lse, pout, plse, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_times_sp(torch, fa):
+    """The `:sp` entries' times at a sequence-parallel rank's shape
+    (SP_ATTENTION, bf16, causal, CUDA events): K5b and K5 with the lse at
+    each rank's q offset, beside SDPA's backward and forward (eager calls,
+    K/V repeated to the q heads beforehand, a boolean mask of the same
+    offset) and their bounds from the offset's pairs.  The entries carry
+    rank 1's (offset 512, the heavier causal share)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, Sq, Skv, Hq, Hkv, D = SP_ATTENTION
+    rows = {}
+    for rank in (0, 1):
+        off = rank * Sq
+        x = _attention_inputs(torch, fa, g, None, B=B, S=Sq, Hq=Hq, Hkv=Hkv, D=D, Skv=Skv,
+                              q_offset=off)
+        q, k, v, do, out, lse = (x[n] for n in ("q", "k", "v", "do", "out", "lse"))
+        sdpa_bwd, sdpa_fwd = _sdpa_calls(torch, x, None)
+        pairs = kcost.attention_pairs(Sq, Skv, True, None, off)
+        suffix = "" if rank else "@0"
+        t_k = _time_ms(torch, [lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                              q_offset=off)], 20)
+        t_p = _time_ms(torch, [lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                                    q_offset=off)], 3,
+                       graph=False)
+        t_l = _time_ms(torch, [sdpa_bwd], 10, graph=False)
+        rows["flash_attention_bwd:sp" + suffix] = (t_k, t_p, t_l, *_bound(
+            kcost.flash_attention_bwd(B, Sq, Skv, Hq, Hkv, D, pairs=pairs)))
+        t_k = _time_ms(torch, [lambda: fa._forward(q, k, v, True, None, True, off)], 20)
+        t_p = _time_ms(torch, [lambda: fa.flash_attention_plain(q, k, v, q_offset=off,
+                                                                return_lse=True)], 3,
+                       graph=False)
+        t_l = _time_ms(torch, [sdpa_fwd], 20)
+        rows["flash_attention:sp" + suffix] = (t_k, t_p, t_l, *_bound(kcost.flash_attention(
+            B, Sq, Skv, Hq, Hkv, D, pairs=pairs, lse=True)))
+        for name in ("flash_attention_bwd:sp", "flash_attention:sp"):
+            t_k, t_p, t_l, bound, by = rows[name + suffix]
+            print(f"  {name} bf16 at a sequence-parallel rank's shape (B={B}, {Sq} queries at "
+                  f"q offset {off} over {Skv} keys, Hq={Hq}, Hkv={Hkv}, D={D}, causal, {pairs} "
+                  f"pairs a head): kernel {t_k * 1e3:.1f} us, plain {t_p * 1e3:.1f} us, library "
+                  f"{t_l * 1e3:.1f} us (SDPA with a boolean mask, an eager call), bound "
+                  f"{bound * 1e3:.2f} us ({by}), {bound / t_k:.1%} of bound")
+        del x, q, k, v, do, out, lse, sdpa_bwd, sdpa_fwd
+    torch.cuda.empty_cache()
+    return rows
+
+
 def per_step(rows, n_layers: int = 26, n_global: int = 4):
     """Aggregate per-shape times into one decode step of gemma3-1b (M = 8)."""
     layer = ("q", "k", "v", "o", "gate", "up", "down")
@@ -6437,6 +6627,8 @@ def main() -> int:
     print(f"[2] 18c: K5, K5b and K1 at a tensor-parallel rank's shapes (qwen3-14b over a "
           f"model axis of 2) {stamp()}")
     worst.update(phase_kernels_tp(torch, fa, gemm, ops))
+    print(f"[2] 18c: K5 and K5b at a sequence-parallel rank's q offsets {stamp()}")
+    worst.update(phase_kernels_sp(torch, fa))
     engine_args = (torch, np, configs, M, kvc, Engine, RequestSpec, mods, quant, ops)
     print(f"[3] full-width gemma3-1b engine run (26 layers, bf16) {stamp()}")
     summary = phase_engine(*engine_args, profile=True)
@@ -6561,16 +6753,18 @@ def main() -> int:
           f"and decode steps (a process of its own) {stamp()}")
     phase15(torch)
     print(f"[16] the families train: xlstm-1.3b, whisper-medium, paligemma-3b whole and "
-          f"dbrx-132b at one layer, bf16, {FAMILY_STEPS} steps each; five families' 2-layer "
+          f"dbrx-132b at one layer, bf16, {FAMILY_STEPS} steps each (xlstm-1.3b "
+          f"{family_steps('xlstm-1.3b')}); five families' 2-layer "
           f"f32 gradients card vs CPU (a process of its own) {stamp()}")
     summary16 = phase16(torch)
     print(f"[17] data parallelism and ZeRO-3 through a process group: gemma3-1b at published "
           f"widths, {PARALLEL_STEPS} steps a run, world size 1 (NCCL; a process under "
           f"torchrun) {stamp()}")
     summary17 = phase17(torch)
-    print(f"[18] head-parallel tensor parallelism: qwen3-14b at published widths, 2 layers, "
-          f"B {TP_B} x S {TP_S}, bf16, {TP_STEPS} steps a run; 18a world size 1 (NCCL), 18b "
-          f"two gloo ranks on the one card {stamp()}")
+    print(f"[18] tensor parallelism, head-parallel and with sequence-parallel attention: "
+          f"qwen3-14b at published widths, 2 layers, B {TP_B} x S {TP_S}, bf16, {TP_STEPS} steps "
+          f"a run; 18a world size 1 (NCCL), 18b (heads) and 18d (attn_seq) two gloo ranks on "
+          f"the one card {stamp()}")
     summary18 = phase18(torch, fa, gemm)
     step = "one gemma3-1b decode step"
     # name, source, TPU kernel replaced, what one entry's times cover, launches
@@ -6742,6 +6936,31 @@ def main() -> int:
             "replaces": replaces, "per": per, "launches": summary18["totals"].get(kernel, 0),
             "max_abs_err": worst[name], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
+    # Sequence-parallel attention (phase 18): launches are 18a's attn_seq run
+    # and both 18d ranks' (TP_STEPS steps each); K5 / K5b times at rank 1's
+    # offset shape (phase_times_sp), errors from 18c's offset checks; K1's
+    # gate product is the tp rank's shape (the gathered sequence, half of
+    # d_ff), timed once in phase_times_tp.
+    sp_rank = "B=2, 512 queries at q offset 512 over 1024 keys, Hq=40, Hkv=8, D=128, causal"
+    for name, src, replaces, per, key, err in (
+            ("flash_attention_bwd:sp", "flash_attention_bwd.cuh",
+             "src/repro/kernels/flash_attention.py:28 (differentiated by jax.value_and_grad "
+             "under jax.checkpoint, src/repro/models/attention.py:103-109)",
+             f"K5b at a sequence-parallel rank's attention (qwen3-14b at (1, 2)): {sp_rank}, "
+             "bf16", "flash_attention_bwd:sp", "flash_attention_bwd:sp"),
+            ("flash_attention:sp", "flash_attention.cu", "src/repro/kernels/flash_attention.py:28",
+             f"K5 with the lse at the same shape: {sp_rank}, bf16", "flash_attention:sp",
+             "flash_attention:sp"),
+            ("gemm:sp", "gemm.cu", "src/repro/kernels/gemm.py:33",
+             "K1 at a sequence-parallel rank's gate projection over the gathered sequence: "
+             "M=2048, K=5120, N=8704, bf16", "gemm:tp", "gemm:tp")):
+        t_k, t_p, t_l, bound, by = summary18["rows"][key]
+        kernel = name.split(":")[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "per": per, "launches": summary18["totals_sp"].get(kernel, 0),
+            "max_abs_err": worst[err], "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": by, "library_ms": t_l, "tuner_launches": 0, "cluster_launches": 0})
     print("kernels " + " ".join(
         f"{k['name']}: launches={k['launches']} tuner_launches={k['tuner_launches']} "
         f"cluster_launches={k['cluster_launches']} "
@@ -6784,7 +7003,7 @@ def main() -> int:
         B, S = next((b, s) for a, b, s in FAMILY_CLI + (FAMILY_DBRX,) if a == arch)
         med = _median([st[2] for st in run["steps"][1:]])
         print(f"[7] 16 train step ({arch}, B {B} x S {S}, bf16): median of steps 2-"
-              f"{FAMILY_STEPS} {med:.1f} ms, {B * S / med * 1e3:.0f} tokens/s, peak memory "
+              f"{family_steps(arch)} {med:.1f} ms, {B * S / med * 1e3:.0f} tokens/s, peak memory "
               f"{run['peak'] / 1e9:.2f} GB; per step " + " ".join(
                   f"{k}={v}" for k, v in run["steps"][-1][3].items()))
     for label in ("dp", "zero3"):
@@ -6797,8 +7016,11 @@ def main() -> int:
     card = card_line()
     for label, run in (("18a unsharded", summary18["18a"]["unsharded"]),
                        ("18a tp (1, 1), NCCL", summary18["18a"]["tp"]),
+                       ("18a attn_seq (1, 1), NCCL", summary18["18a"]["sp"]),
                        *((f"18b tp (1, 2), gloo, rank {x['rank']}", x)
-                         for x in summary18["18b"])):
+                         for x in summary18["18b"]),
+                       *((f"18d attn_seq (1, 2), gloo, rank {r}", x)
+                         for r, x in enumerate(summary18["18d"]))):
         print(f"[7] 18 train step ({label}, qwen3-14b 2 layers, B {TP_B} x S {TP_S}, bf16): "
               + _tp_line(label, run, card).split(": ", 1)[1].split("; per step")[0])
     print(f"total {time.monotonic() - t_start:.0f}s")

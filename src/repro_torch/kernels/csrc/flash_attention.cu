@@ -37,8 +37,10 @@
 // are f32 FMA (never TF32), so it matches the plain version within 1e-5.
 //
 // Numerics follow the reference kernel (flash_attention.py:41-71): the masks
-// are kpos < Skv, qpos >= kpos when causal, qpos - kpos < window, positions
-// from 0 for q and k; the masked score is the finite sentinel NEG_INF =
+// are kpos < Skv, qpos >= kpos when causal, qpos - kpos < window, keys at
+// positions from 0 and query row r at q_offset + r (0 in the reference's
+// kernel; a sequence-parallel rank's chunk of queries starts at its offset
+// and attends over the whole key sequence); the masked score is the finite sentinel NEG_INF =
 // -2e38 (a row whose first tile is wholly masked gets p = exp(0) = 1 there
 // and the next tile's alpha = exp(-2e38 - m) = 0 wipes it; -inf would give
 // NaN); p is rounded to v's dtype before PV while l sums the unrounded p;
@@ -156,7 +158,7 @@ template <int D>
 __global__ void __launch_bounds__(NT, 1) mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-    int causal, int window, float scale) {
+    int causal, int window, int q_offset, float scale) {
   constexpr int BK = Tile<D>::BK;
   constexpr int CH = D / 8;               // 16-byte chunks per row
   constexpr int GT = NT / 2;              // threads per warp group
@@ -176,11 +178,11 @@ __global__ void __launch_bounds__(NT, 1) mma_kernel(
   const bf16* kg = k + (long long)b * Skv * kv_row + (long long)hk * D;
   const bf16* vg = v + (long long)b * Skv * kv_row + (long long)hk * D;
 
-  // kv tiles any row of this block can see; group grp takes tiles grp,
-  // grp + 2, ...
+  // kv tiles any row of this block can see (its rows sit at q_offset + q0
+  // onward); group grp takes tiles grp, grp + 2, ...
   int lo = 0, hi = Skv;
-  if (causal) hi = min(hi, min(q0 + BQ, Sq));
-  if (window > 0) lo = max(0, q0 - window + 1);
+  if (causal) hi = min(hi, q_offset + min(q0 + BQ, Sq));
+  if (window > 0) lo = max(0, q_offset + q0 - window + 1);
   lo = (lo / BK) * BK;
   const int n_tiles = hi > lo ? (hi - lo + BK - 1) / BK : 0;
   const int my_tiles = n_tiles > grp ? (n_tiles - grp + 1) / 2 : 0;
@@ -262,7 +264,7 @@ __global__ void __launch_bounds__(NT, 1) mma_kernel(
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qpos = row0 + (e >> 1) * 8;
+        const int qpos = q_offset + row0 + (e >> 1) * 8;
         const int kpos = kt + n * 8 + 2 * t4 + (e & 1);
         bool live = kpos < Skv;
         if (causal) live = live && qpos >= kpos;
@@ -367,7 +369,8 @@ __global__ void __launch_bounds__(NT, 1) mma_kernel(
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-           int Skv, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+           int Skv, int Hq, int Hkv, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   auto kern = mma_kernel<D>;
   constexpr size_t smem = Tile<D>::SMEM;
   // Raise the dynamic shared-memory cap once, never per launch: launches
@@ -382,7 +385,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                    static_cast<const bf16*>(v), static_cast<bf16*>(out), lse,
-                                   Sq, Skv, Hq, Hkv, causal, window, scale);
+                                   Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -406,7 +409,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-    int causal, int window, float scale) {
+    int causal, int window, int q_offset, float scale) {
   constexpr int RSTEP = NT / D;
   constexpr int RPT = BQ / RSTEP;       // output rows per thread
   constexpr int SROWS = BQ * BK / NT;   // score rows per thread
@@ -429,10 +432,11 @@ __global__ void __launch_bounds__(NT) flash_kernel(
     q_s[e] = row < Sq ? to_f(q[(((long long)b * Sq + row) * Hq + h) * D + d]) * scale : 0.f;
   }
 
-  // kv tiles any row of this block can see.
+  // kv tiles any row of this block can see (its rows sit at q_offset + q0
+  // onward).
   int lo = 0, hi = Skv;
-  if (causal) hi = min(hi, min(q0 + BQ, Sq));
-  if (window > 0) lo = max(0, q0 - window + 1);
+  if (causal) hi = min(hi, q_offset + min(q0 + BQ, Sq));
+  if (window > 0) lo = max(0, q_offset + q0 - window + 1);
   lo = (lo / BK) * BK;
 
   const int d_own = tid % D, r_own = tid / D;
@@ -470,7 +474,7 @@ __global__ void __launch_bounds__(NT) flash_kernel(
       const int kpos = kt + c_own;
 #pragma unroll
       for (int i = 0; i < SROWS; ++i) {
-        const int qpos = q0 + sr0 + i;
+        const int qpos = q_offset + q0 + sr0 + i;
         bool live = kpos < Skv;
         if (causal) live = live && qpos >= kpos;
         if (window > 0) live = live && (qpos - kpos) < window;
@@ -524,7 +528,8 @@ __global__ void __launch_bounds__(NT) flash_kernel(
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
-           int Skv, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+           int Skv, int Hq, int Hkv, int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)BQ * D + (size_t)BK * (D + 1) + (size_t)BK * D + (size_t)BQ * BK + 2 * BQ);
   auto kern = flash_kernel<float, D>;
@@ -540,7 +545,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   dim3 grid((Sq + BQ - 1) / BQ, B * Hq);
   kern<<<grid, NT, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                    static_cast<const float*>(v), static_cast<float*>(out), lse,
-                                   Sq, Skv, Hq, Hkv, causal, window, scale);
+                                   Sq, Skv, Hq, Hkv, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,14 +553,14 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
 
 int launch_d(int dtype_code, const void* q, const void* k, const void* v, void* out,
              float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
-             float scale, cudaStream_t st) {
+             int q_offset, float scale, cudaStream_t st) {
 #define FLASH_CASE(DIM)                                                                   \
   case DIM:                                                                               \
     return dtype_code == 1                                                                \
                ? mma::launch<DIM>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window, \
-                                  scale, st)                                              \
+                                  q_offset, scale, st)                                    \
                : simt::launch<DIM>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, window,\
-                                   scale, st);
+                                   q_offset, scale, st);
   switch (D) {
     FLASH_CASE(64)
     FLASH_CASE(128)
@@ -573,13 +578,15 @@ int launch_d(int dtype_code, const void* q, const void* k, const void* v, void* 
 // (B, Hq, Sq) f32 that receives each row's m + log(l), the log-sum-exp the
 // backward (csrc/flash_attention_bwd.cuh) recomputes the probabilities from;
 // serving passes null and the kernel writes nothing more.  Hq a multiple of
-// Hkv; D in {64, 128, 256}; window <= 0 means no sliding window.  Returns
+// Hkv; D in {64, 128, 256}; window <= 0 means no sliding window; query row
+// r sits at position q_offset + r (>= 0), keys at 0 .. Skv - 1.  Returns
 // the launch's cudaError_t (0 = success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int Sq, int Skv, int Hq,
-                                      int Hkv, int D, int causal, int window, float scale,
-                                      int dtype_code, void* stream) {
-  if (dtype_code != 0 && dtype_code != 1) return static_cast<int>(cudaErrorInvalidValue);
+                                      int Hkv, int D, int causal, int window, int q_offset,
+                                      float scale, int dtype_code, void* stream) {
+  if ((dtype_code != 0 && dtype_code != 1) || q_offset < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_d(dtype_code, q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, Hq, Hkv, D,
-                  causal, window, scale, static_cast<cudaStream_t>(stream));
+                  causal, window, q_offset, scale, static_cast<cudaStream_t>(stream));
 }

@@ -18,11 +18,18 @@
 //
 // The function, in both bodies: Delta = rowsum(dO * O); per (query row,
 // key) pair live under the forward's masks (kpos < Skv, qpos >= kpos when
-// causal, qpos - kpos < window, positions from 0; ragged tiles zero-filled),
+// causal, qpos - kpos < window; keys at positions from 0, query row r at
+// q_offset + r, as csrc/flash_attention.cu places them; ragged tiles
+// zero-filled),
 // P = exp(S * scale - lse) (0 elsewhere, so a row with no live key gets no
 // gradient), dS = P (dP - Delta); dV = P^T dO with P rounded to bf16, dK =
 // scale dS^T Q and dQ = scale dS K with dS rounded to bf16.  Three launches
 // on one stream: delta_kernel, then the dK / dV kernel, then the dQ kernel.
+// Under a q offset some key tiles see no query of this call (causal: the
+// keys past q_offset + Sq - 1; a sequence-parallel rank's chunk sees only
+// the keys up to its own last position): their walk is empty and both
+// bodies write their dK / dV rows as zeros, since the wrapper allocates dK /
+// dV uninitialised.
 //
 // bf16 (training's working type): warp-specialised wgmma kernels, 64-row
 // tiles, 384 threads: warpgroup 0 is the producer (one warp issues TMA
@@ -258,11 +265,11 @@ template <typename T, int D> struct Smem {
 // memory, under the forward's masks.
 template <typename T, int D>
 __device__ __forceinline__ void probs(const Smem<T, D>& sm, int q0, int k0, int Sq, int Skv,
-                                      int causal, int window, float scale) {
+                                      int causal, int window, int q_offset, float scale) {
   using L = Layout<T, D>;
   for (int e = threadIdx.x; e < L::BQ * BKV; e += NT) {
-    const int r = e / BKV, c = e % BKV, qpos = q0 + r, kpos = k0 + c;
-    bool live = qpos < Sq && kpos < Skv;
+    const int r = e / BKV, c = e % BKV, qpos = q_offset + q0 + r, kpos = k0 + c;
+    bool live = q0 + r < Sq && kpos < Skv;
     if (causal) live = live && qpos >= kpos;
     if (window > 0) live = live && (qpos - kpos) < window;
     const float p = live ? expf(sm.s[r * L::SP + c] * scale - sm.lse[r]) : 0.f;
@@ -279,7 +286,7 @@ __global__ void __launch_bounds__(NT) dkdv_simt(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
-    int Hq, int Hkv, int causal, int window, float scale) {
+    int Hq, int Hkv, int causal, int window, int q_offset, float scale) {
   using L = Layout<T, D>;
   using MM = Mm<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -291,9 +298,10 @@ __global__ void __launch_bounds__(NT) dkdv_simt(
   load_tile<T, D, BKV>(sm.k, k + kv_off, kv_row, k0, Skv);
   load_tile<T, D, BKV>(sm.v, v + kv_off, kv_row, k0, Skv);
 
-  // Query rows that see any key of this tile.
-  int q_lo = causal ? k0 : 0, q_hi = Sq;
-  if (window > 0) q_hi = min(Sq, k0 + BKV - 1 + window);
+  // Query rows that see any key of this tile (row r at q_offset + r); none
+  // leaves the accumulators at zero.
+  int q_lo = causal ? max(0, k0 - q_offset) : 0, q_hi = Sq;
+  if (window > 0) q_hi = min(Sq, k0 + BKV - 1 + window - q_offset);
   q_lo = (q_lo / L::BQ) * L::BQ;
 
   typename MM::template Acc<MM::NKV> adk, adv;
@@ -317,7 +325,7 @@ __global__ void __launch_bounds__(NT) dkdv_simt(
       MM::abt(sm.s, sm.q, sm.k);
       MM::abt(sm.dp, sm.dout, sm.v);
       __syncthreads();
-      probs<T, D>(sm, q0, k0, Sq, Skv, causal, window, scale);
+      probs<T, D>(sm, q0, k0, Sq, Skv, causal, window, q_offset, scale);
       __syncthreads();
       MM::atb(adv, sm.p, sm.dout);
       MM::atb(adk, sm.ds, sm.q);
@@ -343,7 +351,7 @@ __global__ void __launch_bounds__(NT) dq_simt(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
-    int causal, int window, float scale) {
+    int causal, int window, int q_offset, float scale) {
   using L = Layout<T, D>;
   using MM = Mm<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -365,8 +373,8 @@ __global__ void __launch_bounds__(NT) dq_simt(
 
   // kv tiles any row of this block can see (the forward's range).
   int lo = 0, hi = Skv;
-  if (causal) hi = min(hi, min(q0 + L::BQ, Sq));
-  if (window > 0) lo = max(0, q0 - window + 1);
+  if (causal) hi = min(hi, q_offset + min(q0 + L::BQ, Sq));
+  if (window > 0) lo = max(0, q_offset + q0 - window + 1);
   lo = (lo / BKV) * BKV;
 
   typename MM::template Acc<MM::NQ> adq;
@@ -379,7 +387,7 @@ __global__ void __launch_bounds__(NT) dq_simt(
     MM::abt(sm.s, sm.q, sm.k);
     MM::abt(sm.dp, sm.dout, sm.v);
     __syncthreads();
-    probs<T, D>(sm, q0, k0, Sq, Skv, causal, window, scale);
+    probs<T, D>(sm, q0, k0, Sq, Skv, causal, window, q_offset, scale);
     __syncthreads();
     MM::ab(adq, sm.ds, sm.k);
   }
@@ -397,7 +405,7 @@ __global__ void __launch_bounds__(NT) dq_simt(
 template <typename T, int D>
 int launch_simt(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-           int Hq, int Hkv, int causal, int window, float scale, cudaStream_t st) {
+           int Hq, int Hkv, int causal, int window, int q_offset, float scale, cudaStream_t st) {
   using L = Layout<T, D>;
   static bool raised_kv = false, raised_q = false;
   int err = raise_smem(dkdv_simt<T, D>, L::SMEM, raised_kv);
@@ -414,11 +422,12 @@ int launch_simt(const void* q, const void* k, const void* v, const void* out, co
   if (err) return err;
   dkdv_simt<T, D><<<dim3((Skv + BKV - 1) / BKV, B * Hkv), NT, L::SMEM, st>>>(
       qt, kt, vt, dot, lt, dl, static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, Hkv,
-      causal, window, scale);
+      causal, window, q_offset, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   dq_simt<T, D><<<dim3((Sq + L::BQ - 1) / L::BQ, B * Hq), NT, L::SMEM, st>>>(
-      qt, kt, vt, dot, lt, dl, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, causal, window, scale);
+      qt, kt, vt, dot, lt, dl, static_cast<T*>(dq), Sq, Skv, Hq, Hkv, causal, window, q_offset,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -427,18 +436,18 @@ template <typename T>
 int launch_simt_d(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
                  int B, int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
-                 float scale, void* stream) {
+                 int q_offset, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
       return launch_simt<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq,
-                               Hkv, causal, window, scale, st);
+                               Hkv, causal, window, q_offset, scale, st);
     case 128:
       return launch_simt<T, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq,
-                                Hkv, causal, window, scale, st);
+                                Hkv, causal, window, q_offset, scale, st);
     case 256:
       return launch_simt<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq,
-                                Hkv, causal, window, scale, st);
+                                Hkv, causal, window, q_offset, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -467,39 +476,45 @@ struct Span {
   int lo, n;
 };
 
-// Query tiles with a live entry for the key tile at k0 (the same rule as
-// kernels/flash_attention.py::q_tiles_of_key_tile).
-__device__ __forceinline__ Span q_span(int k0, int Sq, int Skv, int causal, int window) {
+// Query tiles with a live entry for the key tile at k0, by their first rows
+// (row r at q_offset + r; the same rule as kernels/flash_attention.py::
+// q_tiles_of_key_tile).  Empty where no row sees the tile.
+__device__ __forceinline__ Span q_span(int k0, int Sq, int Skv, int causal, int window,
+                                       int q_offset) {
   const int kmax = min(k0 + T - 1, Skv - 1);
-  const int lo = causal ? k0 : 0;
+  const int lo = causal ? max(0, k0 - q_offset) : 0;
   int hi = Sq;
-  if (window > 0 && window < Sq) hi = min(hi, kmax + window);
+  if (window > 0) hi = min(hi, kmax + window - q_offset);
   return {lo, lo < hi ? (hi - lo + T - 1) / T : 0};
 }
 
 // Key tiles with a live entry for the query tile at q0
 // (kernels/flash_attention.py::key_tiles_of_q_tile).
-__device__ __forceinline__ Span k_span(int q0, int Sq, int Skv, int causal, int window) {
+__device__ __forceinline__ Span k_span(int q0, int Sq, int Skv, int causal, int window,
+                                       int q_offset) {
   int hi = Skv;
-  if (causal) hi = min(hi, min(q0 + T, Sq));
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  if (causal) hi = min(hi, q_offset + min(q0 + T, Sq));
+  const int lo = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   if (lo >= hi) return {0, 0};
   const int first = lo / T * T;
   return {first, (hi - first + T - 1) / T};
 }
 
-__device__ __forceinline__ bool live(int qpos, int kpos, int Sq, int Skv, int causal,
-                                     int window) {
-  return qpos < Sq && kpos < Skv && (!causal || qpos >= kpos) &&
+// Query row `row` (at q_offset + row) sees key kpos.
+__device__ __forceinline__ bool live(int row, int kpos, int Sq, int Skv, int causal, int window,
+                                     int q_offset) {
+  const int qpos = q_offset + row;
+  return row < Sq && kpos < Skv && (!causal || qpos >= kpos) &&
          (window <= 0 || qpos - kpos < window);
 }
 
-// Every pair of the query tile at q0 and the key tile at k0 is live: the
-// tiles skip the masks.
+// Every pair of the query tile at row q0 and the key tile at k0 is live:
+// the tiles skip the masks.
 __device__ __forceinline__ bool all_live(int q0, int k0, int Sq, int Skv, int causal,
-                                         int window) {
-  return q0 + T <= Sq && k0 + T <= Skv && (!causal || q0 >= k0 + T - 1) &&
-         (window <= 0 || q0 + T - 1 - k0 < window);
+                                         int window, int q_offset) {
+  const int qpos = q_offset + q0;
+  return q0 + T <= Sq && k0 + T <= Skv && (!causal || qpos >= k0 + T - 1) &&
+         (window <= 0 || qpos + T - 1 - k0 < window);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -571,7 +586,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_wgmma(
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-    float scale, int heads_per_block, int kv_reverse) {
+    int q_offset, float scale, int heads_per_block, int kv_reverse) {
   using L = KvLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = aligned_smem(smem_raw);
@@ -586,7 +601,9 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_wgmma(
   const float scale2 = scale * LOG2E;
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int k0 = (kv_reverse ? gridDim.z - 1 - blockIdx.z : blockIdx.z) * T;
-  const Span sp = q_span(k0, Sq, Skv, causal, window);
+  // n = 0 (no query row sees the tile) writes zeros: the cluster's sum of
+  // untouched accumulators.
+  const Span sp = q_span(k0, Sq, Skv, causal, window, q_offset);
   const int n = heads_per_block * sp.n;                          // (head, query tile), heads outer
   const int h0 = hk * (Hq / Hkv) + rank * heads_per_block;
   const int tid = threadIdx.x;
@@ -653,14 +670,14 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_wgmma(
     float* xb = xbuf + (u & 1) * T * T;
     if (is_dv) {
       const float* lse_s = rows + s * T;   // lse * log2(e)
-      if (all_live(a, k0, Sq, Skv, causal, window)) {
+      if (all_live(a, k0, Sq, Skv, causal, window, q_offset)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) x[i] = ex2(fmaf(x[i], scale2, -lse_s[acc_col(i, t)]));
       } else {
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
           const int c = acc_col(i, t);
-          x[i] = live(a + c, k0 + acc_row(i, t), Sq, Skv, causal, window)
+          x[i] = live(a + c, k0 + acc_row(i, t), Sq, Skv, causal, window, q_offset)
                      ? ex2(fmaf(x[i], scale2, -lse_s[c])) : 0.f;
         }
       }
@@ -731,7 +748,8 @@ __global__ void __launch_bounds__(THREADS, 1) dq_wgmma(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
-    int Sq, int Skv, int Hq, int Hkv, int causal, int window, float scale, int q_reverse) {
+    int Sq, int Skv, int Hq, int Hkv, int causal, int window, int q_offset, float scale,
+    int q_reverse) {
   using L = QLayout<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = aligned_smem(smem_raw);
@@ -744,7 +762,7 @@ __global__ void __launch_bounds__(THREADS, 1) dq_wgmma(
 
   const int q0 = (q_reverse ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * T;
   const int b = blockIdx.x / Hq, h = blockIdx.x % Hq, hk = h / (Hq / Hkv);
-  const Span sp = k_span(q0, Sq, Skv, causal, window);
+  const Span sp = k_span(q0, Sq, Skv, causal, window, q_offset);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -811,13 +829,13 @@ __global__ void __launch_bounds__(THREADS, 1) dq_wgmma(
     float x[32];
     scores<D>(x, sbase + (is_s ? L::Q : L::DO), is_s ? kt : vt);
     if (is_s) {
-      if (all_live(q0, c0, Sq, Skv, causal, window)) {
+      if (all_live(q0, c0, Sq, Skv, causal, window, q_offset)) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) x[i] = ex2(fmaf(x[i], scale2, -((i >> 1) & 1 ? lse1 : lse0)));
       } else {
 #pragma unroll
         for (int i = 0; i < 32; ++i)
-          x[i] = live(q0 + acc_row(i, t), c0 + acc_col(i, t), Sq, Skv, causal, window)
+          x[i] = live(q0 + acc_row(i, t), c0 + acc_col(i, t), Sq, Skv, causal, window, q_offset)
                      ? ex2(fmaf(x[i], scale2, -((i >> 1) & 1 ? lse1 : lse0))) : 0.f;
       }
     }
@@ -859,7 +877,7 @@ inline int encode_maps(CUtensorMap (&m)[4], const void* q, const void* k, const 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
            const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int Sq, int Skv,
-           int Hq, int Hkv, int causal, int window, float scale, int cluster,
+           int Hq, int Hkv, int causal, int window, int q_offset, float scale, int cluster,
            int heads_per_block, int kv_reverse, int q_reverse, cudaStream_t st) {
   if (cluster < 1 || cluster > 8 || heads_per_block < 1 || cluster * heads_per_block * Hkv != Hq)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -891,12 +909,13 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   err = static_cast<int>(cudaLaunchKernelEx(&cfg, dkdv_wgmma<D>, m[0], m[1], m[2], m[3], lt,
                                             static_cast<const float*>(dl), static_cast<bf16*>(dk),
                                             static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv, causal,
-                                            window, scale, heads_per_block, kv_reverse));
+                                            window, q_offset, scale, heads_per_block,
+                                            kv_reverse));
   if (!err) err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   dq_wgmma<D><<<dim3(B * Hq, (Sq + T - 1) / T), THREADS, QLayout<D>::BYTES, st>>>(
       m[0], m[1], m[2], m[3], lt, dl, static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv, causal, window,
-      scale, q_reverse);
+      q_offset, scale, q_reverse);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,6 +37,12 @@ no_grad or inference_mode) launches K5 with a null `lse`, as before.  The
 reference has no backward kernel: it differentiates through its Pallas
 kernel under `jax.checkpoint` (repro/models/attention.py:103-109); K5b
 recomputes P from `lse`, so the Function saves only q, k, v, out and lse.
+
+A q offset places query row r at position q_offset + r while the keys sit
+at 0 .. Skv - 1 (a sequence-parallel rank's chunk of the queries over the
+whole key sequence: `models/attention.py`); both kernels, both plain
+versions and the meta routes take it.  Under it, a key tile that no query
+of the call sees (causal: past q_offset + Sq - 1) gets zero dK / dV.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ def reset_launches() -> None:
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -84,7 +90,7 @@ def _bwd_lib(dtype: torch.dtype):
     source, entry, plan_ints = _BWD_SOURCES[dtype]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float]
                        + [ctypes.c_int] * plan_ints + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -114,60 +120,64 @@ class BwdPlan(NamedTuple):
 
 
 def q_tiles_of_key_tile(k0: int, Sq: int, Skv: int, causal: bool,
-                        window: Optional[int]) -> range:
+                        window: Optional[int], q_offset: int = 0) -> range:
     """First rows of the query tiles that hold a live entry for the key tile
-    at k0: the dK / dV kernel's walk (csrc/flash_attention_bwd.cuh::q_span
-    computes the same)."""
+    at k0, query row r at q_offset + r: the dK / dV kernel's walk
+    (csrc/flash_attention_bwd.cuh::q_span computes the same); empty where
+    no row sees the tile."""
     T = BWD_TILE
     kmax = min(k0 + T - 1, Skv - 1)
-    lo = k0 if causal else 0
-    hi = Sq if window is None else min(Sq, kmax + window)
+    lo = max(0, k0 - q_offset) if causal else 0
+    hi = Sq if window is None else min(Sq, kmax + window - q_offset)
     return range(lo, hi, T)
 
 
 def key_tiles_of_q_tile(q0: int, Sq: int, Skv: int, causal: bool,
-                        window: Optional[int]) -> range:
+                        window: Optional[int], q_offset: int = 0) -> range:
     """First keys of the key tiles that hold a live entry for the query tile
-    at q0: the dQ kernel's walk (csrc/flash_attention_bwd.cuh::k_span)."""
+    at row q0 (position q_offset + q0): the dQ kernel's walk
+    (csrc/flash_attention_bwd.cuh::k_span)."""
     T = BWD_TILE
-    hi = min(Skv, q0 + T, Sq) if causal else Skv
-    lo = 0 if window is None else max(0, q0 - window + 1)
+    hi = min(Skv, q_offset + min(q0 + T, Sq)) if causal else Skv
+    lo = 0 if window is None else max(0, q_offset + q0 - window + 1)
     if lo >= hi:
         return range(0)
     return range(lo // T * T, hi, T)
 
 
 def bwd_plan(Sq: int, Skv: int, Hq: int, Hkv: int, causal: bool,
-             window: Optional[int]) -> BwdPlan:
+             window: Optional[int], q_offset: int = 0) -> BwdPlan:
     """The cluster is the largest divisor of G = Hq / Hkv up to MAX_CLUSTER;
     a tile order is reversed where its last tile has more work than its
     first."""
     G = Hq // Hkv
     cluster = max(c for c in range(1, min(G, MAX_CLUSTER) + 1) if G % c == 0)
     T = BWD_TILE
-    kv = [len(q_tiles_of_key_tile(k0, Sq, Skv, causal, window))
+    kv = [len(q_tiles_of_key_tile(k0, Sq, Skv, causal, window, q_offset))
           for k0 in (0, (Skv - 1) // T * T)]
-    qs = [len(key_tiles_of_q_tile(q0, Sq, Skv, causal, window))
+    qs = [len(key_tiles_of_q_tile(q0, Sq, Skv, causal, window, q_offset))
           for q0 in (0, (Sq - 1) // T * T)]
     return BwdPlan(cluster, G // cluster, kv[1] > kv[0], qs[1] > qs[0])
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
-                          block_kv: int = 512, return_lse: bool = False):
+                          q_offset: int = 0, block_kv: int = 512, return_lse: bool = False):
     """The kernel's function in plain PyTorch (kv blocks of `block_kv` keys,
     the reference kernel's default tile); with `return_lse`, (out, lse) with
     lse (B, Hq, Sq) f32 = m + log(l) of each row, as the kernel writes it."""
     return ref.blockwise_attention_ref(q, k, v, causal=causal, window=window,
-                                       block_kv=block_kv, scale_in_f32=True,
-                                       return_lse=return_lse)
+                                       q_offset=q_offset, block_kv=block_kv,
+                                       scale_in_f32=True, return_lse=return_lse)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                              causal: bool = True, window: Optional[int] = None):
+                              causal: bool = True, window: Optional[int] = None,
+                              q_offset: int = 0):
     """K5b's function in plain PyTorch: (dq, dk, dv) in q's, k's and v's
-    dtypes from the forward's out and lse (B, Hq, Sq).  P = exp(S * scale -
+    dtypes from the forward's out and lse (B, Hq, Sq), query row r at
+    q_offset + r.  P = exp(S * scale -
     lse) where the forward's mask is live, else 0; Delta = rowsum(dO * O);
     dS = P * (dP - Delta); P is rounded to v's dtype before dV = P^T dO
     and dS to q's before dQ = scale dS K and dK = scale dS^T Q, as the
@@ -185,7 +195,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qf, dof, of = heads(q), heads(dout), heads(out)
     kf, vf = (t.to(f32).permute(0, 2, 1, 3) for t in (k, v))      # (B, Hkv, Skv, D)
-    qpos, kpos = torch.arange(Sq, device=dev), torch.arange(Skv, device=dev)
+    qpos = torch.arange(Sq, device=dev) + q_offset
+    kpos = torch.arange(Skv, device=dev)
     live = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
     if causal:
         live &= qpos[:, None] >= kpos[None, :]
@@ -215,37 +226,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D), query and
-    key positions both from 0: out (B, Sq, Hq, D) in q's dtype.
-    Differentiable (K5b) when grad mode is on and an input requires grad."""
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Attention of q (B, Sq, Hq, D) at positions q_offset .. q_offset + Sq
+    - 1 over k, v (B, Skv, Hkv, D) at positions 0 .. Skv - 1: out (B, Sq,
+    Hq, D) in q's dtype.  Differentiable (K5b) when grad mode is on and an
+    input requires grad."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"flash attention window must be >= 1, got {window}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash attention q_offset must be an int >= 0, got {q_offset!r}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, False)[0]
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, False, q_offset)[0]
 
 
-def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+def _forward(q, k, v, causal: bool, window: Optional[int], with_lse: bool, q_offset: int = 0):
     """(out, lse or None) on q's device: the kernel or the plain version."""
     if q.device.type == "cpu":
-        got = flash_attention_plain(q, k, v, causal=causal, window=window,
+        got = flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset,
                                     return_lse=with_lse)
         return got if with_lse else (got, None)
     if q.device.type == "meta":
         B, Sq, Hq, D = q.shape
         Skv, Hkv = k.shape[1], k.shape[2]
         c = cost.flash_attention(B, Sq, Skv, Hq, Hkv, D,
-                                 pairs=cost.attention_pairs(Sq, Skv, causal, window),
+                                 pairs=cost.attention_pairs(Sq, Skv, causal, window, q_offset),
                                  elem_bytes=q.element_size(), lse=with_lse)
         if not with_lse:
             return cost.meta_launch("flash_attention", c, (tuple(q.shape), q.dtype)), None
         return cost.meta_launch("flash_attention", c, (tuple(q.shape), q.dtype),
                                 ((B, Hq, Sq), torch.float32))
     _on_card(q)
-    return _flash_cuda(q, k, v, causal, window, with_lse)
+    return _flash_cuda(q, k, v, causal, window, with_lse, q_offset)
 
 
 def _on_card(q: torch.Tensor) -> None:
@@ -277,7 +291,8 @@ def _aligned(*ts):
         memory_format=torch.contiguous_format) for t in ts)
 
 
-def _flash_cuda(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
+def _flash_cuda(q, k, v, causal: bool, window: Optional[int], with_lse: bool,
+                q_offset: int = 0):
     global launches
     B, Sq, Skv, Hq, Hkv, D = _kernel_operands("flash attention", q, k, v)
     q, k, v = _aligned(q, k, v)
@@ -286,7 +301,8 @@ def _flash_cuda(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, Hq, Hkv, D, int(causal),
-                 0 if window is None else int(window), D ** -0.5, _CODES[q.dtype],
+                 0 if window is None else int(window), int(q_offset), D ** -0.5,
+                 _CODES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError_t {err}")
@@ -296,7 +312,8 @@ def _flash_cuda(q, k, v, causal: bool, window: Optional[int], with_lse: bool):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None):
+                        causal: bool = True, window: Optional[int] = None,
+                        q_offset: int = 0):
     """(dq, dk, dv) of `flash_attention` from its out and lse (B, Hq, Sq) f32
     and the output's gradient dout: K5b on the card, the plain version on
     the CPU."""
@@ -308,33 +325,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(q.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
-                                         window=window)
+                                         window=window, q_offset=q_offset)
     if q.device.type == "meta":
         B, Sq, Hq, D = q.shape
         Skv, Hkv = k.shape[1], k.shape[2]
         c = cost.flash_attention_bwd(B, Sq, Skv, Hq, Hkv, D,
-                                     pairs=cost.attention_pairs(Sq, Skv, causal, window),
+                                     pairs=cost.attention_pairs(Sq, Skv, causal, window,
+                                                                q_offset),
                                      elem_bytes=q.element_size())
         return cost.meta_launch("flash_attention_bwd", c, (tuple(q.shape), q.dtype),
                                 (tuple(k.shape), k.dtype), (tuple(v.shape), v.dtype))
     _on_card(q)
-    return _bwd_cuda(q, k, v, out, lse, dout, causal, window)
+    return _bwd_cuda(q, k, v, out, lse, dout, causal, window, q_offset)
 
 
-def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: Optional[int]):
+def _bwd_cuda(q, k, v, out, lse, dout, causal: bool, window: Optional[int], q_offset: int = 0):
     global bwd_launches
     B, Sq, Skv, Hq, Hkv, D = _kernel_operands("flash attention backward", q, k, v)
     if out.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"flash attention backward: out {out.dtype}, lse {lse.dtype}")
     q, k, v, out, lse, dout = _aligned(q, k, v, out, lse, dout.to(q.dtype))
+    # dK / dV uninitialised: both bodies write every key row, zeros where no
+    # query of the call sees the key.
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    plan = (map(int, bwd_plan(Sq, Skv, Hq, Hkv, causal, window))
+    plan = (map(int, bwd_plan(Sq, Skv, Hq, Hkv, causal, window, q_offset))
             if q.dtype == torch.bfloat16 else ())
     err = _bwd_lib(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, D, int(causal),
-                            0 if window is None else int(window), D ** -0.5, *plan,
+                            0 if window is None else int(window), int(q_offset), D ** -0.5,
+                            *plan,
                             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash attention backward launch failed: cudaError_t {err}")
@@ -346,15 +367,15 @@ class _FlashAttention(torch.autograd.Function):
     """K5 forward with lse, K5b backward (their plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, True)
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _forward(q, k, v, causal, window, True, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None

@@ -6,7 +6,7 @@ published peaks (core/hw.py):
   compute    = FLOPs / peak ops/s at the step's operand width
   memory     = bytes / HBM rate
   collective = collective bytes / link rate: 0 at one card, the only mesh
-               until parallel/ is ported
+               the roofline takes until the multi-card dry run (ROADMAP A.2)
 
 The counts come from `launch/step_cost.py` (the reference's from the
 compiled HLO through hlo_cost.py).  The reference's `parse_collectives`
@@ -116,9 +116,10 @@ def analyze(*, arch: str, shape_name: str, shape: Dict, cfg, cost, mesh_name: st
             measured_s: Optional[float] = None) -> Roofline:
     """The roofline of a counted step (`step_cost.StepCost`), on the peak
     of the config's operand width, with a measured step time where there
-    is one.  One card only: parallel/ is not ported."""
+    is one.  One card only: the multi-card dry run is ROADMAP A.2."""
     if chips != 1:
-        raise NotImplementedError("the port's only mesh is one card until parallel/ is ported")
+        raise NotImplementedError("the port's roofline covers one card; the multi-card dry "
+                                  "run is ROADMAP A.2")
     return Roofline(
         arch=arch, shape=shape_name, mesh=mesh_name,
         flops_per_device=float(cost.flops), bytes_per_device=float(cost.bytes_accessed),

@@ -9,8 +9,8 @@ over every parameter leaf (through the hand kernels' Functions: K1 for
 every projection and the tied head, K5 / K5b for attention), then the
 in-place `adamw_update`.  A CUDA graph of the whole step is later work.
 `make_sharded_train_step` is the same step over a process group (data
-parallelism, ZeRO-3 and head-parallel tensor parallelism:
-parallel/fsdp.py, parallel/tensor.py).
+parallelism, ZeRO-3 and tensor parallelism, head-parallel or with
+sequence-parallel attention: parallel/fsdp.py, parallel/tensor.py).
 
 The dry run's step builders and shape structs (`make_prefill_step`,
 `params_struct`, `opt_state_struct`, `decode_state_struct`,
@@ -84,13 +84,13 @@ class ShardedTrainStep:
 
     def __init__(self, cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
                  base_lr: float = 3e-4, total_steps: int = 100_000,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, seq_len: Optional[int] = None):
         from repro_torch.launch.mesh import MeshShape
         from repro_torch.parallel import fsdp
 
         self.cfg = cfg
         self.opt_cfg = opt_cfg or optimizer_config(cfg)
-        fsdp.check_plan(cfg, mesh, plan)
+        fsdp.check_plan(cfg, mesh, plan, seq_len=seq_len)
         self.mesh, self.plan = MeshShape.of(mesh), plan
         self.layout = fsdp.Layout(params_struct(cfg), mesh, plan, rank=rank,
                                   int8_moments=self.opt_cfg.state_dtype == "int8")
@@ -100,7 +100,11 @@ class ShardedTrainStep:
     def gradients(self, params, batch):
         """(this rank's part of the loss, the gradient of each leaf of this
         rank's pieces, summed over the ranks: `Layout.reduce`) over this
-        rank's rows."""
+        rank's rows.  Under sequence-parallel attention each model rank
+        takes the whole sequence of its rows' tokens, labels and mask: its
+        embedding lookup keeps its chunk of the positions
+        (`parallel.tensor.vocab_embed`), and the loss runs over the whole
+        sequence after the head's gather."""
         from repro_torch.parallel import tensor
         from repro_torch.parallel.logical import use_rules
 
@@ -134,25 +138,30 @@ class ShardedTrainStep:
 
 def make_sharded_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig], mesh, plan, *,
                             base_lr: float = 3e-4, total_steps: int = 100_000,
-                            rank: Optional[int] = None) -> ShardedTrainStep:
+                            rank: Optional[int] = None,
+                            seq_len: Optional[int] = None) -> ShardedTrainStep:
     """The train step under `plan` over `mesh` and the running process
     group: data parallelism, ZeRO-3 where `plan.fsdp`, and under a tp-mode
-    plan head-parallel tensor parallelism over the model axis (the
-    reference reaches them by jitting `make_train_step` with the plan's
+    plan tensor parallelism over the model axis, head-parallel or, where
+    `plan.attn_seq`, with sequence-parallel attention (the reference
+    reaches them by jitting `make_train_step` with the plan's
     `in_shardings`).  Each step gathers the parameters sharded over the
     data axes, runs `loss_fn` over this rank's rows with the batch axes'
-    mask count as the denominator (on this rank's heads, MLP columns and
-    vocabulary under a model axis, through `parallel/tensor.py`'s
-    operators), takes `torch.autograd.grad`, sums the gradients over the
-    batch axes (reduce-scatter into the pieces, all-reduce the others; a
-    leaf used on model-sharded activations over every rank), and runs
-    AdamW on the pieces with the whole gradient's norm.  At world size 1
-    under a dp-mode plan the arithmetic is `make_train_step`'s, bit for
-    bit (a 0/1 mask's count is exact).  Raises for a plan the port does
-    not execute (`parallel.fsdp.check_plan`).  With `rank` and no group:
+    mask count as the denominator (under a model axis on this rank's MLP
+    columns and vocabulary, and its heads or its chunk of the sequence,
+    through `parallel/tensor.py`'s operators), takes
+    `torch.autograd.grad`, sums the gradients over the batch axes
+    (reduce-scatter into the pieces, all-reduce the others; a leaf whose
+    gradient is a rank's part, over the model axis too), and runs AdamW on
+    the pieces with the whole gradient's norm.  At world size 1 under a
+    dp-mode plan the arithmetic is `make_train_step`'s, bit for bit (a 0/1
+    mask's count is exact).  Raises, before any weight is made, for a plan
+    the port does not execute (`parallel.fsdp.check_plan`), and for a
+    `seq_len` a sequence-parallel axis does not divide (a step given such
+    a batch raises at its first reduce-scatter).  With `rank` and no group:
     that rank's step on the "meta" device (`ShardedTrainStep`)."""
     return ShardedTrainStep(cfg, opt_cfg, mesh, plan, base_lr=base_lr,
-                            total_steps=total_steps, rank=rank)
+                            total_steps=total_steps, rank=rank, seq_len=seq_len)
 
 
 def make_prefill_step(cfg: ArchConfig):

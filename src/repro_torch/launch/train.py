@@ -36,7 +36,10 @@ one.  Differences from the reference CLI: before any weight is made, a
 plan the port does not execute raises (ROADMAP A.4c;
 `parallel.fsdp.check_plan`): under a model axis an MoE arch, a family
 other than the dense decoders, the GELU MLP, kv heads, d_ff or a vocab
-the axis does not divide; over a data axis > 1 an MoE arch; the plan's
+the axis does not divide (the CLI's plans are head-parallel: like the
+reference's CLI it passes `make_plan` no kv-head count, so it never takes
+sequence-parallel attention, which `make_sharded_train_step` runs under a
+plan that does); over a data axis > 1 an MoE arch; the plan's
 parameters are whole over the data axes (`fsdp` is False), where the
 reference's dp-mode specs shard them all the same; `--quant` is parsed
 and read by nothing, as in the reference; `--resume` starts the loop at

@@ -19,6 +19,13 @@ port skips.  The paged branch writes this step's K/V through the block
 tables first and then attends over the pool, so a query attends to its
 own key.  The scale is D**-0.5; only the unpaged path applies a logit
 softcap, as in the reference.
+
+Under a model axis (`parallel/tensor.py`) the unpaged self-attention runs
+head-parallel (a rank's heads: the q / k / v products column-parallel, wo
+row-parallel) or, under a sequence-parallel plan, on a rank's chunk of the
+sequence: q, k and v from the chunk with the replicated projections, RoPE
+at the chunk's global positions, k and v all-gathered over the sequence,
+and attention at the chunk's q offset (K5 / K5b); wo replicated.
 """
 
 from __future__ import annotations
@@ -103,21 +110,23 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool, q_offset=0, window: Optional[int] = None,
                         prefix_len: int = 0, block_kv: int = 1024,
                         softcap: Optional[float] = None) -> torch.Tensor:
-    """Attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D).
+    """Attention of q (B, Sq, Hq, D) at positions q_offset + t over k, v
+    (B, Skv, Hkv, D) at 0 .. Skv - 1.
 
-    Where the reference hands the whole sequence to its flash kernel (no q
-    offset, no prefix, no softcap: models/attention.py:103-109) this calls
+    With an int q offset, no prefix and no softcap this calls
     `kernels.flash_attention`: K5 on the card, its plain version on the
-    CPU.  When training, that call runs through its autograd Function (K5
-    with the log-sum-exp, then the hand backward K5b); the reference wraps
-    its kernel in `jax.checkpoint`, and K5b recomputes P from the
-    log-sum-exp, so nothing more is saved.  Otherwise it is the
-    reference's XLA blockwise online softmax over kv blocks of `block_kv`
-    keys, in plain PyTorch (the reference has no Pallas kernel there
-    either; no training path of this slice reaches it)."""
-    plain_offset = isinstance(q_offset, int) and q_offset == 0
-    if plain_offset and not prefix_len and softcap is None:
-        return fa.flash_attention(q, k, v, causal=causal, window=window)
+    CPU.  The reference hands such a call to its flash kernel at offset 0
+    (models/attention.py:103-109); an int offset is a sequence-parallel
+    rank's chunk of the queries, which the reference's GSPMD partitions from
+    that same call.  When training, it runs through the kernel's autograd
+    Function (K5 with the log-sum-exp, then the hand backward K5b); the
+    reference wraps its kernel in `jax.checkpoint`, and K5b recomputes P
+    from the log-sum-exp, so nothing more is saved.  Otherwise (a prefix, a
+    softcap, a tensor offset) it is the reference's XLA blockwise online
+    softmax over kv blocks of `block_kv` keys, in plain PyTorch (the
+    reference has no Pallas kernel there either)."""
+    if isinstance(q_offset, int) and not prefix_len and softcap is None:
+        return fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return ref.blockwise_attention_ref(
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         prefix_len=prefix_len, softcap=softcap, block_kv=block_kv,
@@ -188,17 +197,25 @@ def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     a `KVCache` over that cache (the encoder's K/V, computed once)."""
     cross = kv_src is not None
     cached_cross = cross and cache is not None
-    # The column-parallel q / k / v products' input (a model axis runs
-    # self-attention only: `parallel.fsdp.check_plan`).
-    x = tensor.copy_to_model(x)
+    # A model axis runs self-attention only (`parallel.fsdp.check_plan`):
+    # head-parallel, x is the column-parallel q / k / v products' input;
+    # sequence-parallel, x is this rank's chunk and the products replicated.
+    seq = tensor.sequence_parallel()
+    if not seq:
+        x = tensor.copy_to_model(x)
     q, k, v = _project_qkv(x, None if cached_cross else (kv_src if cross else x),
                            p, cfg, positions, rope=not cross)
     if cross or cache is None:
+        q_offset = 0
         if cached_cross:
             k, v = cache.k, cache.v
+        elif seq:
+            # the whole sequence's keys for this rank's chunk of queries
+            k, v = tensor.gather_seq(k), tensor.gather_seq(v)
+            q_offset = tensor.seq_offset(x.shape[1])
         out = blockwise_attention(q, k, v, causal=causal and not cross,
-                                  window=window, prefix_len=prefix_len,
-                                  softcap=cfg.logit_softcap)
+                                  q_offset=q_offset, window=window,
+                                  prefix_len=prefix_len, softcap=cfg.logit_softcap)
     elif isinstance(cache, kvc.PagedKVCache):
         if block_tables is None:
             raise ValueError("a paged cache needs block_tables")
@@ -215,6 +232,9 @@ def attention(x: torch.Tensor, p: dict, cfg, *, positions: torch.Tensor,
     B, S = x.shape[:2]
     out = shard(out, "batch", "attn_seq", "heads", None)
     out = out.reshape(B, S, -1)
-    # wo: this rank's rows under a model axis, the partial outputs summed
-    out = tensor.reduce_from_model(layers.dense(out, p["wo"]))
+    out = layers.dense(out, p["wo"])
+    if not seq:
+        # wo: this rank's rows under a head-parallel axis, the partial
+        # outputs summed
+        out = tensor.reduce_from_model(out)
     return shard(out, "batch", "seq", "embed")

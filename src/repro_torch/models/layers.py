@@ -97,7 +97,8 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     backward that sums the rows' gradients by sorting the indices (the
     same bits run to run on the card), where indexing's backward is an
     accumulating scatter.  Under a model axis `table` is this rank's vocab
-    rows (`parallel.tensor.vocab_embed`)."""
+    rows (`parallel.tensor.vocab_embed`; under a sequence-parallel one the
+    tokens are the whole sequence and x this rank's chunk of it)."""
     axis = tensor.current()
     x = F.embedding(tokens, table) if axis is None else tensor.vocab_embed(tokens, table, axis)
     return shard(x, "batch", "seq", "embed")
@@ -106,8 +107,9 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Logits = x @ table^T (tied; table is (vocab, d)).  The transpose is a
     strided view the GeMM reads in place.  Under a model axis the table is
-    this rank's vocab rows: a column-parallel product."""
-    logits = ops.linear(tensor.copy_to_model(x), table.t().to(x.dtype))
+    this rank's vocab rows: a column-parallel product, whose input the
+    caller has put on the axis (`models.model.loss_fn`)."""
+    logits = ops.linear(x, table.t().to(x.dtype))
     return shard(logits, "batch", "seq", "vocab")
 
 
@@ -162,7 +164,9 @@ def mlp(x: torch.Tensor, p: dict, variant: str, *,
     b_up, then gelu_tanh(h.f32).to(x.dtype) @ w_down + b_down.  Under a
     model axis (SwiGLU only: `parallel.fsdp.check_plan`) w_gate / w_up are
     this rank's columns and w_down its rows: the partial products of
-    w_down are summed over the ranks."""
+    w_down are summed over the ranks.  Under a sequence-parallel axis x is
+    this rank's chunk: gathered over the sequence before w_gate / w_up,
+    the sum reduce-scattered back to the chunk after w_down."""
     if variant == "swiglu":
         x = tensor.copy_to_model(x)
         gate = dense(x, p["w_gate"], quant=quant)

@@ -190,7 +190,8 @@ def _run_groups(x: torch.Tensor, params: dict, cfg: ArchConfig, *,
 
 def _checkpoint(fn, *args):
     # The recompute runs where the autograd engine runs the backward, under
-    # the model axis of the forward (parallel/tensor.py).
+    # the model axis of the forward, head- or sequence-parallel alike
+    # (parallel/tensor.py).
     return torch.utils.checkpoint.checkpoint(tensor.bind(fn), *args, use_reentrant=False)
 
 
@@ -222,7 +223,9 @@ def trunk(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torc
         prefix_len = prefix.shape[1]
     elif cfg.family == "encdec":
         encoder_out = _run_encoder(batch["frames"], params, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)
+    # Under a sequence-parallel model axis x is this rank's chunk of the
+    # sequence (the embedding's reduce-scatter), at its global positions.
+    positions = torch.arange(x.shape[1], device=x.device) + tensor.seq_offset(x.shape[1])
     x = shard(x, "batch", "seq", "embed")
     x = _run_groups(x, params, cfg, positions=positions, prefix_len=prefix_len,
                     encoder_out=encoder_out)
@@ -253,9 +256,12 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     chunk order; the denominator is sum(mask) unless given (a sharded
     step passes the mask count of the whole batch over the batch axes:
     `launch.steps.make_sharded_train_step`).  Under a model axis the
-    chunk's logits are this rank's vocab columns and its log-likelihoods
-    come from `parallel.tensor.vocab_log_likelihood`."""
-    x = trunk(params, cfg, batch)                       # (B, S, d)
+    hidden states are the head's column-parallel input
+    (`parallel.tensor.copy_to_model`: gathered over the sequence from this
+    rank's chunk under a sequence-parallel axis), the chunk's logits this
+    rank's vocab columns and its log-likelihoods from
+    `parallel.tensor.vocab_log_likelihood`."""
+    x = tensor.copy_to_model(trunk(params, cfg, batch))     # (B, S, d)
     labels = batch["labels"].long()
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
@@ -290,12 +296,13 @@ def _unembed(x: torch.Tensor, params: dict, cfg: ArchConfig) -> torch.Tensor:
     # "head_q" is the int8 copy of the tied table that quantize_params adds:
     # without it a w8a8 step would re-quantize the (vocab x d) table.  An
     # untied "head" is a float matrix or, quantized, a QuantTensor.
-    # Under a model axis the head is this rank's vocab columns.
+    # Under a model axis the head is this rank's vocab columns, its input
+    # put on the axis by the caller (`loss_fn`).
     if "head_q" in params:
         return shard(layers.dense(x, params["head_q"]), "batch", "seq", "vocab")
     if cfg.tie_embeddings:
         return layers.unembed(x, params["embed"])
-    logits = layers.dense(tensor.copy_to_model(x), params["head"])
+    logits = layers.dense(x, params["head"])
     return shard(logits, "batch", "seq", "vocab")
 
 

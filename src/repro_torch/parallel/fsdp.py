@@ -1,7 +1,8 @@
-"""Data parallelism, ZeRO-3 and head-parallel tensor parallelism over a
-process group: the placements of a `ParallelPlan`, carried out (the port's
-own module: the reference has none, since GSPMD carries out the placements
-when it jits a step with `in_shardings`).
+"""Data parallelism, ZeRO-3 and tensor parallelism (head-parallel, or
+sequence-parallel attention) over a process group: the placements of a
+`ParallelPlan`, carried out (the port's own module: the reference has
+none, since GSPMD carries out the placements when it jits a step with
+`in_shardings`).
 
 The port's model is functions over a parameter tree, not `nn.Module`s, so
 the gathers and reductions are written out here instead of wrapping the
@@ -10,10 +11,12 @@ that reaches a hand kernel is a plain contiguous one, as on one card.
 
 `Layout` holds each parameter leaf's placement on this rank, from its spec
 (`param_sharding`):
-  * a dimension on the model axis (a tp-mode plan: wq / wk / wv / w_gate /
-    w_up / the head by columns, wo / w_down / the embedding by rows, the
-    q / k / v biases) is held as this rank's piece for good; the models run
-    on it through `parallel/tensor.py`'s operators;
+  * a dimension on the model axis (a tp-mode plan: w_gate / w_up / the
+    head by columns, w_down / the embedding by rows; under head-parallel
+    attention also wq / wk / wv and the q / k / v biases by columns and wo
+    by rows, which a sequence-parallel plan holds whole) is held as this
+    rank's piece for good; the models run on it through
+    `parallel/tensor.py`'s operators;
   * a dimension on the data axes (the spec's FSDP entry, which names the
     plan's batch axes: every mesh axis in dp mode) is held as a piece only
     where `plan.fsdp` (ZeRO-3: parameters and moments sharded; the piece
@@ -33,14 +36,20 @@ and the summed gradients are the average of the ranks' equal ones.  The
 model ranks of one data rank hold the same rows and the same loss.
 
 The replicated leaves of a tp-mode plan (the model axis's rule):
-  * a leaf on the replicated residual stream (the block norms,
-    "final_norm") gets its whole gradient on every model rank, since
-    `copy_to_model` sums the gradients entering the column-parallel
+  * head-parallel, a leaf on the replicated residual stream (the block
+    norms, "final_norm") gets its whole gradient on every model rank,
+    since `copy_to_model` sums the gradients entering the column-parallel
     products: it is summed over the batch axes only;
-  * a leaf used only on model-sharded activations (qwen3's q_norm /
-    k_norm, over a rank's own heads: `PARTIAL_OVER_MODEL`) gets this
-    rank's heads' part of its gradient: it is summed over the model axis
-    too.
+  * head-parallel, a leaf used only on model-sharded activations (qwen3's
+    q_norm / k_norm, over a rank's own heads: `PARTIAL_OVER_MODEL`) gets
+    this rank's heads' part of its gradient: it is summed over the model
+    axis too;
+  * sequence-parallel (`attn_seq`), every leaf the model axis replicates
+    (the block norms, "final_norm", wq / wk / wv / wo, qwen2.5's biases,
+    qwen3's q_norm / k_norm) is applied to this rank's chunk of the
+    sequence only, so its gradient is this rank's part: it is summed over
+    the model axis too (after the reduce-scatter over the data axes under
+    ZeRO-3).
 
 Collectives run on per-axis process groups (`dist.new_group` over the
 ranks that share every other coordinate; the default group where that is
@@ -71,7 +80,9 @@ from repro_torch.parallel.logical import axes_of
 from repro_torch.parallel.sharding import ParallelPlan, param_sharding, shard_index
 
 A4C = "ROADMAP A.4c"
-# Replicated leaves applied to model-sharded activations only (module docstring).
+# Replicated leaves applied to model-sharded activations only under a
+# head-parallel plan (module docstring); under a sequence-parallel one
+# every replicated leaf is.
 PARTIAL_OVER_MODEL = re.compile(r"(q_norm|k_norm)$")
 
 
@@ -79,12 +90,14 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
-def check_plan(cfg, mesh, plan: ParallelPlan) -> None:
+def check_plan(cfg, mesh, plan: ParallelPlan, seq_len: Optional[int] = None) -> None:
     """Raise for a plan the port does not execute, before any weight is
-    made.  Under a model axis the port runs head-parallel tensor
-    parallelism of the dense decoders with the SwiGLU MLP whose kv heads,
-    d_ff and vocabulary the axis divides; it refuses sequence-parallel
-    attention (`attn_seq`), MoE (expert parallelism) and the other
+    made.  Under a model axis the port runs tensor parallelism of the dense
+    decoders with the SwiGLU MLP whose d_ff and vocabulary the axis
+    divides: head-parallel where the kv heads divide it too, else
+    sequence-parallel attention (`attn_seq`), where the axis must divide
+    the sequence length `seq_len` (the reference's GSPMD would pad it; the
+    port raises); it refuses MoE (expert parallelism) and the other
     families.  Over a data axis > 1 it refuses MoE: the reference routes
     all B x S tokens at once, capacity from the global token count, so
     earlier tokens win slots across the whole batch; routing each rank's
@@ -93,10 +106,6 @@ def check_plan(cfg, mesh, plan: ParallelPlan) -> None:
     if plan.model_axis is not None:
         m = mesh.shape[plan.model_axis]
         where = f"{cfg.name} under a model axis of {m}"
-        if plan.attn_seq:
-            raise NotImplementedError(
-                f"{where}: sequence-parallel attention (attn_seq: {cfg.n_kv_heads} kv heads "
-                f"over {m}) needs a causal q offset in K5 / K5b ({A4C})")
         if cfg.moe is not None:
             raise NotImplementedError(
                 f"{where}: MoE under a model axis is expert parallelism with global routing "
@@ -109,13 +118,19 @@ def check_plan(cfg, mesh, plan: ParallelPlan) -> None:
             raise NotImplementedError(
                 f"{where}: the {cfg.mlp_variant} MLP's output bias is split over the model "
                 f"axis by the plan and added whole after the row-parallel product ({A4C})")
-        for what, n in (("kv heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
-                        ("vocab", cfg.vocab)):
+        split = [("d_ff", cfg.d_ff), ("vocab", cfg.vocab)]
+        if not plan.attn_seq:        # head-parallel attention splits the kv heads too
+            split.insert(0, ("kv heads", cfg.n_kv_heads))
+        for what, n in split:
             if n % m:
                 raise NotImplementedError(
                     f"{where}: its {n} {what} do not divide over the axis; the plan would "
-                    f"replicate them (sequence-parallel attention where the kv heads do not "
-                    f"divide: {A4C})")
+                    f"replicate them ({A4C}; make_plan takes sequence-parallel attention "
+                    f"where the kv heads do not divide)")
+        if plan.attn_seq and seq_len is not None and seq_len % m:
+            raise NotImplementedError(
+                f"a sequence of {seq_len} over a sequence-parallel model axis of {m}: the axis "
+                f"must divide it (the reference's GSPMD would pad it; the port does not)")
     data = math.prod(mesh.shape[a] for a in plan.batch_axes)
     if cfg.moe is not None and data > 1:
         raise NotImplementedError(
@@ -181,8 +196,8 @@ class Layout:
                 dim = None          # its pieces would cut 128-element blocks
             self.dims.append(dim)
             self.model_dims.append(mdim)
-            self.partial.append(self.model_axis is not None and mdim is None and
-                                PARTIAL_OVER_MODEL.search(_path_str(path)) is not None)
+            self.partial.append(self.model_axis is not None and mdim is None and (
+                plan.attn_seq or PARTIAL_OVER_MODEL.search(_path_str(path)) is not None))
         self.collectives = collections.Counter()   # kind -> calls
         self.collective_bytes = collections.Counter()
         self.groups = {}
@@ -194,8 +209,8 @@ class Layout:
         if self.model_axis is not None:
             self.model = tensor.ModelAxis(
                 size=mesh.shape[self.model_axis], index=self.coord[self.model_axis],
-                group=self.groups.get((self.model_axis,)), collectives=self.collectives,
-                collective_bytes=self.collective_bytes)
+                group=self.groups.get((self.model_axis,)), seq=plan.attn_seq,
+                collectives=self.collectives, collective_bytes=self.collective_bytes)
 
     @staticmethod
     def _only(d: int, axes: Tuple[str, ...], want: Tuple[str, ...], spec) -> int:
@@ -331,13 +346,17 @@ class Layout:
     def reduce(self, grads) -> list:
         """Each gradient summed over the batch axes (module docstring): this
         rank's piece of a leaf split over them, the whole of another; a
-        partial leaf's over every rank."""
+        partial leaf's over the model axis too."""
         # A gradient may be a strided view into a buffer it shares with
         # others (the sLSTM's four recurrent gates): reduce a copy of it.
-        return [self.all_reduce(g.contiguous(), "world") if partial else
-                self.all_reduce(g.contiguous()) if dim is None else
-                self.reduce_scatter(g, dim)
-                for g, dim, partial in zip(grads, self.dims, self.partial)]
+        out = []
+        for g, dim, partial in zip(grads, self.dims, self.partial):
+            if dim is None:
+                out.append(self.all_reduce(g.contiguous(), "world" if partial else "data"))
+            else:
+                piece = self.reduce_scatter(g, dim)
+                out.append(self.all_reduce(piece, "model") if partial else piece)
+        return out
 
     def norm_reduce(self, sq: torch.Tensor) -> torch.Tensor:
         """Per-leaf sums of squares of this rank's gradient pieces -> the

@@ -9,12 +9,13 @@ later name that maps to a used axis replicates).
 
 `shard(x, *names)` is the identity, outside `use_rules` and inside it:
 every rank holds plain local tensors, its rows of the batch (data
-parallelism and ZeRO-3, `parallel/fsdp.py`) and, under a head-parallel
-plan, its heads, MLP columns and vocabulary rows, which the models' own
-widths and the operators of `parallel/tensor.py` carry.  Inside
-`use_rules` it raises where a rule puts the sequence ("seq",
-"attn_seq") on a mesh axis of size > 1 (sequence-parallel attention),
-or "expert" (expert parallelism): those are ROADMAP A.4c.
+parallelism and ZeRO-3, `parallel/fsdp.py`), under a head-parallel plan
+its heads, MLP columns and vocabulary rows, and under a sequence-parallel
+one ("seq", "attn_seq" on the model axis) its chunk of the sequence, its
+MLP columns and vocabulary rows, which the models' own widths and the
+operators of `parallel/tensor.py` carry.  Inside `use_rules` it raises
+where a rule puts "expert" on a mesh axis of size > 1: expert parallelism
+is ROADMAP A.4c.
 """
 
 from __future__ import annotations
@@ -110,8 +111,7 @@ def resolve_spec(names: Sequence[Optional[str]], rules: Rules) -> Spec:
 
 
 # Logical axes the port does not split over a mesh axis of size > 1.
-NOT_SPLIT = {"seq": "sequence-parallel attention", "attn_seq": "sequence-parallel attention",
-             "expert": "expert parallelism"}
+NOT_SPLIT = {"expert": "expert parallelism"}
 
 
 def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:

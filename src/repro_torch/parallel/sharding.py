@@ -19,10 +19,11 @@ same dimension.  Likewise a decode-state leaf here is one layer's, the
 reference's stacked leaf without its leading group axis.
 
 The port executes the dp-mode plans (data parallelism, and ZeRO-3 where
-`fsdp`) and the head-parallel tp-mode plans of the dense decoders
-(`parallel/fsdp.py`, `parallel/tensor.py`); sequence-parallel attention
-(`attn_seq`), expert parallelism and the serving plans are computed and
-checked against the reference, not run (ROADMAP A.4c).
+`fsdp`) and the tp-mode training plans of the dense decoders, head-parallel
+or with sequence-parallel attention (`attn_seq`) (`parallel/fsdp.py`,
+`parallel/tensor.py`); expert parallelism and the serving plans
+(`serving=True`: seq-sharded prefill, static 2-D expert weights) are
+computed and checked against the reference, not run (ROADMAP A.4c).
 """
 
 from __future__ import annotations

@@ -1819,3 +1819,120 @@ def test_tp_train_step_in_a_world_one_nccl_group(cuda_device, tmp_path):
     step_cost.analyze(meta, pieces, adamw_init(pieces, opt_cfg), batch)
     assert got[-1][4] == dict(meta.layout.collectives)
     assert sharded.layout.model_sharded == 2 + cfg.n_layers * 7
+
+
+@pytest.mark.gpu
+def test_sp_train_step_in_a_world_one_nccl_group(cuda_device, tmp_path):
+    """`make_sharded_train_step` under the sequence-parallel (attn_seq) plan
+    forced over (data 1, model 1) in a world-1 NCCL group against
+    `make_train_step` on the same weights and batches, bf16, three steps:
+    the sequence operators gather and reduce-scatter over the one rank and
+    attention runs at q offset 0, so the losses and parameters are bit for
+    bit, the launches equal, and the collectives a step those of the same
+    step traced on the meta device."""
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.data import SyntheticLMData, to_device
+    from repro_torch.launch import step_cost
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.mesh import MeshShape, backend_for
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import make_plan
+
+    cfg = _train_cfg("bfloat16")
+    data = SyntheticLMData(cfg.vocab, 2, 80)
+    opt_cfg = tsteps.optimizer_config(cfg)
+    mesh = MeshShape(("data", "model"), (1, 1))
+    plan = make_plan(mesh, 10**12, force_mode="tp", force_fsdp=False, force_attn_seq=True)
+    assert plan.model_axis == "model" and plan.attn_seq
+    runs = {}
+    dist.init_process_group(backend_for(cuda_device), init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        sharded = tsteps.make_sharded_train_step(cfg, opt_cfg, mesh, plan, base_lr=1e-3,
+                                                 total_steps=3, seq_len=80)
+        for label, step in (("unsharded", tsteps.make_train_step(cfg, opt_cfg, base_lr=1e-3,
+                                                                  total_steps=3)),
+                            ("sp", sharded)):
+            params = TM.init_model(cfg, seed=0, device=cuda_device)
+            if label == "sp":
+                params = sharded.layout.shard(params)
+            opt = adamw_init(params, opt_cfg)
+            out = []
+            for i in range(3):
+                tgemm.reset_launches()
+                tfa.reset_launches()
+                params, opt, m = step(params, opt, to_device(data.batch_at(i), cuda_device))
+                out.append((float(m["loss"]), tgemm.launches, tfa.launches, tfa.bwd_launches,
+                            m.get("collectives")))
+            runs[label] = (out, tree_lib.leaves(params))
+    finally:
+        dist.destroy_process_group()
+    (want, wp), (got, gp) = runs["unsharded"], runs["sp"]
+    assert [x[:4] for x in got] == [x[:4] for x in want] and got[0][2] > 0 and got[0][3] > 0
+    assert all(torch.equal(a, b) for a, b in zip(gp, wp))
+    meta = tsteps.make_sharded_train_step(cfg, opt_cfg, mesh, plan, rank=0)
+    pieces = meta.layout.shard(tsteps.params_struct(cfg))
+    batch = {k: torch.zeros((2, 80), dtype=torch.int64, device="meta")
+             for k in ("tokens", "labels")}
+    step_cost.analyze(meta, pieces, adamw_init(pieces, opt_cfg), batch)
+    assert got[-1][4] == dict(meta.layout.collectives)
+    assert got[-1][4]["all_gather"] > 0 and got[-1][4]["reduce_scatter"] > 0
+    assert sharded.layout.model_sharded == 2 + cfg.n_layers * 3
+
+
+# (B, Sq, Skv, Hq, Hkv, D, window, q_offset): a sequence-parallel rank's
+# queries over the whole key sequence, causal (chip_smoke.py phase 2's 18c
+# shapes): qwen3-14b's 40 / 8 heads at offsets 0 and 512 of S 1024, with and
+# without a 512 window; gemma3-1b's 4 / 1 at D 256 with its window; an offset
+# that is no multiple of a tile.
+OFFSET_CASES = [
+    (2, 512, 1024, 40, 8, 128, None, 0), (2, 512, 1024, 40, 8, 128, None, 512),
+    (2, 512, 1024, 40, 8, 128, 512, 0), (2, 512, 1024, 40, 8, 128, 512, 512),
+    (2, 512, 1024, 4, 1, 256, 512, 512), (1, 100, 256, 4, 1, 64, None, 37),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_flash_attention_at_a_q_offset_matches_plain(cuda_device, dtype, case):
+    """K5 (out and lse) and K5b through the autograd Function at a q offset
+    against their plain versions, with the bars of
+    test_flash_attention_backward_kernel_matches_plain; the keys past the
+    last query's position get dK = dV = 0 exactly (K5b writes the key tiles
+    no query sees); two runs give the same bits."""
+    B, Sq, Skv, Hq, Hkv, D, window, off = case
+    rng = np.random.default_rng(Sq + off)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2 ** -7, atol=2 ** -8)
+    q = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)).to(
+        cuda_device, dtype).requires_grad_(True)
+    k, v = (torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32))
+            .to(cuda_device, dtype).requires_grad_(True) for _ in range(2))
+    do = torch.from_numpy(rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)).to(
+        cuda_device, dtype)
+    tfa.reset_launches()
+    run = lambda: torch.autograd.grad(tfa.flash_attention(q, k, v, window=window,  # noqa: E731
+                                                          q_offset=off), (q, k, v), do)
+    got, again = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert tfa.launches == 2 and tfa.bwd_launches == 2
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = tfa._forward(qd, kd, vd, True, window, True, off)
+    po, plse = tfa.flash_attention_plain(qd, kd, vd, window=window, q_offset=off,
+                                         return_lse=True)
+    torch.testing.assert_close(o, po, **tol)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+    want = tfa.flash_attention_bwd_plain(qd, kd, vd, o, lse, do, window=window, q_offset=off)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and bool(g.isfinite().all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=rel * float(w.float().abs().max()))
+    unseen = off + Sq
+    if unseen < Skv:
+        for g in got[1:]:
+            assert bool((g[:, unseen:] == 0).all()) and bool((g[:, :unseen] != 0).any())

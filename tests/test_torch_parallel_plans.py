@@ -232,10 +232,11 @@ def test_resolve_spec_reference_cases():
         TL.Spec(("data", "model"), None)
 
 
-def test_shard_is_the_identity_where_only_the_batch_is_sharded():
+def test_shard_is_the_identity_but_for_experts():
     """`shard` is the identity under dp and head-parallel rules (heads,
-    kv_heads, mlp and vocab on the model axis); the sequence on a model
-    axis > 1 (attn_seq) and experts on an axis > 1 raise, naming A.4c."""
+    kv_heads, mlp and vocab on the model axis) and under the sequence rules
+    (attn_seq: seq and attn_seq on a model axis > 1); experts on an axis > 1
+    raise, naming A.4c."""
     import torch
 
     x = torch.zeros(4, 8, 16)
@@ -263,9 +264,11 @@ def test_shard_is_the_identity_where_only_the_batch_is_sharded():
     assert seq.attn_seq
     with TL.use_rules(MeshShape(("data", "model"), (1, 4)), seq.activation_rules()):
         assert TL.shard(x, "batch", None, "heads") is x
-        for names in (("batch", "seq", "embed"), ("batch", "attn_seq", "heads")):
-            with pytest.raises(NotImplementedError, match="A.4c"):
-                TL.shard(x, *names)
+        for names in (("batch", "seq", "embed"), ("batch", "attn_seq", "heads"),
+                      ("batch", "seq", "mlp")):
+            assert TL.shard(x, *names) is x
+        with pytest.raises(NotImplementedError, match="A.4c"):
+            TL.shard(x, "expert", None, None)
     assert TL.sharding_for(tp_mesh, tp.activation_rules(), "batch", "mlp").spec == \
         TL.Spec("data", "model")
 

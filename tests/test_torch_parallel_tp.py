@@ -509,13 +509,30 @@ def _refused(cfg, sizes, **kw):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_attn_seq_and_undivided_kv_heads_are_refused(arch):
+def test_attn_seq_builds_a_step_where_head_tp_is_refused(arch, monkeypatch):
     """At (1, 4) the smoke configs' 2 kv heads take sequence-parallel
-    attention (make_plan's rule) and are refused; forced to head-TP they
-    do not divide the axis and are refused too."""
+    attention (make_plan's rule), which builds a step
+    (tests/test_torch_parallel_sp.py trains it) where the axis divides d_ff
+    and the vocabulary (not qwen3-14b's 250 tokens: refused); forced to
+    head-TP they do not divide the axis and are refused, and under attn_seq
+    a sequence length the axis does not divide is refused, each before any
+    weight is made."""
     cfg = port_cfg(arch)
-    assert "sequence-parallel attention" in _refused(cfg, (1, 4), n_kv_heads=cfg.n_kv_heads)
+    mesh = MeshShape(("data", "model"), (1, 4))
+    plan = make_plan(mesh, 10**12, force_mode="tp", n_kv_heads=cfg.n_kv_heads)
+    assert plan.attn_seq
+    if cfg.vocab % 4 == 0:
+        step = tsteps.make_sharded_train_step(cfg, None, mesh, plan, rank=0, seq_len=32)
+        assert step.layout.model.seq and step.layout.model.size == 4
+    made = []
+    monkeypatch.setattr(TM, "init_model", lambda *a, **k: made.append(1))
+    if cfg.vocab % 4:
+        assert "250 vocab do not divide" in _refused(cfg, (1, 4), n_kv_heads=cfg.n_kv_heads)
+    else:
+        with pytest.raises(NotImplementedError, match="sequence of 30 .* axis of 4"):
+            tsteps.make_sharded_train_step(cfg, None, mesh, plan, rank=0, seq_len=30)
     assert "2 kv heads do not divide" in _refused(cfg, (1, 4), force_attn_seq=False)
+    assert not made
     # at (1, 2) make_plan takes head-TP, which trains (test_tp_steps_match_reference)
     mesh = MeshShape(("data", "model"), (1, 2))
     assert not make_plan(mesh, 10**12, n_kv_heads=cfg.n_kv_heads).attn_seq

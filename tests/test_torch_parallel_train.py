@@ -416,17 +416,19 @@ def test_refusals():
     one = MeshShape(("data", "model"), (1, 1))
     fsdp.check_plan(dbrx, one, make_plan(one, dbrx.param_count(), force_fsdp=False))
     # the refusals of a model axis that stand (tests/test_torch_parallel_tp.py
-    # holds the plans that now train): MoE under it, sequence-parallel attention
+    # and test_torch_parallel_sp.py hold the plans that now train): MoE under
+    # it, a sequence length a sequence-parallel axis does not divide
     tp_mesh = MeshShape(("data", "model"), (1, 2))
     with pytest.raises(NotImplementedError, match="MoE under a model axis.*A.4c"):
         fsdp.check_plan(dbrx, tp_mesh, make_plan(tp_mesh, dbrx.param_count()))
     qwen = tconfigs.get("qwen3-14b")
     fsdp.check_plan(qwen, tp_mesh, make_plan(tp_mesh, qwen.param_count(), force_fsdp=False))
     seq_mesh = MeshShape(("data", "model"), (1, 16))
-    with pytest.raises(NotImplementedError, match="sequence-parallel.*A.4c"):
-        tsteps.make_sharded_train_step(qwen, None, seq_mesh,
-                                       make_plan(seq_mesh, qwen.param_count(),
-                                                 n_kv_heads=qwen.n_kv_heads))
+    seq_plan = make_plan(seq_mesh, qwen.param_count(), n_kv_heads=qwen.n_kv_heads)
+    assert seq_plan.attn_seq
+    fsdp.check_plan(qwen, seq_mesh, seq_plan, seq_len=4096)
+    with pytest.raises(NotImplementedError, match="sequence of 1000 .* axis of 16"):
+        tsteps.make_sharded_train_step(qwen, None, seq_mesh, seq_plan, seq_len=1000)
     # backends: NCCL for CUDA, gloo for the CPU, nothing else
     assert tmesh.backend_for("cuda") == "nccl" and tmesh.backend_for("cpu") == "gloo"
     assert tmesh.backend_for(torch.device("cuda", 1)) == "nccl"
